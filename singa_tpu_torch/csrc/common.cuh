@@ -1,0 +1,41 @@
+// Shared helpers of the attention kernels in this directory: element-type
+// conversion (fp32 and bf16 inputs, fp32 arithmetic) and warp reductions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// Masked scores. A finite stand-in for -inf, as the TPU kernels use: a row
+// whose every score so far is masked keeps a finite running max, so
+// exp(m_old - m_new) never evaluates inf - inf.
+#define SG_NEG_INF (-1e30f)
+
+// dtype codes passed from Python (ops/attention.py _DTYPE)
+enum { SG_F32 = 0, SG_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

@@ -7,24 +7,38 @@ Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch/CUDA/nvcc
    versions, and the build of every kernel (one nvcc per source, all
-   started together) with its time.
+   started together) with its time, per source too.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes: max abs error against the stated tolerance,
-   and the kernel's time beside the plain version's, its bound and the
-   one-call library yardstick where there is one.
+   serving and training paths' shapes: the error against the stated
+   tolerance, and the kernel's time beside the plain version's, its bound
+   and the one-call library yardstick where there is one. The backward
+   kernels (K2a fused, K2b dQ + K2c dK/dV split) run both routes of the
+   dispatch, forced through `_FUSED_DQ_BYTES_CAP`, against
+   `flash_bwd_reference`, with dq, dk and dv compared separately.
 3. Full-width GPT-2-small (random weights from a seed), teacher-forced:
    prefill + token_step on the kernels against use_kernel=False in fp32
    (dense and paged), and the bf16 logit drift and top-1 agreement.
-4. The main path, two entry points run one after the other:
+4. The serving main path, two entry points run one after the other:
    GPT.generate (batch 8, prompt 128, 128 new tokens, bf16), then a
    ServingEngine answering 16 requests. Every kernel launch counter is
    reset just before each and read just after it, and each path's
    counts must be exactly one launch per layer per prefill or step.
    4b. The engine in fp32 on the card: its greedy tokens on the kernels
    must equal its tokens with use_kernel=False and fp32 GPT.generate's.
+6. The training main path: the repo's GPT training benchmark model
+   (vocab 8192, dim 2048, 16 heads, 8 layers; random weights from a seed)
+   through Model.compile(amp="bfloat16") and `m(ids, targets)` with SGD,
+   batch 8 x 1024: one warm step, then timed steps with exact launch
+   counts per step (K1 and K2a once per layer); then save_states,
+   load_states into a fresh model, identical logits.
+   6b. fp32 training on the card against the same steps on the CPU (plain
+   versions), from identical weights: losses and parameters.
+   6c. Long-context training (S = 16384, 2 layers, bf16), where the
+   backward takes the split pair K2b + K2c, with exact launch counts, and
+   one layer's backward held against `flash_bwd_reference`.
 5. Where the time goes: device time by kernel under torch.profiler for a
-   short generate call and a short engine run.
-6. The `kernels` JSON line, then the card line, then the result line.
+   short generate call, a short engine run and one training step.
+7. The `kernels` JSON line, then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -36,6 +50,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -45,13 +60,25 @@ import numpy as np
 # fp32 differs by summation order only; a bf16 kernel rounds O to bf16
 # (held against the plain version evaluated in fp32 on the same values)
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# flash backward against flash_bwd_reference, dq/dk/dv each: fp32 max abs
+# error (the JAX package's flash-grad tolerance); bf16 max abs error over
+# max |ref| (the pre-scaled q and the outputs round to bf16; the fused
+# kernel's atomic dQ sums also change order from run to run)
+BWD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 # fp32 teacher-forced GPT-2-small logits, kernels against plain versions
 LOGIT_TOL = 1e-3
+# fp32 training on the card against the CPU: relative loss, absolute param
+TRAIN_TOL = 1e-4
 HBM_BYTES_S = 3.35e12                  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,      # dense tensor cores
               "float32": 67e12}        # fp32 outside the tensor cores
 GPT2_SMALL = dict(vocab_size=50257, max_seq=1024, dim=768, num_heads=12,
                   num_layers=12, attn_bias=True)
+# the repo's GPT training benchmark (bench.py): ~436 M parameters, D = 128
+BENCH_GPT = dict(vocab_size=8192, max_seq=1024, dim=2048, num_heads=16,
+                 num_layers=8)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 5
+LONG_S, LONG_LAYERS = 16384, 2
 SEED = 0
 
 
@@ -100,7 +127,9 @@ def phase_env(torch, build):
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"({len(build.SOURCES)} sources, parallel nvcc)")
+          f"({len(build.SOURCES)} sources, parallel nvcc); per source: "
+          + ", ".join(f"{n} {t:.2f} s"
+                      for n, t in build.BUILD_SECONDS.items()))
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -203,7 +232,120 @@ def phase_kernels(torch, A):
               lambda: A.paged_attention(q, kp, vp, pt, lens, ps, 0.125),
               None,
               io_bytes + 2 * live * Hp * PD * el + 4 * pages_live, flops)
+    # K1 at the training shape (bench GPT, D=128)
+    B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out = A.flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    ref = A.attention_reference(q.float(), k.float(), v.float(), True)
+    _case(torch, rows, "flash_fwd", "singa_tpu_torch/csrc/flash_fwd.cu",
+          "singa_tpu/ops/attention.py:112 _flash_fwd_kernel", "bfloat16",
+          [B, H, S, D], out, ref,
+          lambda: A.attention_reference(q, k, v, True),
+          lambda: A.flash_attention(q, k, v, True),
+          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+          4 * B * H * S * D * 2 + 4 * B * H * S,
+          4 * B * H * D * S * (S + 1) / 2)
+    del q, k, v, out, ref
+    # K2a / K2b / K2c: the backward, both routes, at the training shapes
+    for shape, dn in (((TRAIN_B, 16, TRAIN_S, 128), "bfloat16"),
+                      ((TRAIN_B, 12, TRAIN_S, 64), "bfloat16"),
+                      ((1, 16, TRAIN_S, 128), "float32"),
+                      ((1, 16, 4096, 128), "bfloat16")):
+        bwd_case(torch, A, rows, g, shape, dn)
     return rows
+
+
+def _bwd_bound(shape, el, n_products, n_out, causal=True):
+    """(bound ms, by) of a backward kernel: it reads q, k, v, dO and the
+    two fp32 row statistics once, writes n_out (B, H, S, D) tensors, and
+    does n_products score-sized products over the (causal) pairs."""
+    B, H, S, D = shape
+    pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
+    nbytes = (4 + n_out) * B * H * S * D * el + 2 * B * H * S * 4
+    return bound_ms(nbytes, n_products * 2 * D * pairs,
+                    "bfloat16" if el == 2 else "float32")
+
+
+def bwd_case(torch, A, rows, g, shape, dn, routes=("fused", "split"),
+             n=10, n_plain=5):
+    """The flash backward at one shape, causal: each route of the
+    dispatch (forced through _FUSED_DQ_BYTES_CAP, as the JAX package's
+    test forces it) against flash_bwd_reference on the same q, k, v, O,
+    lse and dO; then the kernels' times, the plain version's, the bounds
+    and SDPA's backward (forward + backward less forward)."""
+    import torch.nn.functional as F
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dn]
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o, lse = A._flash_fwd(q, k, v, True, scale)
+    ref = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    tol = BWD_TOL[dn]
+    errs = {}
+    cap = A._FUSED_DQ_BYTES_CAP
+    try:
+        for route in routes:
+            A._FUSED_DQ_BYTES_CAP = (1 << 60) if route == "fused" else 0
+            got = A._flash_bwd(q, k, v, o, lse, do, True, scale)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                d = float((a.float() - b.float()).abs().max())
+                rel = d / float(b.float().abs().max())
+                errs[route, name] = (d, rel)
+                bad = not (rel if dn == "bfloat16" else d) <= tol
+                print(f"  flash_bwd {route} {dn} {list(shape)} {name}: max "
+                      f"abs err {d:.3e}, / max|ref| {rel:.3e} (tol {tol} "
+                      f"{'relative' if dn == 'bfloat16' else 'absolute'}) "
+                      f"{'FAIL' if bad else 'ok'}")
+                if bad:
+                    fail(f"flash_bwd {route} {dn} {shape} {name} disagrees "
+                         "with flash_bwd_reference")
+    finally:
+        A._FUSED_DQ_BYTES_CAP = cap
+    qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
+    args = (qf, k, v, do, lse, delta, True)
+    plain_ms = time_ms(torch, lambda: A.flash_bwd_reference(
+        q, k, v, o, lse, do, True, scale), n=n_plain, warm=1)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_ms = (time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (ql, kl, vl), do), n=n, warm=2)
+        - time_ms(torch, sdpa, n=n, warm=2))
+    el = q.element_size()
+    kernels = {"fused": [("flash_bwd_fused", "flash_bwd_fused.cu",
+                          "351 _flash_bwd_fused_kernel", 5, 3,
+                          ("dq", "dk", "dv"), lib_ms,
+                          lambda: A._flash_bwd_fused(*args, scale))],
+               "split": [("flash_bwd_dq", "flash_bwd_dq.cu",
+                          "269 _flash_bwd_dq_kernel", 3, 1, ("dq",), None,
+                          lambda: A._flash_bwd_dq(*args, scale)),
+                         ("flash_bwd_dkv", "flash_bwd_dkv.cu",
+                          "308 _flash_bwd_dkv_kernel", 4, 2, ("dk", "dv"),
+                          None, lambda: A._flash_bwd_dkv(*args))]}
+    for route in routes:
+        for name, src, line, n_prod, n_out, outs, lib, fn in kernels[route]:
+            ms = time_ms(torch, fn, n=n, warm=2)
+            b_ms, b_by = _bwd_bound(shape, el, n_prod, n_out)
+            err = max(errs[route, o_][0] for o_ in outs)
+            rel = max(errs[route, o_][1] for o_ in outs)
+            lib_s = f"{lib:.4f} ms (SDPA backward)" if lib else "none"
+            print(f"  {name} {dn} {list(shape)}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"library {lib_s}")
+            rows.append(dict(
+                name=name, route="cuda", source=f"singa_tpu_torch/csrc/{src}",
+                replaces=f"singa_tpu/ops/attention.py:{line}", dtype=dn,
+                shape=list(shape), max_abs_err=err, rel_err=rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib))
+    if "split" in routes:
+        print(f"  split pair {dn} {list(shape)}: SDPA backward "
+              f"{lib_ms:.4f} ms")
 
 
 def _paged_from_dense(torch, caches, ps, g):
@@ -302,7 +444,9 @@ def seeded_requests(vocab):
 
 def check_launches(path, got, want):
     """Fail unless one path's launch counts are exactly the expected
-    ones (a kernel the path runs launches once per layer per call)."""
+    ones (a kernel the path runs launches once per layer per call; a
+    kernel `want` does not name, zero times)."""
+    want = {k: want.get(k, 0) for k in got}
     print(f"  launches on {path}: {got} (expected {want})")
     if got != want:
         fail(f"{path} launched {got}, expected {want}")
@@ -435,14 +579,17 @@ def phase_engine_fp32(torch, model, engine):
         fail("fp32 engine tokens differ: " + "; ".join(bad))
 
 
-_OURS = ("flash_fwd_kernel", "flash_decode_kernel", "paged_kernel")
 _GEMM = ("gemm", "nvjet", "cutlass", "xmma")
+SERVE_CATS = (("attention kernels", ("flash_fwd_kernel", "flash_decode_kernel",
+                                     "paged_kernel")),)
+TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
+              ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
 
-def _breakdown(torch, what, fn):
+def _breakdown(torch, what, fn, cats=SERVE_CATS):
     """Device time by kernel over one call of `fn` under torch.profiler:
     busy share of the wall time (profiler on), and the time split into
-    this port's attention kernels, matrix products and the rest."""
+    the named kernel categories, matrix products and the rest."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -463,24 +610,28 @@ def _breakdown(torch, what, fn):
         print(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
               "(the profiler saw no device activity)")
         return
-    cats = {"attention kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    totals = {label: 0.0 for label, _ in cats}
+    totals.update({"matmul": 0.0, "other": 0.0})
     for ms, _, name in rows:
-        low = name.lower()
-        cat = ("attention kernels" if any(k in name for k in _OURS)
-               else "matmul" if any(k in low for k in _GEMM) else "other")
-        cats[cat] += ms
+        cat = next((label for label, keys in cats
+                    if any(k in name for k in keys)), None)
+        if cat is None:
+            cat = ("matmul" if any(k in name.lower() for k in _GEMM)
+                   else "other")
+        totals[cat] += ms
     print(f"  {what}: wall {wall_ms:.2f} ms (profiler on), device busy "
           f"{busy:.2f} ms ({busy / wall_ms:.1%}), idle "
           f"{1 - busy / wall_ms:.1%}; "
           + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
-                      for k, v in cats.items()))
+                      for k, v in totals.items()))
     for ms, count, name in sorted(rows, reverse=True)[:6]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:70]}")
 
 
-def phase_profile(torch, model, engine):
-    """Where the time goes on the card, for both entry points (bf16)."""
-    print("== profile: device time by kernel (torch.profiler)")
+def phase_profile(torch, model, engine, train_step):
+    """Where the time goes on the card, for both serving entry points
+    (bf16) and one training step at the bench width."""
+    print("== phase 5: device time by kernel (torch.profiler)")
     rng = np.random.RandomState(SEED + 2)
     prompts = rng.randint(0, model.vocab_size, (8, 128)).astype(np.int32)
     _breakdown(torch, "generate b8 prompt 128 +32",
@@ -490,6 +641,141 @@ def phase_profile(torch, model, engine):
     _breakdown(torch, "engine 8 requests prompt 256 +32",
                lambda: serve(engine, model, reqs_in, timeout_s=300,
                              max_slots=8, dtype="bfloat16"))
+    _breakdown(torch, "train step b8 s1024 bf16 (bench width)", train_step,
+               TRAIN_CATS)
+
+
+def _train_batch(torch, vocab, B, S, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (B, S)).astype(np.int64)
+    tgt = np.roll(ids, -1, axis=1)
+    return torch.as_tensor(ids), torch.as_tensor(tgt)
+
+
+def _steps(torch, m, tx, ty, n):
+    """n training steps, each fenced by loss.item(): (losses, ms)."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, loss = m(tx, ty)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    return losses, ms
+
+
+def phase_train(torch, models, opt, A):
+    """The training main path at the bench width: counters reset just
+    before the timed steps and read just after them."""
+    print("== phase 6: GPT training, bench width, bf16 amp, SGD")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    t0 = time.perf_counter()
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    print(f"  model: {sum(p.numel() for p in m.parameters())} parameters, "
+          f"built in {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x "
+          f"{TRAIN_S}; use_graph=True runs eagerly (no CUDA graph yet)")
+    warm, warm_ms = _steps(torch, m, tx, ty, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    losses, ms = _steps(torch, m, tx, ty, TRAIN_STEPS)
+    counts = dict(A.LAUNCHES)
+    step = statistics.median(ms)
+    print(f"  warm step {warm_ms[0]:.1f} ms, loss {warm[0]:.4f}; "
+          f"{TRAIN_STEPS} timed steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; step ms {', '.join(f'{x:.2f}' for x in ms)}; median "
+          f"{step:.2f} ms, {TRAIN_B * TRAIN_S / step * 1e3:.0f} tokens/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_launches("training", counts, {"flash_fwd": L * TRAIN_STEPS,
+                                        "flash_bwd_fused": L * TRAIN_STEPS})
+
+    # checkpoint round trip: a fresh model loading the zip gives the same
+    # logits bit for bit
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gpt.zip")
+        t0 = time.perf_counter()
+        m.save_states(path)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        fresh = models.create_model("gpt", device="cuda", seed=SEED + 1,
+                                    **BENCH_GPT)
+        fresh.compile([tx], is_train=False, amp="bfloat16")
+        t0 = time.perf_counter()
+        fresh.load_states(path)
+        load_s = time.perf_counter() - t0
+    m.eval()
+    same = torch.equal(m(tx[:2]), fresh(tx[:2]))
+    m.train()
+    print(f"  save_states {size / 2**30:.2f} GiB in {save_s:.1f} s, "
+          f"load_states into a fresh model {load_s:.1f} s; logits "
+          f"identical: {same}")
+    if not same:
+        fail("logits differ after save_states/load_states")
+    del fresh
+    torch.cuda.empty_cache()
+    return m, (tx, ty), counts
+
+
+def phase_train_fp32(torch, models, opt, transformer):
+    """Three fp32 SGD steps on the card (kernels) and on the CPU (plain
+    versions) from identical weights."""
+    print("== phase 6b: fp32 training, card against CPU")
+    cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2)
+    tx, ty = _train_batch(torch, cfg["vocab_size"], 2, 256, SEED + 4)
+    mc = models.create_model("gpt", device="cpu", seed=SEED + 5, **cfg)
+    mg = models.create_model("gpt", device="cuda", seed=SEED + 6, **cfg)
+    transformer.load_singa_params(mg, {k: p.detach().numpy()
+                                       for k, p in mc.get_params().items()})
+    runs = []
+    for m in (mc, mg):
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True)
+        dev = next(m.parameters()).device
+        runs.append(_steps(torch, m, tx.to(dev), ty.to(dev), 3)[0])
+    lc, lg = runs
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    pc = mc.get_params()
+    perr = max(float((p.detach().cpu() - pc[k].detach()).abs().max())
+               for k, p in mg.get_params().items())
+    print(f"  losses card {[round(x, 6) for x in lg]}, CPU "
+          f"{[round(x, 6) for x in lc]}: max relative difference "
+          f"{rel:.3e}; params after 3 steps max abs difference {perr:.3e} "
+          f"(tol {TRAIN_TOL} each)")
+    if not (rel <= TRAIN_TOL and perr <= TRAIN_TOL):
+        fail("fp32 training on the card differs from the CPU")
+
+
+def phase_train_long(torch, models, opt, A, rows, g):
+    """Long-context training, where the backward takes K2b + K2c; counters
+    reset just before its steps and read just after them."""
+    print(f"== phase 6c: long-context training, S {LONG_S}, "
+          f"{LONG_LAYERS} layers, bf16 amp")
+    cfg = dict(BENCH_GPT, max_seq=LONG_S, num_layers=LONG_LAYERS)
+    tx, ty = (t.cuda() for t in _train_batch(torch, cfg["vocab_size"], 1,
+                                             LONG_S, SEED + 6))
+    m = models.create_model("gpt", device="cuda", seed=SEED + 6, **cfg)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, amp="bfloat16")
+    A.reset_launches()
+    losses, ms = _steps(torch, m, tx, ty, 2)
+    counts = dict(A.LAUNCHES)
+    print(f"  2 steps: losses {', '.join(f'{x:.4f}' for x in losses)}; step "
+          f"ms {', '.join(f'{x:.1f}' for x in ms)} (the first includes "
+          f"warm-up), {LONG_S / ms[-1] * 1e3:.0f} tokens/s at the second")
+    check_launches("long-context training", counts, {
+        "flash_fwd": 2 * LONG_LAYERS, "flash_bwd_dq": 2 * LONG_LAYERS,
+        "flash_bwd_dkv": 2 * LONG_LAYERS})
+    del m
+    torch.cuda.empty_cache()
+    bwd_case(torch, A, rows, g, (1, 16, LONG_S, 128), "bfloat16",
+             routes=("split",), n=3, n_plain=2)
+    return counts
 
 
 def main():
@@ -498,7 +784,8 @@ def main():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from singa_tpu_torch import engine, models, serving
+    from singa_tpu_torch import engine, models, opt, serving
+    from singa_tpu_torch.models import transformer
     from singa_tpu_torch.ops import _build
     from singa_tpu_torch.ops import attention as A
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,11 +803,22 @@ def main():
     phase_teacher_forced(torch, model, serving)
     by_path = phase_main_path(torch, model, engine, serving, A)
     phase_engine_fp32(torch, model, engine)
-    phase_profile(torch, model, engine)
+    train_model, (tx, ty), by_path["train"] = phase_train(torch, models,
+                                                          opt, A)
+    phase_profile(torch, model, engine,
+                  lambda: train_model(tx, ty)[1].item())
+    del train_model
+    torch.cuda.empty_cache()
+    phase_train_fp32(torch, models, opt, transformer)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    by_path["train_long"] = phase_train_long(torch, models, opt, A, rows, g)
 
-    # the JSON line reports each kernel at the main path's shape and
-    # dtype; `launches` sums the two paths' counted runs
-    main_shape = {"flash_fwd": [8, 12, 128, 64]}
+    # the JSON line reports each kernel at its main path's shape and
+    # dtype; `launches` sums the paths' counted runs
+    main_shape = {"flash_fwd": [8, 12, 128, 64],
+                  "flash_bwd_fused": [TRAIN_B, 16, TRAIN_S, 128],
+                  "flash_bwd_dq": [1, 16, LONG_S, 128],
+                  "flash_bwd_dkv": [1, 16, LONG_S, 128]}
     kernels = []
     for name in A.LAUNCHES:
         cands = [r for r in rows if r["name"] == name

@@ -1,7 +1,9 @@
 """GPT-style decoder-only LM (counterpart of
-singa_tpu/models/transformer.py): full-sequence forward, greedy and
-temperature/top-k `generate`, and the weight bridge from the JAX package
-(`load_singa_params`, `load_singa_states`).
+singa_tpu/models/transformer.py): a `model.Model` with the full-sequence
+forward, `train_one_batch` (softmax cross-entropy over the flattened
+logits, then the optimizer), greedy and temperature/top-k `generate`, and
+the weight bridge from the JAX package (`load_singa_params`,
+`load_singa_states`; `Model.load_states` reads the same zips).
 
 Beam search, speculative decoding, MoE, tensor/sequence/vocab
 parallelism and int8 serving come with later slices of the port.
@@ -17,17 +19,20 @@ import torch
 from torch import nn
 
 from .. import device as device_mod
-from .. import layer, serving
+from .. import layer, model, serving
 
 
-class GPT(nn.Module):
+class GPT(model.Model):
     """Decoder-only transformer: token embedding (+ learned positions,
     or RoPE in every block), pre-LN blocks, final LayerNorm, an untied
     fp32-output head.
 
     `device=None` resolves to CUDA and raises when there is none; pass
     `device="cpu"` to run the plain PyTorch versions of the kernels.
-    Weights are drawn from `seed` with the JAX initializers' formulas."""
+    Weights are drawn from `seed` with the JAX initializers' formulas.
+    Training goes through the Model API: `set_optimizer`,
+    `compile([ids], is_train=True, amp=...)`, then `logits, loss =
+    m(ids, targets)`."""
 
     def __init__(self, vocab_size, max_seq=1024, dim=256, num_heads=8,
                  num_layers=4, mlp_ratio=4, attn_bias=False,
@@ -55,19 +60,21 @@ class GPT(nn.Module):
                 rope_theta=rope_theta, generator=gen)
             for _ in range(num_layers))
         self.ln_f = layer.LayerNorm(dim)
+        self.sce = layer.SoftMaxCrossEntropy()
         if pos_encoding == "learned":
             self.pos_embed = nn.Parameter(
-                torch.randn((max_seq, dim), generator=gen) * 0.02,
-                requires_grad=False)
+                torch.randn((max_seq, dim), generator=gen) * 0.02)
         self.to(dev)
+        nn.Module.train(self, False)
 
     @property
     def device(self) -> torch.device:
         return self.tok_embed.W.device
 
-    @torch.no_grad()
     def forward(self, ids):
-        """(B, S) token ids -> (B, S, V) fp32 logits."""
+        """(B, S) token ids -> (B, S, V) fp32 logits. Under the bf16
+        policy the embedding rows are bf16 and adding the fp32 position
+        table makes the residual stream fp32, as in the JAX package."""
         ids = torch.as_tensor(ids, device=self.device).long()
         h = self.tok_embed(ids)
         if self.pos_encoding == "learned":
@@ -76,6 +83,26 @@ class GPT(nn.Module):
             h = b(h)
         return self.head(self.ln_f(h))
 
+    def train_one_batch(self, ids, targets):
+        """One training step: forward, the mean cross-entropy over every
+        position, backward and the optimizer's update. Returns (logits
+        (B, S, V) fp32, loss), detached from the spent graph."""
+        logits = nn.Module.__call__(self, ids)
+        flat = logits.reshape(-1, self.vocab_size)
+        tflat = torch.as_tensor(targets, device=self.device).reshape(-1)
+        loss = self.sce(flat, tflat.long())
+        self.optimizer(loss)
+        return logits.detach(), loss.detach()
+
+    def get_params(self):
+        """{JAX name: parameter} in the JAX GPT's order: its blocks are
+        `TransformerBlock_<i>` and it registers the position table on
+        itself, first; the optimizer's checkpoint keys follow this
+        order."""
+        own = {_singa_name(n): p for n, p in self.named_parameters()}
+        return dict(sorted(own.items(), key=lambda kv: kv[0] != "pos_embed"))
+
+    @torch.no_grad()
     def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
                  seed=0, dtype=None):
         """Autoregressive sampling: greedy (temperature=0) or
@@ -108,6 +135,15 @@ class GPT(nn.Module):
                  torch.as_tensor(ids.astype(np.int64), device=self.device),
                  seed)
         return out.cpu().numpy().astype(np.int32)
+
+
+def _singa_name(name: str) -> str:
+    """This module's param name -> the JAX GPT's (inverse of
+    _port_name)."""
+    if name.startswith("blocks."):
+        _, i, rest = name.split(".", 2)
+        return f"TransformerBlock_{i}.{rest}"
+    return name
 
 
 def _port_name(name: str) -> str:

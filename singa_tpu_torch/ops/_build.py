@@ -19,11 +19,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
-SOURCES = ("flash_fwd", "flash_decode", "paged_attention")
+SOURCES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_decode", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,6 +34,8 @@ _lock = threading.Lock()
 _libs: "dict[str, ctypes.CDLL]" = {}
 #: per source: nvcc's ptxas report (registers, shared memory, spills)
 BUILD_LOG: "dict[str, str]" = {}
+#: per source built in this process: seconds from nvcc's start to its end
+BUILD_SECONDS: "dict[str, float]" = {}
 
 
 def _nvcc() -> str:
@@ -52,22 +57,24 @@ def _lib_path(name: str) -> str:
 
 def _start(name: str):
     """Start nvcc for one source unless its library exists; returns
-    (path, tmp path, process or None)."""
+    (path, tmp path, process or None, start time)."""
     path = _lib_path(name)
     if os.path.exists(path):
-        return path, None, None
+        return path, None, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return path, tmp, proc
+    return path, tmp, proc, t0
 
 
-def _finish(name: str, path: str, tmp, proc) -> ctypes.CDLL:
+def _finish(name: str, path: str, tmp, proc, t0) -> ctypes.CDLL:
     if proc is not None:
         out, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         BUILD_LOG[name] = out
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
@@ -79,10 +86,14 @@ def _finish(name: str, path: str, tmp, proc) -> ctypes.CDLL:
 def build_all() -> None:
     """Build every kernel library, one nvcc per source, all in parallel."""
     with _lock:
-        todo = [n for n in SOURCES if n not in _libs]
-        started = [(n, *_start(n)) for n in todo]
-        for n, path, tmp, proc in started:
-            _libs[n] = _finish(n, path, tmp, proc)
+        started = [(n, *_start(n)) for n in SOURCES if n not in _libs]
+        if not started:
+            return
+        # one waiting thread per nvcc, so each source's time is its own
+        with ThreadPoolExecutor(len(started)) as ex:
+            built = list(ex.map(lambda a: _finish(*a), started))
+        for (n, *_), so in zip(started, built):
+            _libs[n] = so
 
 
 def lib(name: str) -> ctypes.CDLL:
@@ -99,4 +110,5 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-__all__ = ["BUILD_DIR", "BUILD_LOG", "SOURCES", "build_all", "check", "lib"]
+__all__ = ["BUILD_DIR", "BUILD_LOG", "BUILD_SECONDS", "SOURCES", "build_all",
+           "check", "lib"]

@@ -1,10 +1,11 @@
-"""Attention ops of the serving path (counterpart of
-singa_tpu/ops/attention.py): flash-attention forward, dense flash-decode
-and paged decode attention.
+"""Attention ops of the serving and training paths (counterpart of
+singa_tpu/ops/attention.py): flash-attention forward (K1) and backward
+(K2a fused, K2b dQ + K2c dK/dV split), dense flash-decode (K3) and paged
+decode attention (K4).
 
 Each op has two versions with the same math:
 
-- a plain PyTorch version (`attention_reference`,
+- a plain PyTorch version (`attention_reference`, `flash_bwd_reference`,
   `flash_decode_reference`, `paged_attention_reference`), the mirror of
   the JAX package's `*_reference`: the CPU path, and the yardstick the
   kernels are held against;
@@ -14,7 +15,10 @@ Each op has two versions with the same math:
 Dispatch goes by the tensor's device, with no fallback: a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises on input the
 kernel does not take. `LAUNCHES` counts each kernel's launches, so a run
-can show its main path went through the kernels.
+can show its main path went through the kernels. `flash_attention` is
+differentiable through `FlashAttention`, a torch.autograd.Function (the
+JAX package's custom_vjp), whose backward picks K2a or K2b + K2c by the
+JAX package's rule (`_FUSED_DQ_BYTES_CAP`).
 
 Layouts are the JAX package's: (B, H, S, D) for flash attention;
 head-packed block-diagonal queries (N, Hp, Q, P*D), dense caches
@@ -32,15 +36,24 @@ import torch
 from . import _build
 
 #: kernel launches since the last reset_launches(), by kernel
-LAUNCHES = {"flash_fwd": 0, "flash_decode": 0, "paged_attention": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_decode": 0, "paged_attention": 0}
 
 _NEG_INF = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh codes
 _MAXQ, _MAXPD = 16, 256                          # csrc/decode_common.cuh
+#: the backward takes the fused kernel while its fp32 (Sq, D) dQ would fit
+#: this many bytes, else the split pair: the JAX package's VMEM rule,
+#: kept so each kernel lies on the path it lies on there (S <= 8192 at
+#: D = 128 fused); tests force a route by setting it
+_FUSED_DQ_BYTES_CAP = 4 * 1024 * 1024
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sg_flash_fwd": [_vp] * 5 + [_i] * 5 + [_f, _i, _vp],
+    "sg_flash_bwd_fused": [_vp] * 10 + [_i] * 5 + [_f, _i, _vp],
+    "sg_flash_bwd_dq": [_vp] * 7 + [_i] * 5 + [_f, _i, _vp],
+    "sg_flash_bwd_dkv": [_vp] * 8 + [_i] * 6 + [_vp],
     "sg_flash_decode": [_vp] * 5 + [_i] * 5 + [_f, _i, _vp],
     "sg_paged_attention": [_vp] * 6 + [_i] * 6 + [_f, _i, _vp],
 }
@@ -149,9 +162,171 @@ def _flash_fwd(q, k, v, causal, scale, use_kernel=None):
 
 
 def flash_attention(q, k, v, causal=False, scale=None, use_kernel=None):
-    """Fused attention over (B, H, S, D), any S; returns (B, H, Sq, D)."""
+    """Fused attention over (B, H, S, D), any S; returns (B, H, Sq, D).
+    Differentiable: when an input requires grad it runs through
+    `FlashAttention`, whose backward is the K2 kernels."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, use_kernel)
     return _flash_fwd(q, k, v, causal, scale, use_kernel)[0]
+
+
+# ============ K2a / K2b / K2c: flash-attention backward ====================
+
+def _flash_bwd_stats(o, do):
+    """delta = rowsum(dO * O) in fp32, (B, H, Sq): the flash-2 backward
+    term (a plain torch op, as the JAX package leaves it to XLA)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, causal=False, scale=None,
+                        block_k=512):
+    """Plain backward of softmax attention from the forward's (O, lse):
+    (dq, dk, dv) in the inputs' dtypes, fp32 math. A port of the JAX
+    package's `_flash_bwd_blockwise`: a loop over key blocks recomputes
+    P = exp(q k^T * scale - lse) per block, so memory is O(Sq * block_k),
+    not O(Sq * Sk); the last block may be short (any S)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    qs = q.float() * scale
+    do_ = do.float()
+    delta = _flash_bwd_stats(o, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    rows = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, sk, block_k):
+        k_blk = k[:, :, k0:k0 + block_k].float()
+        v_blk = v[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qs, k_blk)
+        if causal:
+            cols = torch.arange(k0, k0 + k_blk.shape[2], device=q.device)
+            s = s.masked_fill(cols[None, :] > rows, _NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, do_))
+        dp = torch.einsum("bhqd,bhkd->bhqk", do_, v_blk)
+        ds = p * (dp - delta[..., None])
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qs))
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, k_blk)
+    return ((dq * scale).to(q.dtype), torch.cat(dks, 2).to(k.dtype),
+            torch.cat(dvs, 2).to(v.dtype))
+
+
+def _bwd_prepare(q, k, v, o, lse, do, scale):
+    """Check the backward's CUDA inputs; returns the kernels' extra inputs:
+    q pre-scaled in its own dtype (as the TPU kernels take it) and delta
+    (B, H, Sq) fp32."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    _check_cuda("flash_attention backward", q, k, v, o, do, dtype=q.dtype)
+    _check_cuda("flash_attention backward", q, lse, dtype=None)
+    if q.dtype not in _DTYPE or D not in (64, 128):
+        raise ValueError(f"flash_attention backward kernels take fp32/bf16 "
+                         f"and D in (64, 128), got {q.dtype}, D={D}")
+    if (k.shape != (B, H, Sk, D) or v.shape != k.shape or o.shape != q.shape
+            or do.shape != q.shape or lse.shape != (B, H, Sq)
+            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention backward: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)} {lse.dtype}")
+    if B * H > 65535 or Sq < 1 or Sk < 1:
+        raise ValueError(f"flash_attention backward: B*H={B * H}, Sq={Sq}, "
+                         f"Sk={Sk}")
+    return (q * scale).to(q.dtype), _flash_bwd_stats(o, do)
+
+
+def _dims(qf, k):
+    B, H, Sq, D = qf.shape
+    return B * H, Sq, k.shape[2], D
+
+
+def _flash_bwd_fused(qf, k, v, do, lse, delta, causal, scale):
+    """K2a on prepared inputs: dQ, dK, dV in one kernel (dQ through a
+    zeroed fp32 workspace the blocks add into, then a scale-and-cast
+    pass)."""
+    BH, Sq, Sk, D = _dims(qf, k)
+    dq, dk, dv = torch.empty_like(qf), torch.empty_like(k), \
+        torch.empty_like(v)
+    ws = torch.zeros(qf.shape, dtype=torch.float32, device=qf.device)
+    fn = _entry("flash_bwd_fused", "sg_flash_bwd_fused")
+    _build.check(fn(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    ws.data_ptr(), BH, Sq, Sk, D, int(bool(causal)),
+                    float(scale), _DTYPE[qf.dtype], _stream(qf)),
+                 "flash_bwd_fused")
+    LAUNCHES["flash_bwd_fused"] += 1
+    return dq, dk, dv
+
+
+def _flash_bwd_dq(qf, k, v, do, lse, delta, causal, scale):
+    """K2b on prepared inputs: dQ, recomputing P and dS per key tile."""
+    BH, Sq, Sk, D = _dims(qf, k)
+    dq = torch.empty_like(qf)
+    fn = _entry("flash_bwd_dq", "sg_flash_bwd_dq")
+    _build.check(fn(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), BH, Sq, Sk, D, int(bool(causal)),
+                    float(scale), _DTYPE[qf.dtype], _stream(qf)),
+                 "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_bwd_dkv(qf, k, v, do, lse, delta, causal):
+    """K2c on prepared inputs: dK and dV, recomputing P and dS per q
+    tile; no atomics."""
+    BH, Sq, Sk, D = _dims(qf, k)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _entry("flash_bwd_dkv", "sg_flash_bwd_dkv")
+    _build.check(fn(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk, D,
+                    int(bool(causal)), _DTYPE[qf.dtype], _stream(qf)),
+                 "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _flash_bwd_split(qf, k, v, do, lse, delta, causal, scale):
+    """K2b then K2c on prepared inputs: (dq, dk, dv), each kernel
+    recomputing P and dS; no atomics."""
+    args = (qf, k, v, do, lse, delta, causal)
+    return (_flash_bwd_dq(*args, scale), *_flash_bwd_dkv(*args))
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, scale, use_kernel=None):
+    """(dq, dk, dv) of flash attention: the plain backward on CPU tensors
+    (or with `use_kernel=False`); on CUDA the fused kernel K2a while
+    Sq * D * 4 <= _FUSED_DQ_BYTES_CAP, else the split pair K2b + K2c
+    (the JAX package's rule, `_flash_bwd_pallas`)."""
+    if not _use_kernel(q, use_kernel, "flash_attention backward"):
+        return flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    qf, delta = _bwd_prepare(q, k, v, o, lse, do, scale)
+    fn = _flash_bwd_fused if q.shape[2] * q.shape[3] * 4 \
+        <= _FUSED_DQ_BYTES_CAP else _flash_bwd_split
+    return fn(qf, k, v, do, lse, delta, causal, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its own backward (the port of the JAX
+    package's `custom_vjp` around `flash_attention`): the forward saves
+    q, k, v, O and lse; the backward recomputes P tile by tile."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, use_kernel):
+        out, lse = _flash_fwd(q, k, v, causal, scale, use_kernel)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.use_kernel = causal, scale, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do.contiguous(),
+                                ctx.causal, ctx.scale, ctx.use_kernel)
+        return dq, dk, dv, None, None, None
 
 
 # ======================= K3: dense flash-decode ============================
@@ -272,6 +447,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, page_size,
     return out
 
 
-__all__ = ["LAUNCHES", "attention_reference", "flash_attention",
-           "flash_decode", "flash_decode_reference", "paged_attention",
+__all__ = ["FlashAttention", "LAUNCHES", "attention_reference",
+           "flash_attention", "flash_bwd_reference", "flash_decode",
+           "flash_decode_reference", "paged_attention",
            "paged_attention_reference", "reset_launches"]

@@ -270,6 +270,7 @@ def _decode_core(m, S0, max_new):
 
 # ---- decode-param preparation + memo ---------------------------------------
 
+@torch.no_grad()
 def decode_params(m):
     """The decode-param tree of model `m` (fp32, unused biases
     zero-filled, QKV fused)."""

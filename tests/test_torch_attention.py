@@ -139,12 +139,15 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     assert torch.equal(a, b)
     x = torch.randn(1, 2, 8, 64)
     ta.flash_attention(x, x, x, True)
+    xg = x.clone().requires_grad_()
+    ta.flash_attention(xg, xg, xg, True).sum().backward()   # plain backward
     pq, kp, vp, pt, pl, ps, _ = (
         torch.from_numpy(a) if isinstance(a, np.ndarray) else a
         for a in _paged_inputs())
     ta.paged_attention(pq, kp, vp, pt, pl, ps, 0.125)
-    assert ta.LAUNCHES == {"flash_fwd": 0, "flash_decode": 0,
-                           "paged_attention": 0}
+    assert ta.LAUNCHES == {"flash_fwd": 0, "flash_bwd_fused": 0,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "flash_decode": 0, "paged_attention": 0}
     with pytest.raises(ValueError, match="use_kernel=True"):
         ta.flash_decode(q, K, V, lens, 0.125, use_kernel=True)
     with pytest.raises(ValueError, match="use_kernel=True"):

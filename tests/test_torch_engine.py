@@ -74,8 +74,9 @@ def test_engine_matches_jax_generate_and_frees_pages(kw):
     finally:
         e.stop()
     assert not th.is_alive()
-    assert ta.LAUNCHES == {"flash_fwd": 0, "flash_decode": 0,
-                           "paged_attention": 0}
+    assert ta.LAUNCHES == {"flash_fwd": 0, "flash_bwd_fused": 0,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "flash_decode": 0, "paged_attention": 0}
 
 
 def test_paged_token_step_matches_jax(pair):

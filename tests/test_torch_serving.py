@@ -107,7 +107,7 @@ def test_save_states_zip_bridge(tmp_path):
     tt.load_singa_states(tm, path)
     own = dict(tm.named_parameters())
     for k, v in jm.get_params().items():
-        np.testing.assert_array_equal(own[tt._port_name(k)].numpy(),
+        np.testing.assert_array_equal(own[tt._port_name(k)].detach().numpy(),
                                       tensor.to_numpy(v))
     prompt = np.arange(6, dtype=np.int32)[None, :] % 97
     np.testing.assert_array_equal(tm.generate(prompt, 8),
@@ -200,6 +200,7 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "import singa_tpu_torch, singa_tpu_torch.device, "
         "singa_tpu_torch.autograd, singa_tpu_torch.layer, "
         "singa_tpu_torch.serving, singa_tpu_torch.engine, "
+        "singa_tpu_torch.opt, singa_tpu_torch.model, "
         "singa_tpu_torch.models, singa_tpu_torch.models.transformer, "
         "singa_tpu_torch.ops, singa_tpu_torch.ops.attention, "
         "singa_tpu_torch.ops._build\n"

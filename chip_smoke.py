@@ -7,17 +7,24 @@ Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch/CUDA/nvcc
    versions, and the build of every kernel (one nvcc per source, all
-   started together) with its time, per source too.
+   started together) with its time, per source too, and ptxas's
+   registers and spills (the decode kernels must not spill).
 2. Each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes: the error against the stated
    tolerance, and the kernel's time beside the plain version's, its bound
    and the one-call library yardstick where there is one. The backward
    kernels (K2a fused, K2b dQ + K2c dK/dV split) run both routes of the
    dispatch, forced through `_FUSED_DQ_BYTES_CAP`, against
-   `flash_bwd_reference`, with dq, dk and dv compared separately.
+   `flash_bwd_reference`, with dq, dk and dv compared separately. The
+   decode kernels (K3, K4) run every cache mode (fp32, bf16, int8, int4)
+   and the verify ladder (q_tokens 5), a GQA ladder past 16 rows and
+   inactive slots under the ladder.
 3. Full-width GPT-2-small (random weights from a seed), teacher-forced:
    prefill + token_step on the kernels against use_kernel=False in fp32
    (dense and paged), and the bf16 logit drift and top-1 agreement.
+   3b. The same in fp32 with int8 and int4 caches, and the k = 5 verify
+   steps (dense and paged) against five sequential steps: logits, and
+   the caches' values within one quantization step.
 4. The serving main path, two entry points run one after the other:
    GPT.generate (batch 8, prompt 128, 128 new tokens, bf16), then a
    ServingEngine answering 16 requests. Every kernel launch counter is
@@ -25,6 +32,21 @@ Phases, each of which exits non-zero on failure:
    counts must be exactly one launch per layer per prefill or step.
    4b. The engine in fp32 on the card: its greedy tokens on the kernels
    must equal its tokens with use_kernel=False and fp32 GPT.generate's.
+   4c. The quantized and speculative entry points, bf16, each in its own
+   launch window with exact counts, also by cache mode and ladder:
+   generate with int8 and int4 caches and with int8 weights, speculative
+   generate (spec_k 4) with a clone draft and with a small random draft,
+   generate_beam (4 beams) over an int4 cache, an engine with int8 pools
+   and a speculative engine with int4 pools.
+   4d. fp32 on the card: speculative generate, generate_beam with one
+   beam and the speculative engine against plain greedy, the int8 and
+   int4 engines against dense generate with the same caches, token for
+   token (a divergence only where the reference's top-2 logit gap is
+   below 1e-4, printed). int8 weights: teacher-forced logits with fp32
+   activations over the int8 weights, kernels against plain within 1e-3
+   while the bf16 weights' logits lie over 1e-2 away; and the int8-weight
+   engine (bf16) on the kernels against use_kernel=False (ties within
+   twice the bf16 kernel-vs-plain logit difference, printed).
 6. The training main path: the repo's GPT training benchmark model
    (vocab 8192, dim 2048, 16 heads, 8 layers; random weights from a seed)
    through Model.compile(amp="bfloat16") and `m(ids, targets)` with SGD,
@@ -37,8 +59,10 @@ Phases, each of which exits non-zero on failure:
    backward takes the split pair K2b + K2c, with exact launch counts, and
    one layer's backward held against `flash_bwd_reference`.
 5. Where the time goes: device time by kernel under torch.profiler for a
-   short generate call, a short engine run and one training step.
-7. The `kernels` JSON line, then the card line, then the result line.
+   short generate call, a short engine run, a short speculative engine
+   run and one training step.
+7. The `kernels` JSON line (the decode kernels with a `modes` entry per
+   cache mode and ladder), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -80,6 +104,10 @@ BENCH_GPT = dict(vocab_size=8192, max_seq=1024, dim=2048, num_heads=16,
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 5
 LONG_S, LONG_LAYERS = 16384, 2
 SEED = 0
+DEVICE = "cuda"
+REPLACES = {
+    "flash_decode": "singa_tpu/ops/attention.py:1237 _flash_decode_kernel",
+    "paged_attention": "singa_tpu/ops/attention.py:1019 _paged_fwd_kernel"}
 
 
 def fail(msg):
@@ -130,31 +158,48 @@ def phase_env(torch, build):
           f"({len(build.SOURCES)} sources, parallel nvcc); per source: "
           + ", ".join(f"{n} {t:.2f} s"
                       for n, t in build.BUILD_SECONDS.items()))
+    spills = []
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+            if (name in REPLACES and "spill stores" in line
+                    and not line.strip().startswith("0 bytes stack frame, "
+                                                    "0 bytes spill")):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        fail("the decode kernels spill registers: " + "; ".join(spills))
 
 
 def _case(torch, rows, name, route_src, replaces, dtype, shape, out, ref,
-          plain_fn, kernel_fn, library_fn, nbytes, flops):
-    err = float((out.float() - ref.float()).abs().max())
-    tol = TOL[dtype]
+          plain_fn, kernel_fn, library_fn, nbytes, flops, err=None,
+          tol=None, extra=None):
+    """One kernel case: its error against the plain version (`err`, or
+    out against ref) within `tol` (default TOL), its time, the plain
+    version's, the library call's and the bound; appended to `rows`
+    with the `extra` keys."""
+    if err is None:
+        err = float((out.float() - ref.float()).abs().max())
+    tol = TOL[dtype] if tol is None else tol
+    extra = extra or {}
     ms = time_ms(torch, kernel_fn)
     plain_ms = time_ms(torch, plain_fn)
     lib_ms = time_ms(torch, library_fn) if library_fn else None
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
     ok = err <= tol and np.isfinite(err)
-    print(f"  {name} {dtype} {shape}: max_abs_err {err:.3e} (tol {tol}) "
-          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+    label = f" [{extra['label']}]" if "label" in extra else ""
+    print(f"  {name}{label} {dtype} {shape}: max_abs_err {err:.3e} (tol "
+          f"{tol}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
           f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}")
     rows.append(dict(name=name, route="cuda", source=route_src,
                      replaces=replaces, dtype=dtype, shape=shape,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     **extra))
     if not ok:
-        fail(f"{name} {dtype} {shape} disagrees with its plain version")
+        fail(f"{name}{label} {dtype} {shape} disagrees with its plain "
+             "version")
 
 
 def phase_kernels(torch, A):
@@ -210,7 +255,7 @@ def phase_kernels(torch, A):
         flops = 4 * Hp * Q * PD * live
         _case(torch, rows, "flash_decode",
               "singa_tpu_torch/csrc/flash_decode.cu",
-              "singa_tpu/ops/attention.py:1237 _flash_decode_kernel", dn,
+              REPLACES["flash_decode"], dn,
               [N, Hp, Q, PD, T], out, ref,
               lambda: A.flash_decode(q, K, V, lens, 0.125, use_kernel=False),
               lambda: A.flash_decode(q, K, V, lens, 0.125),
@@ -225,13 +270,14 @@ def phase_kernels(torch, A):
                                           pt, lens, ps, 0.125)
         _case(torch, rows, "paged_attention",
               "singa_tpu_torch/csrc/paged_attention.cu",
-              "singa_tpu/ops/attention.py:1019 _paged_fwd_kernel", dn,
+              REPLACES["paged_attention"], dn,
               [N, Hp, Q, PD, ps, n_pages], out, ref,
               lambda: A.paged_attention(q, kp, vp, pt, lens, ps, 0.125,
                                         use_kernel=False),
               lambda: A.paged_attention(q, kp, vp, pt, lens, ps, 0.125),
               None,
               io_bytes + 2 * live * Hp * PD * el + 4 * pages_live, flops)
+    phase_decode_modes(torch, A, rows, g)
     # K1 at the training shape (bench GPT, D=128)
     B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
     q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev)
@@ -348,23 +394,146 @@ def bwd_case(torch, A, rows, g, shape, dn, routes=("fused", "split"),
               f"{lib_ms:.4f} ms")
 
 
-def _paged_from_dense(torch, caches, ps, g):
-    """Dense (n, Hp, T, PD) caches -> page pools with a random page
-    table holding the same rows."""
-    n, Hp, T, PD = caches[0][0].shape
-    M = T // ps
-    perm = torch.randperm(n * M, generator=g, device=caches[0][0].device)
-    pools = []
-    for Kc, Vc in caches:
-        pair = []
-        for C in (Kc, Vc):
-            pages = C.reshape(n, Hp, M, ps, PD).transpose(1, 2) \
-                .reshape(n * M, Hp, ps, PD)
-            pool = torch.empty_like(pages)
-            pool[perm] = pages
-            pair.append(pool)
-        pools.append(tuple(pair))
-    return pools, perm.reshape(n, M).to(torch.int32).contiguous()
+# ---------------------------------------------------------------------------
+# phase 2, the decode kernels' other branches: quantized caches and the
+# verify ladder, at the serving shape (N 8, Hp 6, PD 128, T 1024, page 16)
+DEC_N, DEC_HP, DEC_D, DEC_T, DEC_PS = 8, 6, 64, 1024, 16
+DEC_LENS = [1, 17, 512, 1024, 100, 333, 777, 64]
+# the JAX tests' KERNEL_ATOL for fp32 and quantized caches (the plain
+# version dequantizes the same bytes and folds the same scales, so only
+# summation order differs); bf16 rounds O to bf16
+QTOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _quantize(torch, A, P, mode):
+    """(…, T, P*D) fp32 -> (cache rows, scales (…, T, P) fp32), per
+    (position, lane block) as serving._DecodeCore._quant_kv does."""
+    from singa_tpu_torch.ops.attention import nibble_pack
+    qmax = 7.0 if mode == "int4" else 127.0
+    A5 = A.reshape(*A.shape[:-1], P, -1)
+    s = torch.clamp(A5.abs().amax(-1), min=1e-8) / qmax
+    q = torch.clamp(torch.round(A5 / s[..., None]), -qmax, qmax).to(
+        torch.int8).reshape(A.shape)
+    if mode == "int4":
+        q = nibble_pack(q)
+    return q.contiguous(), s.contiguous()
+
+
+def _paged(torch, C, ps, perm):
+    """Dense (n, Hp, T, ·) -> a page pool holding the same rows at the
+    pages `perm` gives, in time order per sequence."""
+    n, Hp, T, W = C.shape
+    pages = C.reshape(n, Hp, T // ps, ps, W).transpose(1, 2) \
+        .reshape(n * (T // ps), Hp, ps, W)
+    pool = torch.empty_like(pages)
+    pool[perm] = pages
+    return pool
+
+
+def _pools_from_dense(torch, caches, ps, g):
+    """Dense per-block caches (fp (K, V) or quantized ((K8, Ks), (V8,
+    Vs))) -> page pools holding the same rows under one random page
+    table."""
+    from singa_tpu_torch import serving
+    n, _, T, _ = serving.tree_leaves(caches)[0].shape
+    perm = torch.randperm(n * (T // ps), generator=g,
+                          device=serving.tree_leaves(caches)[0].device)
+    pools = serving._tree_map(lambda a: _paged(torch, a, ps, perm), caches)
+    return pools, perm.reshape(n, T // ps).to(torch.int32).contiguous()
+
+
+def decode_case(torch, A, rows, g, kernel, mode, dn, q_tokens, P=2, G=1,
+                lens_l=DEC_LENS, label=""):
+    """One K3/K4 variant against its plain version on the card: `mode`
+    fp/int8/int4 caches, `q_tokens` (> 1: the verify ladder), P*G rows a
+    token. Rows whose ladder limit is <= 0 (an inactive slot) are left
+    out of the comparison: the kernel writes finite values there, the
+    plain version NaN, and the caller discards both."""
+    import torch.nn.functional as F
+    dev = torch.device(DEVICE)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dn]
+    N, Hp, T, ps = DEC_N, DEC_HP, DEC_T, DEC_PS
+    PD, Q = P * DEC_D, q_tokens * P * G
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    q = torch.randn((N, Hp, Q, PD), generator=g, device=dev).to(dt)
+    Kf, Vf = (torch.randn((N, Hp, T, PD), generator=g, device=dev)
+              for _ in range(2))
+    if mode == "fp":
+        K, V, ks, vs = Kf.to(dt), Vf.to(dt), None, None
+    else:
+        (K, ks), (V, vs) = _quantize(torch, Kf, P, mode), \
+            _quantize(torch, Vf, P, mode)
+    ops = [K, V, ks, vs]
+    if kernel == "paged_attention":
+        M = T // ps
+        perm = torch.randperm(N * M, generator=g, device=dev)
+        ops = [None if a is None else _paged(torch, a, ps, perm)
+               for a in ops]
+        pt = perm.reshape(N, M).to(torch.int32).contiguous()
+
+        def call(qq, cache, uk):
+            return A.paged_attention(qq, cache[0], cache[1], pt, lens, ps,
+                                     0.125, cache[2], cache[3], G,
+                                     use_kernel=uk, q_tokens=q_tokens)
+    else:
+        def call(qq, cache, uk):
+            return A.flash_decode(qq, cache[0], cache[1], lens, 0.125,
+                                  cache[2], cache[3], G, use_kernel=uk,
+                                  q_tokens=q_tokens)
+    out = call(q, ops, None)
+    torch.cuda.synchronize()
+    # the plain version in fp32 on the same values
+    ref = call(q.float(), [a.float() if a is not None and mode == "fp"
+                           else a for a in ops], False)
+    lim = A._row_limits(lens, Q, Q // q_tokens, q_tokens)      # (N, Q)
+    live = lim > 0
+    err = float((out.float() - ref).abs()[live[:, None, :, None]
+                                          .expand_as(ref)].max())
+    tol = QTOL[dn] if (mode != "fp" or q_tokens > 1 or dn == "bfloat16") \
+        else TOL[dn]
+    el = q.element_size()
+    W = K.shape[-1]
+    kv_el = K.element_size()
+    rows_live = [min(n, T) for n in lens_l]
+    pos = int(torch.clamp(lim, 0, T).sum())
+    nbytes = (2 * N * Hp * Q * PD * el + 4 * N
+              + 2 * Hp * sum(rows_live) * (W * kv_el
+                                           + (0 if mode == "fp" else 4 * P)))
+    if kernel == "paged_attention":
+        nbytes += 4 * sum(-(-n // ps) for n in rows_live)
+    library = None
+    if kernel == "flash_decode" and mode == "fp":
+        mask = (torch.arange(T, device=dev)[None, None, :]
+                < lim[:, :, None])[:, None]                   # (N,1,Q,T)
+
+        def library():
+            return F.scaled_dot_product_attention(q, K, V, attn_mask=mask,
+                                                  scale=0.125)
+    shape = [N, Hp, Q, PD, T] + ([ps, N * (T // ps)]
+                                 if kernel == "paged_attention" else [])
+    _case(torch, rows, kernel,
+          f"singa_tpu_torch/csrc/{kernel}.cu", REPLACES[kernel], dn, shape,
+          None, None, lambda: call(q, ops, False), lambda: call(q, ops, None),
+          library, nbytes, 4 * Hp * PD * pos, err=err, tol=tol,
+          extra=dict(mode=mode, q_tokens=q_tokens, groups=G,
+                     label=label or f"{mode} "
+                     f"{'ladder' if q_tokens > 1 else 'single'}"))
+
+
+def phase_decode_modes(torch, A, rows, g):
+    """K3 and K4 in every cache mode and the ladder (q_tokens 5, the
+    verify step of spec_k = 4) at the serving shape; one GQA ladder case
+    past 16 rows; one case with inactive slots under the ladder."""
+    for kernel in ("flash_decode", "paged_attention"):
+        for dn in ("float32", "bfloat16"):
+            for mode, qt in (("fp", 5), ("int8", 1), ("int4", 1),
+                             ("int8", 5), ("int4", 5)):
+                decode_case(torch, A, rows, g, kernel, mode, dn, qt)
+        decode_case(torch, A, rows, g, kernel, "int8", "float32", 5, G=2,
+                    label="GQA ladder, P 2 G 2, 20 rows")
+        decode_case(torch, A, rows, g, kernel, "int4", "float32", 5,
+                    lens_l=[1, 3, 512, 1, 100, 2, 777, 64],
+                    label="inactive slots under the ladder")
 
 
 def phase_teacher_forced(torch, model, serving):
@@ -389,7 +558,7 @@ def phase_teacher_forced(torch, model, serving):
 
     def paged(p, use_kernel):
         _, caches = core.prefill(p, prompt, n, use_kernel)
-        pools, pt = _paged_from_dense(
+        pools, pt = _pools_from_dense(
             torch, caches, ps, torch.Generator(device=dev).manual_seed(7))
         active = torch.ones(n, dtype=torch.bool, device=dev)
         out = []
@@ -507,6 +676,7 @@ def phase_main_path(torch, model, engine, serving, A):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     gen = dict(A.LAUNCHES)
+    gen_modes = {k: v for k, v in A.LAUNCHES_BY_MODE.items() if v}
     if out.shape != (B, S0 + new) or not (out >= 0).all() \
             or not (out < model.vocab_size).all():
         fail(f"generate returned {out.shape} / out-of-vocab tokens")
@@ -523,6 +693,7 @@ def phase_main_path(torch, model, engine, serving, A):
                                    dtype="bfloat16")
     torch.cuda.synchronize()
     eng = dict(A.LAUNCHES)
+    eng_modes = {k: v for k, v in A.LAUNCHES_BY_MODE.items() if v}
     ntok = sum(len(r.tokens) for r in reqs)
     ttft = statistics.median(r.ttft_s for r in reqs)
     print(f"  engine: {len(reqs)} requests completed, {ntok} tokens, "
@@ -545,7 +716,8 @@ def phase_main_path(torch, model, engine, serving, A):
         same_tok += int((got == want).sum())
     print(f"  engine vs generate (bf16): {same_seq}/{len(reqs)} sequences "
           f"identical, {same_tok}/{ntok} tokens at equal positions")
-    return {"generate": gen, "engine": eng}
+    return ({"generate": gen, "engine": eng},
+            {"generate": gen_modes, "engine": eng_modes})
 
 
 def phase_engine_fp32(torch, model, engine):
@@ -577,6 +749,424 @@ def phase_engine_fp32(torch, model, engine):
           f"sequence pairs identical")
     if bad:
         fail("fp32 engine tokens differ: " + "; ".join(bad))
+    return picks, runs[None]
+
+
+# ---------------------------------------------------------------------------
+# phases 3b, 4c and 4d: quantized and speculative serving
+SPEC_K = 4
+# the small random draft: bench_decode.py's draft width (dim // 4) and
+# depth (1 layer); D = 64, so its prefill runs on K1
+DRAFT_SMALL = dict(GPT2_SMALL, dim=GPT2_SMALL["dim"] // 4, num_heads=3,
+                   num_layers=1)
+# fp32 scales of a verify step's cache rows against sequential steps'
+CACHE_SCALE_RTOL = 1e-5
+# a divergence between two fp32 token streams counts as a tie when the
+# reference's top-2 logit gap at that position is below this
+TIE_GAP = 1e-4
+# beam search on the main path: beams per prompt and new tokens
+BEAMS, BEAM_NEW = 4, 32
+
+
+def _cache_diff(torch, A, serving, a, b):
+    """(values that differ, values compared, the largest difference in
+    quantization steps, the largest relative difference of the scales)
+    between two quantized caches."""
+    n_diff, n_all, steps, rel = 0, 0, 0, 0.0
+    for x, y in zip(serving.tree_leaves(a), serving.tree_leaves(b)):
+        if x.is_floating_point():
+            rel = max(rel, float(((x - y).abs()
+                                  / y.abs().clamp(min=1e-30)).max()))
+            continue
+        if x.dtype == torch.uint8:
+            x, y = A.nibble_unpack(x), A.nibble_unpack(y)
+        d = (x.float() - y.float()).abs()
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        steps = max(steps, int(d.max()))
+    return n_diff, n_all, steps, rel
+
+
+def phase_quant_teacher_forced(torch, model, serving, A):
+    """GPT-2-small fp32 with int8 and int4 caches, teacher-forced: the
+    dense and paged steps on the kernels against use_kernel=False, and
+    the k = 5 verify steps against 5 sequential steps on the kernels."""
+    print("== phase 3b: GPT-2-small fp32, int8/int4 caches, teacher-forced")
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n, S0, k, ps = 4, 128, SPEC_K + 1, 16
+    prompt = torch.randint(0, model.vocab_size, (n, S0), generator=g,
+                           device=dev)
+    feed = torch.randint(0, model.vocab_size, (n, k), generator=g,
+                         device=dev)
+    p = serving.decode_state(model, None)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    clone = lambda c: serving._tree_map(torch.clone, c)  # noqa: E731
+    with torch.no_grad():
+        for kvd in ("int8", "int4"):
+            core = serving._decode_core(model, S0, 2 * ps, kvd)
+            _, caches = core.prefill(p, prompt, n)
+            pools0, pt = _pools_from_dense(
+                torch, caches, ps, torch.Generator(device=dev).manual_seed(7))
+            seq, runs = {}, {}
+            for uk in (None, False):
+                c, pl = clone(caches), clone(pools0)
+                out_d, out_p = [], []
+                for i in range(k):
+                    lg, c = core.token_step(p, feed[:, i], c, i, n, uk)
+                    out_d.append(lg)
+                    lens = torch.full((n,), S0 + i, dtype=torch.int32,
+                                      device=dev)
+                    lg, pl = core.paged_token_step(p, feed[:, i], pl, pt,
+                                                   lens, active, n, ps, uk)
+                    out_p.append(lg)
+                runs[uk] = (torch.stack(out_d, 1), torch.stack(out_p, 1))
+                seq[uk] = (c, pl)
+            vd, cv = core.verify_step(p, feed, clone(caches),
+                                      torch.full((n,), S0, dtype=torch.int32,
+                                                 device=dev), active, n, k)
+            vp, pv = core.paged_verify_step(
+                p, feed, clone(pools0), pt,
+                torch.full((n,), S0, dtype=torch.int32, device=dev), active,
+                n, ps, k)
+            torch.cuda.synchronize()
+            errs = {
+                "dense kernel vs plain": (runs[None][0] - runs[False][0]),
+                "paged kernel vs plain": (runs[None][1] - runs[False][1]),
+                "dense verify vs 5 steps": (vd - runs[None][0]),
+                "paged verify vs 5 steps": (vp - runs[None][1])}
+            diffs = {"dense": _cache_diff(torch, A, serving, cv, seq[None][0]),
+                     "paged": _cache_diff(torch, A, serving, pv,
+                                          seq[None][1])}
+            print(f"  {kvd}: " + ", ".join(
+                f"{w} {float(e.abs().max()):.3e}" for w, e in errs.items())
+                + f" (tol {LOGIT_TOL}); verify caches against the steps': "
+                + ", ".join(f"{w} {nd} of {na} values differ (at most "
+                            f"{st} step), scales {r:.2e} relative"
+                            for w, (nd, na, st, r) in diffs.items()))
+            for w, e in errs.items():
+                if not float(e.abs().max()) <= LOGIT_TOL:
+                    fail(f"{kvd} {w}: logits differ by "
+                         f"{float(e.abs().max())}")
+            # a batched product may round a K/V value an ulp apart from
+            # a one-row product, and a value on a rounding boundary then
+            # lands one quantization step over; more is a fault
+            for w, (nd, _, st, r) in diffs.items():
+                if st > 1 or not r <= CACHE_SCALE_RTOL:
+                    fail(f"{kvd} {w} verify caches differ from the "
+                         f"sequential steps': {nd} values, {st} steps, "
+                         f"scales {r}")
+
+
+def window(torch, A, fn):
+    """Run `fn` with every launch counter reset just before it and read
+    just after it: (its result, LAUNCHES, the nonzero LAUNCHES_BY_MODE)."""
+    A.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(A.LAUNCHES), {k: v for k, v in
+                                   A.LAUNCHES_BY_MODE.items() if v}
+
+
+def check_modes(path, got, want):
+    want = {k: v for k, v in want.items() if v}
+    print(f"  launches by mode on {path}: "
+          + ", ".join(f"{'/'.join(k)} {v}" for k, v in sorted(got.items())))
+    if got != want:
+        fail(f"{path} launched by mode {got}, expected {want}")
+
+
+def phase_spec_main_path(torch, model, drafts, engine, serving, A):
+    """The quantized and speculative serving entry points, bf16, each in
+    its own launch window with exact counts."""
+    print("== phase 4c: main path, quantized and speculative serving, bf16")
+    prompts, reqs_in = seeded_requests(model.vocab_size)
+    (B, S0), new, K = prompts.shape, 128, SPEC_K
+    L = len(model.blocks)
+    counts, modes = {}, {}
+    runs = [("generate kv int8", dict(kv_dtype="int8"), None),
+            ("generate kv int4", dict(kv_dtype="int4"), None),
+            ("generate int8 weights", dict(dtype="int8"), None),
+            ("spec generate, clone draft", {}, "clone"),
+            ("spec generate, random draft, kv int8", dict(kv_dtype="int8"),
+             "random")]
+    for path, kw, dname in runs:
+        kw = dict(kw)
+        kw.setdefault("dtype", "bfloat16")
+        if dname is not None:
+            kw.update(draft_model=drafts[dname], spec_k=K)
+        # warm (cuBLAS handles, the decode-param trees) off the window
+        model.generate(prompts[:, :8], 2, **kw)
+        t0 = time.perf_counter()
+        out, got, by_mode = window(torch, A, lambda: model.generate(
+            prompts, new, **kw))
+        wall = time.perf_counter() - t0
+        if out.shape != (B, S0 + new) or not (out >= 0).all() \
+                or not (out < model.vocab_size).all():
+            fail(f"{path} returned {out.shape} / out-of-vocab tokens")
+        kvm = serving.kv_label(kw.get("kv_dtype"))
+        line = f"  {path}: {wall:.3f} s, {B * new / wall:.1f} tok/s"
+        if dname is None:
+            want = {"flash_fwd": L, "flash_decode": L * (new - 1)}
+            want_modes = {("flash_decode", kvm, "single"): L * (new - 1)}
+        else:
+            st = model.spec_stats
+            Ld = len(drafts[dname].blocks)
+            R = st["rounds"]
+            want = {"flash_fwd": L + Ld,
+                    "flash_decode": R * (Ld * (K + 1) + L)}
+            want_modes = {("flash_decode", "fp", "single"): R * Ld * (K + 1),
+                          ("flash_decode", kvm, "ladder"): R * L}
+            line += (f", {R} rounds, acceptance "
+                     f"{st['accepted'] / st['drafted']:.3f} ({st})")
+        print(line)
+        check_launches(path, got, want)
+        check_modes(path, by_mode, want_modes)
+        counts[path], modes[path] = got, by_mode
+
+    # beam search over an int4 cache: one prefill at batch B, then every
+    # step at B * BEAMS rows, the cache rows reordered by parent beam
+    path, kw = "generate_beam int4", dict(num_beams=BEAMS, kv_dtype="int4",
+                                          dtype="bfloat16")
+    model.generate_beam(prompts[:, :8], 2, **kw)
+    t0 = time.perf_counter()
+    out, got, by_mode = window(torch, A, lambda: model.generate_beam(
+        prompts, BEAM_NEW, **kw))
+    wall = time.perf_counter() - t0
+    if out.shape != (B, S0 + BEAM_NEW) or not (out >= 0).all() \
+            or not (out < model.vocab_size).all():
+        fail(f"{path} returned {out.shape} / out-of-vocab tokens")
+    print(f"  {path}: batch {B} x {BEAMS} beams, {BEAM_NEW} new: "
+          f"{wall:.3f} s, {B * BEAM_NEW / wall:.1f} tok/s")
+    check_launches(path, got, {"flash_fwd": L,
+                               "flash_decode": L * (BEAM_NEW - 1)})
+    check_modes(path, by_mode,
+                {("flash_decode", "int4", "single"): L * (BEAM_NEW - 1)})
+    counts[path], modes[path] = got, by_mode
+
+    # the engine: int8 pools (half the requests), then int4 pools with
+    # the clone draft
+    for path, picks, kw in (
+            ("engine kv int8", reqs_in[:8], dict(kv_dtype="int8")),
+            ("spec engine kv int4, clone draft", reqs_in,
+             dict(kv_dtype="int4", draft_model=drafts["clone"], spec_k=K))):
+        (reqs, wall, rep, steps), got, by_mode = window(
+            torch, A, lambda: serve(engine, model, picks, max_slots=8,
+                                    dtype="bfloat16", **kw))
+        ntok = sum(len(r.tokens) for r in reqs)
+        ttft = statistics.median(r.ttft_s for r in reqs)
+        kvm = kw["kv_dtype"]
+        line = (f"  {path}: {len(reqs)} requests, {ntok} tokens, "
+                f"{wall:.3f} s, {ntok / wall:.1f} tok/s, median TTFT "
+                f"{ttft * 1e3:.1f} ms, pool {rep['pool_bytes']} bytes")
+        if "draft_model" not in kw:
+            want = {"flash_fwd": L * len(reqs), "paged_attention": L * steps}
+            want_modes = {("paged_attention", kvm, "single"): L * steps}
+        else:
+            Ld, R = len(drafts["clone"].blocks), rep["spec"]["rounds"]
+            want = {"flash_fwd": (L + Ld) * len(reqs),
+                    "paged_attention": R * (Ld * (K + 1) + L)}
+            want_modes = {
+                ("paged_attention", "fp", "single"): R * Ld * (K + 1),
+                ("paged_attention", kvm, "ladder"): R * L}
+            line += (f", draft pool {rep['draft_pool_bytes']} bytes, "
+                     f"{R} rounds, acceptance {rep['spec_acceptance']:.3f} "
+                     f"({rep['spec']})")
+        print(line)
+        check_launches(path, got, want)
+        check_modes(path, by_mode, want_modes)
+        counts[path], modes[path] = got, by_mode
+
+    # the int4 pools hold half the int8 pools' bytes; the scales are equal
+    split = {}
+    for kvd in ("int8", "int4"):
+        e = engine.ServingEngine(model, page_size=16, max_ctx=1024,
+                                 max_slots=8, kv_dtype=kvd)
+        leaves = serving.tree_leaves(e._alloc_pools(e.core, model))
+        split[kvd] = (sum(t.numel() for t in leaves
+                          if not t.is_floating_point()),
+                      sum(t.numel() * 4 for t in leaves
+                          if t.is_floating_point()))
+        del leaves
+    torch.cuda.empty_cache()
+    print(f"  pool bytes, 8 slots x 1024: int8 rows {split['int8'][0]} + "
+          f"scales {split['int8'][1]}; int4 rows {split['int4'][0]} + "
+          f"scales {split['int4'][1]}")
+    if split["int8"][0] != 2 * split["int4"][0] \
+            or split["int8"][1] != split["int4"][1]:
+        fail(f"int4 pools are not half the int8 pools' bytes: {split}")
+    return counts, modes
+
+
+def _gap(torch, model, serving, prompt, ref, at, kv_dtype=None,
+         dtype=None, use_kernel=None):
+    """Top-2 logit gap of the dense greedy decode of `prompt` (S0,) in
+    serving dtype `dtype` (fp32 by default), teacher-forced on its
+    reference tokens `ref`, at generated index `at`."""
+    S0 = len(prompt)
+    core = serving._decode_core(model, S0, len(ref), kv_dtype)
+    p = serving.decode_state(model, dtype)
+    dev = model.device
+    with torch.no_grad():
+        lg, c = core.prefill(p, torch.as_tensor(
+            prompt[None].astype(np.int64), device=dev), 1, use_kernel)
+        for i in range(at):
+            lg, c = core.token_step(p, torch.as_tensor(
+                [int(ref[i])], device=dev), c, i, 1, use_kernel)
+    top = torch.topk(lg[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _same_or_tie(torch, model, serving, what, prompt, got, ref,
+                 kv_dtype=None, dtype=None, use_kernel=None, tie=TIE_GAP):
+    """'' when `got` equals `ref` or first parts from it at a tie (the
+    reference's top-2 gap there below `tie`, printed), else what
+    differs."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if np.array_equal(got, ref):
+        return ""
+    at = int(np.argmax(got != ref))
+    gap = _gap(torch, model, serving, prompt, ref, at, kv_dtype, dtype,
+               use_kernel)
+    if gap < tie:
+        print(f"  {what}: first differs at {at}, a tie (top-2 gap "
+              f"{gap:.3e} < {tie:.3e})")
+        return ""
+    return f"{what}: first differs at {at} ({got[at]} != {ref[at]}, gap " \
+           f"{gap:.3e})"
+
+
+def _f32_tree(tree):
+    """A decode-param tree with every floating leaf in fp32 (the int8
+    values of the int8-weight tree stay int8, its scales fp32)."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f32_tree(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _int8_weights_teacher_forced(torch, model, serving):
+    """Teacher-forced logits (prefill + 5 steps, GPT-2-small, batch 4,
+    prompt 128) of the int8-weight tree on the kernels and on the plain
+    versions, and of the bf16 tree (plain), as served (bf16 activations)
+    and with every floating leaf of both trees taken to fp32 (the same
+    int8 weights and scales, fp32 activations). Returns {"bfloat16" |
+    "float32": (the kernels' largest difference from the plain versions,
+    the int8 tree's from the bf16 tree's)}."""
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    n, S0, k = 4, 128, 5
+    prompt = torch.randint(0, model.vocab_size, (n, S0), generator=g,
+                           device=dev)
+    feed = torch.randint(0, model.vocab_size, (n, k), generator=g,
+                         device=dev)
+    core = serving._decode_core(model, S0, k)
+
+    def logits(p, uk):
+        lg, c = core.prefill(p, prompt, n, uk)
+        out = [lg.float()]
+        for i in range(k - 1):
+            lg, c = core.token_step(p, feed[:, i], c, i, n, uk)
+            out.append(lg.float())
+        return torch.stack(out, 1)
+
+    p8, pb = (serving.decode_state(model, d) for d in ("int8", "bfloat16"))
+    res = {}
+    with torch.no_grad():
+        for prec, (t8, tb) in (("bfloat16", (p8, pb)),
+                               ("float32", (_f32_tree(p8), _f32_tree(pb)))):
+            plain = logits(t8, False)
+            res[prec] = (float((logits(t8, None) - plain).abs().max()),
+                         float((plain - logits(tb, False)).abs().max()))
+    torch.cuda.synchronize()
+    return res
+
+
+def phase_spec_exact(torch, model, drafts, engine, serving, fp32_engine):
+    """fp32 on the card: speculative, beam and quantized tokens against
+    plain greedy; int8 weights (bf16 activations, so no fp32 run) on the
+    kernels against the plain versions. `fp32_engine` is phase 4b's
+    (requests, tokens)."""
+    print("== phase 4d: exactness, speculative, beam and quantized serving")
+    picks, eng_tokens = fp32_engine
+    rng = np.random.RandomState(SEED + 9)
+    prompts = rng.randint(0, model.vocab_size, (4, 64)).astype(np.int32)
+    bad = []
+    greedy = model.generate(prompts, 32)
+    beam1 = model.generate_beam(prompts, 32, num_beams=1)
+    for i in range(len(prompts)):
+        bad.append(_same_or_tie(torch, model, serving,
+                                f"generate_beam num_beams 1 row {i}",
+                                prompts[i], beam1[i, 64:], greedy[i, 64:]))
+    print(f"  generate_beam fp32, num_beams 1, against greedy: "
+          f"{sum(not b for b in bad)}/{len(prompts)} rows identical or ties")
+    for dname in ("clone", "random"):
+        out = model.generate(prompts, 32, draft_model=drafts[dname],
+                             spec_k=SPEC_K)
+        st = model.spec_stats
+        for i in range(len(prompts)):
+            bad.append(_same_or_tie(torch, model, serving,
+                                    f"spec generate ({dname}) row {i}",
+                                    prompts[i], out[i, 64:],
+                                    greedy[i, 64:]))
+        print(f"  spec generate fp32, {dname} draft: {st['rounds']} rounds, "
+              f"acceptance {st['accepted'] / st['drafted']:.3f}")
+    runs = {"spec engine, clone draft": dict(draft_model=drafts["clone"],
+                                             spec_k=SPEC_K),
+            "engine kv int8": dict(kv_dtype="int8"),
+            "engine kv int4": dict(kv_dtype="int4")}
+    for what, kw in runs.items():
+        reqs, wall, rep, _ = serve(engine, model, picks, max_slots=4, **kw)
+        kvd = kw.get("kv_dtype")
+        for i, (r, (pr, mn)) in enumerate(zip(reqs, picks)):
+            ref = eng_tokens[i] if kvd is None else model.generate(
+                pr[None, :], mn, kv_dtype=kvd)[0, len(pr):]
+            bad.append(_same_or_tie(torch, model, serving,
+                                    f"{what} request {i}", pr, r.tokens,
+                                    ref, kvd))
+        extra = (f", acceptance {rep['spec_acceptance']:.3f}"
+                 if rep["spec_k"] else "")
+        print(f"  {what} fp32: {len(reqs)} requests, "
+              f"{sum(len(r.tokens) for r in reqs)} tokens, {wall:.3f} s"
+              + extra + "; against "
+              + ("the fp32 greedy engine" if kvd is None
+                 else f"dense generate kv {kvd}"))
+
+    # int8 weights. In fp32 activations over the same int8 weights the
+    # kernels must give the plain versions' logits (LOGIT_TOL) while the
+    # bf16 weights' logits stay far off (so the check sees the int8
+    # tree). As served (bf16 activations) the two routes round the
+    # attention output apart and the logits part by a few bf16 steps,
+    # as in phase 3; printed. The int8 engine's tokens on the kernels
+    # must equal its tokens on the plain versions, or part at a tie: a
+    # top-2 gap within twice that bf16 difference
+    d = _int8_weights_teacher_forced(torch, model, serving)
+    for prec, (kp, q) in d.items():
+        print(f"  int8 weights, teacher-forced logits, {prec} activations: "
+              f"kernels vs plain {kp:.3e}, int8 vs bf16 weights {q:.3e}")
+    kp32, q32 = d["float32"]
+    if not (kp32 <= LOGIT_TOL and q32 > 10 * LOGIT_TOL):
+        bad.append(f"int8 weights, fp32 activations: kernels vs plain {kp32} "
+                   f"(tol {LOGIT_TOL}), int8 vs bf16 weights {q32} (must "
+                   f"exceed {10 * LOGIT_TOL})")
+    tie8 = max(2 * d["bfloat16"][0], TIE_GAP)
+    runs = {}
+    for uk in (None, False):
+        reqs, wall, _, _ = serve(engine, model, picks, max_slots=4,
+                                 dtype="int8", use_kernel=uk)
+        runs[uk] = reqs
+        print(f"  engine int8 weights use_kernel={uk}: {len(reqs)} requests, "
+              f"{sum(len(r.tokens) for r in reqs)} tokens, {wall:.3f} s")
+    for i, (rk, rp, (pr, _)) in enumerate(zip(runs[None], runs[False],
+                                              picks)):
+        bad.append(_same_or_tie(torch, model, serving,
+                                f"engine int8 weights request {i}", pr,
+                                rk.tokens, rp.tokens, dtype="int8",
+                                use_kernel=False, tie=tie8))
+    bad = [b for b in bad if b]
+    if bad:
+        fail("speculative/beam/quantized tokens differ: " + "; ".join(bad))
 
 
 _GEMM = ("gemm", "nvjet", "cutlass", "xmma")
@@ -628,9 +1218,10 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS):
         print(f"    {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:70]}")
 
 
-def phase_profile(torch, model, engine, train_step):
+def phase_profile(torch, model, engine, train_step, drafts):
     """Where the time goes on the card, for both serving entry points
-    (bf16) and one training step at the bench width."""
+    (bf16), a speculative engine (int4 pools, the clone draft) and one
+    training step at the bench width."""
     print("== phase 5: device time by kernel (torch.profiler)")
     rng = np.random.RandomState(SEED + 2)
     prompts = rng.randint(0, model.vocab_size, (8, 128)).astype(np.int32)
@@ -641,6 +1232,12 @@ def phase_profile(torch, model, engine, train_step):
     _breakdown(torch, "engine 8 requests prompt 256 +32",
                lambda: serve(engine, model, reqs_in, timeout_s=300,
                              max_slots=8, dtype="bfloat16"))
+    _breakdown(torch, f"spec engine 8 requests prompt 256 +8, kv int4, "
+               f"clone draft, spec_k {SPEC_K}",
+               lambda: serve(engine, model, [(p, 8) for p, _ in reqs_in],
+                             timeout_s=300, max_slots=8, dtype="bfloat16",
+                             kv_dtype="int4", draft_model=drafts["clone"],
+                             spec_k=SPEC_K))
     _breakdown(torch, "train step b8 s1024 bf16 (bench width)", train_step,
                TRAIN_CATS)
 
@@ -778,6 +1375,47 @@ def phase_train_long(torch, models, opt, A, rows, g):
     return counts
 
 
+def decode_modes(A, rows, name, by_mode):
+    """The `modes` entries of a decode kernel's JSON row: per (cache mode,
+    single/ladder), the phase-2 case at the main path's dtype (bf16) and
+    the serving layout, and its launches over the serving windows of
+    phases 4 and 4c. Fails unless the int8, int4 and ladder modes each
+    launched."""
+    out = []
+    for (kn, mode, lad) in A.LAUNCHES_BY_MODE:
+        if kn != name:
+            continue
+        qt = 1 if lad == "single" else SPEC_K + 1
+        cand = [c for c in rows if c["name"] == name
+                and c["dtype"] == "bfloat16"
+                and c.get("mode", "fp") == mode
+                and c.get("q_tokens", 1) == qt and c.get("groups", 1) == 1]
+        entry = {k: cand[-1][k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        entry.update(mode=mode, ladder=lad, launches=sum(
+            m.get((name, mode, lad), 0) for m in by_mode.values()))
+        out.append(entry)
+    for need in ("int8", "int4", "ladder"):
+        if not sum(e["launches"] for e in out if need in (e["mode"],
+                                                          e["ladder"])):
+            fail(f"{name}: no {need} launch on the main path")
+    return out
+
+
+class Clock:
+    """Prints each phase's wall seconds as it ends."""
+
+    def __init__(self):
+        self.start = self.t = time.perf_counter()
+
+    def lap(self, what):
+        now = time.perf_counter()
+        print(f"  [{what}: {now - self.t:.1f} s, {now - self.start:.1f} s "
+              "in all]")
+        self.t = now
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -790,28 +1428,50 @@ def main():
     from singa_tpu_torch.ops import attention as A
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
+    clock = Clock()
     phase_env(torch, _build)
+    clock.lap("phase 1")
     rows = phase_kernels(torch, A)
+    clock.lap("phase 2")
     t0 = time.perf_counter()
     model = models.create_model("gpt", device="cuda", seed=SEED,
                                 **GPT2_SMALL)
     print(f"GPT-2-small built on {model.device} in "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in model.parameters())} parameters")
+    drafts = {"clone": models.create_model("gpt", device="cuda", seed=SEED,
+                                           **GPT2_SMALL),
+              "random": models.create_model("gpt", device="cuda",
+                                            seed=SEED + 9, **DRAFT_SMALL)}
     phase_teacher_forced(torch, model, serving)
-    by_path = phase_main_path(torch, model, engine, serving, A)
-    phase_engine_fp32(torch, model, engine)
+    clock.lap("models and phase 3")
+    phase_quant_teacher_forced(torch, model, serving, A)
+    clock.lap("phase 3b")
+    by_path, by_mode = phase_main_path(torch, model, engine, serving, A)
+    clock.lap("phase 4")
+    fp32_engine = phase_engine_fp32(torch, model, engine)
+    clock.lap("phase 4b")
+    spec_counts, spec_modes = phase_spec_main_path(torch, model, drafts,
+                                                   engine, serving, A)
+    by_path.update(spec_counts)
+    by_mode.update(spec_modes)
+    clock.lap("phase 4c")
+    phase_spec_exact(torch, model, drafts, engine, serving, fp32_engine)
+    clock.lap("phase 4d")
     train_model, (tx, ty), by_path["train"] = phase_train(torch, models,
                                                           opt, A)
+    clock.lap("phase 6")
     phase_profile(torch, model, engine,
-                  lambda: train_model(tx, ty)[1].item())
+                  lambda: train_model(tx, ty)[1].item(), drafts)
+    clock.lap("phase 5")
+    del drafts
     del train_model
     torch.cuda.empty_cache()
     phase_train_fp32(torch, models, opt, transformer)
+    clock.lap("phase 6b")
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     by_path["train_long"] = phase_train_long(torch, models, opt, A, rows, g)
+    clock.lap("phase 6c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype; `launches` sums the paths' counted runs
@@ -823,14 +1483,18 @@ def main():
     for name in A.LAUNCHES:
         cands = [r for r in rows if r["name"] == name
                  and r["dtype"] == "bfloat16"
-                 and r["shape"] == main_shape.get(name, r["shape"])]
+                 and r["shape"] == main_shape.get(name, r["shape"])
+                 and r.get("mode", "fp") == "fp"
+                 and r.get("q_tokens", 1) == 1]
         r = dict(cands[-1])
         r["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["launches"] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+        if name in REPLACES:
+            r["modes"] = decode_modes(A, rows, name, by_mode)
         kernels.append(r)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"total {time.perf_counter() - clock.start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,15 @@ singa_tpu/engine.py).
 Decode is greedy, and its math is `serving._DecodeCore.paged_token_step`
 on the paged-attention kernel; prefill runs `prefill_parts` (the
 flash-attention kernel) over the prompt padded to its bucket and writes
-the true prompt rows into the slot's pages. The engine runs on its
-model's device. The JAX engine's links to the operations layers
-(observe, slo, watchdog, memory, introspect, resilience) are not ported
-yet.
+the true prompt rows into the slot's pages. `kv_dtype` ("int8"/"int4")
+quantizes the pools. With `draft_model` and `spec_k`, each sync runs
+`steps_per_sync` speculative rounds instead of steps: the draft proposes
+spec_k tokens against its own fp pools (indexed by the same page table),
+the target verifies them in one `paged_verify_step`, and the longest
+accepted prefix plus the target's own token commit, so the tokens equal
+plain greedy decoding's. The engine runs on its model's device. The JAX
+engine's links to the operations layers (observe, slo, watchdog, memory,
+introspect, resilience) and its `prewarm` are not ported yet.
 """
 
 from __future__ import annotations
@@ -98,7 +103,9 @@ class ServingEngine:
     32, ... up to max_ctx - 1). `use_kernel` goes to every attention op
     as in `_DecodeCore`: None picks by device, False runs the plain
     versions on the card (for holding the engine's tokens against its
-    kernels), True on a CPU model raises here."""
+    kernels), True on a CPU model raises here. `kv_dtype` quantizes the
+    page pools; `draft_model` with `spec_k` >= 1 turns on speculative
+    decoding (both or neither)."""
 
     _seq = 0
     _seq_lock = threading.Lock()
@@ -106,9 +113,19 @@ class ServingEngine:
     def __init__(self, model, *, max_slots=4, page_size=8, num_pages=None,
                  max_ctx=None, dtype=None, steps_per_sync=4, eos_id=None,
                  prompt_buckets=None, queue_limit=128, ttft_deadline_s=None,
-                 use_kernel=None):
+                 use_kernel=None, kv_dtype=None, draft_model=None,
+                 spec_k=0):
         if dtype not in serving.DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {serving.DTYPES}")
+        serving.kv_label(kv_dtype)
+        if (draft_model is None) != (not spec_k):
+            raise ValueError("speculative decoding needs BOTH "
+                             "draft_model and spec_k >= 1")
+        if draft_model is not None and (
+                draft_model.vocab_size < model.vocab_size
+                or draft_model.device != model.device):
+            raise ValueError("the draft must cover the target's vocab and "
+                             "live on its device")
         if use_kernel and model.device.type != "cuda":
             raise ValueError(f"use_kernel=True needs a CUDA model, got "
                              f"{model.device}")
@@ -121,13 +138,20 @@ class ServingEngine:
             raise ValueError(f"max_ctx {self.max_ctx} exceeds the "
                              f"model's max_seq {model.max_seq}")
         self.dtype = dtype
+        self.kv_dtype = kv_dtype
         self.steps_per_sync = max(1, int(steps_per_sync))
         self.eos_id = eos_id
         self.queue_limit = int(queue_limit)
         self.ttft_deadline_s = ttft_deadline_s
         self.use_kernel = use_kernel
         # S0 is unused on the paged step; T = max_ctx bounds positions
-        self.core = serving._decode_core(model, 0, self.max_ctx)
+        self.core = serving._decode_core(model, 0, self.max_ctx, kv_dtype)
+        # speculative decoding: the draft gets its own fp page pools,
+        # indexed by the same page table
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k or 0)
+        self.dcore = None if draft_model is None else \
+            serving._decode_core(draft_model, 0, self.max_ctx)
         self.max_pages_per_seq = -(-self.max_ctx // self.page_size)
         if num_pages is None:
             num_pages = self.max_slots * self.max_pages_per_seq
@@ -162,22 +186,42 @@ class ServingEngine:
         self._thread = None
         self._pools = None
         self._params = None
+        self._dpools = None
+        self._draft_params = None
         self._steps = 0
+        # speculative-decoding counts, running totals over the syncs
+        self._spec = {"drafted": 0, "accepted": 0, "bonus": 0, "rounds": 0}
         self._finished = {o: 0 for o in REQUEST_OUTCOMES}
 
     # -- pools ---------------------------------------------------------------
-    def _alloc_pools(self):
-        c = self.core
-        D = c.E // c.H
-        shape = (self.num_pages, c.Hkv // c.P, self.page_size, c.P * D)
-        cd = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
-        return [(torch.zeros(shape, dtype=cd, device=self.device),
-                 torch.zeros(shape, dtype=cd, device=self.device))
-                for _ in range(len(self.model.blocks))]
+    def _alloc_pools(self, core, model):
+        """One model's page pools: per block (K, V), or quantized
+        ((K8, Ks), (V8, Vs)), each (num_pages, Hp, page_size, ·). An int4
+        pool holds half an int8 pool's bytes; the scale pools are
+        equal."""
+        cd = torch.float32 if self.dtype is None else torch.bfloat16
+        return [core.new_cache(self.num_pages, self.page_size, cd,
+                               self.device)
+                for _ in range(len(model.blocks))]
+
+    @staticmethod
+    def _bytes(tree) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in serving.tree_leaves(tree or ()))
 
     def pool_bytes(self) -> int:
-        pools = self._pools or ()
-        return sum(t.numel() * t.element_size() for kv in pools for t in kv)
+        """Bytes of the target's page pools (scales included)."""
+        return self._bytes(self._pools)
+
+    def draft_pool_bytes(self) -> int:
+        return self._bytes(self._dpools)
+
+    def draft_param_bytes(self) -> int:
+        p = self._draft_params
+        if p is None:
+            return 0
+        return self._bytes([v for k, v in p.items() if k != "blocks"]
+                           + [v for bp in p["blocks"] for v in bp.values()])
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "ServingEngine":
@@ -187,7 +231,12 @@ class ServingEngine:
             if self._thread is not None:
                 return self
             self._params = serving.decode_state(self.model, self.dtype)
-            self._pools = self._alloc_pools()
+            self._pools = self._alloc_pools(self.core, self.model)
+            if self.dcore is not None:
+                self._draft_params = serving.decode_state(self.draft_model,
+                                                          self.dtype)
+                self._dpools = self._alloc_pools(self.dcore,
+                                                 self.draft_model)
             self._stop.clear()
             with ServingEngine._seq_lock:
                 ServingEngine._seq += 1
@@ -243,7 +292,7 @@ class ServingEngine:
             self._finish(req, drain_outcome)
         with self._lock:
             self._free_pages = list(range(self.num_pages))
-            self._pools = None
+            self._pools = self._dpools = None
             self._draining = False
         return handed_back
 
@@ -328,47 +377,95 @@ class ServingEngine:
             req.slot = None
         self._finish(req, outcome)
 
+    @staticmethod
+    def _scatter(core, kvs, pools, pvec, off, true_len):
+        """Write one model's per-block prompt K/V rows (n = 1, padded
+        bucket) into its pools: the true prompt's rows only."""
+        def put(dst, rows):
+            dst[pvec, :, off] = rows[0].transpose(0, 1)[:true_len]
+        for (k, v), pool in zip(kvs, pools):
+            core._store(pool, k, v, 1, k.shape[2], put)
+
     @torch.no_grad()
     def _prefill(self, prompt, true_len, pages):
         """Prefill one request padded to its bucket: write the true
-        prompt's K/V rows into its pages (the padded tail writes nothing)
-        and return the first token."""
+        prompt's K/V rows into its pages (and the draft's, under spec;
+        the padded tail writes nothing) and return the first token."""
         core, p, ps = self.core, self._params, self.page_size
-        Sb = prompt.shape[1]
         h, kvs = core.prefill_parts(p, prompt, 1, self.use_kernel)
-        logits = core.ln(h[:, true_len - 1], p["gf"], p["bf"]) @ p["head"]
-        tok0 = int(torch.argmax(logits[0]))
+        logits = core.head(p, h[:, true_len - 1])
         t = torch.arange(true_len, device=self.device)
         pvec = pages[t // ps]
         off = t % ps
-        for (k, v), (K, V) in zip(kvs, self._pools):
-            K[pvec, :, off] = core._pack(k, 1, Sb)[0].transpose(0, 1)[
-                :true_len]
-            V[pvec, :, off] = core._pack(v, 1, Sb)[0].transpose(0, 1)[
-                :true_len]
-        return tok0
+        self._scatter(core, kvs, self._pools, pvec, off, true_len)
+        if self.dcore is not None:
+            _, dkvs = self.dcore.prefill_parts(self._draft_params, prompt, 1,
+                                               self.use_kernel)
+            self._scatter(self.dcore, dkvs, self._dpools, pvec, off,
+                          true_len)
+        return int(torch.argmax(logits[0]))
 
     @torch.no_grad()
     def _decode(self, tok, ptab, lens, limits, active):
         """`steps_per_sync` greedy paged steps; returns the new (tok,
-        lens, active) and the per-step tokens and emission masks
-        (steps, N), all on the device."""
+        lens, active) and the per-step tokens (steps, N) and how many of
+        each slot's commit (steps, N), all on the device."""
         core, N = self.core, self.max_slots
-        toks, masks = [], []
+        toks, takes = [], []
         for _ in range(self.steps_per_sync):
             logits, self._pools = core.paged_token_step(
                 self._params, tok, self._pools, ptab, lens, active, N,
                 self.page_size, use_kernel=self.use_kernel)
             nxt = torch.argmax(logits, dim=-1)
-            toks.append(nxt)
-            masks.append(active)
+            toks.append(nxt[:, None])
+            takes.append(active.long())
             new_lens = torch.where(active, lens + 1, lens)
             alive = active & (new_lens < limits)
             if self.eos_id is not None:
                 alive = alive & (nxt != self.eos_id)
             tok = torch.where(active, nxt, tok)
             lens, active = new_lens, alive
-        return tok, lens, active, torch.stack(toks), torch.stack(masks)
+        return tok, lens, active, torch.stack(toks), torch.stack(takes)
+
+    @torch.no_grad()
+    def _decode_spec(self, tok, ptab, lens, limits, active):
+        """`steps_per_sync` speculative rounds (`serving._spec_round`,
+        which the dense decode loop shares): the draft proposes spec_k
+        tokens (spec_k + 1 draft steps, per-slot positions), the target
+        verifies them in one paged_verify_step (the spec_k + 1 token
+        ladder), and each slot commits its longest accepted prefix plus
+        the target's own token, cut at its budget and at an eos. Returns
+        the new (tok, lens, active), the candidates (rounds, N, spec_k +
+        1), the tokens each slot commits (rounds, N) and the sync's
+        counts (drafted, accepted, bonus), all on the device."""
+        core, dcore, N, K = self.core, self.dcore, self.max_slots, \
+            self.spec_k
+        ps, uk = self.page_size, self.use_kernel
+        wl = limits + 1                 # the slot's reserved positions
+        lens = lens.long()
+        toks, takes = [], []
+        counts = torch.zeros(3, dtype=torch.long, device=self.device)
+        for _ in range(self.steps_per_sync):
+            def draft_step(t, j):
+                return dcore.paged_verify_step(
+                    self._draft_params, t[:, None], self._dpools, ptab,
+                    lens + j, active, N, ps, 1, uk, write_limits=wl)[0][:, 0]
+
+            def verify(feed):
+                return core.paged_verify_step(
+                    self._params, feed, self._pools, ptab, lens, active, N,
+                    ps, K + 1, uk, write_limits=wl)[0]
+
+            g, take, tok, c, ended = serving._spec_round(
+                draft_step, verify, tok, active, limits.long() - lens, K,
+                self.eos_id)
+            counts += c
+            toks.append(g)
+            takes.append(take)
+            lens = lens + take
+            active = active & (lens < limits) & ~ended
+        return (tok, lens, active, torch.stack(toks), torch.stack(takes),
+                counts)
 
     def _admit_one(self, req: EngineRequest, slot: int, pages) -> bool:
         """Prefill `req` into `slot` (pages already allocated). Returns
@@ -480,18 +577,28 @@ class ServingEngine:
                 lens = torch.as_tensor(self._lens, device=dev)
                 limits = torch.as_tensor(self._limits, device=dev)
                 active = torch.as_tensor(self._active, device=dev)
-            out = self._decode(tok, ptab, lens, limits, active)
-            tok_new, lens_new, act_new, toks, masks = (
+            spec = self.dcore is not None
+            out = (self._decode_spec if spec else self._decode)(
+                tok, ptab, lens, limits, active)
+            # one host read a sync: tokens, takes and counts
+            tok_new, lens_new, act_new, toks, takes, *counts = (
                 t.cpu().numpy() for t in out)
             act_before = active.cpu().numpy()
             finished = []
             with self._lock:
+                if spec:
+                    for key, c in zip(("drafted", "accepted", "bonus"),
+                                      counts[0]):
+                        self._spec[key] += int(c)
+                    self._spec["rounds"] += self.steps_per_sync
                 for i in range(self.max_slots):
                     req = self._slots[i]
                     if req is None or not act_before[i]:
                         continue
-                    req.tokens.extend(int(t) for t, mk in
-                                      zip(toks[:, i], masks[:, i]) if mk)
+                    # round/step h committed the first takes[h, i] of
+                    # its candidates toks[h, i] (prefix order)
+                    for th, kh in zip(toks[:, i], takes[:, i]):
+                        req.tokens.extend(int(t) for t in th[:kh])
                     self._lens[i] = lens_new[i]
                     self._active[i] = act_new[i]
                     self._tok[i] = tok_new[i]
@@ -504,6 +611,7 @@ class ServingEngine:
     # -- reporting -----------------------------------------------------------
     def report(self) -> dict:
         with self._lock:
+            spec = dict(self._spec)
             return {
                 "running": self.running(),
                 "slots": self.max_slots,
@@ -515,6 +623,13 @@ class ServingEngine:
                 "pool_bytes": self.pool_bytes(),
                 "steps": self._steps,
                 "finished": dict(self._finished),
+                "kv_dtype": self.kv_dtype,
+                "spec_k": self.spec_k or None,
+                "spec": spec,
+                "spec_acceptance": (spec["accepted"] / spec["drafted"]
+                                    if spec["drafted"] else None),
+                "draft_params_bytes": self.draft_param_bytes(),
+                "draft_pool_bytes": self.draft_pool_bytes(),
             }
 
 

@@ -1,12 +1,14 @@
 """GPT-style decoder-only LM (counterpart of
 singa_tpu/models/transformer.py): a `model.Model` with the full-sequence
 forward, `train_one_batch` (softmax cross-entropy over the flattened
-logits, then the optimizer), greedy and temperature/top-k `generate`, and
-the weight bridge from the JAX package (`load_singa_params`,
-`load_singa_states`; `Model.load_states` reads the same zips).
+logits, then the optimizer), `generate` (greedy, temperature/top-k and
+draft-model speculative; fp32, bf16 or int8 weights; fp, int8 or int4 KV
+caches), `generate_beam`, and the weight bridge from the JAX package
+(`load_singa_params`, `load_singa_states`; `Model.load_states` reads the
+same zips).
 
-Beam search, speculative decoding, MoE, tensor/sequence/vocab
-parallelism and int8 serving come with later slices of the port.
+MoE and tensor/sequence/vocab parallelism come with later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -102,19 +104,35 @@ class GPT(model.Model):
         own = {_singa_name(n): p for n, p in self.named_parameters()}
         return dict(sorted(own.items(), key=lambda kv: kv[0] != "pos_embed"))
 
-    @torch.no_grad()
-    def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
-                 seed=0, dtype=None):
-        """Autoregressive sampling: greedy (temperature=0) or
-        temperature/top-k. `prompt` is (B, S0) int (numpy or tensor);
-        returns (B, S0 + max_new_tokens) numpy int32.
-        `dtype="bfloat16"` decodes in bf16."""
+    def _prompt(self, prompt):
         ids = prompt.cpu().numpy() if isinstance(prompt, torch.Tensor) \
             else np.asarray(prompt)
         if ids.ndim != 2:
             raise ValueError("prompt must be (batch, length)")
+        return ids
+
+    def _ids(self, ids):
+        return torch.as_tensor(ids.astype(np.int64), device=self.device)
+
+    @torch.no_grad()
+    def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
+                 seed=0, dtype=None, kv_dtype=None, draft_model=None,
+                 spec_k=0):
+        """Autoregressive sampling: greedy (temperature=0) or
+        temperature/top-k. `prompt` is (B, S0) int (numpy or tensor);
+        returns (B, S0 + max_new_tokens) numpy int32.
+        `dtype="bfloat16"` decodes in bf16, `dtype="int8"` with int8
+        weights (W8A16); `kv_dtype` ("int8" or packed-nibble "int4")
+        quantizes the KV cache. `draft_model` with `spec_k` >= 1 switches
+        greedy decoding to draft-model speculative decoding
+        (serving.build_spec_decode): the same tokens as plain greedy, and
+        the call's counts in `self.spec_stats`."""
+        ids = self._prompt(prompt)
         if max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
+        serving.kv_label(kv_dtype)
+        if spec_k and draft_model is None:
+            raise ValueError("spec_k needs a draft_model")
         if max_new_tokens == 0:
             return ids.astype(np.int32).copy()
         if ids.shape[1] < 1:
@@ -125,16 +143,75 @@ class GPT(model.Model):
             top_k = max(1, min(int(top_k), self.vocab_size))
         B, S0 = ids.shape
         cache = self.__dict__.setdefault("_decode_cache", {})
-        sig = (B, S0, max_new_tokens, float(temperature), top_k, dtype)
+        if draft_model is not None and spec_k:
+            if temperature != 0.0:
+                raise ValueError("speculative decoding is greedy-only "
+                                 "(temperature=0)")
+            if draft_model.vocab_size < self.vocab_size:
+                raise ValueError("draft vocab must cover the target's")
+            if draft_model.device != self.device:
+                raise ValueError(f"draft on {draft_model.device}, target "
+                                 f"on {self.device}")
+            # the builder holds the draft's decode core: key on what
+            # shapes it, not on the draft object
+            sig = ("spec", B, S0, max_new_tokens, int(spec_k), dtype,
+                   kv_dtype, draft_model.num_heads, draft_model.dim,
+                   draft_model.num_kv_heads, draft_model.pos_encoding,
+                   draft_model.rope_theta, draft_model.max_seq)
+            fn = cache.get(sig)
+            if fn is None:
+                fn = cache[sig] = serving.build_spec_decode(
+                    self, draft_model, B, S0, max_new_tokens, int(spec_k),
+                    dtype, kv_dtype)
+            out = fn(serving.decode_state(self, dtype),
+                     serving.decode_state(draft_model, dtype),
+                     self._ids(ids))
+            self.spec_stats = dict(fn.stats)
+            return out.cpu().numpy().astype(np.int32)
+        sig = (B, S0, max_new_tokens, float(temperature), top_k, dtype,
+               kv_dtype)
         fn = cache.get(sig)
         if fn is None:
             fn = cache[sig] = serving.build_decode(
                 self, B, S0, max_new_tokens, float(temperature), top_k,
-                dtype)
-        out = fn(serving.decode_state(self, dtype),
-                 torch.as_tensor(ids.astype(np.int64), device=self.device),
-                 seed)
+                dtype, kv_dtype)
+        out = fn(serving.decode_state(self, dtype), self._ids(ids), seed)
         return out.cpu().numpy().astype(np.int32)
+
+    @torch.no_grad()
+    def generate_beam(self, prompt, max_new_tokens, num_beams=4,
+                      length_penalty=1.0, eos_id=None, pad_id=None,
+                      dtype=None, return_scores=False, kv_dtype=None):
+        """Beam-search decoding (serving.build_beam_decode): prefill
+        once, tile the KV cache across beams, reorder its rows by the
+        winning parent beams each step. With `eos_id`, finished
+        hypotheses move to a length-normalized pool and the tail after
+        eos is `pad_id` (default eos_id). Returns (B, S0 +
+        max_new_tokens) numpy int32 ids (and the chosen hypothesis'
+        joint log-prob, (B,) fp32, when `return_scores`)."""
+        ids = self._prompt(prompt)
+        if ids.shape[1] < 1:
+            raise ValueError("prompt must contain at least one token")
+        if max_new_tokens < 1 or num_beams < 1:
+            raise ValueError("max_new_tokens and num_beams must be >= 1")
+        if num_beams > self.vocab_size:
+            raise ValueError(f"num_beams {num_beams} exceeds vocab_size "
+                             f"{self.vocab_size}")
+        serving.kv_label(kv_dtype)
+        B, S0 = ids.shape
+        sig = ("beam", B, S0, max_new_tokens, num_beams,
+               float(length_penalty), eos_id, pad_id, dtype, kv_dtype)
+        cache = self.__dict__.setdefault("_decode_cache", {})
+        fn = cache.get(sig)
+        if fn is None:
+            fn = cache[sig] = serving.build_beam_decode(
+                self, B, S0, max_new_tokens, num_beams,
+                float(length_penalty), eos_id, dtype, pad_id, kv_dtype)
+        out, scores = fn(serving.decode_state(self, dtype), self._ids(ids))
+        out = out.cpu().numpy().astype(np.int32)
+        if return_scores:
+            return out, scores.cpu().numpy()
+        return out
 
 
 def _singa_name(name: str) -> str:

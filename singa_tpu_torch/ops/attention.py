@@ -1,7 +1,8 @@
 """Attention ops of the serving and training paths (counterpart of
 singa_tpu/ops/attention.py): flash-attention forward (K1) and backward
 (K2a fused, K2b dQ + K2c dK/dV split), dense flash-decode (K3) and paged
-decode attention (K4).
+decode attention (K4), the decode pair over fp32/bf16, int8 and packed
+int4 caches and with the speculative verify step's causal ladder.
 
 Each op has two versions with the same math:
 
@@ -15,7 +16,8 @@ Each op has two versions with the same math:
 Dispatch goes by the tensor's device, with no fallback: a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises on input the
 kernel does not take. `LAUNCHES` counts each kernel's launches, so a run
-can show its main path went through the kernels. `flash_attention` is
+can show its main path went through the kernels; `LAUNCHES_BY_MODE`
+splits K3's and K4's by cache mode and ladder. `flash_attention` is
 differentiable through `FlashAttention`, a torch.autograd.Function (the
 JAX package's custom_vjp), whose backward picks K2a or K2b + K2c by the
 JAX package's rule (`_FUSED_DQ_BYTES_CAP`).
@@ -38,10 +40,18 @@ from . import _build
 #: kernel launches since the last reset_launches(), by kernel
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_decode": 0, "paged_attention": 0}
+#: cache modes of the decode kernels, and their codes in csrc/
+KV_MODES = ("fp", "int8", "int4")
+_KV_MODE = {m: i for i, m in enumerate(KV_MODES)}
+#: the decode kernels' launches by (kernel, cache mode, "single" for
+#: q_tokens = 1 or "ladder" for the verify step), reset with LAUNCHES
+LAUNCHES_BY_MODE = {(k, m, v): 0
+                    for k in ("flash_decode", "paged_attention")
+                    for m in KV_MODES for v in ("single", "ladder")}
 
 _NEG_INF = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh codes
-_MAXQ, _MAXPD = 16, 256                          # csrc/decode_common.cuh
+_MAXQ, _MAXPD = 64, 256                          # csrc/decode_common.cuh
 #: the backward takes the fused kernel while its fp32 (Sq, D) dQ would fit
 #: this many bytes, else the split pair: the JAX package's VMEM rule,
 #: kept so each kernel lies on the path it lies on there (S <= 8192 at
@@ -54,14 +64,15 @@ _SIGNATURES = {
     "sg_flash_bwd_fused": [_vp] * 10 + [_i] * 5 + [_f, _i, _vp],
     "sg_flash_bwd_dq": [_vp] * 7 + [_i] * 5 + [_f, _i, _vp],
     "sg_flash_bwd_dkv": [_vp] * 8 + [_i] * 6 + [_vp],
-    "sg_flash_decode": [_vp] * 5 + [_i] * 5 + [_f, _i, _vp],
-    "sg_paged_attention": [_vp] * 6 + [_i] * 6 + [_f, _i, _vp],
+    "sg_flash_decode": [_vp] * 7 + [_i] * 8 + [_f, _i, _i, _vp],
+    "sg_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _i, _i, _vp],
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_MODE):
+        for k in counts:
+            counts[k] = 0
 
 
 def _entry(source: str, name: str):
@@ -329,80 +340,196 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-# ======================= K3: dense flash-decode ============================
+# ============ int4 nibble packing and the quantized-KV helpers ==============
+#
+# int4 KV packs two 4-bit values per byte along the lane dimension in the
+# JAX package's split-half layout: byte j of a packed row holds lane j in
+# its low nibble and lane j + L/2 in its high nibble, so a per-token cache
+# row write stays a contiguous byte slice. Values are symmetric int4 in
+# [-7, 7] with the same per-(head, position) fp32 scales as int8.
 
-def flash_decode_reference(q, K, V, lengths, scale=1.0, q_tokens=1):
+def nibble_pack(q):
+    """(..., L) integer values in [-8, 7] -> (..., L/2) uint8, split-half
+    layout (low nibble = lane j, high nibble = lane j + L/2)."""
+    L = q.shape[-1]
+    if L % 2:
+        raise ValueError(f"nibble_pack needs an even last dim, got {L}")
+    u = q.to(torch.int32) & 0xF
+    return ((u[..., L // 2:] << 4) | u[..., :L // 2]).to(torch.uint8)
+
+
+def nibble_unpack(p, dtype=torch.float32):
+    """(..., L/2) uint8 -> (..., L) `dtype`, inverting nibble_pack (sign
+    extension through the 0x8 test, in int32)."""
+    x = p.to(torch.int32)
+    lo = x & 0xF
+    hi = (x >> 4) & 0xF
+    lo = lo - ((lo & 0x8) << 1)
+    hi = hi - ((hi & 0x8) << 1)
+    return torch.cat([lo, hi], dim=-1).to(dtype)
+
+
+def _kv_dequant(blk, qdtype):
+    """Cache rows -> matmul operand in the query dtype: int4 (packed
+    uint8) unpacks nibbles, int8 casts, float passes through."""
+    if blk.dtype == torch.uint8:
+        return nibble_unpack(blk, qdtype)
+    if blk.dtype == torch.int8:
+        return blk.to(qdtype)
+    return blk
+
+
+def _paged_factors(sc, groups, rows, q_tokens=1):
+    """(..., T, P) per-position scales -> (..., rows, T) row factors for
+    packed block-diagonal queries laid out (q_tokens, P, groups): row r
+    reads lane block (r % (P * groups)) // groups; rows past
+    q_tokens * P * groups (padding) get factor 1."""
+    f = sc.transpose(-1, -2).repeat_interleave(groups, dim=-2)
+    if q_tokens > 1:
+        f = torch.cat([f] * q_tokens, dim=-2)
+    pg = sc.shape[-1] * groups * q_tokens
+    if rows > pg:
+        pad = f.new_ones(f.shape[:-2] + (rows - pg, f.shape[-1]))
+        f = torch.cat([f, pad], dim=-2)
+    return f
+
+
+# ============ K3 / K4: dense flash-decode and paged decode =================
+
+def _count(kernel, mode, q_tokens):
+    LAUNCHES[kernel] += 1
+    LAUNCHES_BY_MODE[kernel, mode,
+                     "ladder" if q_tokens > 1 else "single"] += 1
+
+
+def flash_decode_reference(q, K, V, lengths, scale=1.0, k_scales=None,
+                           v_scales=None, groups=1, q_tokens=1):
     """Ground-truth dense decode attention.
 
     q:        (N, Hp, Q, PD) packed block-diagonal queries
-    K/V:      (N, Hp, T, PD) head-packed caches
-    lengths:  (N,) int32 live positions per sequence (counted at the last
-              query token under q_tokens > 1)
+              (Q = q_tokens * P * G; under q_tokens > 1, the verify step,
+              token ti's rows attend q_tokens - 1 - ti fewer positions)
+    K/V:      (N, Hp, T, PD) head-packed caches (float or int8), or packed
+              uint8 (N, Hp, T, PD/2) for int4 KV
+    lengths:  (N,) int32 live positions per sequence, counted at the last
+              query token
+    k_scales/v_scales: (N, Hp, T, P) fp32 (quantized KV only)
 
-    Returns (N, Hp, Q, PD)."""
+    Returns (N, Hp, Q, PD). Scores and the softmax are fp32."""
     N, Hp, Q, PD = q.shape
     T = K.shape[2]
-    s = torch.einsum("nhqd,nhtd->nhqt", q.float(), K.float()) * scale
+    kf = _kv_dequant(K, q.dtype)
+    vf = _kv_dequant(V, q.dtype)
+    s = torch.einsum("nhqd,nhtd->nhqt", q.float(), kf.float()) * scale
+    if k_scales is not None:
+        s = s * _paged_factors(k_scales, groups, Q, q_tokens)
     limits = _row_limits(lengths, Q, Q // max(q_tokens, 1), q_tokens)
     valid = (torch.arange(T, device=q.device)[None, None, None, :]
              < limits[:, None, :, None])
     a = torch.softmax(torch.where(valid, s, float("-inf")), dim=-1)
-    return torch.einsum("nhqt,nhtd->nhqd", a.to(q.dtype), V).to(q.dtype)
+    if v_scales is not None:
+        a = a * _paged_factors(v_scales, groups, Q, q_tokens)
+    return torch.einsum("nhqt,nhtd->nhqd", a.to(q.dtype), vf).to(q.dtype)
 
 
-def _check_decode(what, q, K, V, lengths, q_tokens):
-    if q_tokens != 1:
-        raise ValueError(f"{what} kernel: q_tokens={q_tokens}; the verify "
-                         "ladder is not ported yet")
-    _check_cuda(what, q, K, V, dtype=q.dtype)
+def _check_decode(what, q, K, V, lengths, k_scales, v_scales, q_tokens,
+                  rows_shape):
+    """Raise unless the kernel takes these inputs; returns the cache mode
+    ("fp", "int8" or "int4"). `rows_shape` is the cache's shape up to the
+    row width (dense (N, Hp, T), paged (n_pages, Hp, page_size))."""
+    mode = {torch.int8: "int8", torch.uint8: "int4"}.get(K.dtype, "fp")
     _check_cuda(what, q, lengths, dtype=None)
+    _check_cuda(what, q, K, V, dtype=None)
     if q.dtype not in _DTYPE:
-        raise ValueError(f"{what} kernel takes fp32/bf16 caches, got "
-                         f"{q.dtype} (quantized caches are not ported yet)")
+        raise ValueError(f"{what} kernel takes fp32/bf16 queries, got "
+                         f"{q.dtype}")
+    want = q.dtype if mode == "fp" else K.dtype
+    if K.dtype != want or V.dtype != want:
+        raise ValueError(f"{what}: caches {K.dtype}/{V.dtype} with "
+                         f"{q.dtype} queries; an fp cache has the query "
+                         "dtype, a quantized one int8 or packed uint8 (int4)")
     if lengths.dtype != torch.int32:
         raise ValueError(f"{what}: lengths must be int32, got "
                          f"{lengths.dtype}")
     N, Hp, Q, PD = q.shape
     if Q > _MAXQ or PD > _MAXPD or N > 65535 or Hp > 65535:
-        raise ValueError(f"{what} kernel takes Q <= {_MAXQ}, PD <= "
-                         f"{_MAXPD}; got {tuple(q.shape)}")
+        raise ValueError(f"{what} kernel takes at most {_MAXQ} packed query "
+                         f"rows (q_tokens * P * G) and PD <= {_MAXPD}; got "
+                         f"q {tuple(q.shape)}")
+    if not 1 <= q_tokens <= Q:
+        raise ValueError(f"{what}: q_tokens={q_tokens} for {Q} query rows")
     if lengths.shape != (N,):
         raise ValueError(f"{what}: lengths {tuple(lengths.shape)}, "
                          f"want ({N},)")
+    W = PD // 2 if mode == "int4" else PD
+    if (K.shape != tuple(rows_shape) + (W,) or V.shape != K.shape
+            or (mode == "int4" and PD % 2)):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, caches "
+                         f"{tuple(K.shape)}/{tuple(V.shape)} ({mode}), "
+                         f"want rows {tuple(rows_shape) + (W,)}")
+    if mode == "fp":
+        if k_scales is not None or v_scales is not None:
+            raise ValueError(f"{what}: scales given with an fp cache")
+        return mode
+    if k_scales is None or v_scales is None:
+        raise ValueError(f"{what}: a {mode} cache needs k_scales and "
+                         "v_scales")
+    _check_cuda(what, q, k_scales, v_scales, dtype=None)
+    if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+            or k_scales.shape[:-1] != tuple(rows_shape)
+            or v_scales.shape != k_scales.shape):
+        raise ValueError(f"{what}: scales {tuple(k_scales.shape)} "
+                         f"{k_scales.dtype}/{tuple(v_scales.shape)} "
+                         f"{v_scales.dtype}, want fp32 "
+                         f"{tuple(rows_shape) + ('P',)}")
+    return mode
 
 
-def flash_decode(q, K, V, lengths, scale=1.0, q_tokens=1, use_kernel=None):
+def _scale_args(k_scales, v_scales, groups):
+    """(KS pointer, VS pointer, P, G) for the C entry points."""
+    if k_scales is None:
+        return 0, 0, 0, 1
+    return (k_scales.data_ptr(), v_scales.data_ptr(), k_scales.shape[-1],
+            int(groups))
+
+
+def flash_decode(q, K, V, lengths, scale=1.0, k_scales=None, v_scales=None,
+                 groups=1, use_kernel=None, q_tokens=1):
     """Dense decode attention (see flash_decode_reference for shapes):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    `use_kernel=False` selects the plain version explicitly."""
+    `use_kernel=False` selects the plain version explicitly. Quantized
+    caches dequantize in the kernel; q_tokens > 1 runs the verify
+    ladder."""
     if not _use_kernel(q, use_kernel, "flash_decode"):
-        return flash_decode_reference(q, K, V, lengths, scale, q_tokens)
-    _check_decode("flash_decode", q, K, V, lengths, q_tokens)
+        return flash_decode_reference(q, K, V, lengths, scale, k_scales,
+                                      v_scales, groups, q_tokens)
     N, Hp, Q, PD = q.shape
     T = K.shape[2]
-    if K.shape != (N, Hp, T, PD) or V.shape != K.shape:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)}, "
-                         f"K {tuple(K.shape)}, V {tuple(V.shape)}")
+    mode = _check_decode("flash_decode", q, K, V, lengths, k_scales,
+                         v_scales, q_tokens, (N, Hp, T))
+    ks, vs, P, G = _scale_args(k_scales, v_scales, groups)
     out = torch.empty_like(q)
     fn = _entry("flash_decode", "sg_flash_decode")
-    _build.check(fn(q.data_ptr(), K.data_ptr(), V.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), N, Hp, Q, T, PD,
-                    float(scale), _DTYPE[q.dtype], _stream(q)),
-                 "flash_decode")
-    LAUNCHES["flash_decode"] += 1
+    _build.check(fn(q.data_ptr(), K.data_ptr(), V.data_ptr(), ks, vs,
+                    lengths.data_ptr(), out.data_ptr(), N, Hp, Q, T, PD, P,
+                    G, int(q_tokens), float(scale), _DTYPE[q.dtype],
+                    _KV_MODE[mode], _stream(q)), "flash_decode")
+    _count("flash_decode", mode, q_tokens)
     return out
 
 
-# ======================= K4: paged decode attention ========================
-
 def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,
-                              page_size, scale=1.0, q_tokens=1):
+                              page_size, scale=1.0, k_scales=None,
+                              v_scales=None, groups=1, q_tokens=1):
     """Ground-truth paged decode attention.
 
     q:          (N, Hp, Q, PD) packed block-diagonal queries
-    k_pool/v_pool: (n_pages, Hp, page_size, PD) shared page pools
+    k_pool/v_pool: (n_pages, Hp, page_size, PD) shared page pools (int8
+                with scales; packed uint8 (…, PD/2) for int4)
     page_table: (N, M) int32 page ids per sequence, in time order
-    lengths:    (N,) int32 valid positions per sequence (>= 1)
+    lengths:    (N,) int32 valid positions per sequence, counted at the
+                last query token
+    k_scales/v_scales: (n_pages, Hp, page_size, P) fp32 (quantized KV)
 
     Returns (N, Hp, Q, PD): the dense math over the gathered pages."""
     N, Hp, Q, PD = q.shape
@@ -410,44 +537,52 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,
     T = M * page_size
 
     def gather(pool):
-        g = pool[page_table.long()]            # (N, M, Hp, ps, PD)
+        g = pool[page_table.long()]            # (N, M, Hp, ps, ·)
         return g.transpose(1, 2).reshape(N, Hp, T, g.shape[-1])
 
-    return flash_decode_reference(q, gather(k_pool), gather(v_pool),
-                                  lengths, scale, q_tokens)
+    return flash_decode_reference(
+        q, gather(k_pool), gather(v_pool), lengths, scale,
+        None if k_scales is None else gather(k_scales),
+        None if v_scales is None else gather(v_scales), groups, q_tokens)
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths, page_size,
-                    scale=1.0, q_tokens=1, use_kernel=None):
+                    scale=1.0, k_scales=None, v_scales=None, groups=1,
+                    use_kernel=None, q_tokens=1):
     """Paged decode attention (see paged_attention_reference for shapes):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    `use_kernel=False` selects the plain version explicitly."""
+    `use_kernel=False` selects the plain version explicitly. Quantized
+    pools dequantize in the kernel; q_tokens > 1 runs the verify
+    ladder."""
     ps = int(page_size)
     if not _use_kernel(q, use_kernel, "paged_attention"):
         return paged_attention_reference(q, k_pool, v_pool, page_table,
-                                         lengths, ps, scale, q_tokens)
-    _check_decode("paged_attention", q, k_pool, v_pool, lengths, q_tokens)
-    _check_cuda("paged_attention", page_table, dtype=torch.int32)
+                                         lengths, ps, scale, k_scales,
+                                         v_scales, groups, q_tokens)
     N, Hp, Q, PD = q.shape
-    n_pages = k_pool.shape[0]
+    mode = _check_decode("paged_attention", q, k_pool, v_pool, lengths,
+                         k_scales, v_scales, q_tokens,
+                         (k_pool.shape[0], Hp, ps))
+    _check_cuda("paged_attention", page_table, dtype=torch.int32)
     M = page_table.shape[1]
-    if (k_pool.shape != (n_pages, Hp, ps, PD) or v_pool.shape != k_pool.shape
-            or page_table.shape != (N, M)):
-        raise ValueError(f"paged_attention: q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
-                         f"page_table {tuple(page_table.shape)}, "
-                         f"page_size {ps}")
+    if page_table.shape != (N, M) or page_table.device != q.device:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)}, "
+                         f"page_table {tuple(page_table.shape)} on "
+                         f"{page_table.device}")
+    ks, vs, P, G = _scale_args(k_scales, v_scales, groups)
     out = torch.empty_like(q)
     fn = _entry("paged_attention", "sg_paged_attention")
-    _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                    page_table.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), N, Hp, Q, M, ps, PD, float(scale),
-                    _DTYPE[q.dtype], _stream(q)), "paged_attention")
-    LAUNCHES["paged_attention"] += 1
+    _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks,
+                    vs, page_table.data_ptr(), lengths.data_ptr(),
+                    out.data_ptr(), N, Hp, Q, M, ps, PD, P, G,
+                    int(q_tokens), float(scale), _DTYPE[q.dtype],
+                    _KV_MODE[mode], _stream(q)), "paged_attention")
+    _count("paged_attention", mode, q_tokens)
     return out
 
 
-__all__ = ["FlashAttention", "LAUNCHES", "attention_reference",
-           "flash_attention", "flash_bwd_reference", "flash_decode",
-           "flash_decode_reference", "paged_attention",
-           "paged_attention_reference", "reset_launches"]
+__all__ = ["FlashAttention", "KV_MODES", "LAUNCHES", "LAUNCHES_BY_MODE",
+           "attention_reference", "flash_attention", "flash_bwd_reference",
+           "flash_decode", "flash_decode_reference", "nibble_pack",
+           "nibble_unpack", "paged_attention", "paged_attention_reference",
+           "reset_launches"]

@@ -1,7 +1,9 @@
 """KV-cached autoregressive decoding for the GPT (counterpart of
-singa_tpu/serving.py): the decode core (prefill + single-token cached
-step, dense and paged), the decode-param tree and its memo, and the
-greedy/sampled decode loop behind `GPT.generate`.
+singa_tpu/serving.py): the decode core (prefill, the single-token cached
+step and the k-token verify step, dense and paged), weight-only int8
+quantization, int8 and int4 KV caches, the decode-param tree and its memo,
+and the decode loops behind `GPT.generate` (greedy/sampled and draft-model
+speculative) and `GPT.generate_beam`.
 
 Layouts are the JAX package's:
 
@@ -9,14 +11,21 @@ Layouts are the JAX package's:
   divides the kv heads (else 1): P heads share one P*D-lane row, and the
   scores stay exactly per head through BLOCK-DIAGONAL queries
   (`_pack_q`/`_unpack_o`).
-- Wq/Wk/Wv fuse into one (E, E + 2*Hkv*D) matmul at decode-param prep.
+- Quantized caches (`kv_dtype="int8"` or `"int4"`): per-(head, position)
+  symmetric scales, (B, Hp, T, P) fp32, beside int8 rows or packed-nibble
+  uint8 rows of P*D/2 bytes. A cache is then ((K8, Ks), (V8, Vs)).
+- Wq/Wk/Wv fuse into one (E, E + 2*Hkv*D) matmul at decode-param prep;
+  `dtype="int8"` stores the big matrices as int8 plus a per-output-column
+  scale (`_quant8`) and multiplies through `_mm`.
 
-Where the JAX package runs prefill + `lax.scan` as compiled programs, the
-port runs eagerly: `build_decode` is a Python loop over `token_step`.
-Caches and page pools are written IN PLACE (JAX returns updated copies):
-one cache lives per call instead of two. Attention goes through the
-kernels of ops.attention on CUDA tensors and their plain versions on CPU
-tensors; `use_kernel=False` selects the plain versions on the card for
+Where the JAX package runs prefill + `lax.scan` (or `lax.while_loop`) as
+compiled programs, the port runs eagerly: the decode builders are Python
+loops over the steps. Caches and page pools are written IN PLACE (JAX
+returns updated copies), and a write JAX drops (mode="drop": an inactive
+slot, a position past the cache or past `write_limits`) is masked out
+here before it is made. Attention goes through the kernels of
+ops.attention on CUDA tensors and their plain versions on CPU tensors;
+`use_kernel=False` selects the plain versions on the card for
 comparisons.
 """
 
@@ -28,18 +37,70 @@ import torch
 
 from . import autograd
 from .layer import layernorm
-from .ops.attention import flash_attention, flash_decode, paged_attention
+from .ops.attention import (flash_attention, flash_decode, nibble_pack,
+                            paged_attention)
 
-#: serving dtypes of the decode-param tree (int8 weights come later)
-DTYPES = (None, "bfloat16")
+#: serving dtypes of the decode-param tree: as stored (fp32), bf16
+#: weights and activations, or int8 weights with bf16 activations (W8A16)
+DTYPES = (None, "bfloat16", "int8")
+#: KV-cache storage modes ("fp" is the activation-dtype cache, the
+#: kv_dtype=None API spelling)
+KV_DTYPES = ("fp", "int8", "int4")
+_KVQ = ("int8", "int4")
+#: the decode-param matrices `dtype="int8"` quantizes (and the head)
+_Q8_KEYS = ("Wqkv", "Wo", "W1", "W2", "head")
+
+
+def kv_label(kv_dtype) -> str:
+    """Map the API spelling (None/'int8'/'int4') onto KV_DTYPES."""
+    label = kv_dtype or "fp"
+    if label not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in (None, 'int8', "
+                         "'int4')")
+    return label
+
+
+def tree_leaves(tree):
+    """The tensors of a nested list/tuple (caches, pools) in order."""
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in tree_leaves(sub)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, sub) for sub in tree)
+    return fn(tree)
+
+
+def _quant8(W):
+    """Per-output-channel symmetric int8 quantization of an (in, out)
+    weight: {"q8": int8, "sc": (1, out) fp32}. The scale commutes with
+    the contraction, so the product runs on the int8 values and only the
+    (…, out) result is rescaled. torch.round rounds half to even, as
+    jnp.round does, so the bytes equal the JAX package's."""
+    s = torch.clamp(W.abs().amax(dim=0, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(W / s), -127, 127).to(torch.int8)
+    return {"q8": q, "sc": s.float()}
+
+
+def _mm(x, W):
+    """x @ W where W is a plain matrix or a _quant8 dict (W8A16: the int8
+    values cast to x's dtype, one torch.matmul, then the column scale;
+    the JAX package leaves this product to XLA, outside any kernel)."""
+    if isinstance(W, dict):
+        return (x @ W["q8"].to(x.dtype)) * W["sc"].to(x.dtype)
+    return x @ W
 
 
 def _cast_params(p, dtype):
     """Decode-param tree in the serving dtype: None = as stored (fp32),
-    "bfloat16" = bf16 weights and activations."""
+    "bfloat16" = bf16 weights and activations, "int8" = bf16 with the
+    _Q8_KEYS matrices quantized by _quant8 (biases, LayerNorm and the
+    embedding, whose gather reads only B rows, stay bf16)."""
     if dtype is None:
         return p
-    if dtype != "bfloat16":
+    if dtype not in DTYPES:
         raise ValueError(f"serving dtype {dtype!r} not in {DTYPES}")
 
     def cast(a):
@@ -48,20 +109,33 @@ def _cast_params(p, dtype):
     out = {k: cast(v) for k, v in p.items() if k != "blocks"}
     out["blocks"] = [{k: cast(v) for k, v in bp.items()}
                      for bp in p["blocks"]]
+    if dtype == "int8":
+        out["head"] = _quant8(p["head"])
+        for nb, bp in zip(out["blocks"], p["blocks"]):
+            for k in _Q8_KEYS:
+                if k in bp:
+                    nb[k] = _quant8(bp[k])
     return out
 
 
 class _DecodeCore:
-    """The decode math shared by GPT.generate and the serving engine: the
-    fp32-island LayerNorm, the causal prefill (which also yields the
-    K/V rows), and the single-token block step against a dense or a paged
-    cache."""
+    """The decode math shared by GPT.generate, GPT.generate_beam and the
+    serving engine: the fp32-island LayerNorm, the causal prefill (which
+    also yields the K/V rows), the single-token block step and the
+    k-token verify step, each against a dense or a paged cache, in fp or
+    quantized (int8/int4) KV."""
 
     def __init__(self, H, E, S0, T, scale, kv_heads=None, rope=False,
-                 rope_theta=10000.0):
+                 rope_theta=10000.0, kv_dtype=None):
         self.H, self.E, self.S0, self.T, self.scale = H, E, S0, T, scale
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
+        # quantized KV: per-(head, position) symmetric scales; K's fold
+        # into the scores and V's into the attention weights of the
+        # diagonal (own-head) block, the only one _unpack_o keeps
+        kv_label(kv_dtype)
+        self.kv4 = kv_dtype == "int4"
+        self.kvq = kv_dtype in _KVQ
         # GQA: Hkv kv heads each serve G = H/Hkv query heads; the caches
         # hold Hkv heads and the packed block-diagonal queries place G
         # rows per kv-head block
@@ -75,7 +149,11 @@ class _DecodeCore:
         return layernorm(x, g, b, eps)
 
     def mlp(self, bp, x):
-        return autograd.gelu(x @ bp["W1"] + bp["bb1"]) @ bp["W2"] + bp["bb2"]
+        return _mm(autograd.gelu(_mm(x, bp["W1"]) + bp["bb1"]),
+                   bp["W2"]) + bp["bb2"]
+
+    def head(self, p, h):
+        return _mm(self.ln(h, p["gf"], p["bf"]), p["head"])
 
     def qkv(self, bp, x, n, S=None):
         """Fused QKV projection: one (E, E + 2*Hkv*D) matmul, split into
@@ -83,7 +161,7 @@ class _DecodeCore:
         (n, H, S, D)."""
         H, D, E, Hkv = self.H, self.E // self.H, self.E, self.Hkv
         KE = Hkv * D
-        fused = x @ bp["Wqkv"] + bp["bqkv"]
+        fused = _mm(x, bp["Wqkv"]) + bp["bqkv"]
         bounds = ((0, E, H), (E, E + KE, Hkv), (E + KE, E + 2 * KE, Hkv))
         if S is None:
             return tuple(fused[..., a:b].reshape(n, h, D)
@@ -97,6 +175,55 @@ class _DecodeCore:
         D, P, Hkv = self.E // self.H, self.P, self.Hkv
         return kv.reshape(n, Hkv // P, P, S, D).transpose(2, 3) \
             .reshape(n, Hkv // P, S, P * D)
+
+    def _quant_kv(self, kv, n, S):
+        """(n, Hkv, S, D) -> (packed quantized cache rows, scales
+        (n, Hp, S, P) fp32), per-(head, position) symmetric: int8 rows
+        (n, Hp, S, P*D), or for int4 packed-nibble uint8 rows
+        (n, Hp, S, P*D/2) on a max|kv|/7 basis. Bit-identical to the JAX
+        package's on the same values."""
+        P, Hkv = self.P, self.Hkv
+        qmax = 7.0 if self.kv4 else 127.0
+        x = kv.float()
+        s = torch.clamp(x.abs().amax(dim=-1), min=1e-8) / qmax
+        q = torch.clamp(torch.round(x / s[..., None]), -qmax,
+                        qmax).to(torch.int8)
+        sp = s.reshape(n, Hkv // P, P, S).transpose(2, 3).contiguous()
+        packed = self._pack(q, n, S)
+        if self.kv4:
+            packed = nibble_pack(packed)
+        return packed, sp
+
+    def _store(self, cache, kn, vn, n, S, put):
+        """Write new K/V (n, Hkv, S, D) into one block's cache (fp (K, V)
+        or quantized ((K8, Ks), (V8, Vs))) through `put(dst, rows)`, rows
+        (n, Hp, S, ·), in place. Returns the attention operands (K, V,
+        k_scales, v_scales)."""
+        out = []
+        for side, new in zip(cache, (kn, vn)):
+            data, sc = side if self.kvq else (side, None)
+            rows, rsc = (self._quant_kv(new, n, S) if self.kvq
+                         else (self._pack(new, n, S), None))
+            put(data, rows)
+            if sc is not None:
+                put(sc, rsc)
+            out.append((data, sc))
+        (K, Ks), (V, Vs) = out
+        return K, V, Ks, Vs
+
+    def new_cache(self, n, T, dtype, device):
+        """One block's empty dense cache of T positions ((n, Hp, T, ·))
+        in this core's KV mode; `dtype` is the fp cache's dtype."""
+        P, D = self.P, self.E // self.H
+        Hp = self.Hkv // P
+        if not self.kvq:
+            return tuple(torch.zeros((n, Hp, T, P * D), dtype=dtype,
+                                     device=device) for _ in range(2))
+        W = (P * D) // 2 if self.kv4 else P * D
+        qd = torch.uint8 if self.kv4 else torch.int8
+        return tuple((torch.zeros((n, Hp, T, W), dtype=qd, device=device),
+                      torch.zeros((n, Hp, T, P), dtype=torch.float32,
+                                  device=device)) for _ in range(2))
 
     def _pack_q(self, q, n):
         """(n, H, D) per-head queries -> packed BLOCK-DIAGONAL
@@ -121,6 +248,53 @@ class _DecodeCore:
         return torch.movedim(
             O2.reshape(n, Hp, P, G, P, D)[:, :, ar, :, ar, :],
             0, 2).reshape(n, self.E)
+
+    def _pack_q_multi(self, q, n, k):
+        """(n, H, k, D) per-head queries for k tokens -> packed
+        block-diagonal (n, Hp, k*P*G, P*D), token-major rows: the
+        (q_tokens, P, G) layout of the kernels' verify ladder."""
+        Hp, PG = self.Hkv // self.P, self.P * self.G
+        PD = self.P * (self.E // self.H)
+        Q2 = self._pack_q(q.transpose(1, 2).reshape(n * k, self.H,
+                                                     self.E // self.H),
+                          n * k)                        # (n*k, Hp, PG, PD)
+        return torch.movedim(Q2.reshape(n, k, Hp, PG, PD), 1, 2) \
+            .reshape(n, Hp, k * PG, PD)
+
+    def _unpack_o_multi(self, O2, n, k):
+        """(n, Hp, k*P*G, P*D) packed attention output -> (n, k, E)."""
+        Hp, PG = self.Hkv // self.P, self.P * self.G
+        PD = self.P * (self.E // self.H)
+        O5 = torch.movedim(O2.reshape(n, Hp, k, PG, PD), 2, 1) \
+            .reshape(n * k, Hp, PG, PD)
+        return self._unpack_o(O5, n * k).reshape(n, k, self.E)
+
+    def _embed(self, p, toks, pos):
+        """Token (+ learned position) embedding of `toks` at `pos` (same
+        shape), and the rope tables (pos.shape + (D,)) or None."""
+        h = p["emb"][toks]
+        if not self.rope:
+            return h + p["pos"][pos], None
+        rcos, rsin = autograd.rope_tables(pos.reshape(-1), self.E // self.H,
+                                          self.rope_theta)
+        shape = tuple(pos.shape) + (rcos.shape[-1],)
+        return h, (rcos.reshape(shape), rsin.reshape(shape))
+
+    def _block(self, bp, h, n, S, rope, attend):
+        """One transformer block on h (n, [S,] E): qkv (rotated), then
+        `attend(q, kn, vn)` -> the attention output (n, [S,] E), then the
+        output projection and the MLP."""
+        x = self.ln(h, bp["g1"], bp["b1"])
+        q, kn, vn = self.qkv(bp, x, n, S)
+        if rope is not None:
+            # (n, [S,] D) tables broadcast over the heads: (n, 1, [S,] D)
+            rcos, rsin = rope[0][:, None], rope[1][:, None]
+            q = autograd.apply_rope(q, rcos, rsin)
+            kn = autograd.apply_rope(kn, rcos, rsin)
+        o = attend(q, kn, vn, x.dtype)
+        h = h + _mm(o, bp["Wo"]) + bp["bo"]
+        x = self.ln(h, bp["g2"], bp["b2"])
+        return h + self.mlp(bp, x)
 
     def prefill_parts(self, p, prompt, n, use_kernel=None):
         """Causal pass over the (n, S) prompt: the final hidden states
@@ -147,8 +321,8 @@ class _DecodeCore:
             o = flash_attention(q.contiguous(), kr.contiguous(),
                                 vr.contiguous(), True, self.scale,
                                 use_kernel=use_kernel)
-            h = h + o.transpose(1, 2).reshape(n, S, self.E) @ bp["Wo"] \
-                + bp["bo"]
+            h = h + _mm(o.transpose(1, 2).reshape(n, S, self.E),
+                        bp["Wo"]) + bp["bo"]
             x = self.ln(h, bp["g2"], bp["b2"])
             h = h + self.mlp(bp, x)
             kvs.append((k, v))
@@ -156,24 +330,19 @@ class _DecodeCore:
 
     def prefill(self, p, prompt, n, use_kernel=None):
         """Causal pass over the (n, S0) prompt: the last position's logits
-        (n, V) and per block head-packed KV caches (n, Hp, T, P*D) holding
-        the prompt's rows."""
-        S0, T, P, D = self.S0, self.T, self.P, self.E // self.H
+        (n, V) and per block head-packed KV caches of T positions holding
+        the prompt's rows (quantized under kv_dtype)."""
+        S0 = self.S0
         h, kvs = self.prefill_parts(p, prompt, n, use_kernel)
         caches = []
         for k, v in kvs:
-            shape = (n, self.Hkv // P, T, P * D)
-            Kc = k.new_zeros(shape)
-            Vc = v.new_zeros(shape)
-            Kc[:, :, :S0] = self._pack(k, n, S0)
-            Vc[:, :, :S0] = self._pack(v, n, S0)
-            caches.append((Kc, Vc))
-        logits0 = self.ln(h[:, -1], p["gf"], p["bf"]) @ p["head"]
-        return logits0, caches
+            cache = self.new_cache(n, self.T, k.dtype, k.device)
 
-    def _rope_at(self, pos):
-        """(cos, sin) of shape (len(pos), D) for a position vector."""
-        return autograd.rope_tables(pos, self.E // self.H, self.rope_theta)
+            def put(dst, rows):
+                dst[:, :, :S0] = rows
+            self._store(cache, k, v, n, S0, put)
+            caches.append(cache)
+        return self.head(p, h[:, -1]), caches
 
     def token_step(self, p, tok, caches, i, n, use_kernel=None):
         """Feed token `tok` (n,) at generated index `i` (position S0+i)
@@ -181,34 +350,59 @@ class _DecodeCore:
         caches in place; returns (logits (n, V), caches). Attention runs
         through the flash-decode kernel (use_kernel=None: by the tensors'
         device; False: the plain version)."""
-        P, D = self.P, self.E // self.H
-        Hp = self.Hkv // P
         pos_idx = self.S0 + int(i)
-        h = p["emb"][tok]
-        if not self.rope:
-            h = h + p["pos"][pos_idx]
-        else:
-            rcos, rsin = self._rope_at(
-                torch.tensor([pos_idx], device=tok.device))
-            rcos, rsin = rcos[0], rsin[0]
+        pos = torch.full((n,), pos_idx, dtype=torch.long, device=tok.device)
+        h, rope = self._embed(p, tok, pos)
         lens = torch.full((n,), pos_idx + 1, dtype=torch.int32,
                           device=tok.device)
-        for (Kc, Vc), bp in zip(caches, p["blocks"]):
-            x = self.ln(h, bp["g1"], bp["b1"])
-            q, kn, vn = self.qkv(bp, x, n)
-            if self.rope:
-                q = autograd.apply_rope(q, rcos, rsin)
-                kn = autograd.apply_rope(kn, rcos, rsin)
-            Kc[:, :, pos_idx] = kn.reshape(n, Hp, P * D)
-            Vc[:, :, pos_idx] = vn.reshape(n, Hp, P * D)
-            O2 = flash_decode(self._pack_q(q, n), Kc, Vc, lens,
-                              scale=self.scale, use_kernel=use_kernel)
-            o = self._unpack_o(O2.to(x.dtype), n)
-            h = h + o @ bp["Wo"] + bp["bo"]
-            x = self.ln(h, bp["g2"], bp["b2"])
-            h = h + self.mlp(bp, x)
-        logits = self.ln(h, p["gf"], p["bf"]) @ p["head"]
-        return logits, caches
+
+        def put(dst, rows):
+            dst[:, :, pos_idx] = rows[:, :, 0]
+
+        for cache, bp in zip(caches, p["blocks"]):
+            def attend(q, kn, vn, dt, cache=cache):
+                K, V, Ks, Vs = self._store(cache, kn[:, :, None],
+                                           vn[:, :, None], n, 1, put)
+                O2 = flash_decode(self._pack_q(q, n), K, V, lens,
+                                  self.scale, Ks, Vs, self.G,
+                                  use_kernel=use_kernel)
+                return self._unpack_o(O2.to(dt), n)
+            h = self._block(bp, h, n, None, rope, attend)
+        return self.head(p, h), caches
+
+    def verify_step(self, p, toks, caches, pos, active, n, k,
+                    use_kernel=None):
+        """The speculative VERIFY step: feed `toks` (n, k) at per-row
+        positions pos[i]..pos[i]+k-1 through all blocks in one batched
+        forward, writing all k K/V rows in place (rows of inactive
+        sequences and positions past the cache are not written), then
+        attend with the causal ladder (token j sees positions <= pos+j)
+        through flash-decode's q_tokens mode. Returns (logits (n, k, V),
+        caches): logits[:, j] equals the j-th sequential token_step's.
+        k == 1 is token_step's math at per-row positions (the draft loop
+        uses it that way)."""
+        dev = toks.device
+        posk = pos.long()[:, None] + torch.arange(k, device=dev)[None, :]
+        h, rope = self._embed(p, toks, torch.clamp(posk, max=self.T - 1))
+        ok = active[:, None] & (posk < self.T)
+        ni = torch.arange(n, device=dev)[:, None].expand(n, k)[ok]
+        pi = posk[ok]
+        # NOT clamped to T: token ti's limit is lens_att - (k-1-ti), and
+        # clamping would cut the last tokens' masks near the cache end
+        lens_att = (pos.long() + k).to(torch.int32)
+
+        def put(dst, rows):
+            dst[ni, :, pi] = rows.transpose(1, 2)[ok]
+
+        for cache, bp in zip(caches, p["blocks"]):
+            def attend(q, kn, vn, dt, cache=cache):
+                K, V, Ks, Vs = self._store(cache, kn, vn, n, k, put)
+                O2 = flash_decode(self._pack_q_multi(q, n, k), K, V,
+                                  lens_att, self.scale, Ks, Vs, self.G,
+                                  use_kernel=use_kernel, q_tokens=k)
+                return self._unpack_o_multi(O2.to(dt), n, k)
+            h = self._block(bp, h, n, k, rope, attend)
+        return self.head(p, h), caches
 
     def paged_token_step(self, p, tok, pools, page_table, lens, active, n,
                          page_size, use_kernel=None):
@@ -218,44 +412,74 @@ class _DecodeCore:
         (active slots only, in place: JAX drops the inactive slots'
         out-of-range scatter, torch would raise, so they are masked out),
         and attend over each slot's pages through the paged kernel.
-        `pools` is a list per block of (K, V), each (n_pages, Hp,
-        page_size, P*D). Returns (logits (n, V), pools)."""
-        P, D, ps = self.P, self.E // self.H, page_size
-        Hp = self.Hkv // P
+        `pools` is a list per block of (K, V) or, quantized,
+        ((K8, Ks), (V8, Vs)), each (n_pages, Hp, page_size, ·). Returns
+        (logits (n, V), pools)."""
+        ps = page_size
         # clamp so an inactive slot's stale length never indexes outside
         # the table or the position table (its output is discarded)
         pos = torch.clamp(lens.long(), max=self.T - 1)
-        h = p["emb"][tok]
-        if not self.rope:
-            h = h + p["pos"][pos]
-        else:
-            rcos, rsin = self._rope_at(pos)
-            rcos, rsin = rcos[:, None, :], rsin[:, None, :]
-        nidx = torch.arange(n, device=tok.device)
-        rows = nidx[active]
+        h, rope = self._embed(p, tok, pos)
+        rows = torch.arange(n, device=tok.device)[active]
         pvec = page_table.long()[rows, pos[rows] // ps]
         off = pos[rows] % ps
         ln_att = torch.where(active, pos + 1, 1).to(torch.int32)
-        for bp, (K, V) in zip(p["blocks"], pools):
-            x = self.ln(h, bp["g1"], bp["b1"])
-            q, kn, vn = self.qkv(bp, x, n)
-            if self.rope:
-                q = autograd.apply_rope(q, rcos, rsin)
-                kn = autograd.apply_rope(kn, rcos, rsin)
-            K[pvec, :, off] = kn.reshape(n, Hp, P * D)[rows]
-            V[pvec, :, off] = vn.reshape(n, Hp, P * D)[rows]
-            O2 = paged_attention(self._pack_q(q, n), K, V, page_table,
-                                 ln_att, ps, scale=self.scale,
-                                 use_kernel=use_kernel)
-            o = self._unpack_o(O2.to(x.dtype), n)
-            h = h + o @ bp["Wo"] + bp["bo"]
-            x = self.ln(h, bp["g2"], bp["b2"])
-            h = h + self.mlp(bp, x)
-        logits = self.ln(h, p["gf"], p["bf"]) @ p["head"]
-        return logits, pools
+
+        def put(dst, new):
+            dst[pvec, :, off] = new[:, :, 0][rows]
+
+        for pool, bp in zip(pools, p["blocks"]):
+            def attend(q, kn, vn, dt, pool=pool):
+                K, V, Ks, Vs = self._store(pool, kn[:, :, None],
+                                           vn[:, :, None], n, 1, put)
+                O2 = paged_attention(self._pack_q(q, n), K, V, page_table,
+                                     ln_att, ps, self.scale, Ks, Vs, self.G,
+                                     use_kernel=use_kernel)
+                return self._unpack_o(O2.to(dt), n)
+            h = self._block(bp, h, n, None, rope, attend)
+        return self.head(p, h), pools
+
+    def paged_verify_step(self, p, toks, pools, page_table, lens, active,
+                          n, page_size, k, use_kernel=None,
+                          write_limits=None):
+        """The speculative VERIFY step against the PAGED pool: feed `toks`
+        (n, k) at per-slot positions lens[i]..lens[i]+k-1 in one batched
+        forward, write the K/V rows into each slot's pages, then attend
+        through paged_attention's q_tokens ladder. Returns (logits
+        (n, k, V), pools). Writes of inactive slots and at or past
+        `write_limits` (exclusive, default the cache horizon T) are not
+        made: past its reserved pages a slot's table holds page 0, which
+        belongs to another request. The page index is clamped to the
+        table's width before the lookup; those positions only ever feed
+        outputs the caller discards."""
+        ps, dev = page_size, toks.device
+        M = page_table.shape[1]
+        posk = lens.long()[:, None] + torch.arange(k, device=dev)[None, :]
+        h, rope = self._embed(p, toks, torch.clamp(posk, max=self.T - 1))
+        wl = (write_limits.long() if write_limits is not None
+              else torch.full((n,), self.T, dtype=torch.long, device=dev))
+        ok = active[:, None] & (posk < wl[:, None])
+        nidx = torch.arange(n, device=dev)[:, None]
+        pg = page_table.long()[nidx, torch.clamp(posk // ps, max=M - 1)][ok]
+        off = (posk % ps)[ok]
+        ln_att = torch.where(active, lens.long() + k, 1).to(torch.int32)
+
+        def put(dst, rows):
+            dst[pg, :, off] = rows.transpose(1, 2)[ok]
+
+        for pool, bp in zip(pools, p["blocks"]):
+            def attend(q, kn, vn, dt, pool=pool):
+                K, V, Ks, Vs = self._store(pool, kn, vn, n, k, put)
+                O2 = paged_attention(self._pack_q_multi(q, n, k), K, V,
+                                     page_table, ln_att, ps, self.scale, Ks,
+                                     Vs, self.G, use_kernel=use_kernel,
+                                     q_tokens=k)
+                return self._unpack_o_multi(O2.to(dt), n, k)
+            h = self._block(bp, h, n, k, rope, attend)
+        return self.head(p, h), pools
 
 
-def _decode_core(m, S0, max_new):
+def _decode_core(m, S0, max_new, kv_dtype=None):
     """The _DecodeCore matching model `m`'s configuration."""
     T = S0 + max_new
     if T > m.max_seq:
@@ -265,7 +489,7 @@ def _decode_core(m, S0, max_new):
                        (m.dim // m.num_heads) ** -0.5,
                        kv_heads=m.num_kv_heads,
                        rope=m.pos_encoding == "rope",
-                       rope_theta=m.rope_theta)
+                       rope_theta=m.rope_theta, kv_dtype=kv_dtype)
 
 
 # ---- decode-param preparation + memo ---------------------------------------
@@ -322,15 +546,16 @@ def decode_state(m, dtype):
     return trees[dtype]
 
 
-# ---- the decode loop --------------------------------------------------------
+# ---- the decode loops -------------------------------------------------------
 
-def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None):
+def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
+                 kv_dtype=None):
     """Greedy/sampled decode fn: (params, prompt (B, S0) on the model's
     device, seed) -> ids (B, S0 + max_new). Prefill plus the first token,
     then a Python loop of `token_step`s, one sampled token each.
     Sampling draws from a torch.Generator seeded with `seed` on the
-    model's device."""
-    core = _decode_core(m, S0, max_new)
+    model's device. `kv_dtype` quantizes the caches."""
+    core = _decode_core(m, S0, max_new, kv_dtype)
 
     def sample(logits, gen):
         logits = logits.float()
@@ -359,4 +584,217 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None):
     return decode
 
 
-__all__ = ["DTYPES", "build_decode", "decode_params", "decode_state"]
+def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
+    """One speculative round, shared by `build_spec_decode` and the
+    engine. The draft proposes K tokens after the pending `tok` (n,) in
+    K + 1 steps (`draft_step(t, j)` -> logits (n, V); the last step only
+    writes the draft's row for the bonus position), `verify(feed)` runs
+    the target over the pending token and the proposals (n, K + 1) ->
+    logits (n, K + 1, V), and each active row commits its longest
+    accepted prefix plus the target's own next token, capped by `budget`
+    (n,) and cut after an `eos_id`. Returns (g, take, tok, counts,
+    ended): the target's greedy tokens (n, K + 1), how many of them each
+    row commits, the new pending tokens, the round's (drafted, accepted,
+    bonus) counts and the rows that committed an eos, all on the
+    device."""
+    dt, drafts = tok, []
+    for j in range(K + 1):
+        dt = torch.argmax(draft_step(dt, j).float(), dim=-1)
+        drafts.append(dt)
+    drafts = torch.stack(drafts[:K], dim=1)
+    g = torch.argmax(verify(torch.cat([tok[:, None], drafts], dim=1))
+                     .float(), dim=-1)
+    a = torch.cumprod((g[:, :K] == drafts).long(), dim=1).sum(dim=1)
+    take = torch.where(active, torch.minimum(a + 1, budget),
+                       torch.zeros_like(a))
+    ended = torch.zeros_like(active)
+    if eos_id is not None:
+        jj = torch.arange(K + 1, device=g.device)[None, :]
+        iseos = (g == eos_id) & (jj < take[:, None])
+        ended = iseos.any(dim=1)
+        take = torch.where(ended, torch.minimum(
+            take, torch.argmax(iseos.int(), dim=1) + 1), take)
+    # the bonus: the round's own target token committed
+    bonus = (take > 0) & (take > a)
+    nidx = torch.arange(g.shape[0], device=g.device)
+    tok = torch.where(active, g[nidx, torch.clamp(take - 1, 0, K)], tok)
+    counts = torch.stack([K * active.sum(), (take - bonus.long()).sum(),
+                          bonus.sum()])
+    return g, take, tok, counts, ended
+
+
+def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
+                      kv_dtype=None):
+    """Draft-model speculative GREEDY decode fn: (target params, draft
+    params, prompt) -> ids (B, S0 + max_new); the call's counts
+    (drafted, accepted, bonus, rounds) are left in `decode.stats`.
+
+    Each round (`_spec_round`) the draft proposes `spec_k` tokens one
+    step at a time against its own fp cache, the target verifies all of
+    them in one `verify_step` (spec_k + 1 tokens, the causal ladder), and
+    the longest accepted prefix plus the target's own next token commit.
+    Every committed token is the target's argmax given the committed
+    prefix, so the tokens equal greedy `build_decode`'s. The JAX package
+    runs the rounds as one `lax.while_loop`; here a Python loop does,
+    with the per-row state on the device and one host read a round (is
+    any row still active)."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    K = int(spec_k)
+    core = _decode_core(m, S0, max_new, kv_dtype)
+    core_d = _decode_core(draft, S0, max_new)
+
+    @torch.no_grad()
+    def decode(pt, pd, prompt):
+        dev = prompt.device
+        logits0, caches = core.prefill(pt, prompt, B)
+        # the draft only fills its own cache over the prompt: the first
+        # token is the target's
+        _, dcaches = core_d.prefill(pd, prompt, B)
+        tok = torch.argmax(logits0.float(), dim=-1)
+        buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
+        buf[:, 0] = tok
+        cnt = torch.ones(B, dtype=torch.long, device=dev)
+        rows = torch.arange(B, device=dev)[:, None].expand(B, K + 1)
+        jj = torch.arange(K + 1, device=dev)[None, :]
+        counts = torch.zeros(3, dtype=torch.long, device=dev)
+        rounds = 0
+        while max_new > 1:
+            active = cnt < max_new
+            if not bool(active.any()):
+                break
+            pos = S0 + cnt - 1              # the pending token's position
+
+            def draft_step(t, j):
+                return core_d.verify_step(pd, t[:, None], dcaches, pos + j,
+                                          active, B, 1)[0][:, 0]
+
+            def verify(feed):
+                return core.verify_step(pt, feed, caches, pos, active, B,
+                                        K + 1)[0]
+
+            g, take, tok, c, _ = _spec_round(draft_step, verify, tok, active,
+                                             max_new - cnt, K)
+            keep = jj < take[:, None]
+            buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
+            cnt = cnt + take
+            counts += c
+            rounds += 1
+        drafted, accepted, n_bonus = (int(c) for c in counts.cpu())
+        decode.stats = {"drafted": drafted, "accepted": accepted,
+                        "bonus": n_bonus, "rounds": rounds}
+        return torch.cat([prompt, buf], dim=1)
+
+    decode.stats = None
+    return decode
+
+
+def _top_k(x, k):
+    """(values, indices) of the k largest along the last dim, ties to the
+    lower index first, as lax.top_k orders them."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _take_rows(buf, idx):
+    """buf (B, K, L) rows picked per batch by idx (B, k) -> (B, k, L)."""
+    return torch.gather(buf, 1, idx[..., None].expand(*idx.shape,
+                                                      buf.shape[2]))
+
+
+def _pool_merge(pool_tok, pool_norm, pool_raw, cand_tok, cand_norm,
+                cand_raw, K):
+    """Merge candidate finished hypotheses into the K-slot pool, keeping
+    the K best by normalized score. Shapes: pool (B,K,L)/(B,K); cand
+    (B,kk,L)/(B,kk). Candidates not actually finished carry NEG norm."""
+    all_norm = torch.cat([pool_norm, cand_norm], dim=1)
+    all_raw = torch.cat([pool_raw, cand_raw], dim=1)
+    all_tok = torch.cat([pool_tok, cand_tok], dim=1)
+    top_norm, pick = _top_k(all_norm, K)
+    return (_take_rows(all_tok, pick), top_norm,
+            torch.gather(all_raw, 1, pick))
+
+
+def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
+                      eos_id, dtype=None, pad_id=None, kv_dtype=None):
+    """Beam-search decode fn: (params, prompt) -> (ids (B, S0 + max_new),
+    the chosen hypothesis' joint log-prob (B,)). Prefill once, tile the
+    caches across beams, then one token_step a step whose cache rows are
+    reordered by the winning parent beams. With `eos_id`, finished
+    hypotheses move to a length-normalized pool (the JAX package's
+    semantics) and the tail after eos is `pad_id` (default eos_id)."""
+    V = m.vocab_size
+    K = num_beams
+    core = _decode_core(m, S0, max_new, kv_dtype)
+    NEG = -1e9
+    pad = 0 if eos_id is None else (pad_id if pad_id is not None
+                                    else eos_id)
+
+    def norm_len(score, length):
+        return score / (torch.tensor(float(length)) ** length_penalty).to(
+            score.device)
+
+    @torch.no_grad()
+    def decode(p, prompt):
+        dev = prompt.device
+        logits0, caches = core.prefill(p, prompt, B)
+        # beam b*K+k from prompt b
+        caches = _tree_map(lambda a: a.repeat_interleave(K, dim=0), caches)
+        logp0 = torch.log_softmax(logits0.float(), dim=-1)      # (B, V)
+        tokens = torch.full((B, K, max_new), pad, dtype=torch.long,
+                            device=dev)
+        pool_tok = tokens.clone()
+        pool_norm = torch.full((B, K), NEG, device=dev)
+        pool_raw = torch.full((B, K), NEG, device=dev)
+        neg = torch.tensor(NEG, device=dev)
+        if eos_id is None:
+            scores, t0 = _top_k(logp0, K)
+        else:
+            # 2K candidates, so K alive beams survive when eos ranks high
+            kk = min(2 * K, V)
+            cs, ct = _top_k(logp0, kk)
+            is_eos = ct == eos_id
+            cand = torch.full((B, kk, max_new), pad, dtype=torch.long,
+                              device=dev)
+            cand[:, :, 0] = eos_id
+            pool_tok, pool_norm, pool_raw = _pool_merge(
+                pool_tok, pool_norm, pool_raw, cand,
+                torch.where(is_eos, norm_len(cs, 1), neg), cs, K)
+            scores, pick = _top_k(torch.where(is_eos, neg, cs), K)
+            t0 = torch.gather(ct, 1, pick)
+        tokens[:, :, 0] = t0
+        for i in range(max_new - 1):
+            logits, caches = core.token_step(p, tokens[:, :, i].reshape(
+                B * K), caches, i, B * K)
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+            flat = (scores[..., None] + logp).reshape(B, K * V)
+            cs, idx = _top_k(flat, min(2 * K, K * V))
+            beam_idx = idx // V
+            cand_hist = _take_rows(tokens, beam_idx)
+            cand_hist[:, :, i + 1] = idx % V
+            if eos_id is not None:
+                is_eos = idx % V == eos_id
+                pool_tok, pool_norm, pool_raw = _pool_merge(
+                    pool_tok, pool_norm, pool_raw, cand_hist,
+                    torch.where(is_eos, norm_len(cs, i + 2), neg), cs, K)
+                cs = torch.where(is_eos, neg, cs)
+            scores, pick = _top_k(cs, K)
+            tokens = _take_rows(cand_hist, pick)
+            src = (torch.arange(B, device=dev)[:, None] * K
+                   + torch.gather(beam_idx, 1, pick)).reshape(B * K)
+            caches = _tree_map(lambda a: a[src], caches)
+        # the best of {pool, alive} by normalized score
+        all_norm = torch.cat([pool_norm, norm_len(scores, max_new)], dim=1)
+        all_raw = torch.cat([pool_raw, scores], dim=1)
+        all_tok = torch.cat([pool_tok, tokens], dim=1)
+        best = torch.argmax(all_norm, dim=1)
+        nb = torch.arange(B, device=dev)
+        return (torch.cat([prompt, all_tok[nb, best]], dim=1),
+                all_raw[nb, best])
+
+    return decode
+
+
+__all__ = ["DTYPES", "KV_DTYPES", "build_beam_decode", "build_decode",
+           "build_spec_decode", "decode_params", "decode_state", "kv_label",
+           "tree_leaves"]

@@ -117,7 +117,8 @@ def test_row_limits_matches_jax(q_tokens):
 
 def test_verify_ladder_reference_matches_jax():
     """The plain version keeps the JAX reference's q_tokens ladder (the
-    kernels raise on it until the verify step is ported)."""
+    kernels' ladder is held against it on the card; the quantized modes
+    in test_torch_quant_decode.py)."""
     q, K, V, lens = _decode_inputs(1, seed=3)
     q = np.concatenate([q, q * 0.5], axis=2)      # 2 tokens of P*G rows
     lens = np.maximum(lens, 2)

@@ -170,7 +170,7 @@ def test_bf16_generate_close_to_fp32():
     assert b.shape == f.shape == (2, 13)
     np.testing.assert_array_equal(b[:, 9], f[:, 9])
     with pytest.raises(ValueError, match="serving dtype"):
-        tm.generate(prompt, 2, dtype="int8")
+        tm.generate(prompt, 2, dtype="float16")
 
 
 def test_decode_state_memo_follows_weight_changes():

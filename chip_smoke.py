@@ -2,17 +2,31 @@
 """Drive the PyTorch/CUDA port (singa_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
+The second form only times the flash kernels K1 (forward) and K2a (fused
+backward) of this checkout against another checkout's (for example the
+parent commit, unpacked with `git archive`), bf16, causal, in turns
+(other, this, this, other), each turn in its own process building its
+checkout's two sources: K1 at the serving prefill (8, 12, 128, 64), a
+16-token prompt and the bench GPT's training shape (8, 16, 1024, 128),
+K2a at the training shape; each as device time and as CUDA events
+around the call (the timer phase 2 used before device time).
 
 Phases, each of which exits non-zero on failure:
 
 1. Environment: the card's name and power limit, torch/CUDA/nvcc
    versions, and the build of every kernel (one nvcc per source, all
    started together) with its time, per source too, and ptxas's
-   registers and spills (the decode kernels must not spill).
+   registers and spills (the flash and decode kernels must not spill).
 2. Each kernel against its plain PyTorch version on the card, at the
    serving and training paths' shapes: the error against the stated
-   tolerance, and the kernel's time beside the plain version's, its bound
-   and the one-call library yardstick where there is one. The backward
+   tolerance, and the kernel's device time beside the plain version's,
+   its bound and the one-call library yardstick where there is one; the
+   flash kernels also with achieved TFLOP/s and bound / time, and (text
+   only, not in the JSON line) the time the CUDA-core design that their
+   bf16 paths replaced took at the shapes where it was measured. K1 and
+   K2a in bf16 also run ragged shapes (S 300, 1023, 100). The backward
    kernels (K2a fused, K2b dQ + K2c dK/dV split) run both routes of the
    dispatch, forced through `_FUSED_DQ_BYTES_CAP`, against
    `flash_bwd_reference`, with dq, dk and dv compared separately. The
@@ -60,7 +74,8 @@ Phases, each of which exits non-zero on failure:
    one layer's backward held against `flash_bwd_reference`.
 5. Where the time goes: device time by kernel under torch.profiler for a
    short generate call, a short engine run, a short speculative engine
-   run and one training step.
+   run and one training step; the training step must show the
+   tensor-core flash kernels, which are printed with the top kernels.
 7. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder), then the card line, then the result line.
 
@@ -108,6 +123,23 @@ DEVICE = "cuda"
 REPLACES = {
     "flash_decode": "singa_tpu/ops/attention.py:1237 _flash_decode_kernel",
     "paged_attention": "singa_tpu/ops/attention.py:1019 _paged_fwd_kernel"}
+# sources whose kernels must build without register spills
+NO_SPILL = ("flash_fwd", "flash_bwd_fused", "flash_decode", "paged_attention")
+# bf16 times (ms) of the CUDA-core design (fp32 products from shared
+# memory) that the tensor-core K1 and K2a replaced, by (kernel, shape),
+# as this script's phase 2 took them before it timed device work (CUDA
+# events around the call) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's
+# kernel table). Printed for reference only: not measured in this run.
+CUDA_CORE_EVENTS_MS = {("flash_fwd", (8, 12, 128, 64)): 0.0410,
+           ("flash_fwd", (8, 16, 1024, 128)): 2.2700,
+           ("flash_bwd_fused", (8, 16, 1024, 128)): 4.3216}
+# the tensor-core kernels, which the training step's profile must show
+TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_fused_tc_kernel")
+# SM cycles a second at the H100's boost clock: sizes time_ms's GPU sleep
+SM_HZ = 1.98e9
+# --ab: the flash shapes timed for two checkouts
+AB_FWD = ((8, 12, 128, 64), (1, 12, 16, 64), (8, 16, 1024, 128))
+AB_BWD = (8, 16, 1024, 128)
 
 
 def fail(msg):
@@ -121,12 +153,27 @@ def card_line():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, n=25, warm=3):
-    """Median ms of `fn` over n launches, CUDA events around each."""
+def time_ms(torch, fn, n=25, warm=3, device=True):
+    """Median device ms of `fn` over n calls, CUDA events around each.
+    Each call is queued behind a GPU sleep of three times the host's
+    median issue time (five samples), so the events time the device's
+    work and not the host's launch overhead, which at small shapes is the
+    larger of the two. device=False leaves out the sleep: the events then
+    also time the host's launch path."""
     for _ in range(warm):
         fn()
+    torch.cuda.synchronize()
+    host_s = []
+    for _ in range(5 if device else 0):
+        t0 = time.perf_counter()
+        fn()
+        host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    cycles = int(max(1e-4, 3 * statistics.median(host_s or [0])) * SM_HZ)
     evs = []
     for _ in range(n):
+        if device:
+            torch.cuda._sleep(cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -163,12 +210,12 @@ def phase_env(torch, build):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-            if (name in REPLACES and "spill stores" in line
+            if (name in NO_SPILL and "spill stores" in line
                     and not line.strip().startswith("0 bytes stack frame, "
                                                     "0 bytes spill")):
                 spills.append(f"{name}: {line.strip()}")
     if spills:
-        fail("the decode kernels spill registers: " + "; ".join(spills))
+        fail("kernels spill registers: " + "; ".join(spills))
 
 
 def _case(torch, rows, name, route_src, replaces, dtype, shape, out, ref,
@@ -188,10 +235,13 @@ def _case(torch, rows, name, route_src, replaces, dtype, shape, out, ref,
     b_ms, b_by = bound_ms(nbytes, flops, dtype)
     ok = err <= tol and np.isfinite(err)
     label = f" [{extra['label']}]" if "label" in extra else ""
+    if name == "flash_fwd":
+        extra = dict(extra, **_rates(name, dtype, shape, ms, b_ms, flops))
     print(f"  {name}{label} {dtype} {shape}: max_abs_err {err:.3e} (tol "
           f"{tol}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
-          f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}")
+          f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}"
+          + _rates_text(extra, name, dtype, shape))
     rows.append(dict(name=name, route="cuda", source=route_src,
                      replaces=replaces, dtype=dtype, shape=shape,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -200,6 +250,25 @@ def _case(torch, rows, name, route_src, replaces, dtype, shape, out, ref,
     if not ok:
         fail(f"{name}{label} {dtype} {shape} disagrees with its plain "
              "version")
+
+
+def _rates(name, dtype, shape, ms, b_ms, flops):
+    """A flash kernel's achieved TFLOP/s and bound / time."""
+    return dict(tflops=flops / ms / 1e9, bound_frac=b_ms / ms)
+
+
+def _rates_text(r, name, dtype, shape):
+    """The rates as text and, where the replaced CUDA-core design was
+    timed at this shape, that time, marked with its timer (not measured in
+    this run)."""
+    if "tflops" not in r:
+        return ""
+    prev = (CUDA_CORE_EVENTS_MS.get((name, tuple(shape)))
+            if dtype == "bfloat16" else None)
+    prev = (f"; the CUDA-core kernel it replaced {prev:.4f} ms (events "
+            "around the call, not this run)" if prev is not None else "")
+    return (f"; {r['tflops']:.1f} TFLOP/s, bound / time "
+            f"{r['bound_frac']:.3f}{prev}")
 
 
 def phase_kernels(torch, A):
@@ -278,40 +347,47 @@ def phase_kernels(torch, A):
               None,
               io_bytes + 2 * live * Hp * PD * el + 4 * pages_live, flops)
     phase_decode_modes(torch, A, rows, g)
-    # K1 at the training shape (bench GPT, D=128)
-    B, H, S, D = TRAIN_B, 16, TRAIN_S, 128
-    q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    out = A.flash_attention(q, k, v, True)
-    torch.cuda.synchronize()
-    ref = A.attention_reference(q.float(), k.float(), v.float(), True)
-    _case(torch, rows, "flash_fwd", "singa_tpu_torch/csrc/flash_fwd.cu",
-          "singa_tpu/ops/attention.py:112 _flash_fwd_kernel", "bfloat16",
-          [B, H, S, D], out, ref,
-          lambda: A.attention_reference(q, k, v, True),
-          lambda: A.flash_attention(q, k, v, True),
-          lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-          4 * B * H * S * D * 2 + 4 * B * H * S,
-          4 * B * H * D * S * (S + 1) / 2)
-    del q, k, v, out, ref
+    # K1 at the training shape (bench GPT, D=128), and at D=128 with a
+    # ragged S (partial q and key tiles of the tensor-core kernel)
+    for B, H, S, D in ((TRAIN_B, 16, TRAIN_S, 128), (1, 2, 300, 128)):
+        q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        out = A.flash_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        ref = A.attention_reference(q.float(), k.float(), v.float(), True)
+        _case(torch, rows, "flash_fwd", "singa_tpu_torch/csrc/flash_fwd.cu",
+              "singa_tpu/ops/attention.py:112 _flash_fwd_kernel",
+              "bfloat16", [B, H, S, D], out, ref,
+              lambda: A.attention_reference(q, k, v, True),
+              lambda: A.flash_attention(q, k, v, True),
+              lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=True),
+              4 * B * H * S * D * 2 + 4 * B * H * S,
+              4 * B * H * D * S * (S + 1) / 2)
+        del q, k, v, out, ref
     # K2a / K2b / K2c: the backward, both routes, at the training shapes
+    # and, in bf16, at ragged S (rows and keys past S in the tensor-core
+    # K2a's tiles)
     for shape, dn in (((TRAIN_B, 16, TRAIN_S, 128), "bfloat16"),
                       ((TRAIN_B, 12, TRAIN_S, 64), "bfloat16"),
                       ((1, 16, TRAIN_S, 128), "float32"),
-                      ((1, 16, 4096, 128), "bfloat16")):
+                      ((1, 16, 4096, 128), "bfloat16"),
+                      ((1, 2, 1023, 128), "bfloat16"),
+                      ((1, 3, 100, 64), "bfloat16")):
         bwd_case(torch, A, rows, g, shape, dn)
     return rows
 
 
 def _bwd_bound(shape, el, n_products, n_out, causal=True):
-    """(bound ms, by) of a backward kernel: it reads q, k, v, dO and the
-    two fp32 row statistics once, writes n_out (B, H, S, D) tensors, and
-    does n_products score-sized products over the (causal) pairs."""
+    """(bound ms, by, flops) of a backward kernel: it reads q, k, v, dO and
+    the two fp32 row statistics once, writes n_out (B, H, S, D) tensors,
+    and does n_products score-sized products over the (causal) pairs."""
     B, H, S, D = shape
     pairs = B * H * (S * (S + 1) / 2 if causal else S * S)
     nbytes = (4 + n_out) * B * H * S * D * el + 2 * B * H * S * 4
-    return bound_ms(nbytes, n_products * 2 * D * pairs,
-                    "bfloat16" if el == 2 else "float32")
+    flops = n_products * 2 * D * pairs
+    return (*bound_ms(nbytes, flops, "bfloat16" if el == 2 else "float32"),
+            flops)
 
 
 def bwd_case(torch, A, rows, g, shape, dn, routes=("fused", "split"),
@@ -376,19 +452,21 @@ def bwd_case(torch, A, rows, g, shape, dn, routes=("fused", "split"),
     for route in routes:
         for name, src, line, n_prod, n_out, outs, lib, fn in kernels[route]:
             ms = time_ms(torch, fn, n=n, warm=2)
-            b_ms, b_by = _bwd_bound(shape, el, n_prod, n_out)
+            b_ms, b_by, flops = _bwd_bound(shape, el, n_prod, n_out)
             err = max(errs[route, o_][0] for o_ in outs)
             rel = max(errs[route, o_][1] for o_ in outs)
+            rates = _rates(name, dn, shape, ms, b_ms, flops)
             lib_s = f"{lib:.4f} ms (SDPA backward)" if lib else "none"
             print(f"  {name} {dn} {list(shape)}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"library {lib_s}")
+                  f"library {lib_s}"
+                  + _rates_text(rates, name, dn, shape))
             rows.append(dict(
                 name=name, route="cuda", source=f"singa_tpu_torch/csrc/{src}",
                 replaces=f"singa_tpu/ops/attention.py:{line}", dtype=dn,
                 shape=list(shape), max_abs_err=err, rel_err=rel, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib))
+                library_ms=lib, **rates))
     if "split" in routes:
         print(f"  split pair {dn} {list(shape)}: SDPA backward "
               f"{lib_ms:.4f} ms")
@@ -1176,10 +1254,12 @@ TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
 
-def _breakdown(torch, what, fn, cats=SERVE_CATS):
+def _breakdown(torch, what, fn, cats=SERVE_CATS, require=()):
     """Device time by kernel over one call of `fn` under torch.profiler:
     busy share of the wall time (profiler on), and the time split into
-    the named kernel categories, matrix products and the rest."""
+    the named kernel categories, matrix products and the rest. The top
+    kernels are printed, and those named in `require`, which must have
+    run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1214,8 +1294,14 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS):
           f"{1 - busy / wall_ms:.1%}; "
           + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
                       for k, v in totals.items()))
-    for ms, count, name in sorted(rows, reverse=True)[:6]:
-        print(f"    {ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} {name[:70]}")
+    ranked = sorted(rows, reverse=True)
+    for rank, (ms, count, name) in enumerate(ranked, 1):
+        if rank <= 6 or any(k in name for k in require):
+            print(f"    #{rank:<3d}{ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} "
+                  f"{name[:70]}")
+    missing = [k for k in require if not any(k in r[2] for r in rows)]
+    if missing:
+        fail(f"{what}: no device time in {missing}")
 
 
 def phase_profile(torch, model, engine, train_step, drafts):
@@ -1239,7 +1325,7 @@ def phase_profile(torch, model, engine, train_step, drafts):
                              kv_dtype="int4", draft_model=drafts["clone"],
                              spec_k=SPEC_K))
     _breakdown(torch, "train step b8 s1024 bf16 (bench width)", train_step,
-               TRAIN_CATS)
+               TRAIN_CATS, require=TC_KERNELS)
 
 
 def _train_batch(torch, vocab, B, S, seed):
@@ -1416,11 +1502,58 @@ class Clock:
         self.t = now
 
 
+# ---------------------------------------------------------------------------
+def ab_turn(torch, root, tag):
+    """One turn of --ab: K1 and K2a of the checkout at `root` (its own
+    sources, built in that checkout), bf16, causal, as device time and
+    as CUDA events around the call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from singa_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def line(what, shape, fn, n):
+        print(f"{tag} {what} bf16 {list(shape)}: device "
+              f"{time_ms(torch, fn, n=n):.4f} ms, events around the call "
+              f"{time_ms(torch, fn, n=n, device=False):.4f} ms", flush=True)
+    for shape in AB_FWD:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        line("flash_fwd", shape, lambda: A.flash_attention(q, k, v, True), 25)
+    q, k, v, do = (torch.randn(AB_BWD, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = AB_BWD[-1] ** -0.5
+    o, lse = A._flash_fwd(q, k, v, True, scale)
+    qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
+    line("flash_bwd_fused", AB_BWD, lambda: A._flash_bwd_fused(
+        qf, k, v, do, lse, delta, True, scale), 10)
+
+
+def run_ab(other):
+    """--ab: turns other, this, this, other, each in its own process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    for root, tag in ((other, "other"), (here, "this"), (here, "this"),
+                      (other, "other")):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--ab-turn", root, tag], check=True, timeout=900)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:
+        ab_turn(torch, sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        run_ab(sys.argv[2])
+        return 0
+    if len(sys.argv) > 1:
+        print(__doc__, file=sys.stderr)
+        return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from singa_tpu_torch import engine, models, opt, serving
     from singa_tpu_torch.models import transformer

@@ -1,24 +1,46 @@
-// Flash-attention forward: O = softmax(scale * Q K^T [+ causal mask]) V and
-// the per-row logsumexp, over (BH, S, D) rows, fp32 or bf16 in, fp32 math.
+// Flash-attention forward (K1): O = softmax(scale * Q K^T [+ causal mask]) V
+// and the per-row logsumexp of the scaled scores (natural log), over
+// (BH, S, D) rows, D 64 or 128, any S.
 //
-// Replaces singa_tpu/ops/attention.py `_flash_fwd_kernel` (launched by
-// `_flash_fwd_pallas`). The TPU grid (bh, q block, k block) runs in order
-// and carries the online-softmax state in VMEM scratch across the k
-// dimension; here one block owns one (bh, 64-row q tile) and walks the K/V
-// tiles in a loop, with the running max, sum and accumulator in registers.
-// Unlike the TPU dispatch, any S runs the kernel: the ragged last q tile and
-// k tile are masked here instead of falling back to the O(S^2) reference.
+// Replaces singa_tpu/ops/attention.py:112 `_flash_fwd_kernel` (launched by
+// `_flash_fwd_pallas` :220). The TPU grid (bh, q block, k block) runs in
+// order and carries the online-softmax state in VMEM scratch across the k
+// dimension; here one block owns one (bh, q tile) and walks the K/V tiles
+// in a loop with that state in registers. Unlike the TPU dispatch, any S
+// runs the kernel: ragged q and k tiles are masked, never sent to the
+// O(S^2) reference.
 //
-// Bound on the H100: at the serving shapes (S <= 1024, D = 64) the work is
-// 4*S^2/2*D flops per head against 4*S*D*bytes moved, so short prompts are
-// bound by bytes and long ones by operations (989 TFLOP/s in bf16 on the
-// tensor cores). This simple design runs the two products on the CUDA cores
-// in fp32 from shared memory (K tile padded to D+1 floats a row so the 32
-// lanes of a warp read 32 banks), 8 warps each owning 8 rows of the q tile.
-// It leaves on the table: wgmma tensor-core products, TMA loads of the tiles
-// with a double-buffered pipeline, and bf16 tiles in shared memory.
+// Bound on the H100: 4 S^2 D / 2 flops a head (causal) against 4 S D
+// elements moved. bf16 at the training shape (8, 16, 1024, 128): 34 GFLOP,
+// 0.035 ms at 989 TFLOP/s on the tensor cores, against 134 MB, 0.040 ms at
+// 3.35 TB/s, so near the ridge; the prefill shape (8, 12, 128, 64) is bound
+// by bytes (0.0019 ms).
+//
+// bf16: `flash_fwd_kernel_tc`, on the tensor cores. A block has two
+// warpgroups of 64 q rows each (a 128-row q tile) and walks 128-key tiles:
+// - Q, K and V sit in shared memory as bf16 in the 128-byte-swizzled layout
+//   (flash_tc.cuh); K and V in a two-stage ring that cp.async fills with
+//   the next tile while the current one is computed (160 KB at D 128).
+// - S = Q K^T by wgmma from shared memory into fp32 registers (K as stored
+//   is K-major for the B operand).
+// - The online softmax runs on the accumulator fragment: a row lives in
+//   the 4 lanes of a quad, so its max and sum take two shuffles. exp2 with
+//   log2(e) folded into the scale; lse is converted back to natural log.
+// - P is rounded to bf16 in registers (as the plain version rounds it
+//   before P V) and fed as the register A operand of O += P V, with V read
+//   MN-major (transpose bit set).
+// - Causal: key tiles above the diagonal are skipped, the longest q tiles
+//   are launched first, and only the diagonal and ragged tiles are masked.
+// It leaves for later: TMA loads from a producer warp with setmaxnreg,
+// overlapping one warpgroup's softmax with the other's products (pingpong),
+// persistent blocks, and an FP8 path.
+//
+// fp32: `flash_fwd_kernel`, the first design kept as it was, because wgmma
+// on fp32 inputs runs in TF32 and would break the fp32 checks: both
+// products on the CUDA cores in fp32 from shared memory (the K tile padded
+// to D + 1 floats a row), 8 warps each owning 8 rows of a 64-row q tile.
 
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -131,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_fp(const void* q, const void* k, const void* v, void* o,
                    void* lse, int BH, int Sq, int Sk, int causal,
                    float scale, cudaStream_t stream) {
   const size_t smem =
@@ -150,22 +172,210 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+namespace fwd_tc {
+
+using tc::bf16;
+constexpr int BQ = 128;  // q rows a block: two warpgroups of 64
+constexpr int BK = 128;  // keys a tile
+constexpr int NT = 256;
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  // Q, then K in two stages, then V in two stages; + alignment slack
+  static constexpr size_t bytes = 1024 + Q_BYTES + 4 * KV_BYTES;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Sk, int causal,
+                    float scale) {
+  using S_ = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = tc::smem_u32(tc::align_1k(smem_raw));
+  const uint32_t sK = sQ + S_::Q_BYTES;
+  const uint32_t sV = sK + 2 * S_::KV_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  // causal: the longest q tiles (most key tiles) first
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x)
+                 * BQ;
+  const int bh = blockIdx.y;
+  const bf16* qb = q + (size_t)bh * Sq * D;
+  const bf16* kb = k + (size_t)bh * Sk * D;
+  const bf16* vb = v + (size_t)bh * Sk * D;
+  // causal: keys past this tile's last row are masked for every row
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
+
+  tc::load_tile<BQ, D, NT>(sQ, qb, q0, Sq, tid);
+  tc::load_tile<BK, D, NT>(sK, kb, 0, Sk, tid);
+  tc::load_tile<BK, D, NT>(sV, vb, 0, Sk, tid);
+  tc::cp_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {SG_NEG_INF, SG_NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * tc::LOG2E;
+  // this thread's rows row0 and row0 + 8, columns 8 j + col0 + {0, 1}
+  const int wrow = q0 + wg * 64;
+  const int row0 = wrow + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t qa = sQ + wg * 64 * 128;  // this warpgroup's Q rows
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * BK;
+    const uint32_t stage = (it & 1) * S_::KV_BYTES;
+    if (it + 1 < n_kt) {
+      // the other stage was last read in iteration it - 1, which every
+      // thread has left (the barrier that ends it)
+      const uint32_t next = ((it + 1) & 1) * S_::KV_BYTES;
+      tc::load_tile<BK, D, NT>(sK + next, kb, k0 + BK, Sk, tid);
+      tc::load_tile<BK, D, NT>(sV + next, vb, k0 + BK, Sk, tid);
+      tc::cp_commit();
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    tc::fence_async_smem();
+    __syncthreads();
+
+    // S = Q K^T (raw scores, fp32)
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    tc::reg_fence(s);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk & 3) * 32;
+      tc::wgmma_ss<0, 0>(
+          s, tc::desc(qa + (kk >> 2) * (BQ * 128) + col, 16, 1024),
+          tc::desc(sK + stage + (kk >> 2) * (BK * 128) + col, 16, 1024), 1);
+    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(s);
+
+    // the diagonal and ragged tiles: keys past Sk, or past the row
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > wrow)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = k0 + 8 * j + col0 + c;
+            if (col >= Sk || (causal && col > row0 + 8 * i))
+              s[4 * j + 2 * i + c] = SG_NEG_INF;
+          }
+    }
+    // online softmax, one row at a time (i), across the quad's 4 lanes
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float corr = tc::fast_exp2((m[i] - mx) * sl2);
+      const float ms = mx * sl2;
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = tc::fast_exp2(fmaf(s[4 * j + 2 * i + c], sl2, -ms));
+          s[4 * j + 2 * i + c] = p;
+          sum += p;
+        }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * i] *= corr;
+        acc[4 * j + 2 * i + 1] *= corr;
+      }
+    }
+
+    // O += P V, P rounded to bf16 in registers
+    uint32_t pa[BK / 16][4];
+    tc::acc_to_a(s, pa);
+    tc::reg_fence(acc);
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      tc::wgmma_rs<1>(acc, pa[kk],
+                      tc::desc(sV + stage + kk * 2048, BK * 128, 1024), 1);
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::reg_fence(acc);
+    __syncthreads();  // both warpgroups are done with this stage
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt = fmaxf(lt, 1e-20f);
+    const int r = row0 + 8 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / lt;
+    bf16* orow = o + ((size_t)bh * Sq + r) * D + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i] * inv,
+                                acc[4 * j + 2 * i + 1] * inv);
+    if ((lane & 3) == 0) lse[(size_t)bh * Sq + r] = m[i] * scale + logf(lt);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int BH, int Sq, int Sk, int causal,
+                   float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel_tc<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Smem<D>::bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, BH);
+  kern<<<grid, NT, Smem<D>::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Sq, Sk, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd_tc
+
+
 // q (BH, Sq, D), k/v (BH, Sk, D) contiguous, dtype SG_F32 or SG_BF16;
 // o like q; lse (BH, Sq) fp32. D must be 64 or 128 (checked by the caller).
+// bf16 runs the tensor-core kernel, fp32 the CUDA-core one.
 extern "C" int sg_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int BH, int Sq, int Sk, int D,
                             int causal, float scale, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == SG_F32 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    return launch_fp<float, 64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,
+                                s);
   if (dtype == SG_F32 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, BH, Sq, Sk, causal, scale, s);
+    return launch_fp<float, 128>(q, k, v, o, lse, BH, Sq, Sk, causal,
+                                 scale, s);
   if (dtype == SG_BF16 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, BH, Sq, Sk, causal,
-                                     scale, s);
+    return fwd_tc::launch<64>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,
+                              s);
   if (dtype == SG_BF16 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, BH, Sq, Sk, causal,
-                                      scale, s);
+    return fwd_tc::launch<128>(q, k, v, o, lse, BH, Sq, Sk, causal, scale,
+                               s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,6 +27,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".kernel_build")
 SOURCES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_decode", "paged_attention")
+#: sources of diagnostics, built only by `lib()` when their tool runs
+#: (`ops/wgmma_probe.py`), never by `build_all()`
+DIAGNOSTICS = ("wgmma_probe",)
 #: --split-compile=0 lets nvcc spread one source's kernels over the cores
 #: (the decode sources instantiate six kernels each): 12.3 s against
 #: 21.1 s for the slowest of three sources built together on the H100
@@ -115,5 +118,5 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-__all__ = ["BUILD_DIR", "BUILD_LOG", "BUILD_SECONDS", "SOURCES", "build_all",
-           "check", "lib"]
+__all__ = ["BUILD_DIR", "BUILD_LOG", "BUILD_SECONDS", "DIAGNOSTICS", "SOURCES",
+           "build_all", "check", "lib"]

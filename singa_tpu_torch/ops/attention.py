@@ -66,6 +66,7 @@ _SIGNATURES = {
     "sg_flash_bwd_dkv": [_vp] * 8 + [_i] * 6 + [_vp],
     "sg_flash_decode": [_vp] * 7 + [_i] * 8 + [_f, _i, _i, _vp],
     "sg_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _i, _i, _vp],
+    "sg_wgmma_probe": [_vp] * 3 + [_i, _vp],
 }
 
 

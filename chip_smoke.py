@@ -4,14 +4,18 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-The second form only times the flash kernels K1 (forward) and K2a (fused
-backward) of this checkout against another checkout's (for example the
-parent commit, unpacked with `git archive`), bf16, causal, in turns
-(other, this, this, other), each turn in its own process building its
-checkout's two sources: K1 at the serving prefill (8, 12, 128, 64), a
-16-token prompt and the bench GPT's training shape (8, 16, 1024, 128),
-K2a at the training shape; each as device time and as CUDA events
-around the call (the timer phase 2 used before device time).
+The second form only times the kernels K1 (flash forward), K2a (fused
+backward), K3 (flash-decode) and K4 (paged decode) of this checkout
+against another checkout's (for example the parent commit, unpacked with
+`git archive`), bf16, in turns (other, this, this, other), each turn in
+its own process building its checkout's sources: K1 (causal) at the
+serving prefill (8, 12, 128, 64), a 16-token prompt and the bench GPT's
+training shape (8, 16, 1024, 128), K2a at the training shape, K3 and K4
+at phase 2's decode shape (N 8, Hp 6, PD 128, T 1024, page 16) with an
+fp cache single, int8 single and int4 on the 5-token ladder, and fp
+single at their main path's shape and lengths (MAIN_DECODE); each as
+device time, as CUDA events around the call and as the host's median
+issue time (the wrapper's call until it returns).
 
 Phases, each of which exits non-zero on failure:
 
@@ -31,8 +35,12 @@ Phases, each of which exits non-zero on failure:
    dispatch, forced through `_FUSED_DQ_BYTES_CAP`, against
    `flash_bwd_reference`, with dq, dk and dv compared separately. The
    decode kernels (K3, K4) run every cache mode (fp32, bf16, int8, int4)
-   and the verify ladder (q_tokens 5), a GQA ladder past 16 rows and
-   inactive slots under the ladder.
+   and the verify ladder (q_tokens 5), a GQA ladder past 16 rows,
+   inactive slots under the ladder, 64 rows x 256 lanes (the largest
+   workspace of partials) in fp32 and bf16, each kernel at its main
+   path's shape and lengths (bf16, fp and int8 single, at the middle and
+   last step of phase 4's `generate` and phase 5's engine), rows of 72 and
+   36 bytes (plain loads, not cp.async) and, paged, page size 48.
 3. Full-width GPT-2-small (random weights from a seed), teacher-forced:
    prefill + token_step on the kernels against use_kernel=False in fp32
    (dense and paged), and the bf16 logit drift and top-1 agreement.
@@ -74,8 +82,9 @@ Phases, each of which exits non-zero on failure:
    one layer's backward held against `flash_bwd_reference`.
 5. Where the time goes: device time by kernel under torch.profiler for a
    short generate call, a short engine run, a short speculative engine
-   run and one training step; the training step must show the
-   tensor-core flash kernels, which are printed with the top kernels.
+   run and one training step; the serving profiles must show their decode
+   kernel and its merge (counted as attention), the training step the
+   tensor-core flash kernels, all printed with the top kernels.
 7. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder), then the card line, then the result line.
 
@@ -137,9 +146,11 @@ CUDA_CORE_EVENTS_MS = {("flash_fwd", (8, 12, 128, 64)): 0.0410,
 TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_fused_tc_kernel")
 # SM cycles a second at the H100's boost clock: sizes time_ms's GPU sleep
 SM_HZ = 1.98e9
-# --ab: the flash shapes timed for two checkouts
+# --ab: the flash shapes timed for two checkouts, and the decode modes
+# (cache mode, q_tokens) at phase 2's decode shape
 AB_FWD = ((8, 12, 128, 64), (1, 12, 16, 64), (8, 16, 1024, 128))
 AB_BWD = (8, 16, 1024, 128)
+AB_DECODE = (("fp", 1), ("int8", 1), ("int4", 5))
 
 
 def fail(msg):
@@ -153,23 +164,31 @@ def card_line():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, n=25, warm=3, device=True):
-    """Median device ms of `fn` over n calls, CUDA events around each.
-    Each call is queued behind a GPU sleep of three times the host's
-    median issue time (five samples), so the events time the device's
-    work and not the host's launch overhead, which at small shapes is the
-    larger of the two. device=False leaves out the sleep: the events then
-    also time the host's launch path."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
+def host_ms(torch, fn, n=5):
+    """Median host ms to issue `fn` (until its call returns, the device's
+    work not waited for) over n calls, each after a synchronize."""
     host_s = []
-    for _ in range(5 if device else 0):
+    for _ in range(n):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         host_s.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    cycles = int(max(1e-4, 3 * statistics.median(host_s or [0])) * SM_HZ)
+    torch.cuda.synchronize()
+    return statistics.median(host_s) * 1e3
+
+
+def time_ms(torch, fn, n=25, warm=3, device=True):
+    """Median device ms of `fn` over n calls, CUDA events around each.
+    Each call is queued behind a GPU sleep of three times the host's
+    median issue time (`host_ms`, five samples), so the events time the
+    device's work and not the host's launch overhead, which at small
+    shapes is the larger of the two. device=False leaves out the sleep:
+    the events then also time the host's launch path."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    issue_s = host_ms(torch, fn) / 1e3 if device else 0.0
+    cycles = int(max(1e-4, 3 * issue_s) * SM_HZ)
     evs = []
     for _ in range(n):
         if device:
@@ -481,6 +500,22 @@ DEC_LENS = [1, 17, 512, 1024, 100, 333, 777, 64]
 # version dequantizes the same bytes and folds the same scales, so only
 # summation order differs); bf16 rounds O to bf16
 QTOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# each decode kernel at its main path's shape and lengths: (whose steps,
+# horizon T, the lengths of its middle and last step). Every row of a step
+# has one length. Phase 4's `generate` (8 prompts of 128, +128) keeps a
+# dense cache of T = 128 + 128 positions, and its step i < 127 attends
+# 128 + i + 1 of them (129..255). Phase 5's engine (8 requests of prompt
+# 256, +32, in step) gives each of its 8 slots a table of 64 pages of 16
+# (max_ctx 1024), and its steps attend 257..287 positions.
+MAIN_DECODE = {"flash_decode": ("generate's", 256, (192, 255)),
+               "paged_attention": ("the engine's", 1024, (272, 287))}
+
+
+def main_decode_label(kernel, mode, n):
+    """The phase-2 label of a decode kernel's main-path case."""
+    who, T, _ = MAIN_DECODE[kernel]
+    where = f"T {T}" if kernel == "flash_decode" else f"{T // DEC_PS} pages"
+    return f"{mode} single, {who} step at length {n} ({where})"
 
 
 def _quantize(torch, A, P, mode):
@@ -521,17 +556,18 @@ def _pools_from_dense(torch, caches, ps, g):
 
 
 def decode_case(torch, A, rows, g, kernel, mode, dn, q_tokens, P=2, G=1,
-                lens_l=DEC_LENS, label=""):
+                lens_l=DEC_LENS, label="", T=DEC_T, D=DEC_D, ps=DEC_PS):
     """One K3/K4 variant against its plain version on the card: `mode`
     fp/int8/int4 caches, `q_tokens` (> 1: the verify ladder), P*G rows a
-    token. Rows whose ladder limit is <= 0 (an inactive slot) are left
+    token, P*D lanes, T positions (paged: T / ps pages of ps a
+    sequence). Rows whose ladder limit is <= 0 (an inactive slot) are left
     out of the comparison: the kernel writes finite values there, the
     plain version NaN, and the caller discards both."""
     import torch.nn.functional as F
     dev = torch.device(DEVICE)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dn]
-    N, Hp, T, ps = DEC_N, DEC_HP, DEC_T, DEC_PS
-    PD, Q = P * DEC_D, q_tokens * P * G
+    N, Hp = DEC_N, DEC_HP
+    PD, Q = P * D, q_tokens * P * G
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
     q = torch.randn((N, Hp, Q, PD), generator=g, device=dev).to(dt)
     Kf, Vf = (torch.randn((N, Hp, T, PD), generator=g, device=dev)
@@ -601,7 +637,12 @@ def decode_case(torch, A, rows, g, kernel, mode, dn, q_tokens, P=2, G=1,
 def phase_decode_modes(torch, A, rows, g):
     """K3 and K4 in every cache mode and the ladder (q_tokens 5, the
     verify step of spec_k = 4) at the serving shape; one GQA ladder case
-    past 16 rows; one case with inactive slots under the ladder."""
+    past 16 rows; one case with inactive slots under the ladder; the
+    largest workspace (Q 64 x PD 256: a 4-token ladder, P 4, G 4); each
+    kernel at its main path's own shape and lengths (MAIN_DECODE; bf16, fp
+    and int8 single); then the plain-load path (P 1, D 72: rows of 72 int8
+    or 36 int4 bytes, no multiple of 16) and, paged, a page size that does
+    not divide 64 (48: chunks of lcm(64, 48) = 192 positions)."""
     for kernel in ("flash_decode", "paged_attention"):
         for dn in ("float32", "bfloat16"):
             for mode, qt in (("fp", 5), ("int8", 1), ("int4", 1),
@@ -612,6 +653,30 @@ def phase_decode_modes(torch, A, rows, g):
         decode_case(torch, A, rows, g, kernel, "int4", "float32", 5,
                     lens_l=[1, 3, 512, 1, 100, 2, 777, 64],
                     label="inactive slots under the ladder")
+        for dn in ("float32", "bfloat16"):
+            decode_case(torch, A, rows, g, kernel, "fp", dn, 4, P=4, G=4,
+                        label="Q 64 x PD 256, ladder, P 4 G 4")
+        _, T, steps = MAIN_DECODE[kernel]
+        for n in steps:
+            for mode in ("fp", "int8"):
+                decode_case(torch, A, rows, g, kernel, mode, "bfloat16", 1,
+                            lens_l=[n] * DEC_N, T=T,
+                            label=main_decode_label(kernel, mode, n))
+        edge_lens = [1, 17, 512, 1000, 100, 333, 777, 64]
+        edge_T = 1000 if kernel == "flash_decode" else DEC_T
+        decode_case(torch, A, rows, g, kernel, "int8", "bfloat16", 1, P=1,
+                    D=72, T=edge_T, lens_l=edge_lens,
+                    label="int8 single, P 1 D 72: 72-byte rows, plain loads")
+        decode_case(torch, A, rows, g, kernel, "int4", "float32", 5, P=1,
+                    D=72, T=edge_T, lens_l=edge_lens,
+                    label="int4 ladder, P 1 D 72: 36-byte rows, plain loads")
+        if kernel == "paged_attention":
+            for mode, dn, qt in (("fp", "bfloat16", 1),
+                                 ("int8", "float32", 5)):
+                decode_case(torch, A, rows, g, kernel, mode, dn, qt,
+                            T=1056, ps=48, label=f"{mode} "
+                            f"{'ladder' if qt > 1 else 'single'}, page 48: "
+                            "chunks of 192")
 
 
 def phase_teacher_forced(torch, model, serving):
@@ -1248,8 +1313,14 @@ def phase_spec_exact(torch, model, drafts, engine, serving, fp32_engine):
 
 
 _GEMM = ("gemm", "nvjet", "cutlass", "xmma")
+# the decode kernels' names match their merge kernels' too
+# (flash_decode_kernel_merge, paged_kernel_merge)
 SERVE_CATS = (("attention kernels", ("flash_fwd_kernel", "flash_decode_kernel",
                                      "paged_kernel")),)
+# the kernels each serving profile must show: a decode call's split kernel
+# and its merge
+K3_KERNELS = ("flash_decode_kernel<", "flash_decode_kernel_merge")
+K4_KERNELS = ("paged_kernel<", "paged_kernel_merge")
 TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
@@ -1294,6 +1365,10 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=()):
           f"{1 - busy / wall_ms:.1%}; "
           + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})"
                       for k, v in totals.items()))
+    for k in require:
+        ms = sum(r[0] for r in rows if k in r[2])
+        print(f"    required {k}: {ms:.3f} ms ({ms / busy:.1%}), "
+              f"{sum(r[1] for r in rows if k in r[2])} launches")
     ranked = sorted(rows, reverse=True)
     for rank, (ms, count, name) in enumerate(ranked, 1):
         if rank <= 6 or any(k in name for k in require):
@@ -1312,18 +1387,21 @@ def phase_profile(torch, model, engine, train_step, drafts):
     rng = np.random.RandomState(SEED + 2)
     prompts = rng.randint(0, model.vocab_size, (8, 128)).astype(np.int32)
     _breakdown(torch, "generate b8 prompt 128 +32",
-               lambda: model.generate(prompts, 32, dtype="bfloat16"))
+               lambda: model.generate(prompts, 32, dtype="bfloat16"),
+               require=K3_KERNELS)
     reqs_in = [(rng.randint(0, model.vocab_size, (256,)).astype(np.int32),
                 32) for _ in range(8)]
     _breakdown(torch, "engine 8 requests prompt 256 +32",
                lambda: serve(engine, model, reqs_in, timeout_s=300,
-                             max_slots=8, dtype="bfloat16"))
+                             max_slots=8, dtype="bfloat16"),
+               require=K4_KERNELS)
     _breakdown(torch, f"spec engine 8 requests prompt 256 +8, kv int4, "
                f"clone draft, spec_k {SPEC_K}",
                lambda: serve(engine, model, [(p, 8) for p, _ in reqs_in],
                              timeout_s=300, max_slots=8, dtype="bfloat16",
                              kv_dtype="int4", draft_model=drafts["clone"],
-                             spec_k=SPEC_K))
+                             spec_k=SPEC_K),
+               require=K4_KERNELS)
     _breakdown(torch, "train step b8 s1024 bf16 (bench width)", train_step,
                TRAIN_CATS, require=TC_KERNELS)
 
@@ -1464,7 +1542,8 @@ def phase_train_long(torch, models, opt, A, rows, g):
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
-    the serving layout, and its launches over the serving windows of
+    the serving layout (the case with that mode's own label, or none),
+    and its launches over the serving windows of
     phases 4 and 4c. Fails unless the int8, int4 and ladder modes each
     launched."""
     out = []
@@ -1475,6 +1554,7 @@ def decode_modes(A, rows, name, by_mode):
         cand = [c for c in rows if c["name"] == name
                 and c["dtype"] == "bfloat16"
                 and c.get("mode", "fp") == mode
+                and c.get("label", f"{mode} {lad}") == f"{mode} {lad}"
                 and c.get("q_tokens", 1) == qt and c.get("groups", 1) == 1]
         entry = {k: cand[-1][k] for k in (
             "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1504,17 +1584,22 @@ class Clock:
 
 # ---------------------------------------------------------------------------
 def ab_turn(torch, root, tag):
-    """One turn of --ab: K1 and K2a of the checkout at `root` (its own
-    sources, built in that checkout), bf16, causal, as device time and
-    as CUDA events around the call."""
+    """One turn of --ab: K1 and K2a (causal), then K3 and K4 (the
+    AB_DECODE modes at phase 2's decode shape, and fp single at their main
+    path's shape and lengths, MAIN_DECODE), of the checkout at `root` (its
+    own sources, built in that checkout), bf16, as device time, as CUDA
+    events around the call and as the host's median issue time."""
     sys.path.insert(0, os.path.abspath(root))
+    from singa_tpu_torch.ops import _build
     from singa_tpu_torch.ops import attention as A
+    _build.build_all()
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def line(what, shape, fn, n):
         print(f"{tag} {what} bf16 {list(shape)}: device "
               f"{time_ms(torch, fn, n=n):.4f} ms, events around the call "
-              f"{time_ms(torch, fn, n=n, device=False):.4f} ms", flush=True)
+              f"{time_ms(torch, fn, n=n, device=False):.4f} ms, host issue "
+              f"{host_ms(torch, fn, n=n):.4f} ms", flush=True)
     for shape in AB_FWD:
         q, k, v = (torch.randn(shape, generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
@@ -1526,6 +1611,54 @@ def ab_turn(torch, root, tag):
     qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
     line("flash_bwd_fused", AB_BWD, lambda: A._flash_bwd_fused(
         qf, k, v, do, lse, delta, True, scale), 10)
+    N, Hp, T, ps, P = DEC_N, DEC_HP, DEC_T, DEC_PS, 2
+    lens = torch.tensor(DEC_LENS, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(N * (T // ps), generator=g, device="cuda")
+    pt = perm.reshape(N, T // ps).to(torch.int32).contiguous()
+    for mode, qt in AB_DECODE:
+        shape = [N, Hp, qt * P, P * DEC_D, T]
+        q = torch.randn(shape[:4], generator=g, device="cuda").to(
+            torch.bfloat16)
+        Kf, Vf = (torch.randn((N, Hp, T, P * DEC_D), generator=g,
+                              device="cuda") for _ in range(2))
+        if mode == "fp":
+            dense = [Kf.to(torch.bfloat16), Vf.to(torch.bfloat16), None, None]
+        else:
+            (K, ks), (V, vs) = (_quantize(torch, Kf, P, mode),
+                                _quantize(torch, Vf, P, mode))
+            dense = [K, V, ks, vs]
+        pools = [None if a is None else _paged(torch, a, ps, perm)
+                 for a in dense]
+        what = f"{mode} {'ladder' if qt > 1 else 'single'}"
+        line(f"flash_decode {what}", shape, lambda: A.flash_decode(
+            q, dense[0], dense[1], lens, 0.125, dense[2], dense[3],
+            q_tokens=qt), 25)
+        line(f"paged_attention {what}", shape + [ps],
+             lambda: A.paged_attention(q, pools[0], pools[1], pt, lens, ps,
+                                       0.125, pools[2], pools[3],
+                                       q_tokens=qt), 25)
+    for kernel, (_, Tm, steps) in MAIN_DECODE.items():
+        q = torch.randn((N, Hp, P, P * DEC_D), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        K, V = (torch.randn((N, Hp, Tm, P * DEC_D), generator=g,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        shape = [N, Hp, P, P * DEC_D, Tm]
+        if kernel == "paged_attention":
+            perm = torch.randperm(N * (Tm // ps), generator=g, device="cuda")
+            K, V = _paged(torch, K, ps, perm), _paged(torch, V, ps, perm)
+            pt = perm.reshape(N, Tm // ps).to(torch.int32).contiguous()
+            shape += [ps]
+        for n in steps:
+            lens = torch.full((N,), n, dtype=torch.int32, device="cuda")
+            if kernel == "paged_attention":
+                def fn():
+                    return A.paged_attention(q, K, V, pt, lens, ps, 0.125)
+            else:
+                def fn():
+                    return A.flash_decode(q, K, V, lens, 0.125)
+            line(f"{kernel} {main_decode_label(kernel, 'fp', n)}", shape,
+                 fn, 25)
 
 
 def run_ab(other):
@@ -1607,16 +1740,20 @@ def main():
     clock.lap("phase 6c")
 
     # the JSON line reports each kernel at its main path's shape and
-    # dtype; `launches` sums the paths' counted runs
+    # dtype (the decode kernels: fp single at their main path's middle
+    # step, by label); `launches` sums the paths' counted runs
     main_shape = {"flash_fwd": [8, 12, 128, 64],
                   "flash_bwd_fused": [TRAIN_B, 16, TRAIN_S, 128],
                   "flash_bwd_dq": [1, 16, LONG_S, 128],
                   "flash_bwd_dkv": [1, 16, LONG_S, 128]}
+    main_label = {k: main_decode_label(k, "fp", steps[0])
+                  for k, (_, _, steps) in MAIN_DECODE.items()}
     kernels = []
     for name in A.LAUNCHES:
         cands = [r for r in rows if r["name"] == name
                  and r["dtype"] == "bfloat16"
                  and r["shape"] == main_shape.get(name, r["shape"])
+                 and r.get("label") == main_label.get(name, r.get("label"))
                  and r.get("mode", "fp") == "fp"
                  and r.get("q_tokens", 1) == 1]
         r = dict(cands[-1])

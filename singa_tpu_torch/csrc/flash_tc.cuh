@@ -45,9 +45,11 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using ::cp16;
+using ::cp4;
+using ::cp_commit;
+using ::cp_wait;
+using ::smem_u32;
 
 // The first 1024-byte-aligned address at or after p (the swizzle pattern
 // is a function of the address bits, so every tile starts on 1024 bytes).
@@ -253,28 +255,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// --- copies ------------------------------------------------------------------
-// 16 (or 4) bytes global -> shared, asynchronous; bytes < the size zero-fill
-// the rest (0: a row past the matrix's end, read as zeros).
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// --- copies (cp16, cp4, cp_commit, cp_wait: common.cuh) ----------------------
 // Orders this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) before later async-proxy reads (wgmma, bulk copies); a barrier
 // after it publishes them to the other threads.

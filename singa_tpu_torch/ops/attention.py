@@ -17,7 +17,10 @@ Dispatch goes by the tensor's device, with no fallback: a CPU tensor runs
 the plain version, a CUDA tensor launches the kernel or raises on input the
 kernel does not take. `LAUNCHES` counts each kernel's launches, so a run
 can show its main path went through the kernels; `LAUNCHES_BY_MODE`
-splits K3's and K4's by cache mode and ladder. `flash_attention` is
+splits K3's and K4's by cache mode and ladder. K3 and K4 split the cache
+axis over blocks (`_decode_plan`, from the shapes alone) into partials in
+a workspace the wrapper allocates, which a second CUDA kernel of the same
+C entry point merges: one wrapper call, one count. `flash_attention` is
 differentiable through `FlashAttention`, a torch.autograd.Function (the
 JAX package's custom_vjp), whose backward picks K2a or K2b + K2c by the
 JAX package's rule (`_FUSED_DQ_BYTES_CAP`).
@@ -32,6 +35,8 @@ softmax in fp32, as the kernels do.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -52,6 +57,13 @@ LAUNCHES_BY_MODE = {(k, m, v): 0
 _NEG_INF = -1e30
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh codes
 _MAXQ, _MAXPD = 64, 256                          # csrc/decode_common.cuh
+#: the decode kernels' split plan (K3/K4): a split's chunk of the cache
+#: axis is a multiple of _DEC_ALIGN positions (and, paged, of the page
+#: size) and at most _DEC_MAX_CHUNK where that allows; the plan aims at
+#: _DEC_BLOCKS blocks, eight per SM of the H100's 132: the blocks past a
+#: short sequence's length end at once, so the long sequences' chunks set
+#: the time, and more blocks make those chunks shorter
+_DEC_ALIGN, _DEC_MAX_CHUNK, _DEC_BLOCKS = 64, 1024, 8 * 132
 #: the backward takes the fused kernel while its fp32 (Sq, D) dQ would fit
 #: this many bytes, else the split pair: the JAX package's VMEM rule,
 #: kept so each kernel lies on the path it lies on there (S <= 8192 at
@@ -64,8 +76,8 @@ _SIGNATURES = {
     "sg_flash_bwd_fused": [_vp] * 10 + [_i] * 5 + [_f, _i, _vp],
     "sg_flash_bwd_dq": [_vp] * 7 + [_i] * 5 + [_f, _i, _vp],
     "sg_flash_bwd_dkv": [_vp] * 8 + [_i] * 6 + [_vp],
-    "sg_flash_decode": [_vp] * 7 + [_i] * 8 + [_f, _i, _i, _vp],
-    "sg_paged_attention": [_vp] * 8 + [_i] * 9 + [_f, _i, _i, _vp],
+    "sg_flash_decode": [_vp] * 8 + [_i] * 10 + [_f, _i, _i, _vp],
+    "sg_paged_attention": [_vp] * 9 + [_i] * 11 + [_f, _i, _i, _vp],
     "sg_wgmma_probe": [_vp] * 3 + [_i, _vp],
 }
 
@@ -486,6 +498,32 @@ def _check_decode(what, q, K, V, lengths, k_scales, v_scales, q_tokens,
     return mode
 
 
+@functools.lru_cache(maxsize=256)
+def _decode_plan(nh, horizon, page_size=1):
+    """(chunk, splits) of the decode kernels' split of the cache axis, from
+    the shapes alone (never the lengths, which live on the device): `nh`
+    (n, hp) pairs over `horizon` positions. The chunk is a multiple of
+    _DEC_ALIGN and of the page size; the splits aim at _DEC_BLOCKS blocks
+    in all, as far as the horizon allows. Memoized: a serving loop asks
+    for the same few shapes every step."""
+    base = _DEC_ALIGN * page_size // math.gcd(_DEC_ALIGN, page_size)
+    nbase = max(1, -(-horizon // base))
+    want = max(-(-_DEC_BLOCKS // nh),
+               -(-horizon // max(_DEC_MAX_CHUNK, base)))
+    chunk = base * -(-nbase // min(want, nbase))
+    return chunk, max(1, -(-horizon // chunk))
+
+
+def _decode_workspace(q, splits):
+    """The partials of a decode call, fp32: per (n, hp, split, row) PD
+    accumulator lanes, then per (n, hp, split, row) (m, l). Left
+    uninitialised: the merge reads only what the split kernel wrote (no
+    accumulator of an empty partial)."""
+    N, Hp, Q, PD = q.shape
+    return torch.empty(N * Hp * splits * Q * (PD + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def _scale_args(k_scales, v_scales, groups):
     """(KS pointer, VS pointer, P, G) for the C entry points."""
     if k_scales is None:
@@ -509,12 +547,15 @@ def flash_decode(q, K, V, lengths, scale=1.0, k_scales=None, v_scales=None,
     mode = _check_decode("flash_decode", q, K, V, lengths, k_scales,
                          v_scales, q_tokens, (N, Hp, T))
     ks, vs, P, G = _scale_args(k_scales, v_scales, groups)
+    chunk, splits = _decode_plan(N * Hp, T)
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, splits)
     fn = _entry("flash_decode", "sg_flash_decode")
     _build.check(fn(q.data_ptr(), K.data_ptr(), V.data_ptr(), ks, vs,
-                    lengths.data_ptr(), out.data_ptr(), N, Hp, Q, T, PD, P,
-                    G, int(q_tokens), float(scale), _DTYPE[q.dtype],
-                    _KV_MODE[mode], _stream(q)), "flash_decode")
+                    lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), N, Hp,
+                    Q, T, PD, P, G, int(q_tokens), chunk, splits,
+                    float(scale), _DTYPE[q.dtype], _KV_MODE[mode],
+                    _stream(q)), "flash_decode")
     _count("flash_decode", mode, q_tokens)
     return out
 
@@ -571,13 +612,16 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, page_size,
                          f"page_table {tuple(page_table.shape)} on "
                          f"{page_table.device}")
     ks, vs, P, G = _scale_args(k_scales, v_scales, groups)
+    chunk, splits = _decode_plan(N * Hp, M * ps, ps)
     out = torch.empty_like(q)
+    ws = _decode_workspace(q, splits)
     fn = _entry("paged_attention", "sg_paged_attention")
     _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks,
                     vs, page_table.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), N, Hp, Q, M, ps, PD, P, G,
-                    int(q_tokens), float(scale), _DTYPE[q.dtype],
-                    _KV_MODE[mode], _stream(q)), "paged_attention")
+                    out.data_ptr(), ws.data_ptr(), N, Hp, Q, M, ps, PD, P, G,
+                    int(q_tokens), chunk, splits, float(scale),
+                    _DTYPE[q.dtype], _KV_MODE[mode], _stream(q)),
+                 "paged_attention")
     _count("paged_attention", mode, q_tokens)
     return out
 

@@ -5,12 +5,14 @@
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
 The second form only times the kernels K1 (flash forward), K2a (fused
-backward), K3 (flash-decode) and K4 (paged decode) of this checkout
-against another checkout's (for example the parent commit, unpacked with
-`git archive`), bf16, in turns (other, this, this, other), each turn in
-its own process building its checkout's sources: K1 (causal) at the
-serving prefill (8, 12, 128, 64), a 16-token prompt and the bench GPT's
-training shape (8, 16, 1024, 128), K2a at the training shape, K3 and K4
+backward), K2b and K2c (the split backward's dQ and dK/dV), K3
+(flash-decode) and K4 (paged decode) of this checkout against another
+checkout's (for example the parent commit, unpacked with `git archive`),
+bf16, in turns (other, this, this, other), each turn in its own process
+building its checkout's sources: K1 (causal) at the serving prefill
+(8, 12, 128, 64), a 16-token prompt and the bench GPT's training shape
+(8, 16, 1024, 128), K2a at the training shape, K2b and K2c at the
+long-context shape (1, 16, 16384, 128), K3 and K4
 at phase 2's decode shape (N 8, Hp 6, PD 128, T 1024, page 16) with an
 fp cache single, int8 single and int4 on the 5-token ladder, and fp
 single at their main path's shape and lengths (MAIN_DECODE); each as
@@ -33,7 +35,10 @@ Phases, each of which exits non-zero on failure:
    K2a in bf16 also run ragged shapes (S 300, 1023, 100). The backward
    kernels (K2a fused, K2b dQ + K2c dK/dV split) run both routes of the
    dispatch, forced through `_FUSED_DQ_BYTES_CAP`, against
-   `flash_bwd_reference`, with dq, dk and dv compared separately. The
+   `flash_bwd_reference`, with dq, dk and dv compared separately, causal
+   and (bf16, S 1023 and 100) not; the split route must give bitwise-equal
+   results in two runs and, in bf16, dk and dv bitwise equal to the fused
+   route's (K2c runs K2a's body without its dQ branch). The
    decode kernels (K3, K4) run every cache mode (fp32, bf16, int8, int4)
    and the verify ladder (q_tokens 5), a GQA ladder past 16 rows,
    inactive slots under the ladder, 64 rows x 256 lanes (the largest
@@ -78,8 +83,10 @@ Phases, each of which exits non-zero on failure:
    6b. fp32 training on the card against the same steps on the CPU (plain
    versions), from identical weights: losses and parameters.
    6c. Long-context training (S = 16384, 2 layers, bf16), where the
-   backward takes the split pair K2b + K2c, with exact launch counts, and
-   one layer's backward held against `flash_bwd_reference`.
+   backward takes the split pair K2b + K2c, with exact launch counts; one
+   step under torch.profiler, which must show the tensor-core K1, K2b and
+   K2c; and one layer's backward on both routes (K2a forced) held against
+   `flash_bwd_reference` and timed beside each other.
 5. Where the time goes: device time by kernel under torch.profiler for a
    short generate call, a short engine run, a short speculative engine
    run and one training step; the serving profiles must show their decode
@@ -133,7 +140,8 @@ REPLACES = {
     "flash_decode": "singa_tpu/ops/attention.py:1237 _flash_decode_kernel",
     "paged_attention": "singa_tpu/ops/attention.py:1019 _paged_fwd_kernel"}
 # sources whose kernels must build without register spills
-NO_SPILL = ("flash_fwd", "flash_bwd_fused", "flash_decode", "paged_attention")
+NO_SPILL = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+            "flash_decode", "paged_attention")
 # bf16 times (ms) of the CUDA-core design (fp32 products from shared
 # memory) that the tensor-core K1 and K2a replaced, by (kernel, shape),
 # as this script's phase 2 took them before it timed device work (CUDA
@@ -144,12 +152,16 @@ CUDA_CORE_EVENTS_MS = {("flash_fwd", (8, 12, 128, 64)): 0.0410,
            ("flash_bwd_fused", (8, 16, 1024, 128)): 4.3216}
 # the tensor-core kernels, which the training step's profile must show
 TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_fused_tc_kernel")
+# and those the long-context step's profile must show (the split backward)
+LONG_TC_KERNELS = ("flash_fwd_kernel_tc", "flash_bwd_dq_tc_kernel",
+                   "flash_bwd_dkv_tc_kernel")
 # SM cycles a second at the H100's boost clock: sizes time_ms's GPU sleep
 SM_HZ = 1.98e9
 # --ab: the flash shapes timed for two checkouts, and the decode modes
 # (cache mode, q_tokens) at phase 2's decode shape
 AB_FWD = ((8, 12, 128, 64), (1, 12, 16, 64), (8, 16, 1024, 128))
 AB_BWD = (8, 16, 1024, 128)
+AB_LONG = (1, 16, 16384, 128)   # the split pair K2b + K2c
 AB_DECODE = (("fp", 1), ("int8", 1), ("int4", 5))
 
 
@@ -386,7 +398,7 @@ def phase_kernels(torch, A):
         del q, k, v, out, ref
     # K2a / K2b / K2c: the backward, both routes, at the training shapes
     # and, in bf16, at ragged S (rows and keys past S in the tensor-core
-    # K2a's tiles)
+    # tiles) and without the causal mask
     for shape, dn in (((TRAIN_B, 16, TRAIN_S, 128), "bfloat16"),
                       ((TRAIN_B, 12, TRAIN_S, 64), "bfloat16"),
                       ((1, 16, TRAIN_S, 128), "float32"),
@@ -394,6 +406,8 @@ def phase_kernels(torch, A):
                       ((1, 2, 1023, 128), "bfloat16"),
                       ((1, 3, 100, 64), "bfloat16")):
         bwd_case(torch, A, rows, g, shape, dn)
+    for shape in ((1, 2, 1023, 128), (1, 3, 100, 64)):
+        bwd_case(torch, A, rows, g, shape, "bfloat16", causal=False)
     return rows
 
 
@@ -410,85 +424,123 @@ def _bwd_bound(shape, el, n_products, n_out, causal=True):
 
 
 def bwd_case(torch, A, rows, g, shape, dn, routes=("fused", "split"),
-             n=10, n_plain=5):
-    """The flash backward at one shape, causal: each route of the
-    dispatch (forced through _FUSED_DQ_BYTES_CAP, as the JAX package's
-    test forces it) against flash_bwd_reference on the same q, k, v, O,
-    lse and dO; then the kernels' times, the plain version's, the bounds
-    and SDPA's backward (forward + backward less forward)."""
+             n=10, n_plain=5, causal=True):
+    """The flash backward at one shape: each route of the dispatch (forced
+    through _FUSED_DQ_BYTES_CAP, as the JAX package's test forces it)
+    against flash_bwd_reference on the same q, k, v, O, lse and dO; the
+    split route run twice must give bitwise-equal dq, dk and dv (it has no
+    atomics), and in bf16 its dk and dv must equal the fused route's bit for
+    bit (K2c is K2a's body without the dQ branch). Then the kernels' times,
+    the plain version's, the bounds and SDPA's backward (forward + backward
+    less forward), the one library call for the whole backward, which the
+    split rows carry too; with both routes, which is faster."""
     import torch.nn.functional as F
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dn]
     dev = torch.device("cuda")
     q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt)
                    for _ in range(4))
     scale = shape[-1] ** -0.5
-    o, lse = A._flash_fwd(q, k, v, True, scale)
-    ref = A.flash_bwd_reference(q, k, v, o, lse, do, True, scale)
+    o, lse = A._flash_fwd(q, k, v, causal, scale)
+    ref = A.flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
     tol = BWD_TOL[dn]
-    errs = {}
+    errs, grads = {}, {}
     cap = A._FUSED_DQ_BYTES_CAP
+    what = f"{dn} {list(shape)}{'' if causal else ' non-causal'}"
     try:
         for route in routes:
             A._FUSED_DQ_BYTES_CAP = (1 << 60) if route == "fused" else 0
-            got = A._flash_bwd(q, k, v, o, lse, do, True, scale)
+            got = grads[route] = A._flash_bwd(q, k, v, o, lse, do, causal,
+                                              scale)
             torch.cuda.synchronize()
             for name, a, b in zip(("dq", "dk", "dv"), got, ref):
                 d = float((a.float() - b.float()).abs().max())
                 rel = d / float(b.float().abs().max())
                 errs[route, name] = (d, rel)
                 bad = not (rel if dn == "bfloat16" else d) <= tol
-                print(f"  flash_bwd {route} {dn} {list(shape)} {name}: max "
-                      f"abs err {d:.3e}, / max|ref| {rel:.3e} (tol {tol} "
+                print(f"  flash_bwd {route} {what} {name}: max abs err "
+                      f"{d:.3e}, / max|ref| {rel:.3e} (tol {tol} "
                       f"{'relative' if dn == 'bfloat16' else 'absolute'}) "
                       f"{'FAIL' if bad else 'ok'}")
                 if bad:
-                    fail(f"flash_bwd {route} {dn} {shape} {name} disagrees "
-                         "with flash_bwd_reference")
+                    fail(f"flash_bwd {route} {what} {name} disagrees with "
+                         "flash_bwd_reference")
+            if route == "split":
+                again = A._flash_bwd(q, k, v, o, lse, do, causal, scale)
+                torch.cuda.synchronize()
+                diff = [name for name, a, b in zip(("dq", "dk", "dv"), got,
+                                                   again)
+                        if not torch.equal(a, b)]
+                print(f"  flash_bwd split {what}: two runs bitwise equal "
+                      f"{'FAIL ' + str(diff) if diff else 'ok'}")
+                if diff:
+                    fail(f"flash_bwd split {what}: {diff} differ between "
+                         "two runs")
     finally:
         A._FUSED_DQ_BYTES_CAP = cap
+    if dn == "bfloat16" and {"fused", "split"} <= grads.keys():
+        diff = [name for name, a, b in zip(("dk", "dv"), grads["split"][1:],
+                                           grads["fused"][1:])
+                if not torch.equal(a, b)]
+        print(f"  flash_bwd {what}: split dk, dv bitwise equal to fused "
+              f"{'FAIL ' + str(diff) if diff else 'ok'}")
+        if diff:
+            fail(f"flash_bwd {what}: split {diff} differ from the fused "
+                 "route's")
+    del grads
     qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
-    args = (qf, k, v, do, lse, delta, True)
+    args = (qf, k, v, do, lse, delta, causal)
     plain_ms = time_ms(torch, lambda: A.flash_bwd_reference(
-        q, k, v, o, lse, do, True, scale), n=n_plain, warm=1)
+        q, k, v, o, lse, do, causal, scale), n=n_plain, warm=1)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     lib_ms = (time_ms(torch, lambda: torch.autograd.grad(
         sdpa(), (ql, kl, vl), do), n=n, warm=2)
         - time_ms(torch, sdpa, n=n, warm=2))
     el = q.element_size()
     kernels = {"fused": [("flash_bwd_fused", "flash_bwd_fused.cu",
                           "351 _flash_bwd_fused_kernel", 5, 3,
-                          ("dq", "dk", "dv"), lib_ms,
+                          ("dq", "dk", "dv"),
                           lambda: A._flash_bwd_fused(*args, scale))],
                "split": [("flash_bwd_dq", "flash_bwd_dq.cu",
-                          "269 _flash_bwd_dq_kernel", 3, 1, ("dq",), None,
+                          "269 _flash_bwd_dq_kernel", 3, 1, ("dq",),
                           lambda: A._flash_bwd_dq(*args, scale)),
                          ("flash_bwd_dkv", "flash_bwd_dkv.cu",
                           "308 _flash_bwd_dkv_kernel", 4, 2, ("dk", "dv"),
-                          None, lambda: A._flash_bwd_dkv(*args))]}
+                          lambda: A._flash_bwd_dkv(*args))]}
+    route_ms = {}
     for route in routes:
-        for name, src, line, n_prod, n_out, outs, lib, fn in kernels[route]:
+        for name, src, line, n_prod, n_out, outs, fn in kernels[route]:
             ms = time_ms(torch, fn, n=n, warm=2)
-            b_ms, b_by, flops = _bwd_bound(shape, el, n_prod, n_out)
+            route_ms[route] = route_ms.get(route, 0.0) + ms
+            b_ms, b_by, flops = _bwd_bound(shape, el, n_prod, n_out, causal)
             err = max(errs[route, o_][0] for o_ in outs)
             rel = max(errs[route, o_][1] for o_ in outs)
             rates = _rates(name, dn, shape, ms, b_ms, flops)
-            lib_s = f"{lib:.4f} ms (SDPA backward)" if lib else "none"
-            print(f"  {name} {dn} {list(shape)}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"library {lib_s}"
+            print(f"  {name} {what}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (whole backward), bound {b_ms:.4f} ms "
+                  f"({b_by}), library {lib_ms:.4f} ms (SDPA backward, "
+                  "whole: dq, dk, dv)"
                   + _rates_text(rates, name, dn, shape))
             rows.append(dict(
                 name=name, route="cuda", source=f"singa_tpu_torch/csrc/{src}",
                 replaces=f"singa_tpu/ops/attention.py:{line}", dtype=dn,
-                shape=list(shape), max_abs_err=err, rel_err=rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, **rates))
+                shape=list(shape), causal=causal, max_abs_err=err,
+                rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                library_call="SDPA backward, whole (dq, dk, dv)", **rates))
     if "split" in routes:
-        print(f"  split pair {dn} {list(shape)}: SDPA backward "
-              f"{lib_ms:.4f} ms")
+        ratio = (f" ({route_ms['split'] / lib_ms:.2f}x)" if lib_ms > 0
+                 else "")
+        print(f"  split pair {what}: K2b + K2c {route_ms['split']:.4f} ms, "
+              f"SDPA backward {lib_ms:.4f} ms{ratio}")
+    if len(route_ms) == 2:
+        fast = min(route_ms, key=route_ms.get)
+        print(f"  route {what}: split (K2b + K2c) {route_ms['split']:.4f} "
+              f"ms, fused (the K2a call: workspace, kernel, scale-and-cast) "
+              f"{route_ms['fused']:.4f} "
+              f"ms: {fast} is faster")
 
 
 # ---------------------------------------------------------------------------
@@ -1514,7 +1566,10 @@ def phase_train_fp32(torch, models, opt, transformer):
 
 def phase_train_long(torch, models, opt, A, rows, g):
     """Long-context training, where the backward takes K2b + K2c; counters
-    reset just before its steps and read just after them."""
+    reset just before its steps and read just after them. Then one step
+    under torch.profiler, which must show the tensor-core K1, K2b and K2c,
+    and one layer's backward at its shape on both routes (K2a forced)
+    against flash_bwd_reference, timed beside each other."""
     print(f"== phase 6c: long-context training, S {LONG_S}, "
           f"{LONG_LAYERS} layers, bf16 amp")
     cfg = dict(BENCH_GPT, max_seq=LONG_S, num_layers=LONG_LAYERS)
@@ -1532,10 +1587,13 @@ def phase_train_long(torch, models, opt, A, rows, g):
     check_launches("long-context training", counts, {
         "flash_fwd": 2 * LONG_LAYERS, "flash_bwd_dq": 2 * LONG_LAYERS,
         "flash_bwd_dkv": 2 * LONG_LAYERS})
+    _breakdown(torch, f"long-context train step S {LONG_S}, {LONG_LAYERS} "
+               "layers, bf16 amp", lambda: m(tx, ty)[1].item(), TRAIN_CATS,
+               require=LONG_TC_KERNELS)
     del m
     torch.cuda.empty_cache()
     bwd_case(torch, A, rows, g, (1, 16, LONG_S, 128), "bfloat16",
-             routes=("split",), n=3, n_plain=2)
+             routes=("split", "fused"), n=3, n_plain=2)
     return counts
 
 
@@ -1584,7 +1642,8 @@ class Clock:
 
 # ---------------------------------------------------------------------------
 def ab_turn(torch, root, tag):
-    """One turn of --ab: K1 and K2a (causal), then K3 and K4 (the
+    """One turn of --ab: K1 and K2a (causal), K2b and K2c (causal, at the
+    long-context shape AB_LONG), then K3 and K4 (the
     AB_DECODE modes at phase 2's decode shape, and fp single at their main
     path's shape and lengths, MAIN_DECODE), of the checkout at `root` (its
     own sources, built in that checkout), bf16, as device time, as CUDA
@@ -1611,6 +1670,15 @@ def ab_turn(torch, root, tag):
     qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
     line("flash_bwd_fused", AB_BWD, lambda: A._flash_bwd_fused(
         qf, k, v, do, lse, delta, True, scale), 10)
+    q, k, v, do = (torch.randn(AB_LONG, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = A._flash_fwd(q, k, v, True, scale)
+    qf, delta = A._bwd_prepare(q, k, v, o, lse, do, scale)
+    line("flash_bwd_dq", AB_LONG, lambda: A._flash_bwd_dq(
+        qf, k, v, do, lse, delta, True, scale), 5)
+    line("flash_bwd_dkv", AB_LONG, lambda: A._flash_bwd_dkv(
+        qf, k, v, do, lse, delta, True), 5)
+    del q, k, v, do, o, lse, qf, delta
     N, Hp, T, ps, P = DEC_N, DEC_HP, DEC_T, DEC_PS, 2
     lens = torch.tensor(DEC_LENS, dtype=torch.int32, device="cuda")
     perm = torch.randperm(N * (T // ps), generator=g, device="cuda")

@@ -1,7 +1,10 @@
-// Flash-attention backward: the tile math shared by the three backward
-// kernels (flash_bwd_fused.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Flash-attention backward in fp32 on the CUDA cores: the tile math of the
+// three backward kernels' fp32 paths (flash_bwd_fused.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu). Their bf16 paths run on the tensor cores
+// (flash_bwd_tc.cuh, flash_bwd_dq.cu); fp32 stays here because wgmma on
+// fp32 inputs runs in TF32.
 //
-// Inputs, all (BH, S, D) rows, fp32 or bf16: q PRE-SCALED by the softmax
+// Inputs, all fp32 (BH, S, D) rows: q PRE-SCALED by the softmax
 // scale (as `_flash_bwd_pallas` hands it to the TPU kernels), k, v, dO; and
 // fp32 (BH, Sq) rows lse (the forward's logsumexp of the scaled scores) and
 // delta = rowsum(dO * O). For each (64 q rows) x (64 keys) tile:
@@ -12,7 +15,7 @@
 //   dV += P^T dO,  dK += dS^T q,  dQ += dS k   (dQ scaled by `scale` last)
 //
 // Arithmetic is fp32 on the CUDA cores from shared memory; tiles are held
-// as fp32 with rows padded to D + 1 floats, so that a warp's 16 lanes that
+// with rows padded to D + 1 floats, so that a warp's 16 lanes that
 // read 16 different rows at one column hit 16 different banks. A block has
 // 256 threads as a 16 x 16 grid (tx, ty): in the score tile each thread
 // owns rows ty + 16 i and keys tx + 16 j (i, j < 4); in a (64, D)
@@ -57,15 +60,14 @@ struct Tiles {
   }
 };
 
-// Rows [r0, r0 + 64) of a (S, D) matrix into a 64 x (D + 1) fp32 tile;
-// rows at or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int S) {
+// Rows [r0, r0 + 64) of a (S, D) matrix into a 64 x (D + 1) tile; rows at
+// or past S are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int r0, int S) {
   for (int e = threadIdx.x; e < 64 * D; e += NT) {
     const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] =
-        (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
+    dst[r * (D + 1) + d] = (r0 + r < S) ? src[(size_t)(r0 + r) * D + d] : 0.f;
   }
 }
 
@@ -183,13 +185,13 @@ __device__ __forceinline__ void acc_dq(const Tiles<D>& t,
 // (causal: from the diagonal tile on) and accumulates dK, dV in registers,
 // written once at the end, so no two blocks write one row. FUSED also adds
 // each tile's dS k into the zeroed fp32 dq_acc (BH, Sq, D) with atomics.
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 __global__ void __launch_bounds__(NT)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dO,
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, float* __restrict__ dq_acc, int Sq,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, float* __restrict__ dq_acc, int Sq,
                     int Sk, int causal) {
   extern __shared__ float smem[];
   const Tiles<D> t(smem);
@@ -199,8 +201,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BK;
   const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D>(t.k, k + koff, k0, Sk);
-  load_tile<T, D>(t.v, v + koff, k0, Sk);
+  load_tile<D>(t.k, k + koff, k0, Sk);
+  load_tile<D>(t.v, v + koff, k0, Sk);
 
   float dk_acc[4][DJ], dv_acc[4][DJ];
 #pragma unroll
@@ -213,8 +215,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = causal ? k0 : 0;
   for (int q0 = q_begin; q0 < Sq; q0 += BQ) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(t.q, q + qoff, q0, Sq);
-    load_tile<T, D>(t.dO, dO + qoff, q0, Sq);
+    load_tile<D>(t.q, q + qoff, q0, Sq);
+    load_tile<D>(t.dO, dO + qoff, q0, Sq);
     load_stats(t.lse, t.delta, lse + (size_t)bh * Sq,
                delta + (size_t)bh * Sq, q0, Sq);
     __syncthreads();
@@ -246,28 +248,29 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t o = koff + (size_t)row * D + tx;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[o + 16 * j] = from_f32<T>(dk_acc[i][j]);
-      dv[o + 16 * j] = from_f32<T>(dv_acc[i][j]);
+      dk[o + 16 * j] = dk_acc[i][j];
+      dv[o + 16 * j] = dv_acc[i][j];
     }
   }
 }
 
-template <typename T, int D, bool FUSED>
+template <int D, bool FUSED>
 cudaError_t launch_kv(const void* q, const void* k, const void* v,
                       const void* dO, const void* lse, const void* delta,
                       void* dk, void* dv, void* dq_acc, int BH, int Sq,
                       int Sk, int causal, cudaStream_t stream) {
-  auto kern = flash_bwd_kv_kernel<T, D, FUSED>;
+  auto kern = flash_bwd_kv_kernel<D, FUSED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Smem<D>::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sk + BK - 1) / BK, BH);
   kern<<<grid, NT, Smem<D>::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dq_acc),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(dq_acc),
       Sq, Sk, causal);
   return cudaGetLastError();
 }

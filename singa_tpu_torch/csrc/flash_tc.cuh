@@ -1,9 +1,9 @@
 // Hopper building blocks of the tensor-core flash kernels (the bf16 paths of
-// flash_fwd.cu and flash_bwd_fused.cu; wgmma_probe.cu checks them against
-// torch.matmul on the card): wgmma products on bf16 tiles in shared memory,
-// the 128-byte-swizzled tile layout they read, cp.async loads that write
-// that layout by hand, and the bulk reduce-add that flushes an fp32 tile
-// into device memory.
+// flash_fwd.cu, flash_bwd_fused.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu;
+// wgmma_probe.cu checks them against torch.matmul on the card): wgmma
+// products on bf16 tiles in shared memory, the 128-byte-swizzled tile
+// layout they read, cp.async loads that write that layout by hand, and the
+// bulk reduce-add that flushes an fp32 tile into device memory.
 //
 // Tile layout. A (ROWS, D) bf16 tile is stored as D / 64 column blocks of
 // ROWS x 128 bytes; inside a block, the 16-byte chunk c of row r sits at

@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_CHECKOUT
+    python3 chip_smoke.py --ab-train OTHER_CHECKOUT
 
-The second form only times the kernels K1 (flash forward), K2a (fused
+The third form only times the train steps of the two checkouts in the
+same turns: phase 6's bench GPT, and phase 7's ResNet-50 in a checkout
+that has the SINGA Tensor API (host clock, each step fenced by
+loss.item(); 2 warm-up steps, then 7). The second form only times the kernels K1 (flash forward), K2a (fused
 backward), K2b and K2c (the split backward's dQ and dK/dV), K3
 (flash-decode) and K4 (paged decode) of this checkout against another
 checkout's (for example the parent commit, unpacked with `git archive`),
@@ -92,7 +96,25 @@ Phases, each of which exits non-zero on failure:
    run and one training step; the serving profiles must show their decode
    kernel and its merge (counted as attention), the training step the
    tensor-core flash kernels, all printed with the top kernels.
-7. The `kernels` JSON line (the decode kernels with a `modes` entry per
+7. The SINGA API's main path at the bench's width: ResNet-50 (b32 x 224
+   x 224, 10 classes, random weights from a seed, seeded numpy inputs)
+   through models.create_model, tensor.Tensor, compile(use_graph=True,
+   amp="bfloat16") and `m(tx, ty)` with SGD(0.1, 0.9, wd 1e-5): 2 warm-up
+   steps, 5 timed (median step ms, img/s, peak memory, TFLOP/s and the
+   share of the bf16 peak from the conv and linear shapes), 20 in all
+   for the loss check (finite, and below its start by the last five);
+   then one step under torch.profiler by category (conv, batch norm,
+   matmul, the rest, and the optimizer's `opt.apply_updates` range) with
+   the device's idle share. No hand-written kernel runs on this path.
+   7b. fp32 on the card against the CPU: a small ResNet (Bottleneck,
+   [1, 1, 1, 1], b8 x 64 x 64) from the same weights, two SGD steps:
+   losses (relative) and parameters and running stats (absolute) within
+   1e-4.
+   7c. autograd.attention on CUDA Tensors, fp32 and bf16, in a counted
+   window: K1 and K2a launch once each per dtype, and the output and
+   dq/dk/dv agree with use_kernel=False at phase 2's tolerances; the
+   counts join the kernels line as the `tensor_attention` path.
+8. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
@@ -1373,16 +1395,21 @@ SERVE_CATS = (("attention kernels", ("flash_fwd_kernel", "flash_decode_kernel",
 # and its merge
 K3_KERNELS = ("flash_decode_kernel<", "flash_decode_kernel_merge")
 K4_KERNELS = ("paged_kernel<", "paged_kernel_merge")
+# profiler ranges (torch.profiler.record_function) that the port opens:
+# the optimizer's updates
+PROFILER_RANGES = ("opt.apply_updates",)
 TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
 
-def _breakdown(torch, what, fn, cats=SERVE_CATS, require=()):
+def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     """Device time by kernel over one call of `fn` under torch.profiler:
     busy share of the wall time (profiler on), and the time split into
     the named kernel categories, matrix products and the rest. The top
     kernels are printed, and those named in `require`, which must have
-    run."""
+    run; `spans` names profiler ranges (torch.profiler.record_function)
+    whose kernels' device time is printed too (they are also counted in
+    the categories)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1394,10 +1421,13 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=()):
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     # device-side events only (kernels, copies): a CPU op's own device
-    # time counts the kernels it launched a second time
+    # time counts the kernels it launched a second time. A profiler range
+    # of the port (PROFILER_RANGES) also shows on the device as one event
+    # spanning first to last kernel, idle gaps included: not a kernel
     rows = [(e.device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and e.key not in PROFILER_RANGES]
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
@@ -1426,6 +1456,18 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=()):
         if rank <= 6 or any(k in name for k in require):
             print(f"    #{rank:<3d}{ms:9.3f} ms {ms / busy:6.1%} x{count:<5d} "
                   f"{name[:70]}")
+    for span in spans:
+        # the kernels launched inside the range (its host-side event's
+        # device time), and the range's extent on the device's timeline
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == span and e.device_type == DeviceType.CPU) / 1e3
+        extent = sum(e.device_time_total for e in prof.key_averages()
+                     if e.key == span and e.device_type == DeviceType.CUDA)
+        print(f"    range {span}: kernels {ms:.3f} ms of device time "
+              f"({ms / busy:.1%}); on the device's timeline it spans "
+              f"{extent / 1e3:.3f} ms" if ms else
+              f"    range {span}: device time not measured (the profiler "
+              "gave the range none)")
     missing = [k for k in require if not any(k in r[2] for r in rows)]
     if missing:
         fail(f"{what}: no device time in {missing}")
@@ -1597,6 +1639,186 @@ def phase_train_long(torch, models, opt, A, rows, g):
     return counts
 
 
+RESNET_B, RESNET_HW, RESNET_CLASSES = 32, 224, 10   # bench.py's ResNet-50
+# 2 warm-up steps, 5 timed, then more on the same batch for the loss
+# check: at lr 0.1 with momentum the loss first climbs for a few steps
+# (on a CPU rehearsal at b8 x 64 x 64 it peaked at step 2 and fell below
+# its start by step 12), so the check looks at the last 5 of 20
+RESNET_WARM, RESNET_STEPS, RESNET_ALL = 2, 5, 20
+# kernel names of the ResNet step's categories, in the order they are
+# tried: cuDNN's convolutions (and its layout transposes), batch norm
+RESNET_CATS = (("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                         "implicit_gemm", "xmma", "nchwToNhwc",
+                         "nhwcToNchw")),
+               ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                               "welford")))
+
+
+def _conv_linear_flops(torch, layer, m, tx):
+    """Training FLOPs of one step counted from the model's conv and linear
+    shapes, seen by forward hooks over one eval-mode forward: 2 x output
+    elements x (input channels / group) x kernel area per conv, 2 x
+    output elements x in features per linear; the step takes three times
+    the forward (the data and weight gradients), the first conv two (its
+    input takes no gradient)."""
+    fwd = []
+
+    def hook(mod, inputs, out):
+        W = mod.W
+        per_out = W[0].numel() if isinstance(mod, layer.Conv2d) \
+            else W.shape[0]
+        fwd.append(2 * out.data.numel() * per_out)
+
+    hooks = [mod.register_forward_hook(hook) for mod in m.modules()
+             if isinstance(mod, (layer.Conv2d, layer.Linear))]
+    m.eval()
+    m(tx)
+    m.train()
+    for h in hooks:
+        h.remove()
+    return 3 * sum(fwd) - fwd[0], fwd
+
+
+def phase_resnet(torch, models, opt, tensor, device, layer):
+    """The SINGA API's main path at the bench's width: ResNet-50 b32 x 224
+    x 224, 10 classes, bf16 amp, SGD(0.1, 0.9, wd 1e-5), through
+    models.create_model, tensor.Tensor and compile(use_graph=True), the
+    inputs seeded numpy as in bench.py."""
+    print(f"== phase 7: ResNet-50 through the SINGA API, b{RESNET_B} x "
+          f"{RESNET_HW}x{RESNET_HW}, bf16 amp, SGD(0.1, 0.9, wd 1e-5)")
+    dev = device.best_device()
+    dev.SetRandSeed(SEED)
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, RESNET_B).astype(np.int32)
+    tx = tensor.Tensor(data=x, device=dev)
+    ty = tensor.from_numpy(y, device=dev)
+    t0 = time.perf_counter()
+    m = models.create_model("resnet50", num_channels=3,
+                            num_classes=RESNET_CLASSES)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    n_params = sum(p.numel() for p in m.get_params().values())
+    print(f"  model: {n_params} parameters on {next(m.parameters()).device}, "
+          f"built and compiled in {time.perf_counter() - t0:.2f} s; "
+          "use_graph=True runs eagerly (no CUDA graph yet)")
+    flops, _ = _conv_linear_flops(torch, layer, m, tx)
+    warm, warm_ms = _steps(torch, m, tx, ty, RESNET_WARM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _steps(torch, m, tx, ty, RESNET_STEPS)
+    step = statistics.median(ms)
+    share = flops / (step / 1e3) / PEAK_FLOPS["bfloat16"]
+    print(f"  warm steps {', '.join(f'{v:.1f}' for v in warm_ms)} ms, "
+          f"losses {', '.join(f'{v:.4f}' for v in warm)}; {RESNET_STEPS} "
+          f"timed steps: losses {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"step ms {', '.join(f'{v:.2f}' for v in ms)}; median {step:.2f} "
+          f"ms, {RESNET_B / step * 1e3:.1f} img/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{flops / 1e9:.1f} GFLOP a step (conv and linear shapes), "
+          f"{flops / (step / 1e3) / 1e12:.2f} TFLOP/s, {share:.2%} of the "
+          "bf16 peak")
+    all_losses = warm + losses + _steps(
+        torch, m, tx, ty, RESNET_ALL - RESNET_WARM - RESNET_STEPS)[0]
+    print(f"  losses over {RESNET_ALL} steps on the fixed batch: "
+          + ", ".join(f"{v:.3f}" for v in all_losses))
+    if not min(all_losses[-5:]) < all_losses[0]:
+        fail("ResNet-50 loss does not fall on the fixed batch")
+    _breakdown(torch, f"ResNet-50 train step b{RESNET_B} bf16",
+               lambda: m(tx, ty)[1].item(), RESNET_CATS,
+               spans=("opt.apply_updates",))
+    del m
+    torch.cuda.empty_cache()
+
+
+def phase_resnet_fp32(torch, models, opt, tensor, device):
+    """fp32 on the card against the CPU: a small ResNet (Bottleneck,
+    [1, 1, 1, 1], b8 x 64 x 64), the CPU model's initial states carried
+    to the card, two SGD steps each."""
+    print("== phase 7b: small ResNet fp32 training, card against CPU")
+    from singa_tpu_torch.models import resnet
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.randn(8, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, 8).astype(np.int32)
+    built = []
+    for dev in (device.create_cpu_device(), device.best_device()):
+        m = resnet.ResNet(resnet.Bottleneck, [1, 1, 1, 1])
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9, weight_decay=1e-5))
+        tx = tensor.Tensor(data=x, device=dev)
+        ty = tensor.from_numpy(y, device=dev)
+        m.compile([tx], is_train=True, use_graph=True)
+        built.append((m, tx, ty))
+    (mc, _, _), (mg, _, _) = built
+    mg.set_states(mc.get_states())
+    lc, lg = (_steps(torch, m, tx, ty, 2)[0] for m, tx, ty in built)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    sc = mc.get_states()
+    serr = max(float((t.detach().cpu() - sc[k].detach()).abs().max())
+               for k, t in mg.get_states().items())
+    print(f"  losses card {[round(v, 6) for v in lg]}, CPU "
+          f"{[round(v, 6) for v in lc]}: max relative difference {rel:.3e}; "
+          f"parameters and running stats after 2 steps max abs difference "
+          f"{serr:.3e} (tol {TRAIN_TOL} each)")
+    if not (rel <= TRAIN_TOL and serr <= TRAIN_TOL):
+        fail("fp32 ResNet training on the card differs from the CPU")
+
+
+def phase_tensor_attention(torch, A, autograd, tensor, device):
+    """autograd.attention on CUDA Tensors (the tape): a counted window in
+    which it launches K1 forward and K2a backward, fp32 and bf16; outputs
+    and gradients held against use_kernel=False at phase 2's tolerances.
+    Returns the window's counts."""
+    print("== phase 7c: autograd.attention on Tensors (K1 + K2a)")
+    dev = device.best_device()
+    shape = (2, 8, 256, 64)
+    rng = np.random.RandomState(SEED + 13)
+    arrays = [rng.randn(*shape).astype(np.float32) for _ in range(4)]
+
+    def run(dtype, use_kernel):
+        qkv = [tensor.Tensor(data=a, device=dev, dtype=dtype,
+                             stores_grad=True) for a in arrays[:3]]
+        w = tensor.Tensor(data=arrays[3], device=dev, dtype=dtype,
+                          requires_grad=False)
+        prev = autograd.training
+        autograd.training = True
+        try:
+            out = autograd.attention(*qkv, causal=True,
+                                     use_kernel=use_kernel)
+            g = autograd.gradients(autograd.reduce_sum(
+                autograd.mul(out, w), None, False))
+        finally:
+            autograd.training = prev
+        return [out.data.float()] + [g[t].data.float() for t in qkv]
+
+    ref = {dt: run(dt, False) for dt in ("float32", "bfloat16")}
+    torch.cuda.synchronize()
+    A.reset_launches()
+    got = {dt: run(dt, None) for dt in ("float32", "bfloat16")}
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    check_launches("Tensor attention", counts,
+                   {"flash_fwd": 2, "flash_bwd_fused": 2})
+    bad = []
+    for dt in ("float32", "bfloat16"):
+        (o, *gs), (ro, *rgs) = got[dt], ref[dt]
+        ferr = float((o - ro).detach().abs().max())
+        gerr = [float((a - b).detach().abs().max())
+                for a, b in zip(gs, rgs)]
+        if dt == "bfloat16":
+            gerr = [e / float(b.abs().max()) for e, b in zip(gerr, rgs)]
+        print(f"  {dt} {tuple(shape)} causal: out max abs error {ferr:.3e} "
+              f"(tol {TOL[dt]}), dq/dk/dv error "
+              + ", ".join(f"{e:.3e}" for e in gerr)
+              + f" ({'over max |ref|, ' if dt == 'bfloat16' else ''}"
+              f"tol {BWD_TOL[dt]})")
+        if ferr > TOL[dt] or max(gerr) > BWD_TOL[dt]:
+            bad.append(dt)
+    if bad:
+        fail(f"autograd.attention on Tensors disagrees with the plain "
+             f"version: {bad}")
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -1729,15 +1951,57 @@ def ab_turn(torch, root, tag):
                  fn, 25)
 
 
-def run_ab(other):
-    """--ab: turns other, this, this, other, each in its own process."""
+def ab_train_turn(torch, root, tag):
+    """One turn of --ab-train: the bench GPT's train step (phase 6's
+    model, batch and optimizer, bf16 amp) of the checkout at `root`, and
+    ResNet-50's (phase 7's) where that checkout has the SINGA Tensor API;
+    2 warm-up steps, then the median of 7, each fenced by loss.item()."""
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib.util
+    from singa_tpu_torch import models, opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def line(what, m, tx, ty):
+        _steps(torch, m, tx, ty, 2)
+        ms = _steps(torch, m, tx, ty, 7)[1]
+        print(f"{tag} {what} step ms {', '.join(f'{v:.2f}' for v in ms)}; "
+              f"median {statistics.median(ms):.2f}", flush=True)
+
+    tx, ty = (t.cuda() for t in _train_batch(
+        torch, BENCH_GPT["vocab_size"], TRAIN_B, TRAIN_S, SEED + 3))
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    line(f"bench GPT b{TRAIN_B} x {TRAIN_S}", m, tx, ty)
+    del m
+    torch.cuda.empty_cache()
+    if importlib.util.find_spec("singa_tpu_torch.tensor") is None:
+        return
+    from singa_tpu_torch import device, tensor
+    rng = np.random.RandomState(SEED + 11)
+    dev = device.best_device()
+    rx = tensor.Tensor(data=rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW)
+                       .astype(np.float32), device=dev)
+    ry = tensor.from_numpy(rng.randint(0, RESNET_CLASSES, RESNET_B)
+                           .astype(np.int32), device=dev)
+    r = models.create_model("resnet50", num_channels=3,
+                            num_classes=RESNET_CLASSES)
+    r.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    r.compile([rx], is_train=True, use_graph=True, amp="bfloat16")
+    line(f"ResNet-50 b{RESNET_B}", r, rx, ry)
+
+
+def run_ab(other, turn="--ab-turn"):
+    """--ab (and --ab-train with turn="--ab-train-turn"): turns other,
+    this, this, other, each in its own process."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(card_line(), flush=True)
     t0 = time.perf_counter()
     for root, tag in ((other, "other"), (here, "this"), (here, "this"),
                       (other, "other")):
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--ab-turn", root, tag], check=True, timeout=900)
+                        turn, root, tag], check=True, timeout=900)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
 
@@ -1752,11 +2016,18 @@ def main():
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         run_ab(sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--ab-train-turn"] and len(sys.argv) == 4:
+        ab_train_turn(torch, sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--ab-train"] and len(sys.argv) == 3:
+        run_ab(sys.argv[2], "--ab-train-turn")
+        return 0
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from singa_tpu_torch import engine, models, opt, serving
+    from singa_tpu_torch import (autograd, device, engine, layer, models,
+                                 opt, serving, tensor)
     from singa_tpu_torch.models import transformer
     from singa_tpu_torch.ops import _build
     from singa_tpu_torch.ops import attention as A
@@ -1806,6 +2077,13 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     by_path["train_long"] = phase_train_long(torch, models, opt, A, rows, g)
     clock.lap("phase 6c")
+    phase_resnet(torch, models, opt, tensor, device, layer)
+    clock.lap("phase 7")
+    phase_resnet_fp32(torch, models, opt, tensor, device)
+    clock.lap("phase 7b")
+    by_path["tensor_attention"] = phase_tensor_attention(torch, A, autograd,
+                                                         tensor, device)
+    clock.lap("phase 7c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

@@ -4,8 +4,14 @@ The JAX package `singa_tpu` stays the reference; this package keeps its
 module names so each counterpart is easy to find. It imports `torch` and
 never `jax` or `singa_tpu`.
 
-What is ported so far is the GPT's serving and training:
+What is ported so far:
 
+    the SINGA training API: device.Device, tensor.Tensor and its module
+        functions, initializer, the autograd tape operators, layer.Layer
+        with deferred init (Linear, Conv2d, BatchNorm2d, the pools, ...),
+        model.Model.compile / __call__, opt, and the model zoo
+        (models.create_model: mlp, cnn, alexnet, resnet18-152,
+        xceptionnet, gpt)
     models.transformer.GPT.generate -> serving.build_decode
         (build_spec_decode with a draft model) -> serving._DecodeCore
         .prefill / token_step / verify_step, in fp32, bf16 or int8
@@ -14,16 +20,16 @@ What is ported so far is the GPT's serving and training:
     engine.ServingEngine.submit/start/stop
         -> serving._DecodeCore.prefill_parts / paged_token_step /
         paged_verify_step
-    model.Model.compile / __call__ -> GPT.train_one_batch, opt
 
-carried by six hand-written CUDA kernels in `csrc/` (flash-attention
-forward, its fused and split backward, flash-decode and paged decode
-attention over fp, int8 and int4 caches with the speculative verify
-ladder), bound in `ops.attention`. Entry points run on CUDA unless the
-caller passes `device="cpu"`, where every kernel wrapper runs its plain
-PyTorch version instead.
+The attention paths run on six hand-written CUDA kernels in `csrc/`
+(flash-attention forward, its fused and split backward, flash-decode and
+paged decode attention over fp, int8 and int4 caches with the
+speculative verify ladder), bound in `ops.attention`; convolutions,
+normalizations, pooling and matmuls are torch ops. Entry points run on
+CUDA unless the caller passes `device="cpu"` (or a CPU `Device`), where
+every kernel wrapper runs its plain PyTorch version instead.
 """
 
-from . import device  # noqa: F401
+from . import autograd, device, layer, model, models, opt, tensor  # noqa: F401
 
-__all__ = ["device"]
+__all__ = ["autograd", "device", "layer", "model", "models", "opt", "tensor"]

@@ -1,29 +1,49 @@
-"""Transformer layers as `nn.Module`s (counterpart of the transformer stack
-in singa_tpu/layer.py): LayerNorm, Linear, Embedding, MultiHeadAttention,
-TransformerBlock and the SoftMaxCrossEntropy loss.
+"""The SINGA layers (counterpart of singa_tpu/layer.py).
 
-Parameters are trainable `nn.Parameter`s (fp32 master weights). Under the
-bf16 policy (`autograd.compute_dtype`) each layer casts where the JAX
-layer does: Linear its input, weight and bias; Embedding the looked-up
-rows; MultiHeadAttention its input, the four projections and each bias.
-LayerNorm and the loss are fp32 islands.
+A `Layer` is an `nn.Module` with the JAX package's deferred init:
+`LayerMeta` wraps `forward` so `initialize(x)` runs once, with the real
+input, and creates the parameters (`nn.Parameter`s, fp32 master weights)
+and states (buffers) on the input's device, drawn from its `Device`'s
+generator with the JAX initializers' formulas. The draws differ from
+JAX's, so parity checks carry the weights over (`set_params`,
+`set_states`, `Model.load_states`).
 
-Parameters keep the JAX package's names and layouts, so its
-`get_params()` dict maps onto these modules one to one: a Linear's `W` is
-(in, out) and `y = x @ W + b`. Widths are given at construction (the JAX
-layers infer them at the first call). Initialisation follows the JAX
-initializers' formulas from a `torch.Generator`; the draws differ, so
-parity checks carry weights over (models.transformer.load_singa_params).
+Names and order are the JAX package's: `get_params` keys are attribute
+paths joined by "." (nn.Module's own naming, in registration order), and
+`register_layers` names the stages it registers `<Class>_<i>`, appending
+"_" on a clash, so the port registers the same modules under the same
+names and a checkpoint crosses between the packages.
+
+Legacy call styles: `Conv2d(in, out, k[, stride[, pad]])` and
+`BatchNorm2d(num_features[, momentum])` re-derive the input width at the
+first call, as in the JAX package. `Linear(in, out, generator=g)` (and
+`Embedding(num, dim, generator=g)`), the GPT's style, draw the weights at
+construction from `g`; without a generator they defer like `Linear(out)`.
+
+Under the bf16 policy (`autograd.compute_dtype`) each layer casts where
+the JAX layer does: Conv2d and Linear their input, weight and bias;
+Embedding the looked-up rows; MultiHeadAttention its input, the four
+projections and each bias. Batch norm, LayerNorm and the losses are fp32
+islands.
+
+The GPT's layers (LayerNorm, MultiHeadAttention, TransformerBlock) keep
+the port's form: built with their widths, and fed raw torch tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from collections import OrderedDict
 
+import numpy as np
 import torch
 from torch import nn
 
-from . import autograd
+from . import autograd, initializer
+from . import device as device_module
+from .autograd import _layernorm as layernorm
+from .tensor import Tensor, _raw
 
 
 def _uniform(shape, limit, gen):
@@ -39,7 +59,536 @@ def glorot_uniform(fan_in, fan_out, gen):
                     math.sqrt(6.0 / (fan_in + fan_out)), gen)
 
 
-class LayerNorm(nn.Module):
+class LayerMeta(type):
+    """Wraps forward so initialize() runs once with the real inputs."""
+
+    def __new__(mcs, name, bases, attrs):
+        if "forward" in attrs:
+            inner = attrs["forward"]
+
+            @functools.wraps(inner)
+            def forward(self, *args, **kwargs):
+                if not self._initialized:
+                    self.initialize(*args, **kwargs)
+                    self._initialized = True
+                return inner(self, *args, **kwargs)
+
+            attrs["forward"] = forward
+        return super().__new__(mcs, name, bases, attrs)
+
+
+class Layer(nn.Module, metaclass=LayerMeta):
+    """A SINGA layer as an nn.Module. The names of its sublayers live in
+    nn.Module's registry, so a class attribute would shadow a sublayer
+    of the same name: the JAX Layer's `sep` is not carried over (the
+    separator is nn.Module's ".")."""
+
+    def __init__(self, name: str | None = None):
+        super().__init__()
+        self._initialized = False
+        self.name = name or type(self).__name__
+
+    # ---- parameters and states, created by initialize() --------------------
+    def _new_param(self, attr, shape, like, init=None, value=0.0):
+        """An nn.Parameter `attr` of `shape` on `like`'s device, in its
+        dtype when floating (else fp32), filled by `init` (an
+        initializer, drawing from the input's Device) or with `value`."""
+        t = self._new_tensor(shape, like, init, value)
+        self.register_parameter(attr, nn.Parameter(t))
+
+    def _new_state(self, attr, shape, like, value):
+        self.register_buffer(attr, self._new_tensor(shape, like, None, value))
+
+    @staticmethod
+    def _new_tensor(shape, like, init, value):
+        x = _raw(like)
+        dev = like.device if isinstance(like, Tensor) \
+            else device_module.of(x.device)
+        dt = x.dtype if x.is_floating_point() else torch.float32
+        t = Tensor._wrap(torch.empty(shape, dtype=dt, device=x.device), dev)
+        if init is not None:
+            init(t)
+        else:
+            t.set_value(value)
+        return t.data
+
+    # ---- lifecycle -----------------------------------------------------------
+    def initialize(self, *args, **kwargs):
+        pass
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def _deferred(self) -> bool:
+        """True while a layer below has parameters still to create."""
+        return any(isinstance(m, Layer) and not m._initialized
+                   and type(m).initialize is not Layer.initialize
+                   for m in self.modules())
+
+    # ---- params / states, under the JAX package's names and order ----------
+    def dtype_check(self, *inputs):
+        """Coerce all inputs to the first input's dtype, in place."""
+        x_dtype = inputs[0].dtype
+        for inp in inputs[1:]:
+            if inp.dtype != x_dtype:
+                inp.to_type(x_dtype)
+
+    def get_params(self) -> "OrderedDict[str, torch.Tensor]":
+        """{attribute path: nn.Parameter}, own parameters first, then each
+        sublayer's in registration order."""
+        return OrderedDict(self.named_parameters())
+
+    def get_states(self) -> "OrderedDict[str, torch.Tensor]":
+        """Parameters, then states (buffers)."""
+        out = self.get_params()
+        out.update(self.named_buffers())
+        return out
+
+    @torch.no_grad()
+    def _copy_into(self, own, states, strict):
+        for n, v in states.items():
+            if n not in own:
+                if strict:
+                    raise KeyError(f"unknown param {n}; have {list(own)}")
+                continue
+            src = _raw(v).detach() if isinstance(v, (Tensor, torch.Tensor)) \
+                else torch.as_tensor(np.array(v))
+            if tuple(src.shape) != tuple(own[n].shape):
+                raise ValueError(f"{n}: shape {tuple(src.shape)}, model has "
+                                 f"{tuple(own[n].shape)}")
+            own[n].copy_(src)
+
+    def set_params(self, params: dict):
+        """Copy numpy arrays, Tensors or tensors into the parameters of the
+        same name, in place; an unknown name raises."""
+        self._copy_into(self.get_params(), params, strict=True)
+
+    def set_states(self, states: dict):
+        """Copy into the states of the same name, in place (so version
+        counters move); unknown names are ignored, as in the JAX package;
+        a shape mismatch raises."""
+        self._copy_into(self.get_states(), states, strict=False)
+
+    def register_layers(self, *args):
+        """Register sublayers held in lists or closures rather than
+        attributes (resnet's _make_layer stages): named `<Class>_<i>`, and
+        on a clash with an earlier call's names "_" is appended."""
+        if len(args) == 1 and isinstance(args[0], OrderedDict):
+            items = list(args[0].items())
+        else:
+            items = [(f"{v.__class__.__name__}_{i}", v)
+                     for i, v in enumerate(args)]
+        for name, value in items:
+            if isinstance(value, Layer):
+                while name in self._modules:
+                    name += "_"
+                self.add_module(name, value)
+                value.name = name
+
+    def sublayers(self):
+        return dict(self._modules)
+
+    def device_check(self, *xs):
+        pass
+
+
+# ======================= core layers ======================================
+
+
+class Linear(Layer):
+    """y = x W + b, W (in, out). `Linear(out)` draws W at the first call
+    (he_uniform); `Linear(in, out, generator=g)`, the GPT's style, at
+    construction. `out_dtype="float32"` returns the product accumulated
+    in fp32 whatever the input dtype (the GPT head under the bf16
+    policy)."""
+
+    def __init__(self, out_features, *args, bias=True, name=None,
+                 out_dtype=None, generator=None, **kwargs):
+        super().__init__(name)
+        self.in_features = None
+        if args and isinstance(args[0], int):
+            self.in_features, out_features = out_features, args[0]
+        self.out_features = out_features
+        self.bias = bias
+        self.out_dtype = out_dtype
+        if generator is not None:
+            if self.in_features is None:
+                raise ValueError("Linear(in, out, generator=...) draws at "
+                                 "construction and needs both widths")
+            self.W = nn.Parameter(he_uniform(self.in_features, out_features,
+                                             generator))
+            self.b = nn.Parameter(torch.zeros(out_features)) \
+                if bias else None
+            self._initialized = True
+
+    def initialize(self, x):
+        fan_in = x.shape[-1]
+        if self.in_features not in (None, fan_in):
+            raise ValueError(f"Linear({self.in_features}, "
+                             f"{self.out_features}) called on width {fan_in}")
+        self._new_param("W", (fan_in, self.out_features), x,
+                        initializer.he_uniform)
+        if self.bias:
+            self._new_param("b", (self.out_features,), x)
+
+    def forward(self, x):
+        b = self.b if self.bias else None
+        x, W, b = autograd.compute_cast(x, self.W, b)
+        y = autograd.matmul(x, W, out_dtype=self.out_dtype)
+        return autograd.add_bias(y, b) if b is not None else y
+
+
+class Gemm(Layer):
+    """alpha * A'B' + beta * C with optional transposes."""
+
+    def __init__(self, nb_kernels, alpha=1.0, beta=1.0, transA=False,
+                 transB=True, bias=True, bias_shape=None, name=None):
+        super().__init__(name)
+        self.nb_kernels = nb_kernels
+        self.alpha, self.beta = alpha, beta
+        self.transA, self.transB = int(transA), int(transB)
+        self.bias = bias
+        self.bias_shape = bias_shape
+
+    def initialize(self, x):
+        fan_in = x.shape[-1] if not self.transA else x.shape[0]
+        # drawn in (in, out) so he_uniform sees the true fan_in, then laid
+        # out (out, in) when transB
+        W = self._new_tensor((fan_in, self.nb_kernels), x,
+                             initializer.he_uniform, 0.0)
+        self.register_parameter("W", nn.Parameter(
+            W.t().contiguous() if self.transB else W))
+        if self.bias:
+            self._new_param("b", self.bias_shape or (1, self.nb_kernels), x)
+
+    def forward(self, x):
+        return autograd.gemm(x, self.W, self.b if self.bias else None,
+                             self.alpha, self.beta, self.transA, self.transB)
+
+
+class Embedding(Layer):
+    """Token id -> row of a (V, E) table; under the bf16 policy the
+    looked-up rows are cast, not the table. With a `generator` the table
+    is drawn at construction (glorot_uniform, the GPT's style), else at
+    the first call with `initializer_fn` (default glorot_uniform)."""
+
+    def __init__(self, input_dim, output_dim, initializer_fn=None, name=None,
+                 generator=None):
+        super().__init__(name)
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.initializer_fn = initializer_fn
+        if generator is not None:
+            self.W = nn.Parameter(glorot_uniform(input_dim, output_dim,
+                                                 generator))
+            self._initialized = True
+
+    def initialize(self, x):
+        # the ids are integers: the table is fp32
+        self._new_param("W", (self.input_dim, self.output_dim), x,
+                        self.initializer_fn or initializer.glorot_uniform)
+
+    def forward(self, x):
+        return autograd.compute_cast(autograd.embedding(x, self.W))
+
+
+class _ConvGeometry:
+    """Carries conv geometry (the role of the reference's ConvHandle)."""
+
+    def __init__(self, stride, padding, group, odd_padding=None,
+                 dilation=(1, 1)):
+        self.stride = stride
+        self.padding = padding
+        self.group = group
+        self.odd_padding = odd_padding
+        self.dilation = dilation
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _same_pads(mode, size, kernel, stride):
+    """SAME padding: ONNX SAME_UPPER/SAME_LOWER per-side pads (l, r, t, b)
+    of an (h, w) input for an effective (dilated) kernel; odd totals put
+    the extra on the right/bottom (UPPER) or left/top (LOWER)."""
+    (ih, iw), (kh, kw), (sh, sw) = size, kernel, stride
+    ph = max((-(-ih // sh) - 1) * sh + kh - ih, 0)
+    pw = max((-(-iw // sw) - 1) * sw + kw - iw, 0)
+    if mode == "SAME_UPPER":
+        return (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
+    return (pw - pw // 2, pw // 2, ph - ph // 2, ph // 2)
+
+
+class Conv2d(Layer):
+    """NCHW convolution with an optional fused relu (`activation`);
+    `pad_mode` SAME_UPPER/SAME_LOWER pads per side (odd totals too)."""
+
+    def __init__(self, nb_kernels, kernel_size, *args, stride=1, padding=0,
+                 dilation=1, group=1, bias=True, pad_mode="NOTSET",
+                 activation="NONE", name=None, **kwargs):
+        super().__init__(name)
+        # legacy call style Conv2d(in_ch, out_ch, k[, stride[, padding]]);
+        # in_ch is re-derived from the input
+        if len(args) > 0:
+            nb_kernels = kernel_size
+            kernel_size = args[0]
+        if len(args) > 1:
+            stride = args[1]
+        if len(args) > 2:
+            padding = args[2]
+        self.nb_kernels = nb_kernels
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.group = group
+        self.bias = bias
+        self.pad_mode = pad_mode
+        self.activation = activation
+
+    def initialize(self, x):
+        in_channels = x.shape[1]
+        if in_channels % self.group:
+            raise ValueError(f"{in_channels} input channels do not divide "
+                             f"into {self.group} groups")
+        self._new_param("W", (self.nb_kernels, in_channels // self.group,
+                              *self.kernel_size), x, initializer.he_normal)
+        if self.bias:
+            self._new_param("b", (self.nb_kernels,), x)
+        odd = None
+        if self.pad_mode in ("SAME_UPPER", "SAME_LOWER"):
+            eff = tuple((k - 1) * d + 1 for k, d in zip(self.kernel_size,
+                                                         self.dilation))
+            odd = _same_pads(self.pad_mode, x.shape[2:4], eff, self.stride)
+        self.handle = _ConvGeometry(self.stride, self.padding, self.group,
+                                    odd, self.dilation)
+        self.handle.kernel = self.kernel_size
+
+    def forward(self, x):
+        b = self.b if self.bias else None
+        x, W, b = autograd.compute_cast(x, self.W, b)
+        y = autograd.conv2d(self.handle, x, W, b)
+        if self.activation in ("RELU", "relu"):
+            y = autograd.relu(y)
+        return y
+
+
+class SeparableConv2d(Layer):
+    """Depthwise + pointwise conv."""
+
+    def __init__(self, nb_kernels, kernel_size, *args, stride=1, padding=0,
+                 bias=False, name=None, **kwargs):
+        super().__init__(name)
+        # legacy call style SeparableConv2d(in_ch, out_ch, k[, stride[, pad]])
+        if len(args) > 0:
+            nb_kernels = kernel_size
+            kernel_size = args[0]
+        if len(args) > 1:
+            stride = args[1]
+        if len(args) > 2:
+            padding = args[2]
+        self.nb_kernels = nb_kernels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.bias = bias
+
+    def initialize(self, x):
+        in_channels = x.shape[1]
+        # nb_kernels None keeps the channel count
+        nb = self.nb_kernels if self.nb_kernels is not None else in_channels
+        self.depthwise = Conv2d(in_channels, self.kernel_size,
+                                stride=self.stride, padding=self.padding,
+                                group=in_channels, bias=self.bias)
+        self.pointwise = Conv2d(nb, 1, bias=self.bias)
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+
+class BatchNorm2d(Layer):
+    """Batch norm over the channel dim of NCHW (or (N, C)) input: `scale`
+    and `bias` parameters, `running_mean` and `running_var` states,
+    updated in training as the JAX package does (autograd.batchnorm_2d:
+    momentum 0.9 keeps 0.9 of the old value, biased batch variance)."""
+
+    def __init__(self, *args, momentum=0.9, eps=1e-5, name=None, **kwargs):
+        super().__init__(name)
+        # legacy call style BatchNorm2d(num_features[, momentum]); the
+        # channel count is re-derived from the input
+        if len(args) > 1:
+            momentum = args[1]
+        self.momentum = momentum
+        self.eps = eps
+
+    def initialize(self, x):
+        c = (x.shape[1],)
+        self._new_param("scale", c, x, value=1.0)
+        self._new_param("bias", c, x, value=0.0)
+        self._new_state("running_mean", c, x, 0.0)
+        self._new_state("running_var", c, x, 1.0)
+
+    def forward(self, x):
+        return autograd.batchnorm_2d(
+            x, self.scale, self.bias, self.running_mean, self.running_var,
+            self.momentum, self.eps, train=autograd.training)[0]
+
+
+class Pooling2d(Layer):
+
+    def __init__(self, kernel_size, stride=None, padding=0, is_max=True,
+                 pad_mode="NOTSET", name=None):
+        super().__init__(name)
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride) if stride is not None \
+            else self.kernel_size
+        self.padding = _pair(padding)
+        self.is_max = is_max
+        self.pad_mode = pad_mode
+
+    def forward(self, x):
+        odd = None
+        if self.pad_mode in ("SAME_UPPER", "SAME_LOWER"):
+            odd = _same_pads(self.pad_mode, x.shape[2:4], self.kernel_size,
+                             self.stride)
+        return autograd.pooling_2d(x, self.kernel_size, self.stride,
+                                   self.padding, self.is_max, odd_padding=odd)
+
+
+class MaxPool2d(Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, name=None):
+        super().__init__(kernel_size, stride, padding, True, name=name)
+
+
+class AvgPool2d(Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, name=None):
+        super().__init__(kernel_size, stride, padding, False, name=name)
+
+
+class _Pool1dMixin:
+    def forward(self, x):  # N, C, L -> N, C, L, 1
+        x4 = autograd.unsqueeze(x, [3])
+        y = autograd.pooling_2d(x4, (self.kernel_size[0], 1),
+                                (self.stride[0], 1), (self.padding[0], 0),
+                                self.is_max)
+        return autograd.squeeze(y, 3)
+
+
+class MaxPool1d(_Pool1dMixin, Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, name=None):
+        Pooling2d.__init__(self, (kernel_size, 1),
+                           (stride, 1) if stride else (kernel_size, 1),
+                           (padding, 0), True, name=name)
+
+
+class AvgPool1d(_Pool1dMixin, Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, name=None):
+        Pooling2d.__init__(self, (kernel_size, 1),
+                           (stride, 1) if stride else (kernel_size, 1),
+                           (padding, 0), False, name=name)
+
+
+class GlobalAvgPool2d(Layer):
+    def forward(self, x):
+        return autograd.flatten(autograd.globalaveragepool(x), 1)
+
+
+# ---- stateless wrappers -------------------------------------------------------
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return autograd.relu(x)
+
+
+class Sigmoid(Layer):
+    def forward(self, x):
+        return autograd.sigmoid(x)
+
+
+class Tanh(Layer):
+    def forward(self, x):
+        return autograd.tanh(x)
+
+
+class Add(Layer):
+    def forward(self, a, b):
+        return autograd.add(a, b)
+
+
+class Flatten(Layer):
+    def __init__(self, axis=1, name=None):
+        super().__init__(name)
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.flatten(x, self.axis)
+
+
+class Reshape(Layer):
+    def __init__(self, shape, name=None):
+        super().__init__(name)
+        self.shape = shape
+
+    def forward(self, x):
+        return autograd.reshape(x, self.shape)
+
+
+class Cat(Layer):
+    def __init__(self, axis=0, name=None):
+        super().__init__(name)
+        self.axis = axis
+
+    def forward(self, xs):
+        return autograd.cat(xs, self.axis)
+
+
+class Dropout(Layer):
+    def __init__(self, ratio=0.5, name=None):
+        super().__init__(name)
+        self.ratio = ratio
+
+    def forward(self, x):
+        return autograd.dropout(x, self.ratio)
+
+
+class SoftMax(Layer):
+    def __init__(self, axis=1, name=None):
+        super().__init__(name)
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.softmax(x, self.axis)
+
+
+class SoftMaxCrossEntropy(Layer):
+    """Mean softmax cross-entropy of logits (..., V) against integer
+    targets (...), fp32 inside (autograd.softmax_cross_entropy)."""
+
+    def forward(self, x, t):
+        return autograd.softmax_cross_entropy(x, t)
+
+
+class MeanSquareError(Layer):
+    def forward(self, x, t):
+        return autograd.mse_loss(x, t)
+
+
+class CrossEntropy(Layer):
+    def forward(self, p, t):
+        return autograd.cross_entropy(p, t)
+
+
+class BinaryCrossEntropy(Layer):
+    def forward(self, x, t):
+        return autograd.binary_cross_entropy(x, t)
+
+
+# ---- the GPT's transformer stack, built with its widths --------------------
+
+
+class LayerNorm(Layer):
     """LayerNorm as an fp32 island (biased variance), output in the input
     dtype: variance in bf16 is lossy."""
 
@@ -48,78 +597,13 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.gamma = nn.Parameter(torch.ones(dim))
         self.beta = nn.Parameter(torch.zeros(dim))
+        self._initialized = True
 
     def forward(self, x):
-        return layernorm(x, self.gamma, self.beta, self.eps)
+        return autograd.layernorm(x, self.gamma, self.beta, self.eps)
 
 
-def layernorm(x, g, b, eps=1e-5):
-    x32 = x.float()
-    m = x32.mean(dim=-1, keepdim=True)
-    v = x32.var(dim=-1, keepdim=True, unbiased=False)
-    y = (x32 - m) * torch.rsqrt(v + eps) * g.float() + b.float()
-    return y.to(x.dtype)
-
-
-class _MatmulF32(torch.autograd.Function):
-    """x @ W accumulated and returned in fp32 whatever the inputs' dtype
-    (the JAX package's `preferred_element_type=float32` on the loss
-    head): on CUDA through `torch.mm(out_dtype=float32)`, on the CPU by
-    upcasting both operands; both give the fp32 product of the same
-    values. The gradients go back in the inputs' dtypes."""
-
-    @staticmethod
-    def forward(ctx, x, W):
-        ctx.save_for_backward(x, W)
-        x2 = x.reshape(-1, x.shape[-1])
-        if x.is_cuda and x.dtype != torch.float32:
-            y = torch.mm(x2, W, out_dtype=torch.float32)
-        else:
-            y = x2.float() @ W.float()
-        return y.reshape(*x.shape[:-1], W.shape[1])
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, W = ctx.saved_tensors
-        g = dy.to(x.dtype).reshape(-1, dy.shape[-1])
-        dx = (g @ W.t()).reshape(x.shape)
-        dW = x.reshape(-1, x.shape[-1]).t() @ g
-        return dx, dW
-
-
-class Linear(nn.Module):
-    """y = x W + b with W (in, out); `out_dtype="float32"` returns the
-    product accumulated in fp32 whatever the input dtype (the GPT head
-    under the bf16 policy)."""
-
-    def __init__(self, in_features, out_features, bias=True, out_dtype=None,
-                 generator=None):
-        super().__init__()
-        self.W = nn.Parameter(he_uniform(in_features, out_features,
-                                         generator))
-        self.b = nn.Parameter(torch.zeros(out_features)) if bias else None
-        self.out_dtype = out_dtype
-
-    def forward(self, x):
-        x, W, b = autograd.compute_cast(x, self.W, self.b)
-        y = _MatmulF32.apply(x, W) if self.out_dtype == "float32" \
-            else x @ W
-        return y + b if b is not None else y
-
-
-class Embedding(nn.Module):
-    """Token id -> row of a (V, E) table; under the bf16 policy the
-    looked-up rows are cast, not the table."""
-
-    def __init__(self, num, dim, generator=None):
-        super().__init__()
-        self.W = nn.Parameter(glorot_uniform(num, dim, generator))
-
-    def forward(self, ids):
-        return autograd.compute_cast(self.W[ids])
-
-
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Self-attention over (B, S, E) through the flash-attention kernel;
     `num_kv_heads` < num_heads is GQA (each kv head serves num_heads /
     num_kv_heads consecutive query heads), `rope` rotates q and k."""
@@ -145,6 +629,7 @@ class MultiHeadAttention(nn.Module):
             if bias:
                 setattr(self, "b" + attr[1].lower(), nn.Parameter(
                     torch.zeros(out_e)))
+        self._initialized = True
 
     def forward(self, x):
         B, S, E = x.shape
@@ -183,7 +668,7 @@ class MultiHeadAttention(nn.Module):
         return y
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Layer):
     """Pre-LN causal block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU
     MLP."""
 
@@ -199,19 +684,17 @@ class TransformerBlock(nn.Module):
         self.ln2 = LayerNorm(dim)
         self.fc1 = Linear(dim, dim * mlp_ratio, generator=generator)
         self.fc2 = Linear(dim * mlp_ratio, dim, generator=generator)
+        self._initialized = True
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
         return x + self.fc2(autograd.gelu(self.fc1(self.ln2(x))))
 
 
-class SoftMaxCrossEntropy(nn.Module):
-    """Mean softmax cross-entropy of logits (..., V) against integer
-    targets (...), fp32 inside (autograd.softmax_cross_entropy)."""
-
-    def forward(self, x, t):
-        return autograd.softmax_cross_entropy(x, t)
-
-
-__all__ = ["Embedding", "LayerNorm", "Linear", "MultiHeadAttention",
-           "SoftMaxCrossEntropy", "TransformerBlock", "layernorm"]
+__all__ = ["Add", "AvgPool1d", "AvgPool2d", "BatchNorm2d",
+           "BinaryCrossEntropy", "Cat", "Conv2d", "CrossEntropy", "Dropout",
+           "Embedding", "Flatten", "Gemm", "GlobalAvgPool2d", "Layer",
+           "LayerNorm", "Linear", "MaxPool1d", "MaxPool2d", "MeanSquareError",
+           "MultiHeadAttention", "Pooling2d", "ReLU", "Reshape",
+           "SeparableConv2d", "Sigmoid", "SoftMax", "SoftMaxCrossEntropy",
+           "Tanh", "TransformerBlock", "layernorm"]

@@ -2,17 +2,18 @@
 `train_one_batch` through `__call__`, train/eval, and `save_states` /
 `load_states` in the JAX package's checkpoint format.
 
-Where the JAX package traces the first `train_one_batch` into one jitted
-XLA program (`use_graph=True`), the port runs eagerly: `use_graph` and
-`sequential` are recorded and accepted, and a CUDA graph of the step, the
-port's counterpart of graph mode, is a later change. The port's layers
-know their widths at construction, so `compile` needs no dummy forward to
-create parameters: it records the device and the amp dtype, sets the mode
-and hands the parameters to the optimizer.
+A `Model` is a `layer.Layer`. `compile` runs one forward on the example
+inputs with no graph recorded (`autograd.training` off), which creates
+the parameters of the layers that defer their init, and only then sets
+up the optimizer, as the JAX package's compile does. Where the JAX
+package traces the first `train_one_batch` into one jitted XLA program
+(`use_graph=True`), the port runs eagerly: `use_graph` and `sequential`
+are recorded and accepted, and a CUDA graph of the step, the port's
+counterpart of graph mode, is a later change.
 
 Checkpoints are a zip of `tensor_dict.npz` and `states_attr.json` keyed by
-the JAX package's parameter names (`TransformerBlock_<i>.attn.Wq`, ...),
-so each package loads the other's.
+the JAX package's state names (`conv1.W`, `TransformerBlock_<i>.attn.Wq`,
+...), so each package loads the other's.
 """
 
 from __future__ import annotations
@@ -25,17 +26,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import autograd
+from . import autograd, layer
+from . import device as device_module
+from .tensor import Tensor
 
 
-class Model(nn.Module):
+class Model(layer.Layer):
     """Base user model: subclass, define `forward` and (optionally)
     `train_one_batch`. A new model is in eval mode until
     `compile(is_train=True)`; `m(x)` in eval mode runs `forward` with no
-    autograd graph, `m(x, y)` in train mode runs `train_one_batch`."""
+    autograd graph, `m(x, y)` in train mode runs `train_one_batch`. Both
+    take `tensor.Tensor`s or raw tensors."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, name=None):
+        super().__init__(name)
         self._optimizer = None
         self._device = None
         self.graph_mode = False
@@ -58,13 +62,26 @@ class Model(nn.Module):
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False, amp=None):
-        """Record the device (that of the model's parameters, where the
-        inputs are moved at each call), the graph flags and the amp dtype
-        ("bfloat16": fp32 master weights, bf16 compute at the layers' cast
-        points); set train or eval mode; set up the optimizer's state."""
+        """Set the device, the graph flags and the amp dtype ("bfloat16":
+        fp32 master weights, bf16 compute at the layers' cast points);
+        create the deferred parameters with one forward on `inputs`, no
+        graph recorded; set train or eval mode; set up the optimizer's
+        state in the JAX package's parameter order.
+
+        The device is the inputs' while some layer still defers its
+        parameters: the model moves there (parameters drawn at
+        construction included) before that forward. A model whose every
+        parameter exists (the GPT, built with a device) keeps its
+        parameters' device and moves its inputs there at each call."""
         if not inputs:
             raise ValueError("compile needs the example inputs")
-        self._device = next(self.parameters()).device
+        deferred = self._deferred()
+        p = next(self.parameters(), None)
+        if deferred or p is None:
+            self._device = _input_device(inputs[0])
+            self.to(self._device)
+        else:
+            self._device = p.device
         self.graph(use_graph, sequential)
         if amp in ("bf16", True):
             amp = "bfloat16"
@@ -72,6 +89,14 @@ class Model(nn.Module):
             raise ValueError(f"amp={amp!r}; the port takes None or "
                              "'bfloat16'")
         self.amp = amp
+        if deferred:
+            prev = autograd.training
+            autograd.training = False   # the init pass builds no graph
+            try:
+                with torch.no_grad():
+                    self.forward(*inputs)
+            finally:
+                autograd.training = prev
         self.train(is_train)
         if self._optimizer is not None:
             self._optimizer.setup(self.get_params().values())
@@ -108,32 +133,6 @@ class Model(nn.Module):
         finally:
             autograd.compute_dtype = prev
 
-    # ---- parameters and states ---------------------------------------------
-    def get_params(self) -> dict:
-        """{name: parameter}; models whose module tree differs from the
-        JAX package's override this to give its names and order."""
-        return dict(self.named_parameters())
-
-    def get_states(self) -> dict:
-        """Parameters, then buffers (the JAX package's states)."""
-        return {**self.get_params(), **dict(self.named_buffers())}
-
-    @torch.no_grad()
-    def set_states(self, states: dict):
-        """Copy numpy arrays or tensors into the states of the same name
-        (unknown names are ignored, as in the JAX package); raises on a
-        shape mismatch. In place, so version counters move."""
-        own = self.get_states()
-        for n, v in states.items():
-            if n not in own:
-                continue
-            src = v.detach() if torch.is_tensor(v) \
-                else torch.as_tensor(np.asarray(v))
-            if tuple(src.shape) != tuple(own[n].shape):
-                raise ValueError(f"{n}: shape {tuple(src.shape)}, model has "
-                                 f"{tuple(own[n].shape)}")
-            own[n].copy_(src)
-
     # ---- checkpoints --------------------------------------------------------
     def save_states(self, fpath: str, aux_states: dict | None = None):
         """zip(tensor_dict.npz + states_attr.json) under the JAX names;
@@ -141,6 +140,8 @@ class Model(nn.Module):
         states = {k: t.detach().cpu().numpy()
                   for k, t in self.get_states().items()}
         for k, v in (aux_states or {}).items():
+            if isinstance(v, Tensor):
+                v = v.data
             states[f"aux.{k}"] = np.asarray(
                 v.detach().cpu().numpy() if torch.is_tensor(v) else v)
         attrs = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
@@ -162,6 +163,16 @@ class Model(nn.Module):
                          if not k.startswith("aux.")})
         return {k[len("aux."):]: v for k, v in loaded.items()
                 if k.startswith("aux.")}
+
+
+def _input_device(x) -> torch.device:
+    """Where an example input lives: a Tensor's Device, a raw tensor's
+    device, else (numpy) the default device."""
+    if isinstance(x, Tensor):
+        return x.device.torch_device
+    if torch.is_tensor(x):
+        return x.device
+    return device_module.resolve(None)
 
 
 __all__ = ["Model"]

@@ -1,9 +1,21 @@
-"""Model zoo of the port (counterpart of singa_tpu/models): the GPT for
-now; the convolutional models come with the training slice."""
+"""Model zoo of the port (counterpart of singa_tpu/models): every model
+is a `model.Model`; `create_model` takes the JAX package's names.
+`gpt_pipe` (the pipelined GPT) comes with the distribution slice."""
 
-from . import transformer  # noqa: F401
+from .base import Classifier  # noqa: F401
+from . import alexnet, cnn, mlp, resnet, transformer, xceptionnet  # noqa: F401
 
 _REGISTRY = {
+    "mlp": mlp.create_model,
+    "cnn": cnn.create_model,
+    "alexnet": alexnet.create_model,
+    "resnet": resnet.resnet50,
+    "resnet18": resnet.resnet18,
+    "resnet34": resnet.resnet34,
+    "resnet50": resnet.resnet50,
+    "resnet101": resnet.resnet101,
+    "resnet152": resnet.resnet152,
+    "xceptionnet": xceptionnet.create_model,
     "gpt": transformer.create_model,
 }
 

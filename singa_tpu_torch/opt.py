@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import autograd
+from .tensor import Tensor
 
 
 # ---- learning-rate schedules ---------------------------------------------
@@ -112,11 +113,20 @@ class Optimizer:
         return self.backward_and_update(loss)
 
     def backward_and_update(self, loss):
-        """Backward from `loss`, then every parameter's update, then one
-        step of the counter (JAX's order: an update reads the counter of
-        the step it belongs to)."""
-        for p, g in autograd.backward(loss):
-            self.apply(p, g)
+        """Backward from `loss` (a Tensor or a raw tensor), then every
+        parameter's update, then one step of the counter (JAX's order: an
+        update reads the counter of the step it belongs to). Parameters
+        created after `setup` (at a layer's first call) get their state
+        at their first update. The updates run inside the profiler range
+        `opt.apply_updates` (the JAX package's span name), which
+        torch.profiler attributes the update kernels to; backward hands
+        over every grad at once, so the range holds only the updates."""
+        pairs = list(autograd.backward(loss))
+        with torch.profiler.record_function("opt.apply_updates"):
+            for p, g in pairs:
+                if isinstance(p, Tensor):
+                    p, g = p.data, g.data
+                self.apply(p, g)
         self.step()
 
     def step(self):

@@ -203,7 +203,11 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.opt, singa_tpu_torch.model, "
         "singa_tpu_torch.models, singa_tpu_torch.models.transformer, "
         "singa_tpu_torch.ops, singa_tpu_torch.ops.attention, "
-        "singa_tpu_torch.ops._build\n"
+        "singa_tpu_torch.ops._build, singa_tpu_torch.tensor, "
+        "singa_tpu_torch.initializer, singa_tpu_torch.models.base, "
+        "singa_tpu_torch.models.mlp, singa_tpu_torch.models.cnn, "
+        "singa_tpu_torch.models.alexnet, singa_tpu_torch.models.resnet, "
+        "singa_tpu_torch.models.xceptionnet\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
         "m.startswith('singa_tpu.')]\n"

@@ -114,7 +114,33 @@ Phases, each of which exits non-zero on failure:
    window: K1 and K2a launch once each per dtype, and the output and
    dq/dk/dv agree with use_kernel=False at phase 2's tolerances; the
    counts join the kernels line as the `tensor_attention` path.
-8. The `kernels` JSON line (the decode kernels with a `modes` entry per
+8. The training paths as CUDA graphs (compile(use_graph=True)): the fp32
+   GPT of 6b, graph against eager from the same weights, 6 steps, losses
+   (relative) and parameters within 1e-5, printed bitwise or not; the
+   two models then in eval mode, the graph one's forward buffered per
+   batch bucket, logits within 1e-5 of eager's over batches of 2, 2, 2,
+   1, 2 rows, one K1 launch per layer in the last call (a replay); the
+   bench GPT eager and graph in one process, in turns (step ms median,
+   tokens/s), exactly 8 + 8 K1/K2a launches per replayed step, the graph
+   step under torch.profiler (busy and idle beside phase 5's eager
+   step); and 6c's long-context step as a graph, exactly 2 + 2 + 2
+   K1/K2b/K2c launches per replay.
+   8b. ResNet-50 b32 bf16 graph against eager in turns (step ms, img/s),
+   the graph step profiled beside phase 7's eager one; the fp32 small
+   ResNet of 7b, graph against eager, both on cuDNN's deterministic
+   algorithms, losses, parameters and running statistics within 1e-5
+   (two eager runs on cuDNN's default algorithms printed beside: those
+   are not reproducible run to run).
+   8c. The trainer's pipeline: 8 seeded bench-GPT batches written with
+   io.RecordWriter (the native backend required), Model.fit over an
+   io.RecordReader-backed dataset in graph mode with
+   prefetch_to_device=2, save_checkpoint(async_save=True) after epoch 1
+   with epoch 2 overlapping the write (exactly 64 + 64 launches), then
+   load_checkpoint into a fresh model and its epoch 2; the fp32 GPT's
+   resumed epoch 2 held to the uninterrupted run within 1e-5; the bench
+   GPT's states copied to the host, then written and read through
+   snapshot.Snapshot, native and npz (the plain version), MB/s each.
+9. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
@@ -258,6 +284,12 @@ def phase_env(torch, build):
           f"({len(build.SOURCES)} sources, parallel nvcc); per source: "
           + ", ".join(f"{n} {t:.2f} s"
                       for n, t in build.BUILD_SECONDS.items()))
+    from singa_tpu_torch import native
+    t0 = time.perf_counter()
+    native.recordio()
+    native.snapshot()
+    print(f"native host libraries (g++: recordio.cc, snapshot.cc): "
+          f"{time.perf_counter() - t0:.2f} s")
     spills = []
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -1402,6 +1434,10 @@ TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
 
+#: (device busy ms or None, wall ms) of every _breakdown, by its `what`
+PROFILES = {}
+
+
 def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     """Device time by kernel over one call of `fn` under torch.profiler:
     busy share of the wall time (profiler on), and the time split into
@@ -1432,7 +1468,8 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     if busy == 0:
         print(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
               "(the profiler saw no device activity)")
-        return
+        PROFILES[what] = (None, wall_ms)
+        return PROFILES[what]
     totals = {label: 0.0 for label, _ in cats}
     totals.update({"matmul": 0.0, "other": 0.0})
     for ms, _, name in rows:
@@ -1471,6 +1508,8 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     missing = [k for k in require if not any(k in r[2] for r in rows)]
     if missing:
         fail(f"{what}: no device time in {missing}")
+    PROFILES[what] = (busy, wall_ms)
+    return PROFILES[what]
 
 
 def phase_profile(torch, model, engine, train_step, drafts):
@@ -1530,10 +1569,10 @@ def phase_train(torch, models, opt, A):
     t0 = time.perf_counter()
     m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
     m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
-    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    m.compile([tx], is_train=True, use_graph=False, amp="bfloat16")
     print(f"  model: {sum(p.numel() for p in m.parameters())} parameters, "
           f"built in {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x "
-          f"{TRAIN_S}; use_graph=True runs eagerly (no CUDA graph yet)")
+          f"{TRAIN_S}; eager (phase 8 runs the step as a CUDA graph)")
     warm, warm_ms = _steps(torch, m, tx, ty, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1697,11 +1736,11 @@ def phase_resnet(torch, models, opt, tensor, device, layer):
     m = models.create_model("resnet50", num_channels=3,
                             num_classes=RESNET_CLASSES)
     m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
-    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    m.compile([tx], is_train=True, use_graph=False, amp="bfloat16")
     n_params = sum(p.numel() for p in m.get_params().values())
     print(f"  model: {n_params} parameters on {next(m.parameters()).device}, "
           f"built and compiled in {time.perf_counter() - t0:.2f} s; "
-          "use_graph=True runs eagerly (no CUDA graph yet)")
+          "eager (phase 8b runs the step as a CUDA graph)")
     flops, _ = _conv_linear_flops(torch, layer, m, tx)
     warm, warm_ms = _steps(torch, m, tx, ty, RESNET_WARM)
     torch.cuda.synchronize()
@@ -1746,7 +1785,7 @@ def phase_resnet_fp32(torch, models, opt, tensor, device):
         m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9, weight_decay=1e-5))
         tx = tensor.Tensor(data=x, device=dev)
         ty = tensor.from_numpy(y, device=dev)
-        m.compile([tx], is_train=True, use_graph=True)
+        m.compile([tx], is_train=True, use_graph=False)
         built.append((m, tx, ty))
     (mc, _, _), (mg, _, _) = built
     mg.set_states(mc.get_states())
@@ -1816,6 +1855,419 @@ def phase_tensor_attention(torch, A, autograd, tensor, device):
     if bad:
         fail(f"autograd.attention on Tensors disagrees with the plain "
              f"version: {bad}")
+    return counts
+
+
+# ---- phases 8-8c: the buffered graph, fit, checkpoints, record IO -----------
+GRAPH_TOL = 1e-5        # graph against eager, fp32: losses (relative), states
+EXACT_STEPS = 6         # steps of each fp32 exactness run
+GRAPH_STEPS = 5         # steps per timed turn, and in the counted window
+GPT_TRAIN_PROFILE = "train step b8 s1024 bf16 (bench width)"
+RESNET_PROFILE = f"ResNet-50 train step b{RESNET_B} bf16"
+FIT_BATCHES = 8         # batches in phase 8c's record file
+
+
+def _turns(torch, built, tx, ty, n=GRAPH_STEPS):
+    """Step ms of each model in `built` in turns (first, second, second,
+    first), n steps a turn, each fenced by loss.item()."""
+    ms = {k: [] for k in built}
+    for label in list(built) + list(built)[::-1]:
+        ms[label] += _steps(torch, built[label], tx, ty, n)[1]
+    return ms
+
+
+def _idle_line(what, eager_key, graph_prof):
+    """The eager profile (an earlier phase's, this process) beside the
+    graph one: device busy and idle share."""
+    parts = []
+    for label, (busy, wall) in (("eager", PROFILES.get(eager_key,
+                                                       (None, None))),
+                                ("graph", graph_prof)):
+        parts.append(f"{label} busy {busy:.2f} of {wall:.2f} ms, idle "
+                     f"{1 - busy / wall:.1%}" if busy else
+                     f"{label} device time not measured")
+    print(f"  {what} under the profiler: " + "; ".join(parts))
+
+
+def _compare_states(torch, a, b):
+    """(max abs difference, bitwise equal) over two {name: tensor}."""
+    err = max(float((a[k].detach().float() - b[k].detach().float())
+                    .abs().max()) for k in a)
+    return err, all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_graph_gpt(torch, models, opt, A):
+    """The GPT step as a CUDA graph: the fp32 GPT of phase 6b, eager
+    against graph from the same weights (6 steps each, the losses kept as
+    the steps returned them, so a reused output buffer shows); then the
+    bench GPT, eager and graph in turns, exact launches per replayed step
+    and the graph step under the profiler; then phase 6c's long-context
+    step as a graph, whose backward is the split pair K2b + K2c, with
+    exact launches per replay. Returns the two counted windows' sum."""
+    print("== phase 8: GPT training as a CUDA graph (use_graph=True)")
+    cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2)
+    tx, ty = (t.cuda() for t in _train_batch(torch, cfg["vocab_size"], 2,
+                                             256, SEED + 4))
+    runs = {}
+    for graph in (False, True):
+        m = models.create_model("gpt", device="cuda", seed=SEED + 5, **cfg)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph)
+        kept = [m(tx, ty)[1] for _ in range(EXACT_STEPS)]
+        runs[graph] = (m, torch.stack(kept).tolist())
+    (me, le), (mg, lg) = runs[False], runs[True]
+    if mg.graph_backend != "cuda_graph":
+        fail(f"graph mode on the card ran {mg.graph_backend!r}, not a CUDA "
+             "graph")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    serr, same = _compare_states(torch, me.get_states(), mg.get_states())
+    print(f"  fp32 GPT (dim 512, 2 layers, S 256), {EXACT_STEPS} steps: "
+          f"losses eager {[round(v, 6) for v in le]}, graph "
+          f"{[round(v, 6) for v in lg]}: max relative difference {rel:.3e}; "
+          f"parameters max abs difference {serr:.3e} (tol {GRAPH_TOL} "
+          f"each); bitwise equal: {same and le == lg}")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("the GPT's CUDA-graph step differs from its eager step")
+    phase_graph_eval(torch, A, me, mg, tx, cfg["num_layers"])
+    del runs, me, mg
+    torch.cuda.empty_cache()
+
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    built = {}
+    for label, graph in (("eager", False), ("graph", True)):
+        m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph, amp="bfloat16")
+        losses, ms = _steps(torch, m, tx, ty, 2)
+        print(f"  bench GPT {label}: first two steps {ms[0]:.1f}, "
+              f"{ms[1]:.1f} ms (graph: eager warm-up, then capture and "
+              f"first replay), losses {losses[0]:.4f}, {losses[1]:.4f}")
+        built[label] = m
+    ms = _turns(torch, built, tx, ty)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    for k, v in ms.items():
+        print(f"  bench GPT b{TRAIN_B} x {TRAIN_S} bf16 {k}: step ms "
+              f"{', '.join(f'{x:.2f}' for x in v)}; median {med[k]:.2f} ms, "
+              f"{TRAIN_B * TRAIN_S / med[k] * 1e3:.0f} tokens/s")
+    print(f"  graph / eager step: {med['graph'] / med['eager']:.3f}")
+    g = built["graph"]
+    torch.cuda.synchronize()
+    A.reset_launches()
+    _steps(torch, g, tx, ty, GRAPH_STEPS)
+    counts = dict(A.LAUNCHES)
+    check_launches("graph training (replays)", counts,
+                   {"flash_fwd": L * GRAPH_STEPS,
+                    "flash_bwd_fused": L * GRAPH_STEPS})
+    prof = _breakdown(torch, "graph train step b8 s1024 bf16 (bench width)",
+                      lambda: g(tx, ty)[1].item(), TRAIN_CATS,
+                      require=TC_KERNELS)
+    _idle_line("bench GPT step", GPT_TRAIN_PROFILE, prof)
+    del built, g
+    torch.cuda.empty_cache()
+
+    # the split backward (K2b + K2c) inside a graph: phase 6c's step
+    cfg = dict(BENCH_GPT, max_seq=LONG_S, num_layers=LONG_LAYERS)
+    tx, ty = (t.cuda() for t in _train_batch(torch, cfg["vocab_size"], 1,
+                                             LONG_S, SEED + 6))
+    m = models.create_model("gpt", device="cuda", seed=SEED + 6, **cfg)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    _steps(torch, m, tx, ty, 2)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    losses, ms = _steps(torch, m, tx, ty, 2)
+    long_counts = dict(A.LAUNCHES)
+    print(f"  long-context step (S {LONG_S}, {LONG_LAYERS} layers) as a "
+          f"graph: replayed steps {', '.join(f'{x:.1f}' for x in ms)} ms, "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
+    check_launches("long-context graph training (replays)", long_counts, {
+        "flash_fwd": 2 * LONG_LAYERS, "flash_bwd_dq": 2 * LONG_LAYERS,
+        "flash_bwd_dkv": 2 * LONG_LAYERS})
+    del m
+    torch.cuda.empty_cache()
+    return {k: v + long_counts[k] for k, v in counts.items()}
+
+
+EVAL_ROWS = (2, 2, 2, 1, 2)   # eval batch sizes: warm-up, capture, replays
+
+
+def phase_graph_eval(torch, A, me, mg, tx, L):
+    """The eval step as a CUDA graph: the two trained fp32 GPTs of phase 8
+    in eval mode, the graph one buffered per batch bucket, over batches of
+    EVAL_ROWS rows; the logits held to the eager model's within
+    GRAPH_TOL (absolute), and the last call, a replay, counted: one K1
+    launch per layer."""
+    me.eval()
+    mg.eval()
+    errs = []
+    for i, n in enumerate(EVAL_ROWS):
+        want = me(tx[:n])
+        if i == len(EVAL_ROWS) - 1:
+            torch.cuda.synchronize()
+            A.reset_launches()
+        got = mg(tx[:n])
+        errs.append(float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    print(f"  fp32 GPT eval as a graph ({mg.graph_backend}), batches of "
+          f"{list(EVAL_ROWS)} rows: logits max abs difference from eager "
+          f"{max(errs):.3e} (tol {GRAPH_TOL}); bitwise equal: "
+          f"{max(errs) == 0.0}; eval graphs built {mg._eval_trace_count}, "
+          f"per-sample probe {mg._eval_per_sample}")
+    check_launches("graph eval (a replay)", counts, {"flash_fwd": L})
+    if mg.graph_backend != "cuda_graph" or max(errs) > GRAPH_TOL:
+        fail("the GPT's CUDA-graph eval step differs from its eager one")
+
+
+def phase_graph_resnet(torch, models, opt, tensor, device):
+    """ResNet-50 b32 bf16 as a CUDA graph against phase 7's eager step in
+    turns, and the graph step under the profiler; then the fp32 small
+    ResNet of phase 7b, eager against graph from the same states, on
+    cuDNN's deterministic algorithms."""
+    print(f"== phase 8b: ResNet-50 b{RESNET_B} bf16 as a CUDA graph")
+    dev = device.best_device()
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, RESNET_B).astype(np.int32)
+    tx = tensor.Tensor(data=x, device=dev)
+    ty = tensor.from_numpy(y, device=dev)
+    built = {}
+    for label, graph in (("eager", False), ("graph", True)):
+        dev.SetRandSeed(SEED)
+        m = models.create_model("resnet50", num_channels=3,
+                                num_classes=RESNET_CLASSES)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph, amp="bfloat16")
+        losses, ms = _steps(torch, m, tx, ty, 2)
+        print(f"  ResNet-50 {label}: first two steps {ms[0]:.1f}, "
+              f"{ms[1]:.1f} ms, losses {losses[0]:.4f}, {losses[1]:.4f}")
+        built[label] = m
+    if built["graph"].graph_backend != "cuda_graph":
+        fail("ResNet-50 in graph mode did not run a CUDA graph")
+    ms = _turns(torch, built, tx, ty)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    for k, v in ms.items():
+        print(f"  ResNet-50 {k}: step ms {', '.join(f'{x:.2f}' for x in v)};"
+              f" median {med[k]:.2f} ms, {RESNET_B / med[k] * 1e3:.1f} img/s")
+    print(f"  graph / eager step: {med['graph'] / med['eager']:.3f}")
+    g = built["graph"]
+    prof = _breakdown(torch, f"graph ResNet-50 train step b{RESNET_B} bf16",
+                      lambda: g(tx, ty)[1].item(), RESNET_CATS)
+    _idle_line("ResNet-50 step", RESNET_PROFILE, prof)
+    del built, g
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(SEED + 12)
+    x = rng.randn(8, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, 8).astype(np.int32)
+    tx = tensor.Tensor(data=x, device=dev)
+    ty = tensor.from_numpy(y, device=dev)
+    # cuDNN's default algorithms are not reproducible run to run, so the
+    # graph is held to the eager step with both on its deterministic
+    # algorithms; two eager runs on the default ones are printed beside
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        rel, serr, same = _small_resnet_pair(torch, opt, tx, ty,
+                                             (False, False))
+        print(f"  fp32 small ResNet (Bottleneck [1, 1, 1, 1], b8 x 64 x "
+              f"64), cuDNN's default algorithms, eager against eager, "
+              f"{EXACT_STEPS} steps: max relative loss difference "
+              f"{rel:.3e}, states {serr:.3e}; bitwise equal: {same}")
+        torch.backends.cudnn.deterministic = True
+        rel, serr, same = _small_resnet_pair(torch, opt, tx, ty,
+                                             (False, True))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"  the same, cuDNN deterministic, eager against graph: max "
+          f"relative loss difference {rel:.3e}; parameters and running "
+          f"stats max abs difference {serr:.3e} (tol {GRAPH_TOL} each); "
+          f"bitwise equal: {same}")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("the small ResNet's CUDA-graph step differs from its eager step")
+
+
+def _small_resnet_pair(torch, opt, tx, ty, graphs):
+    """Two small fp32 ResNets (Bottleneck, [1, 1, 1, 1]) from the same
+    states, with use_graph as `graphs` says, EXACT_STEPS SGD steps each:
+    (max relative loss difference, max abs state difference, bitwise
+    equal)."""
+    from singa_tpu_torch.models import resnet
+    pair = []
+    for graph in graphs:
+        m = resnet.ResNet(resnet.Bottleneck, [1, 1, 1, 1])
+        m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph)
+        if pair:
+            m.set_states(pair[0].get_states())
+        pair.append(m)
+    out = []
+    for m in pair:
+        kept = [m(tx, ty)[1] for _ in range(EXACT_STEPS)]
+        out.append(([float(v.data.detach()) for v in kept], m.get_states()))
+    (la, sa), (lb, sb) = out
+    rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    serr, same = _compare_states(torch, sa, sb)
+    return rel, serr, same and la == lb
+
+
+class RecordBatches:
+    """A dataset over a record file of (B, S) int64 token ids: each
+    iteration reads the file through io.RecordReader and yields (ids,
+    next-token targets) as CPU tensors."""
+
+    def __init__(self, sio, path, B, S):
+        self.sio, self.path, self.shape = sio, path, (B, S)
+
+    def __iter__(self):
+        import torch
+        with self.sio.RecordReader(self.path) as r:
+            for _key, val in r:
+                ids = torch.from_numpy(np.frombuffer(val, np.int64).copy()
+                                       .reshape(self.shape))
+                yield ids, torch.roll(ids, -1, 1)
+
+
+def _write_records(sio, path, n, B, S, vocab, seed):
+    rng = np.random.RandomState(seed)
+    with sio.RecordWriter(path) as w:
+        for i in range(n):
+            w.write(f"batch{i}", rng.randint(0, vocab, (B, S))
+                    .astype(np.int64).tobytes())
+        return w.backend
+
+
+def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
+    """The trainer's pipeline on the card: records written and read back
+    through io (native), Model.fit over them in graph mode with
+    prefetch_to_device=2, an async save_checkpoint after epoch 1 while
+    epoch 2 runs, load_checkpoint into a fresh model and its epoch 2; the
+    resumed fp32 GPT's epoch-2 loss held to the uninterrupted run's; the
+    bench GPT's states copied to the host, then through snapshot.Snapshot
+    (native, then npz). Returns the counted window (epoch 2 of the bench
+    GPT)."""
+    print("== phase 8c: fit over record files, async checkpoints, resume")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    rec = os.path.join(root, "gpt.rio")
+    t0 = time.perf_counter()
+    backend = _write_records(sio, rec, FIT_BATCHES, TRAIN_B, TRAIN_S, V,
+                             SEED + 14)
+    print(f"  {FIT_BATCHES} batches of {TRAIN_B} x {TRAIN_S} ids written in "
+          f"{time.perf_counter() - t0:.2f} s, record backend {backend}")
+    if backend != "native":
+        fail(f"record IO ran the {backend} backend, not the native one")
+    ds = RecordBatches(sio, rec, TRAIN_B, TRAIN_S)
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([next(iter(ds))[0].cuda()], is_train=True, use_graph=True,
+              amp="bfloat16")
+    t0 = time.perf_counter()
+    h1 = m.fit(ds, 1, prefetch_to_device=2)
+    e1 = time.perf_counter() - t0
+    ckdir = os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    path = m.save_checkpoint(ckdir, step=FIT_BATCHES, async_save=True)
+    save_s = time.perf_counter() - t0
+    pending = overlap.pending_checkpoints()
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    h2 = m.fit(ds, 1, prefetch_to_device=2)
+    e2 = time.perf_counter() - t0
+    counts = dict(A.LAUNCHES)
+    t0 = time.perf_counter()
+    overlap.wait_for_checkpoints()
+    wait_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    print(f"  bench GPT fit, graph mode ({m.graph_backend}), prefetch 2: "
+          f"epoch 1 loss {h1[0]:.4f} in {e1:.2f} s (warm-up and capture "
+          f"included); save_checkpoint(async) returned in {save_s:.2f} s "
+          f"with {pending} write pending; epoch 2 loss {h2[0]:.4f} in "
+          f"{e2:.2f} s ({FIT_BATCHES * TRAIN_B * TRAIN_S / e2:.0f} tokens/s, "
+          f"the write overlapping); the write done {wait_s:.2f} s later, "
+          f"{size / 2**30:.2f} GiB")
+    check_launches("fit epoch 2 (replays)", counts,
+                   {"flash_fwd": L * FIT_BATCHES,
+                    "flash_bwd_fused": L * FIT_BATCHES})
+    fresh = models.create_model("gpt", device="cuda", seed=SEED + 1,
+                                **BENCH_GPT)
+    fresh.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    fresh.compile([next(iter(ds))[0].cuda()], is_train=True, use_graph=True,
+                  amp="bfloat16")
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    h2r = fresh.fit(ds, 1, prefetch_to_device=2)
+    print(f"  load_checkpoint into a fresh bench GPT {load_s:.2f} s; its "
+          f"epoch 2 loss {h2r[0]:.6f} against {h2[0]:.6f} uninterrupted "
+          f"(bf16, printed only: relative difference "
+          f"{abs(h2r[0] - h2[0]) / abs(h2[0]):.3e})")
+    del fresh
+    states = m.get_states()
+    nbytes = sum(t.numel() * t.element_size() for t in states.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = {k: t.detach().cpu() for k, t in states.items()}
+    d2h_s = time.perf_counter() - t0
+    print(f"  the bench GPT's {len(states)} states, {nbytes / 2**20:.0f} "
+          f"MiB, device to host in {d2h_s:.2f} s "
+          f"({nbytes / 2**20 / d2h_s:.0f} MB/s)")
+    for backend, snap in (("native", os.path.join(root, "gpt_states")),
+                          ("npz", os.path.join(root, "gpt_states.npz"))):
+        t0 = time.perf_counter()
+        with snapshot.Snapshot(snap, True) as sn:
+            for k, t in host.items():
+                sn.write(k, t)
+        w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = snapshot.Snapshot(snap, False)
+        r_s = time.perf_counter() - t0
+        bad = [k for k, t in host.items() if not torch.equal(back.read(k)
+                                                             .data, t)]
+        print(f"  snapshot.Snapshot ({backend}) from host copies: written "
+              f"in {w_s:.2f} s ({nbytes / 2**20 / w_s:.0f} MB/s), read in "
+              f"{r_s:.2f} s ({nbytes / 2**20 / r_s:.0f} MB/s); equal: "
+              f"{not bad}")
+        if bad:
+            fail(f"snapshot round trip ({backend}) changed {bad[:3]}")
+        del back
+    if not os.path.exists(os.path.join(root, "gpt_states.bin")):
+        fail("the snapshot did not take the native (.bin) backend")
+    del m, states, host
+    torch.cuda.empty_cache()
+
+    # the resumed run held to the uninterrupted one: the fp32 GPT of 6b
+    cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2)
+    rec = os.path.join(root, "small.rio")
+    _write_records(sio, rec, 4, 2, 256, cfg["vocab_size"], SEED + 15)
+    ds = RecordBatches(sio, rec, 2, 256)
+
+    def build(seed):
+        g = models.create_model("gpt", device="cuda", seed=seed, **cfg)
+        g.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        g.compile([next(iter(ds))[0].cuda()], is_train=True, use_graph=True)
+        return g
+
+    full = build(SEED + 5).fit(ds, 2, prefetch_to_device=2)
+    a = build(SEED + 5)
+    first = a.fit(ds, 1, prefetch_to_device=2)
+    path = a.save_checkpoint(os.path.join(root, "ckpt_small"), step=4)
+    b = build(SEED + 8)
+    b.load_checkpoint(path)
+    resumed = b.fit(ds, 1, prefetch_to_device=2)
+    rel = abs(resumed[0] - full[1]) / abs(full[1])
+    print(f"  fp32 GPT (dim 512, 2 layers, S 256), 4 batches: "
+          f"uninterrupted epochs {[round(v, 6) for v in full]}; epoch 1 "
+          f"{first[0]:.6f}, then save, load into a fresh model, epoch 2 "
+          f"{resumed[0]:.6f}: relative difference {rel:.3e} (tol "
+          f"{GRAPH_TOL}); bitwise equal: {resumed[0] == full[1]}")
+    if not rel <= GRAPH_TOL:
+        fail("the resumed run's loss differs from the uninterrupted run's")
     return counts
 
 
@@ -2027,7 +2479,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from singa_tpu_torch import (autograd, device, engine, layer, models,
-                                 opt, serving, tensor)
+                                 opt, overlap, serving, snapshot, tensor)
+    from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
     from singa_tpu_torch.ops import _build
     from singa_tpu_torch.ops import attention as A
@@ -2084,6 +2537,14 @@ def main():
     by_path["tensor_attention"] = phase_tensor_attention(torch, A, autograd,
                                                          tensor, device)
     clock.lap("phase 7c")
+    by_path["train_graph"] = phase_graph_gpt(torch, models, opt, A)
+    clock.lap("phase 8")
+    phase_graph_resnet(torch, models, opt, tensor, device)
+    clock.lap("phase 8b")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["fit"] = phase_pipeline(torch, models, opt, sio, overlap,
+                                        snapshot, A, root)
+    clock.lap("phase 8c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

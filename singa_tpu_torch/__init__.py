@@ -12,6 +12,11 @@ What is ported so far:
         model.Model.compile / __call__, opt, and the model zoo
         (models.create_model: mlp, cnn, alexnet, resnet18-152,
         xceptionnet, gpt)
+    the buffered graph: compile(use_graph=True) captures each train and
+        eval step as a CUDA graph; Model.fit over data.NumpyBatchIter or
+        io.RecordReader-backed datasets with overlap.DevicePrefetcher;
+        save_checkpoint (async, overlap) / load_checkpoint; io's record
+        files and snapshot.Snapshot over the g++-built native/ sources
     models.transformer.GPT.generate -> serving.build_decode
         (build_spec_decode with a draft model) -> serving._DecodeCore
         .prefill / token_step / verify_step, in fp32, bf16 or int8
@@ -30,6 +35,8 @@ CUDA unless the caller passes `device="cpu"` (or a CPU `Device`), where
 every kernel wrapper runs its plain PyTorch version instead.
 """
 
-from . import autograd, device, layer, model, models, opt, tensor  # noqa: F401
+from . import (autograd, data, device, io, layer, model, models,  # noqa: F401
+               native, opt, overlap, snapshot, tensor)
 
-__all__ = ["autograd", "device", "layer", "model", "models", "opt", "tensor"]
+__all__ = ["autograd", "data", "device", "io", "layer", "model", "models",
+           "native", "opt", "overlap", "snapshot", "tensor"]

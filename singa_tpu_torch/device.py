@@ -47,6 +47,19 @@ class Device:
         self._seed = int(seed)
         self.generator.manual_seed(self._seed)
 
+    @property
+    def rng_state(self) -> torch.Tensor:
+        """The random stream's state (a CPU uint8 tensor, the generator's
+        `get_state()`): what a checkpoint saves to resume the stream."""
+        return self.generator.get_state()
+
+    @rng_state.setter
+    def rng_state(self, state):
+        """Restore a state taken by the getter, in place: a CUDA graph
+        that registered the generator draws from the restored stream."""
+        self.generator.set_state(torch.as_tensor(state, dtype=torch.uint8)
+                                 .cpu())
+
     def Sync(self):
         """Fence: wait for all queued work on this device."""
         if self.torch_device.type == "cuda":

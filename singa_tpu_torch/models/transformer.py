@@ -22,6 +22,7 @@ from torch import nn
 
 from .. import device as device_mod
 from .. import layer, model, serving
+from ..tensor import _raw
 
 
 class GPT(model.Model):
@@ -74,10 +75,11 @@ class GPT(model.Model):
         return self.tok_embed.W.device
 
     def forward(self, ids):
-        """(B, S) token ids -> (B, S, V) fp32 logits. Under the bf16
-        policy the embedding rows are bf16 and adding the fp32 position
-        table makes the residual stream fp32, as in the JAX package."""
-        ids = torch.as_tensor(ids, device=self.device).long()
+        """(B, S) token ids (a tensor, a Tensor or an array) -> (B, S, V)
+        fp32 logits. Under the bf16 policy the embedding rows are bf16
+        and adding the fp32 position table makes the residual stream
+        fp32, as in the JAX package."""
+        ids = torch.as_tensor(_raw(ids), device=self.device).long()
         h = self.tok_embed(ids)
         if self.pos_encoding == "learned":
             h = h + self.pos_embed[:ids.shape[1]]
@@ -91,7 +93,8 @@ class GPT(model.Model):
         (B, S, V) fp32, loss), detached from the spent graph."""
         logits = nn.Module.__call__(self, ids)
         flat = logits.reshape(-1, self.vocab_size)
-        tflat = torch.as_tensor(targets, device=self.device).reshape(-1)
+        tflat = torch.as_tensor(_raw(targets),
+                                device=self.device).reshape(-1)
         loss = self.sce(flat, tflat.long())
         self.optimizer(loss)
         return logits.detach(), loss.detach()

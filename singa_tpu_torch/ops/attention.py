@@ -88,6 +88,32 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def launch_counts():
+    """Copies of LAUNCHES and LAUNCHES_BY_MODE, for `launches_since`."""
+    return dict(LAUNCHES), dict(LAUNCHES_BY_MODE)
+
+
+def launches_since(before):
+    """The launches counted since `before` (a `launch_counts()`), as
+    (by kernel, by mode) dicts of the increments, with the counters set
+    back to `before`. A CUDA graph's capture records its kernels without
+    running them: `Model` takes the capture's counts this way and adds
+    them at each replay (`add_launches`)."""
+    delta = []
+    for counts, old in zip((LAUNCHES, LAUNCHES_BY_MODE), before):
+        delta.append({k: v - old[k] for k, v in counts.items()
+                      if v != old[k]})
+        counts.update(old)
+    return tuple(delta)
+
+
+def add_launches(delta) -> None:
+    """Count a replay's launches (a `launches_since` result)."""
+    for counts, d in zip((LAUNCHES, LAUNCHES_BY_MODE), delta):
+        for k, v in d.items():
+            counts[k] += v
+
+
 def _entry(source: str, name: str):
     fn = getattr(_build.lib(source), name)
     fn.argtypes = _SIGNATURES[name]
@@ -627,6 +653,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, page_size,
 
 
 __all__ = ["FlashAttention", "KV_MODES", "LAUNCHES", "LAUNCHES_BY_MODE",
+           "add_launches", "launch_counts", "launches_since",
            "attention_reference", "flash_attention", "flash_bwd_reference",
            "flash_decode", "flash_decode_reference", "nibble_pack",
            "nibble_unpack", "paged_attention", "paged_attention_reference",

@@ -12,11 +12,15 @@ Each `nn.Parameter` is updated IN PLACE under `torch.no_grad()`, never
 through `.data`: an in-place op bumps the tensor's version counter, which
 is how `serving.decode_state` notices that the weights it cached are
 stale. `DistOpt` comes with distribution.
+
+The step counter is a 0-d fp32 tensor on the parameters' device, stepped
+in place, and the schedules and Adam's bias correction are fp32 torch ops
+on it, as the JAX package's are jnp ops on its counter: a step captured
+in a CUDA graph (`Model.compile(use_graph=True)`) then reads the counter
+of the step it replays, not the value it had at capture.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -28,6 +32,9 @@ from .tensor import Tensor
 # ---- learning-rate schedules ---------------------------------------------
 
 class DecayScheduler:
+    """`sched(step)`: the learning rate at `step`, a 0-d fp32 tensor (the
+    optimizer's counter), as a 0-d fp32 tensor on its device."""
+
     def __init__(self, init_value: float):
         self.init_value = init_value
 
@@ -37,7 +44,8 @@ class DecayScheduler:
 
 class Constant(DecayScheduler):
     def __call__(self, step):
-        return float(np.float32(self.init_value))
+        return torch.full((), self.init_value, dtype=torch.float32,
+                          device=step.device)
 
 
 class ExponentialDecay(DecayScheduler):
@@ -48,11 +56,10 @@ class ExponentialDecay(DecayScheduler):
         self.staircase = staircase
 
     def __call__(self, step):
-        s = np.float32(step) / np.float32(self.decay_steps)
+        s = step / self.decay_steps
         if self.staircase:
-            s = np.floor(s)
-        return float(np.float32(self.init_value)
-                     * np.power(np.float32(self.decay_rate), s))
+            s = torch.floor(s)
+        return self.init_value * torch.pow(self.decay_rate, s)
 
 
 def _sched(lr) -> DecayScheduler:
@@ -64,17 +71,21 @@ def _sched(lr) -> DecayScheduler:
 class Optimizer:
     """Per-parameter state lives in `self._states[id(param)]` as dicts of
     tensors shaped like the parameter; `step_counter` counts applied
-    steps (an fp32 value, as in the JAX package)."""
+    steps (a 0-d fp32 tensor, as in the JAX package), on the CPU until
+    the first parameter's state is made, then on that parameter's
+    device."""
 
     def __init__(self, lr):
         self.lr = _sched(lr)
-        self.step_counter = 0.0
+        self.step_counter = torch.zeros((), dtype=torch.float32)
         self._states = {}       # id(param) -> {name: tensor}
         self._state_order = []  # ids in creation order (checkpoint order)
 
     def _state(self, param) -> dict:
         pid = id(param)
         if pid not in self._states:
+            if self.step_counter.device != param.device:
+                self.step_counter = self.step_counter.to(param.device)
             self._states[pid] = self._init_state(param)
             self._state_order.append(pid)
         return self._states[pid]
@@ -92,7 +103,7 @@ class Optimizer:
     def get_states(self) -> dict:
         """numpy copies under the JAX package's keys: `step_counter` and
         `p{j}.{k}` for state k of the j-th parameter."""
-        out = {"step_counter": np.asarray(self.step_counter, np.float32)}
+        out = {"step_counter": self.step_counter.cpu().numpy()}
         for j, pid in enumerate(self._state_order):
             for k, v in self._states[pid].items():
                 out[f"p{j}.{k}"] = v.detach().cpu().numpy()
@@ -101,7 +112,8 @@ class Optimizer:
     @torch.no_grad()
     def set_states(self, states: dict):
         if "step_counter" in states:
-            self.step_counter = float(np.asarray(states["step_counter"]))
+            self.step_counter.copy_(torch.as_tensor(
+                np.asarray(states["step_counter"], np.float32)))
         for j, pid in enumerate(self._state_order):
             for k, v in self._states[pid].items():
                 key = f"p{j}.{k}"
@@ -129,8 +141,9 @@ class Optimizer:
                 self.apply(p, g)
         self.step()
 
+    @torch.no_grad()
     def step(self):
-        self.step_counter += 1.0
+        self.step_counter.add_(1.0)
 
     def apply(self, param, grad):
         raise NotImplementedError
@@ -237,8 +250,8 @@ class Adam(Optimizer):
         m, v = st["m"], st["v"]
         m.mul_(self.beta_1).add_((1 - self.beta_1) * g)
         v.mul_(self.beta_2).add_((1 - self.beta_2) * g * g)
-        mhat = m / float(np.float32(1 - math.pow(self.beta_1, t)))
-        vhat = v / float(np.float32(1 - math.pow(self.beta_2, t)))
+        mhat = m / (1 - torch.pow(self.beta_1, t))
+        vhat = v / (1 - torch.pow(self.beta_2, t))
         param.sub_(self._lr() * mhat / (torch.sqrt(vhat) + self.epsilon))
 
 

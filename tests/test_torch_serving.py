@@ -207,7 +207,10 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.initializer, singa_tpu_torch.models.base, "
         "singa_tpu_torch.models.mlp, singa_tpu_torch.models.cnn, "
         "singa_tpu_torch.models.alexnet, singa_tpu_torch.models.resnet, "
-        "singa_tpu_torch.models.xceptionnet\n"
+        "singa_tpu_torch.models.xceptionnet, singa_tpu_torch.data, "
+        "singa_tpu_torch.io, singa_tpu_torch.snapshot, "
+        "singa_tpu_torch.overlap, singa_tpu_torch.native, "
+        "singa_tpu_torch._ckpt\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
         "m.startswith('singa_tpu.')]\n"

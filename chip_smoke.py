@@ -140,8 +140,37 @@ Phases, each of which exits non-zero on failure:
    resumed epoch 2 held to the uninterrupted run within 1e-5; the bench
    GPT's states copied to the host, then written and read through
    snapshot.Snapshot, native and npz (the plain version), MB/s each.
-9. The `kernels` JSON line (the decode kernels with a `modes` entry per
-   cache mode and ladder), then the card line, then the result line.
+9. MoE-GPT training: GPT-2-small's width and depth with 8 experts, top-2,
+   capacity factor 1.25 (README.md's MoE-GPT; ~560 M parameters), b8 x
+   1024, bf16 amp (the experts and router fp32, as in the JAX package),
+   SGD: 1 warm-up and 5 timed eager steps, then a model from the same
+   seed as a CUDA graph (warm-up, capture) and 5 replays; exactly 12 + 12
+   K1/K2a launches a step in both windows; the router losses in the loss;
+   ms a step, tokens/s, peak memory and each layer's overflow; the graph
+   step under the profiler (expert bmm, router/dispatch/combine, flash
+   kernels, matmul, the rest) and one layer's experts timed alone.
+   9b. fp32 MoE-GPT (dim 512, 2 layers, 4 experts, top-2, cf 1.25, so
+   routes drop; b4 x 256) on the card against the CPU, 3 SGD steps
+   (losses relative, parameters absolute, 1e-4), then its graph step
+   against its eager step over 6 steps (1e-5).
+   9c. MoE-GPT serving, phase 9's configuration: generate b8, prompt 128,
+   +128, bf16 at the layers' capacity factor and at 8 (no drops), with
+   int8 weights and with an int4 cache; the engine, 8 requests of prompt
+   256, +32, 8 slots, page 16; exact K1/K3/K4 counts; both under the
+   profiler; fp32 teacher-forced logits, dense and paged, kernels against
+   plain (LOGIT_TOL); then a random GPT-2-convention state dict through
+   load_gpt2_weights into GPT-2-small on the card and on the CPU, logits
+   within LOGIT_TOL.
+10. The recurrences, fp32: lstm_scan and gru_scan forward and backward at
+   bench_ops.py's shape (T 128, B 32, F 512, H 512) on the card against
+   the CPU (1e-4 of max|ref|), timed beside cuDNN's torch.nn.LSTM/GRU at
+   the same shape; examples/rnn/char_rnn.py's model (Embedding,
+   CudnnRNN(128), Linear; b32 x 100, vocab 65) 5 steps eager and 5 as a
+   CUDA graph from the same weights (1e-5), ms a step and tokens/s.
+11. The `kernels` JSON line (the decode kernels with a `modes` entry per
+   cache mode and ladder; `launches_by_path` adds `moe_train`,
+   `moe_generate` and `moe_engine`), then the card line, then the result
+   line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -432,9 +461,11 @@ def phase_kernels(torch, A):
               None,
               io_bytes + 2 * live * Hp * PD * el + 4 * pages_live, flops)
     phase_decode_modes(torch, A, rows, g)
-    # K1 at the training shape (bench GPT, D=128), and at D=128 with a
-    # ragged S (partial q and key tiles of the tensor-core kernel)
-    for B, H, S, D in ((TRAIN_B, 16, TRAIN_S, 128), (1, 2, 300, 128)):
+    # K1 at the training shapes (bench GPT, D=128; the MoE GPT at
+    # GPT-2-small's width, D=64), and at D=128 with a ragged S (partial q
+    # and key tiles of the tensor-core kernel)
+    for B, H, S, D in ((TRAIN_B, 16, TRAIN_S, 128), (TRAIN_B, 12, TRAIN_S, 64),
+                       (1, 2, 300, 128)):
         q, k, v = (torch.randn((B, H, S, D), generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         out = A.flash_attention(q, k, v, True)
@@ -1053,7 +1084,7 @@ def phase_quant_teacher_forced(torch, model, serving, A):
     clone = lambda c: serving._tree_map(torch.clone, c)  # noqa: E731
     with torch.no_grad():
         for kvd in ("int8", "int4"):
-            core = serving._decode_core(model, S0, 2 * ps, kvd)
+            core = serving._decode_core(model, S0, 2 * ps, kv_dtype=kvd)
             _, caches = core.prefill(p, prompt, n)
             pools0, pt = _pools_from_dense(
                 torch, caches, ps, torch.Generator(device=dev).manual_seed(7))
@@ -1253,7 +1284,7 @@ def _gap(torch, model, serving, prompt, ref, at, kv_dtype=None,
     serving dtype `dtype` (fp32 by default), teacher-forced on its
     reference tokens `ref`, at generated index `at`."""
     S0 = len(prompt)
-    core = serving._decode_core(model, S0, len(ref), kv_dtype)
+    core = serving._decode_core(model, S0, len(ref), kv_dtype=kv_dtype)
     p = serving.decode_state(model, dtype)
     dev = model.device
     with torch.no_grad():
@@ -2271,6 +2302,500 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: MoE-GPT training and serving, the recurrences
+# README.md's MoE-GPT (8 experts, top-2, capacity factor 1.25) at
+# GPT-2-small's width and depth: ~560 M parameters
+MOE_GPT = dict(GPT2_SMALL, moe_experts=8, moe_k=2, moe_capacity_factor=1.25)
+MOE_STEPS = 5
+# kernel categories of the MoE step's profile, tried in order: the flash
+# kernels, the fp32 GEMMs (the experts' bmm and the router's product:
+# TF32 is off, and the attention and head products are bf16), and the
+# routing's indexing, sort, scan and softmax kernels
+MOE_CATS = (("flash kernels", ("flash_fwd_kernel", "flash_bwd_",
+                               "scale_cast_kernel")),
+            ("expert bmm (fp32 gemm)", ("sgemm", "f32f32", "simt",
+                                        "gemm_f32", "gemmSN")),
+            ("router/dispatch/combine", ("index", "gather", "scatter",
+                                         "Sort", "sort", "scan", "Scan",
+                                         "cumsum", "softmax", "logsumexp",
+                                         "one_hot")))
+# bench_ops.py's LSTM and GRU cases: T 128, B 32, F 512, H 512, fp32
+RNN_T, RNN_B, RNN_F, RNN_H = 128, 32, 512, 512
+# examples/rnn/char_rnn.py's model and batch (vocab: a 65-symbol corpus)
+CHAR_V, CHAR_H, CHAR_B, CHAR_S = 65, 128, 32, 100
+
+
+def _overflows(m):
+    return [round(float(b.moe.overflow), 4) for b in m.blocks]
+
+
+def phase_moe_train(torch, models, opt, A):
+    """MoE-GPT training at full width, bf16 amp, SGD: 1 warm-up and
+    MOE_STEPS timed eager steps with exact K1/K2a counts, then a second
+    model from the same seed as a CUDA graph (warm-up, capture) and
+    MOE_STEPS replays with exact counts per replay; the graph step under
+    the profiler, and one layer's expert FFN (forward and backward) timed
+    alone. Returns the two counted windows' sum."""
+    print("== phase 9: MoE-GPT training (GPT-2-small, 8 experts, top-2, "
+          "cf 1.25), bf16 amp, SGD")
+    L, V = MOE_GPT["num_layers"], MOE_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 11))
+    runs, counts = {}, {}
+    for graph in (False, True):
+        t0 = time.perf_counter()
+        m = models.create_model("gpt", device="cuda", seed=SEED, **MOE_GPT)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph, amp="bfloat16")
+        label = "graph" if graph else "eager"
+        first, first_ms = _steps(torch, m, tx, ty, 2 if graph else 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        losses, ms = _steps(torch, m, tx, ty, MOE_STEPS)
+        counts[label] = dict(A.LAUNCHES)
+        step = statistics.median(ms)
+        print(f"  {label}: {sum(p.numel() for p in m.parameters())} "
+              f"parameters, built in {time.perf_counter() - t0:.1f} s "
+              f"with its first steps; first steps "
+              f"{', '.join(f'{x:.1f}' for x in first_ms)} ms"
+              + (" (eager warm-up, then capture and first replay)"
+                 if graph else " (warm-up)")
+              + f"; {MOE_STEPS} {'replays' if graph else 'timed steps'}: "
+              f"losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
+              f"{', '.join(f'{x:.2f}' for x in ms)}; median {step:.2f} ms, "
+              f"{TRAIN_B * TRAIN_S / step * 1e3:.0f} tokens/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"overflow by layer {_overflows(m)}")
+        check_launches(f"MoE training ({label})", counts[label],
+                       {"flash_fwd": L * MOE_STEPS,
+                        "flash_bwd_fused": L * MOE_STEPS})
+        if graph and m.graph_backend != "cuda_graph":
+            fail(f"graph mode ran {m.graph_backend!r}, not a CUDA graph")
+        # the router losses are in the loss: it exceeds the bare
+        # cross-entropy of the same forward by their weighted sum
+        with torch.no_grad():
+            m.eval()
+            logits = m(tx)
+            ce = float(m.sce(logits.reshape(-1, V), ty.reshape(-1)))
+            extra = float(m._moe_losses(torch.zeros((), device="cuda")))
+            m.train()
+        print(f"    eval forward: cross-entropy {ce:.4f}, router losses "
+              f"aux*{m.moe_aux_weight} + z*{m.moe_z_weight} summed over "
+              f"the blocks {extra:.5f}")
+        if not (extra > 0 and np.isfinite(ce)):
+            fail("the MoE router losses are not in the training loss")
+        runs[label] = first + losses
+        if not graph:
+            del m
+            torch.cuda.empty_cache()
+    le, lg, mg = runs["eager"], runs["graph"], m
+    rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    print(f"  eager against graph from the same weights, bf16: losses "
+          f"max relative difference {rel:.3e} (printed: phase 8's rule "
+          f"holds fp32 steps to {GRAPH_TOL}, phase 9b does so for MoE)")
+    _breakdown(torch, "MoE graph train step b8 s1024 bf16",
+               lambda: mg(tx, ty)[1].item(), MOE_CATS, require=TC_KERNELS)
+    del mg, m
+    torch.cuda.empty_cache()
+    # one layer's experts alone, at this step's capacity: forward and
+    # backward of the two fp32 bmm and the GELU
+    from singa_tpu_torch.parallel import moe as pmoe
+    E, D = MOE_GPT["moe_experts"], MOE_GPT["dim"]
+    C = int(TRAIN_B * TRAIN_S * 2 * 1.25 / E)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    xs = [torch.randn(s, generator=g, device="cuda", requires_grad=True)
+          for s in ((E, C, D), (E, D, 4 * D), (E, 4 * D), (E, 4 * D, D),
+                    (E, D))]
+
+    def experts():
+        out = pmoe._expert_ffn(*xs, pmoe._gelu)
+        torch.autograd.grad(out.sum(), xs)
+
+    ms = time_ms(torch, experts, n=5, warm=1)
+    flops = 6 * 2 * E * C * D * 4 * D
+    print(f"  one layer's expert FFN fwd+bwd alone (E {E}, C {C}, D {D}, "
+          f"H {4 * D}, fp32): {ms:.2f} ms, {flops / ms / 1e9:.1f} TFLOP/s; "
+          f"x{L} layers {ms * L:.1f} ms a step")
+    del xs
+    torch.cuda.empty_cache()
+    return {k: counts["eager"][k] + counts["graph"][k]
+            for k in counts["eager"]}
+
+
+def phase_moe_fp32(torch, models, opt, transformer):
+    """fp32 MoE-GPT (dim 512, 2 layers, 4 experts, top-2, cf 1.25, so
+    routes drop) on the card against the CPU from identical weights,
+    three SGD steps (TRAIN_TOL); then the card's graph step against its
+    eager step, six steps (GRAPH_TOL)."""
+    print("== phase 9b: fp32 MoE-GPT, card against CPU, graph against "
+          "eager")
+    cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2, moe_experts=4, moe_k=2,
+               moe_capacity_factor=1.25)
+    tx, ty = _train_batch(torch, cfg["vocab_size"], 4, 256, SEED + 13)
+    mc = models.create_model("gpt", device="cpu", seed=SEED + 14, **cfg)
+    weights = {k: p.detach().numpy().copy()
+               for k, p in mc.get_params().items()}
+    runs = {}
+    for label, dev, graph in (("cpu", "cpu", False), ("card", "cuda", False),
+                              ("card graph", "cuda", True)):
+        m = mc if dev == "cpu" else models.create_model(
+            "gpt", device=dev, seed=SEED + 15, **cfg)
+        transformer.load_singa_params(m, weights)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx.to(dev)], is_train=True, use_graph=graph)
+        runs[label] = (m, _steps(torch, m, tx.to(dev), ty.to(dev), 3)[0])
+        if label == "card":
+            # the CPU's 3 steps against the card's, then 3 more for the
+            # graph comparison
+            rel = max(abs(a - b) / abs(a)
+                      for a, b in zip(runs["cpu"][1], runs["card"][1]))
+            pc = mc.get_params()
+            perr = max(float((q.detach().cpu() - pc[k].detach()).abs().max())
+                       for k, q in m.get_params().items())
+            print(f"  losses card {[round(x, 6) for x in runs['card'][1]]}, "
+                  f"CPU {[round(x, 6) for x in runs['cpu'][1]]}: max "
+                  f"relative difference {rel:.3e}; params after 3 steps "
+                  f"max abs difference {perr:.3e} (tol {TRAIN_TOL} each); "
+                  f"overflow by layer at the last step: CPU "
+                  f"{_overflows(mc)}, card {_overflows(m)}")
+            if not (rel <= TRAIN_TOL and perr <= TRAIN_TOL):
+                fail("fp32 MoE training on the card differs from the CPU")
+        if dev == "cuda":
+            runs[label][1].extend(_steps(torch, m, tx.to(dev), ty.to(dev),
+                                         EXACT_STEPS - 3)[0])
+    (me, le), (mg, lg) = runs["card"], runs["card graph"]
+    if mg.graph_backend != "cuda_graph":
+        fail(f"graph mode ran {mg.graph_backend!r}, not a CUDA graph")
+    grel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    serr, same = _compare_states(torch, me.get_states(), mg.get_states())
+    print(f"  card graph against eager, {EXACT_STEPS} steps: losses max "
+          f"relative difference {grel:.3e}, parameters max abs difference "
+          f"{serr:.3e} (tol {GRAPH_TOL} each); bitwise equal: "
+          f"{same and le == lg}")
+    if not (grel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("the MoE-GPT's CUDA-graph step differs from its eager step")
+    del runs, mc, me, mg, m
+    torch.cuda.empty_cache()
+
+
+def _gpt2_state(cfg, seed):
+    """A random GPT-2-convention state dict (torch layouts) for `cfg`."""
+    rng = np.random.default_rng(seed)
+    E, V, L = cfg["dim"], cfg["vocab_size"], cfg["num_layers"]
+
+    def r(*shape, scale=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    st = {"wte.weight": r(V, E), "wpe.weight": r(cfg["max_seq"], E,
+                                                 scale=0.01),
+          "ln_f.weight": 1.0 + r(E, scale=0.1), "ln_f.bias": r(E)}
+    for i in range(L):
+        p = f"blocks.{i}."
+        st.update({p + "ln1.weight": 1.0 + r(E, scale=0.1),
+                   p + "ln1.bias": r(E), p + "ln2.weight": 1.0 + r(E,
+                                                                  scale=0.1),
+                   p + "ln2.bias": r(E), p + "attn.weight": r(3 * E, E),
+                   p + "attn.bias": r(3 * E), p + "proj.weight": r(E, E),
+                   p + "proj.bias": r(E), p + "ff1.weight": r(4 * E, E),
+                   p + "ff1.bias": r(4 * E), p + "ff2.weight": r(E, 4 * E),
+                   p + "ff2.bias": r(E)})
+    return st
+
+
+def phase_moe_serve(torch, models, engine, serving, transformer, A):
+    """MoE-GPT serving at phase 9's width, random weights from SEED:
+    generate (b8, prompt 128, +128, bf16) at the layers' capacity factor
+    and at 8 (no drops), +32 with int8 weights and with an int4 cache; the
+    engine (8 requests of prompt 256, +32, 8 slots, page 16); exact K1,
+    K3 and K4 counts; fp32 teacher-forced logits, kernels against plain;
+    then a random GPT-2-convention state through load_gpt2_weights into
+    GPT-2-small on the card and on the CPU."""
+    print("== phase 9c: MoE-GPT serving, bf16")
+    part = Clock()
+    model = models.create_model("gpt", device="cuda", seed=SEED, **MOE_GPT)
+    L, V = MOE_GPT["num_layers"], MOE_GPT["vocab_size"]
+    E = MOE_GPT["moe_experts"]
+    rng = np.random.RandomState(SEED + 16)
+    prompts = rng.randint(0, V, (8, 128)).astype(np.int32)
+    B, S0 = prompts.shape
+    model.generate(prompts[:, :8], 2, dtype="bfloat16")
+    part.lap("9c: model and warm-up")
+    counts = {}
+    # +128 at both capacity factors, +32 with int8 weights and an int4
+    # cache
+    for what, new, kw in (
+            ("generate", 128, {}),
+            ("generate cf 8", 128, {"moe_capacity_factor": float(E)}),
+            ("generate int8 weights", 32, {"dtype": "int8"}),
+            ("generate kv int4", 32, {"kv_dtype": "int4"})):
+        kw = dict({"dtype": "bfloat16"}, **kw)
+        t0 = time.perf_counter()
+        out, got, _ = window(torch, A, lambda: model.generate(prompts, new,
+                                                              **kw))
+        s = time.perf_counter() - t0
+        if out.shape != (B, S0 + new) or not ((out >= 0) & (out < V)).all():
+            fail(f"MoE {what} returned {out.shape} / out-of-vocab tokens")
+        print(f"  MoE {what}: b{B}, prompt {S0}, +{new}: {s:.3f} s, "
+              f"{B * new / s:.1f} tok/s")
+        check_launches(f"MoE {what}", got, {"flash_fwd": L,
+                                            "flash_decode": L * (new - 1)})
+        counts[what] = got
+    part.lap("9c: generate")
+    gen = {k: sum(c[k] for c in counts.values()) for k in A.LAUNCHES}
+    reqs_in = [(rng.randint(0, V, (256,)).astype(np.int32), 32)
+               for _ in range(8)]
+    (reqs, wall, _, steps), eng, _ = window(
+        torch, A, lambda: serve(engine, model, reqs_in, max_slots=8,
+                                dtype="bfloat16"))
+    ntok = sum(len(r.tokens) for r in reqs)
+    print(f"  MoE engine: {len(reqs)} requests, {ntok} tokens, {wall:.3f} "
+          f"s, {ntok / wall:.1f} tok/s, median TTFT "
+          f"{statistics.median(r.ttft_s for r in reqs) * 1e3:.1f} ms, "
+          f"{steps} steps")
+    check_launches("MoE engine", eng, {"flash_fwd": L * len(reqs),
+                                       "paged_attention": L * steps})
+    part.lap("9c: engine")
+    # +8: the profiler's cost grows with a run's events, and at +32
+    # these two profiles took most of the phase's time
+    _breakdown(torch, "MoE generate b8 prompt 128 +8",
+               lambda: model.generate(prompts, 8, dtype="bfloat16"),
+               require=K3_KERNELS)
+    _breakdown(torch, "MoE engine 8 requests prompt 256 +8",
+               lambda: serve(engine, model,
+                             [(p, 8) for p, _ in reqs_in], timeout_s=300,
+                             max_slots=8, dtype="bfloat16"),
+               require=K4_KERNELS)
+    part.lap("9c: profiles")
+
+    # fp32 teacher-forced: kernels against plain, dense and paged
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n, S0, steps_tf, ps = 4, 128, 32, 16
+    prompt = torch.randint(0, V, (n, S0), generator=g, device=dev)
+    feed = torch.randint(0, V, (n, steps_tf), generator=g, device=dev)
+    core = serving._decode_core(model, S0, steps_tf)
+
+    def dense(p, use_kernel):
+        logits, caches = core.prefill(p, prompt, n, use_kernel)
+        out = [logits]
+        for i in range(steps_tf):
+            logits, caches = core.token_step(p, feed[:, i], caches, i, n,
+                                             use_kernel)
+            out.append(logits)
+        return torch.stack(out, 1).float(), caches
+
+    def paged(p, caches, use_kernel):
+        pools, pt = _pools_from_dense(
+            torch, caches, ps, torch.Generator(device=dev).manual_seed(7))
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+        out = []
+        for i in range(steps_tf):
+            lens = torch.full((n,), S0 + i, dtype=torch.int32, device=dev)
+            logits, pools = core.paged_token_step(
+                p, feed[:, i], pools, pt, lens, active, n, ps, use_kernel)
+            out.append(logits)
+        return torch.stack(out, 1).float()
+
+    with torch.no_grad():
+        p32 = serving.decode_state(model, None)
+        (dk, _), (dp, _) = dense(p32, None), dense(p32, False)
+        _, pre = core.prefill(p32, prompt, n)
+        pk = paged(p32, [tuple(t.clone() for t in c) for c in pre], None)
+        pp = paged(p32, pre, False)
+        torch.cuda.synchronize()
+    d_err = float((dk - dp).abs().max())
+    p_err = float((pk - pp).abs().max())
+    print(f"  MoE fp32 teacher-forced (prefill {n} x {S0}, {steps_tf} "
+          f"steps): dense kernel vs plain {d_err:.3e}, paged kernel vs "
+          f"plain {p_err:.3e} (tol {LOGIT_TOL})")
+    if not (d_err <= LOGIT_TOL and p_err <= LOGIT_TOL):
+        fail("MoE fp32 teacher-forced logits differ, kernels vs plain")
+    del model, p32
+    torch.cuda.empty_cache()
+    part.lap("9c: teacher-forced")
+
+    # load_gpt2_weights: GPT-2-small on the card and on the CPU
+    st = _gpt2_state(GPT2_SMALL, SEED + 18)
+    x = rng.randint(0, GPT2_SMALL["vocab_size"], (2, 64)).astype(np.int64)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        m = models.create_model("gpt", device=dev, seed=SEED + 19,
+                                **GPT2_SMALL)
+        transformer.load_gpt2_weights(m, st)
+        with torch.no_grad():
+            logits[dev] = m(torch.as_tensor(x, device=dev)).float().cpu()
+        del m
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"  load_gpt2_weights into GPT-2-small: logits card vs CPU max "
+          f"abs difference {err:.3e} (tol {LOGIT_TOL})")
+    if not err <= LOGIT_TOL:
+        fail("GPT-2 weights give different logits on the card and CPU")
+    torch.cuda.empty_cache()
+    part.lap("9c: load_gpt2_weights")
+    return gen, eng
+
+
+def _rnn_inputs(torch, name, w_std=None):
+    """A recurrence's inputs at bench_ops.py's shape, from SEED + 20:
+    x N(0, 1), states N(0, 0.25), bias 0.1, the weights at their
+    initializers' scale (1/sqrt(fan_in)) or, with `w_std`, N(0, w_std^2);
+    and the (T, B, H) weights of the scalar loss."""
+    g = torch.Generator().manual_seed(SEED + 20)
+    gates = 4 if name == "lstm_scan" else 3
+    shapes = [(RNN_T, RNN_B, RNN_F), (RNN_B, RNN_H), (RNN_B, RNN_H),
+              (RNN_F, gates * RNN_H), (RNN_H, gates * RNN_H),
+              (gates * RNN_H,)]
+    scale = [1.0, 0.5, 0.5, w_std or RNN_F ** -0.5, w_std or RNN_H ** -0.5,
+             0.1]
+    if name != "lstm_scan":
+        shapes.pop(2)
+        scale.pop(2)
+    host = [torch.randn(s, generator=g) * c for s, c in zip(shapes, scale)]
+    return host, torch.randn((RNN_T, RNN_B, RNN_H), generator=g)
+
+
+def _rnn_grads(torch, run, host, w, dev, dtype):
+    """The outputs and the gradients of sum(ys * w) with respect to every
+    input, on `dev` in `dtype`, returned in fp64 on the CPU."""
+    xs = [t.to(dev, dtype).requires_grad_() for t in host]
+    ys = run(*xs)[0]
+    grads = torch.autograd.grad((ys * w.to(dev, dtype)).sum(), xs)
+    return [t.detach().cpu().double() for t in (ys,) + tuple(grads)]
+
+
+def _rel(a, b):
+    """max over the tensors of max|a - b| / max|b|."""
+    return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def _rnn_errors(torch, run, host, w):
+    """(card vs CPU, card vs CPU fp64, CPU vs CPU fp64, the largest fp64
+    gradient): `run`'s outputs and gradients, card and CPU in fp32."""
+    card = _rnn_grads(torch, run, host, w, "cuda", torch.float32)
+    cpu = _rnn_grads(torch, run, host, w, "cpu", torch.float32)
+    ref = _rnn_grads(torch, run, host, w, "cpu", torch.float64)
+    return (_rel(card, cpu), _rel(card, ref), _rel(cpu, ref),
+            max(float(t.abs().max()) for t in ref[1:]))
+
+
+def _rnn_case(torch, name, run, lib):
+    """One recurrence at bench_ops.py's shape: forward and backward on
+    the card against the CPU in fp32 and against the CPU in fp64 (each
+    1e-4 of max|ref|), its time beside the cuDNN module's at the same
+    shape (library_ms). For lstm_scan also, printed, the same three
+    comparisons at weights of std 0.5: there the recurrence is chaotic
+    over 128 steps (gradients ~1e13), and fp32 on the CPU parts from fp64
+    as far as the card does, so the checked run uses the initializers'
+    scale."""
+    host, w = _rnn_inputs(torch, name)
+    err, err64, cpu64, _ = _rnn_errors(torch, run, host, w)
+    xs = [t.cuda().requires_grad_() for t in host]
+    wc = w.cuda()
+
+    def ours():
+        torch.autograd.grad((run(*xs)[0] * wc).sum(), xs)
+
+    mod = lib(RNN_F, RNN_H).cuda()
+    xl = xs[0].detach().clone().requires_grad_()
+
+    def cudnn():
+        out = mod(xl)[0]
+        torch.autograd.grad((out * wc).sum(), [xl] + list(mod.parameters()))
+
+    ms, lib_ms = time_ms(torch, ours, n=5, warm=1), time_ms(torch, cudnn,
+                                                            n=5, warm=1)
+    tok = RNN_T * RNN_B
+    print(f"  {name} fwd+bwd (T {RNN_T}, B {RNN_B}, F {RNN_F}, H {RNN_H}, "
+          f"fp32): card vs CPU {err:.3e}, card vs CPU fp64 {err64:.3e}, CPU "
+          f"vs CPU fp64 {cpu64:.3e} of max|ref| (tol {TRAIN_TOL}); "
+          f"{ms:.2f} ms ({tok / ms * 1e3:.0f} tokens/s), library "
+          f"(cuDNN torch.nn.{lib.__name__}) {lib_ms:.2f} ms")
+    if not (err <= TRAIN_TOL and err64 <= TRAIN_TOL):
+        fail(f"{name} on the card differs from the CPU")
+    if name != "lstm_scan":
+        return
+    err, err64, cpu64, big = _rnn_errors(torch, run,
+                                         *_rnn_inputs(torch, name, 0.5))
+    print(f"    weights std 0.5 (printed): card vs CPU {err:.3e}, card vs "
+          f"CPU fp64 {err64:.3e}, CPU vs CPU fp64 {cpu64:.3e} of max|ref|; "
+          f"largest fp64 gradient {big:.3e}")
+
+
+def phase_rnn(torch, layer, model, opt, autograd, tensor, device):
+    """The recurrences: lstm_scan and gru_scan at bench_ops.py's shape,
+    card against CPU and beside cuDNN; then examples/rnn/char_rnn.py's
+    model (Embedding, CudnnRNN, Linear) trained 5 steps eager and 5 as a
+    CUDA graph from the same weights (GRAPH_TOL), ms a step."""
+    print("== phase 10: the recurrences (ops.rnn, CudnnRNN), fp32")
+    from singa_tpu_torch.ops import rnn
+    _rnn_case(torch, "lstm_scan", rnn.lstm_scan, torch.nn.LSTM)
+    _rnn_case(torch, "gru_scan", rnn.gru_scan, torch.nn.GRU)
+
+    class CharRNN(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.embed = layer.Embedding(CHAR_V, CHAR_H)
+            self.lstm = layer.CudnnRNN(CHAR_H)
+            self.dense = layer.Linear(CHAR_V)
+            self.sce = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            ys, _, _ = self.lstm(self.embed(x))
+            return self.dense(autograd.reshape(ys, (-1, CHAR_H)))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.sce(out, y)
+            self.optimizer(loss)
+            return out, loss
+
+    dev = device.best_device()
+    rng = np.random.RandomState(SEED + 21)
+    data = rng.randint(0, CHAR_V, CHAR_B * CHAR_S + 1).astype(np.int32)
+    x = np.ascontiguousarray(data[:-1].reshape(CHAR_B, CHAR_S).T)
+    y = np.ascontiguousarray(data[1:].reshape(CHAR_B, CHAR_S).T.ravel())
+    tx, ty = tensor.from_numpy(x, device=dev), tensor.from_numpy(y,
+                                                                 device=dev)
+    runs, states = {}, None
+    for graph in (False, True):
+        m = CharRNN()
+        m.set_optimizer(opt.SGD(lr=0.5, momentum=0.9))
+        m.compile([tx], is_train=True, use_graph=graph)
+        if states is None:
+            states = {k: v.detach().clone() for k, v in
+                      m.get_states().items()}
+        else:
+            m.set_states(states)
+        losses, ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            losses.append(float(m(tx, ty)[1].numpy()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[graph] = (m, losses, ms)
+    (me, le, mse), (mg, lg, msg) = runs[False], runs[True]
+    if mg.graph_backend != "cuda_graph" or not np.isfinite(le + lg).all():
+        fail(f"char-RNN graph ran {mg.graph_backend!r}, losses {le} {lg}")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+    serr, _ = _compare_states(torch, me.get_states(), mg.get_states())
+    tok = CHAR_B * CHAR_S
+    for label, ls, ms in (("eager", le, mse), ("graph", lg, msg)):
+        print(f"  char-RNN (vocab {CHAR_V}, CudnnRNN({CHAR_H}), b{CHAR_B} x "
+              f"{CHAR_S}) {label}: losses "
+              f"{', '.join(f'{v:.4f}' for v in ls)}; step ms "
+              f"{', '.join(f'{v:.2f}' for v in ms)}; last 3 median "
+              f"{statistics.median(ms[2:]):.2f} ms, "
+              f"{tok / statistics.median(ms[2:]) * 1e3:.0f} tokens/s")
+    print(f"  char-RNN graph against eager: losses max relative difference "
+          f"{rel:.3e}, states max abs difference {serr:.3e} (tol "
+          f"{GRAPH_TOL} each)")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("the char-RNN's CUDA-graph step differs from its eager step")
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -2480,6 +3005,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from singa_tpu_torch import (autograd, device, engine, layer, models,
                                  opt, overlap, serving, snapshot, tensor)
+    from singa_tpu_torch import model as model_mod
     from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
     from singa_tpu_torch.ops import _build
@@ -2545,6 +3071,15 @@ def main():
         by_path["fit"] = phase_pipeline(torch, models, opt, sio, overlap,
                                         snapshot, A, root)
     clock.lap("phase 8c")
+    by_path["moe_train"] = phase_moe_train(torch, models, opt, A)
+    clock.lap("phase 9")
+    phase_moe_fp32(torch, models, opt, transformer)
+    clock.lap("phase 9b")
+    by_path["moe_generate"], by_path["moe_engine"] = phase_moe_serve(
+        torch, models, engine, serving, transformer, A)
+    clock.lap("phase 9c")
+    phase_rnn(torch, layer, model_mod, opt, autograd, tensor, device)
+    clock.lap("phase 10")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

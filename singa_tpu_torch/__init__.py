@@ -25,6 +25,12 @@ What is ported so far:
     engine.ServingEngine.submit/start/stop
         -> serving._DecodeCore.prefill_parts / paged_token_step /
         paged_verify_step
+    MoE-GPT (GPT(moe_experts=...)): layer.MoE over parallel.moe.moe_ffn
+        (top-k routing with capacity, dispatch by index) in training and
+        in every decode path above
+    the recurrences: ops.rnn (lstm_scan, lstm_scan_ex, reverse_padded,
+        gru_scan) and layer.RNN, LSTM, CudnnRNN / FusedRNN
+    models.transformer.load_gpt2_weights (GPT-2-convention state dicts)
 
 The attention paths run on six hand-written CUDA kernels in `csrc/`
 (flash-attention forward, its fused and split backward, flash-decode and

@@ -949,6 +949,14 @@ def _layernorm(x, gamma, beta, eps=1e-5):
     return y.to(x.dtype)
 
 
+def _top_k(x, k):
+    """(values, indices) of the k largest along the last dim, ties to the
+    lower index first, as lax.top_k orders them (torch.topk promises no
+    order among equal values)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
 def _gelu(x):
     """GELU with the tanh approximation, jax.nn.gelu's default."""
     return F.gelu(x, approximate="tanh")

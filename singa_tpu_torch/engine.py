@@ -105,7 +105,11 @@ class ServingEngine:
     versions on the card (for holding the engine's tokens against its
     kernels), True on a CPU model raises here. `kv_dtype` quantizes the
     page pools; `draft_model` with `spec_k` >= 1 turns on speculative
-    decoding (both or neither)."""
+    decoding (both or neither). `moe_capacity_factor` overrides the MoE
+    layers' factor, the target's and the draft's: a step routes every
+    slot's row, inactive slots included, and a prefill the prompt padded
+    to its bucket, so a drop depends on the whole step, as in the JAX
+    engine."""
 
     _seq = 0
     _seq_lock = threading.Lock()
@@ -114,7 +118,7 @@ class ServingEngine:
                  max_ctx=None, dtype=None, steps_per_sync=4, eos_id=None,
                  prompt_buckets=None, queue_limit=128, ttft_deadline_s=None,
                  use_kernel=None, kv_dtype=None, draft_model=None,
-                 spec_k=0):
+                 spec_k=0, moe_capacity_factor=None):
         if dtype not in serving.DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {serving.DTYPES}")
         serving.kv_label(kv_dtype)
@@ -145,13 +149,15 @@ class ServingEngine:
         self.ttft_deadline_s = ttft_deadline_s
         self.use_kernel = use_kernel
         # S0 is unused on the paged step; T = max_ctx bounds positions
-        self.core = serving._decode_core(model, 0, self.max_ctx, kv_dtype)
+        self.core = serving._decode_core(model, 0, self.max_ctx,
+                                         moe_capacity_factor, kv_dtype)
         # speculative decoding: the draft gets its own fp page pools,
         # indexed by the same page table
         self.draft_model = draft_model
         self.spec_k = int(spec_k or 0)
         self.dcore = None if draft_model is None else \
-            serving._decode_core(draft_model, 0, self.max_ctx)
+            serving._decode_core(draft_model, 0, self.max_ctx,
+                                 moe_capacity_factor)
         self.max_pages_per_seq = -(-self.max_ctx // self.page_size)
         if num_pages is None:
             num_pages = self.max_slots * self.max_pages_per_seq

@@ -585,6 +585,158 @@ class BinaryCrossEntropy(Layer):
         return autograd.binary_cross_entropy(x, t)
 
 
+# ---- recurrent (JAX layer.py:887-1057) ------------------------------------
+
+
+class RNN_Base(Layer):
+    pass
+
+
+def _zeros_like_rows(x, batch, hidden):
+    """A zero (batch, hidden) state on x's device in x's dtype: a Tensor
+    for a Tensor x."""
+    t = torch.zeros((batch, hidden), dtype=_raw(x).dtype,
+                    device=_raw(x).device)
+    return Tensor._wrap(t, x.device) if isinstance(x, Tensor) else t
+
+
+class RNN(RNN_Base):
+    """Elman RNN from the tape operators, a Python loop over time
+    (x: (seq, batch, feature)); forward returns (list of the per-step
+    h, last h). Wx glorot-uniform, Wh orthogonal, b zero."""
+
+    def __init__(self, hidden_size, activation="tanh", name=None):
+        super().__init__(name)
+        self.hidden_size = hidden_size
+        self.activation = activation
+
+    def initialize(self, x, hx=None):
+        H = self.hidden_size
+        self._new_param("Wx", (x.shape[2], H), x, initializer.glorot_uniform)
+        self._new_param("Wh", (H, H), x, initializer.orthogonal)
+        self._new_param("b", (H,), x)
+
+    def step(self, xt, h):
+        z = autograd.add(autograd.matmul(xt, self.Wx),
+                         autograd.matmul(h, self.Wh))
+        z = autograd.add_bias(z, self.b, axis=0)
+        return autograd.tanh(z) if self.activation == "tanh" \
+            else autograd.relu(z)
+
+    def forward(self, x, hx=None):
+        h = hx if hx is not None \
+            else _zeros_like_rows(x, x.shape[1], self.hidden_size)
+        ys = []
+        for t in range(x.shape[0]):
+            h = self.step(x[t], h)
+            ys.append(h)
+        return ys, h
+
+
+class LSTM(RNN_Base):
+    """LSTM with fused gates (i, f, g, o) over ops.rnn.lstm_scan, one tape
+    operator for the sequence; forward returns (list of the per-step h,
+    (h, c)). Wx and Wh glorot-uniform, b zero."""
+
+    def __init__(self, hidden_size, name=None):
+        super().__init__(name)
+        self.hidden_size = hidden_size
+
+    def initialize(self, x, hx_cx=None):
+        H = self.hidden_size
+        self._new_param("Wx", (x.shape[2], 4 * H), x,
+                        initializer.glorot_uniform)
+        self._new_param("Wh", (H, 4 * H), x, initializer.glorot_uniform)
+        self._new_param("b", (4 * H,), x)
+
+    def step(self, xt, h, c):
+        """One step on xt (batch, feature): the new (h, c)."""
+        from .ops.rnn import lstm_scan
+        _, h, c = lstm_scan(autograd.unsqueeze(xt, 0), h, c, self.Wx,
+                            self.Wh, self.b)
+        return h, c
+
+    def forward(self, x, hx_cx=None):
+        from .ops.rnn import lstm_scan
+        if hx_cx is None:
+            h = _zeros_like_rows(x, x.shape[1], self.hidden_size)
+            c = _zeros_like_rows(x, x.shape[1], self.hidden_size)
+        else:
+            h, c = hx_cx
+        ys, h, c = lstm_scan(x, h, c, self.Wx, self.Wh, self.b)
+        ys = autograd.split(ys, 0, [1] * x.shape[0])
+        return [autograd.squeeze(y, 0) for y in ys], (h, c)
+
+
+class CudnnRNN(Layer):
+    """Multi-step LSTM as one operator (ops.rnn.lstm_scan), the name kept
+    from the JAX package (which kept SINGA's); `FusedRNN` is the same
+    class. Parameters from ops.rnn.init_lstm_params (Wx, Wh, b; with
+    `bidirectional` also Wx_r, Wh_r, b_r). Forward takes x (seq, batch,
+    feature), or (batch, seq, feature) with `batch_first`, and returns
+    (ys, hy, cy), ys (seq, batch, H) (2H when bidirectional, batch first
+    with `batch_first`), or (hy, hy, cy) with `return_sequences=False`.
+    `seq_lengths` (batch,) runs the variable-length operator: hy and cy
+    are each sample's state at its last step, padded outputs are zero,
+    and the backward direction reverses each sample's own prefix."""
+
+    def __init__(self, hidden_size, batch_first=False, name=None,
+                 return_sequences=True, bidirectional=False):
+        super().__init__(name)
+        self.hidden_size = hidden_size
+        self.batch_first = batch_first
+        self.return_sequences = return_sequences
+        self.bidirectional = bidirectional
+
+    def initialize(self, x, hx=None, cx=None, **kwargs):
+        from .ops.rnn import init_lstm_params
+        dev = x.device if isinstance(x, Tensor) \
+            else device_module.of(x.device)
+        # the feature axis is 2 in both layouts
+        for sfx in ("", "_r") if self.bidirectional else ("",):
+            for n, t in zip(("Wx", "Wh", "b"), init_lstm_params(
+                    x.shape[2], self.hidden_size, dev, _raw(x).dtype)):
+                self.register_parameter(n + sfx, nn.Parameter(t.data))
+
+    def forward(self, x, hx=None, cx=None, seq_lengths=None):
+        from .ops.rnn import lstm_scan, lstm_scan_ex, reverse_padded
+        if self.batch_first:
+            x = autograd.transpose(x, (1, 0, 2))
+        batch, H = x.shape[1], self.hidden_size
+        if hx is None:
+            hx = _zeros_like_rows(x, batch, H)
+        if cx is None:
+            cx = _zeros_like_rows(x, batch, H)
+        if seq_lengths is not None and not isinstance(
+                seq_lengths, (Tensor, torch.Tensor)):
+            seq_lengths = torch.as_tensor(np.asarray(seq_lengths, np.int32),
+                                          device=_raw(x).device)
+
+        def run(xs, Wx, Wh, b):
+            if seq_lengths is not None:
+                return lstm_scan_ex(xs, seq_lengths, hx, cx, Wx, Wh, b)
+            return lstm_scan(xs, hx, cx, Wx, Wh, b)
+
+        def rev(v):
+            return reverse_padded(v, seq_lengths) \
+                if seq_lengths is not None else autograd.flip(v, axis=0)
+
+        ys, hy, cy = run(x, self.Wx, self.Wh, self.b)
+        if self.bidirectional:
+            ys_r, hy_r, cy_r = run(rev(x), self.Wx_r, self.Wh_r, self.b_r)
+            ys = autograd.cat((ys, rev(ys_r)), axis=2)
+            hy = autograd.cat((hy, hy_r), axis=1)
+            cy = autograd.cat((cy, cy_r), axis=1)
+        if self.batch_first:
+            ys = autograd.transpose(ys, (1, 0, 2))
+        if self.return_sequences:
+            return ys, hy, cy
+        return hy, hy, cy
+
+
+FusedRNN = CudnnRNN
+
+
 # ---- the GPT's transformer stack, built with its widths --------------------
 
 
@@ -670,11 +822,14 @@ class MultiHeadAttention(Layer):
 
 class TransformerBlock(Layer):
     """Pre-LN causal block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU
-    MLP."""
+    MLP. `moe_experts` > 0 replaces the MLP by a top-`moe_k` MoE FFN
+    (`self.moe`, no fc1/fc2): x + MoE(LN(x)), its router losses on
+    `self.moe` after each forward."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4, attn_bias=False,
                  num_kv_heads=None, rope=False, rope_theta=10000.0,
-                 generator=None):
+                 generator=None, moe_experts=0, moe_k=1, ep_axis=None,
+                 moe_capacity_factor=1.25):
         super().__init__()
         self.ln1 = LayerNorm(dim)
         self.attn = MultiHeadAttention(
@@ -682,19 +837,111 @@ class TransformerBlock(Layer):
             num_kv_heads=num_kv_heads, rope=rope, rope_theta=rope_theta,
             generator=generator)
         self.ln2 = LayerNorm(dim)
-        self.fc1 = Linear(dim, dim * mlp_ratio, generator=generator)
-        self.fc2 = Linear(dim * mlp_ratio, dim, generator=generator)
+        self.moe_experts = moe_experts
+        if moe_experts:
+            self.moe = MoE(moe_experts, hidden=dim * mlp_ratio,
+                           capacity_factor=moe_capacity_factor,
+                           ep_axis=ep_axis, k=moe_k, dim=dim,
+                           generator=generator)
+        else:
+            self.fc1 = Linear(dim, dim * mlp_ratio, generator=generator)
+            self.fc2 = Linear(dim * mlp_ratio, dim, generator=generator)
         self._initialized = True
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
+        if self.moe_experts:
+            return x + self.moe(self.ln2(x))
         return x + self.fc2(autograd.gelu(self.fc1(self.ln2(x))))
 
 
+class MoE(Layer):
+    """Mixture-of-experts FFN over (..., D) activations
+    (parallel.moe.moe_ffn): top-`k` routing with renormalized gates and
+    a batch-global capacity, max(1, int(T * k * capacity_factor / E))
+    over the T rows of the call. Parameters: Wg (D, E) glorot-uniform,
+    W1 (E, D, H) and W2 (E, H, D) Gaussian with std sqrt(2/D) and
+    sqrt(2/H), zero biases b1 (E, H) and b2 (E, D); H = `hidden` or 4D.
+    Drawn at the first call from the input's Device, or at construction
+    from `generator` when `dim` is given (the GPT's style).
+
+    After each forward `aux_loss` (load balance), `z_loss` (router
+    z-loss) and `overflow` (dropped-route fraction) are set on the
+    layer: tape Tensors for a Tensor input, tensors for a raw one. A
+    training step folds the losses into its loss (the GPT's
+    `moe_aux_weight`, `moe_z_weight`). No compute cast: under the bf16
+    policy the router and the experts run in the promoted dtype of the
+    input and the fp32 weights, as in the JAX package. `ep_axis` (expert
+    parallelism) is accepted and runs the single-device path, as the
+    JAX layer does outside a mesh."""
+
+    def __init__(self, num_experts, hidden=None, capacity_factor=1.25,
+                 ep_axis=None, k=1, name=None, dim=None, generator=None):
+        super().__init__(name)
+        self.num_experts = num_experts
+        self.hidden = hidden
+        self.capacity_factor = capacity_factor
+        self.ep_axis = ep_axis
+        self.k = k
+        self.aux_loss = self.z_loss = self.overflow = None
+        if generator is not None:
+            if dim is None:
+                raise ValueError("MoE(..., generator=g) draws at "
+                                 "construction and needs dim")
+            d, h, E = dim, hidden or 4 * dim, num_experts
+            self.Wg = nn.Parameter(glorot_uniform(d, E, generator))
+            self.W1 = nn.Parameter(
+                torch.randn((E, d, h), generator=generator)
+                * math.sqrt(2.0 / d))
+            self.b1 = nn.Parameter(torch.zeros(E, h))
+            self.W2 = nn.Parameter(
+                torch.randn((E, h, d), generator=generator)
+                * math.sqrt(2.0 / h))
+            self.b2 = nn.Parameter(torch.zeros(E, d))
+            self._initialized = True
+
+    def initialize(self, x):
+        d = x.shape[-1]
+        h = self.hidden or 4 * d
+        E = self.num_experts
+
+        def gauss(std):
+            return lambda t: t.gaussian(0.0, std)
+
+        self._new_param("Wg", (d, E), x, initializer.glorot_uniform)
+        self._new_param("W1", (E, d, h), x, gauss(math.sqrt(2.0 / d)))
+        self._new_param("b1", (E, h), x)
+        self._new_param("W2", (E, h, d), x, gauss(math.sqrt(2.0 / h)))
+        self._new_param("b2", (E, d), x)
+
+    def forward(self, x):
+        y, aux, z, ovf = _MoEOp(self.capacity_factor, self.k)(
+            x, self.Wg, self.W1, self.b1, self.W2, self.b2)
+        self.aux_loss, self.z_loss, self.overflow = aux, z, ovf
+        return y
+
+
+class _MoEOp(autograd.Operator):
+    """The MoE FFN as one tape node: (y, aux, z_loss, overflow)."""
+
+    def __init__(self, capacity_factor, k):
+        super().__init__("MoE")
+        self.capacity_factor = capacity_factor
+        self.k = k
+
+    def forward(self, x, Wg, W1, b1, W2, b2):
+        from .parallel.moe import moe_ffn
+        shape = x.shape
+        y, aux, (z, ovf) = moe_ffn(x.reshape(-1, shape[-1]), Wg, W1, b1,
+                                   W2, b2, self.capacity_factor, k=self.k)
+        return y.reshape(*shape[:-1], y.shape[-1]), aux, z, ovf
+
+
 __all__ = ["Add", "AvgPool1d", "AvgPool2d", "BatchNorm2d",
-           "BinaryCrossEntropy", "Cat", "Conv2d", "CrossEntropy", "Dropout",
-           "Embedding", "Flatten", "Gemm", "GlobalAvgPool2d", "Layer",
-           "LayerNorm", "Linear", "MaxPool1d", "MaxPool2d", "MeanSquareError",
-           "MultiHeadAttention", "Pooling2d", "ReLU", "Reshape",
-           "SeparableConv2d", "Sigmoid", "SoftMax", "SoftMaxCrossEntropy",
-           "Tanh", "TransformerBlock", "layernorm"]
+           "BinaryCrossEntropy", "Cat", "Conv2d", "CrossEntropy", "CudnnRNN",
+           "Dropout", "Embedding", "Flatten", "FusedRNN", "Gemm",
+           "GlobalAvgPool2d", "LSTM", "Layer", "LayerNorm", "Linear",
+           "MaxPool1d", "MaxPool2d", "MeanSquareError", "MoE",
+           "MultiHeadAttention", "Pooling2d", "RNN", "RNN_Base", "ReLU",
+           "Reshape", "SeparableConv2d", "Sigmoid", "SoftMax",
+           "SoftMaxCrossEntropy", "Tanh", "TransformerBlock", "layernorm"]

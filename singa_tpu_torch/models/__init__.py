@@ -4,6 +4,7 @@ is a `model.Model`; `create_model` takes the JAX package's names.
 
 from .base import Classifier  # noqa: F401
 from . import alexnet, cnn, mlp, resnet, transformer, xceptionnet  # noqa: F401
+from .transformer import load_gpt2_weights  # noqa: F401
 
 _REGISTRY = {
     "mlp": mlp.create_model,

@@ -1,14 +1,16 @@
 """GPT-style decoder-only LM (counterpart of
 singa_tpu/models/transformer.py): a `model.Model` with the full-sequence
 forward, `train_one_batch` (softmax cross-entropy over the flattened
-logits, then the optimizer), `generate` (greedy, temperature/top-k and
-draft-model speculative; fp32, bf16 or int8 weights; fp, int8 or int4 KV
-caches), `generate_beam`, and the weight bridge from the JAX package
-(`load_singa_params`, `load_singa_states`; `Model.load_states` reads the
-same zips).
+logits, plus the MoE router losses, then the optimizer), `generate`
+(greedy, temperature/top-k and draft-model speculative; fp32, bf16 or
+int8 weights; fp, int8 or int4 KV caches), `generate_beam`, the weight
+bridge from the JAX package (`load_singa_params`, `load_singa_states`;
+`Model.load_states` reads the same zips) and from GPT-2-convention state
+dicts (`load_gpt2_weights`).
 
-MoE and tensor/sequence/vocab parallelism come with later slices of the
-port.
+`moe_experts` > 0 makes every block's MLP a top-`moe_k` mixture of
+experts (MoE-GPT). Tensor, sequence, vocab and expert parallelism come
+with the distribution slice of the port.
 """
 
 from __future__ import annotations
@@ -35,12 +37,20 @@ class GPT(model.Model):
     Weights are drawn from `seed` with the JAX initializers' formulas.
     Training goes through the Model API: `set_optimizer`,
     `compile([ids], is_train=True, amp=...)`, then `logits, loss =
-    m(ids, targets)`."""
+    m(ids, targets)`.
+
+    `moe_experts` > 0 swaps every block's MLP for a top-`moe_k` MoE FFN
+    (layer.MoE) with capacity factor `moe_capacity_factor`; the training
+    loss adds each block's load-balance loss times `moe_aux_weight` and
+    its router z-loss times `moe_z_weight`. `ep_axis` is accepted and
+    runs on one device."""
 
     def __init__(self, vocab_size, max_seq=1024, dim=256, num_heads=8,
                  num_layers=4, mlp_ratio=4, attn_bias=False,
                  num_kv_heads=None, pos_encoding="learned",
-                 rope_theta=10000.0, device=None, seed=0):
+                 rope_theta=10000.0, device=None, seed=0, moe_experts=0,
+                 moe_k=2, ep_axis=None, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01, moe_z_weight=1e-3):
         super().__init__()
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding {pos_encoding!r}")
@@ -53,6 +63,9 @@ class GPT(model.Model):
         self.num_kv_heads = num_kv_heads or num_heads
         self.pos_encoding = pos_encoding
         self.rope_theta = float(rope_theta)
+        self.moe_experts = moe_experts
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_z_weight = moe_z_weight
         self.tok_embed = layer.Embedding(vocab_size, dim, generator=gen)
         self.head = layer.Linear(dim, vocab_size, bias=False,
                                  out_dtype="float32", generator=gen)
@@ -60,7 +73,9 @@ class GPT(model.Model):
             layer.TransformerBlock(
                 dim, num_heads, mlp_ratio, attn_bias=attn_bias,
                 num_kv_heads=num_kv_heads, rope=pos_encoding == "rope",
-                rope_theta=rope_theta, generator=gen)
+                rope_theta=rope_theta, generator=gen,
+                moe_experts=moe_experts, moe_k=moe_k, ep_axis=ep_axis,
+                moe_capacity_factor=moe_capacity_factor)
             for _ in range(num_layers))
         self.ln_f = layer.LayerNorm(dim)
         self.sce = layer.SoftMaxCrossEntropy()
@@ -87,16 +102,35 @@ class GPT(model.Model):
             h = b(h)
         return self.head(self.ln_f(h))
 
+    def _moe_losses(self, loss):
+        """Fold every block's router losses into the training loss, in
+        the JAX package's order."""
+        if not self.moe_experts:
+            return loss
+        for b in self.blocks:
+            loss = loss + b.moe.aux_loss * self.moe_aux_weight
+            loss = loss + b.moe.z_loss * self.moe_z_weight
+        return loss
+
     def train_one_batch(self, ids, targets):
         """One training step: forward, the mean cross-entropy over every
-        position, backward and the optimizer's update. Returns (logits
-        (B, S, V) fp32, loss), detached from the spent graph."""
+        position (plus the MoE router losses), backward and the
+        optimizer's update. Returns (logits (B, S, V) fp32, loss),
+        detached from the spent graph."""
         logits = nn.Module.__call__(self, ids)
         flat = logits.reshape(-1, self.vocab_size)
         tflat = torch.as_tensor(_raw(targets),
                                 device=self.device).reshape(-1)
-        loss = self.sce(flat, tflat.long())
+        loss = self._moe_losses(self.sce(flat, tflat.long()))
         self.optimizer(loss)
+        for b in self.blocks:
+            if b.moe_experts:
+                # the router's values stay readable, without the spent
+                # autograd graph (a live one would carry its
+                # AccumulateGrad nodes into a CUDA-graph capture)
+                m = b.moe
+                m.aux_loss, m.z_loss, m.overflow = (
+                    v.detach() for v in (m.aux_loss, m.z_loss, m.overflow))
         return logits.detach(), loss.detach()
 
     def get_params(self):
@@ -119,8 +153,8 @@ class GPT(model.Model):
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens, temperature=0.0, top_k=None,
-                 seed=0, dtype=None, kv_dtype=None, draft_model=None,
-                 spec_k=0):
+                 seed=0, dtype=None, moe_capacity_factor=None,
+                 kv_dtype=None, draft_model=None, spec_k=0):
         """Autoregressive sampling: greedy (temperature=0) or
         temperature/top-k. `prompt` is (B, S0) int (numpy or tensor);
         returns (B, S0 + max_new_tokens) numpy int32.
@@ -129,7 +163,11 @@ class GPT(model.Model):
         quantizes the KV cache. `draft_model` with `spec_k` >= 1 switches
         greedy decoding to draft-model speculative decoding
         (serving.build_spec_decode): the same tokens as plain greedy, and
-        the call's counts in `self.spec_stats`."""
+        the call's counts in `self.spec_stats`. `moe_capacity_factor`
+        overrides the MoE layers' factor for the decode (the target's and
+        the draft's): routing capacity is batch-global, so cached
+        decoding equals the full forward only where nothing drops
+        (`float(moe_experts)` drops nothing)."""
         ids = self._prompt(prompt)
         if max_new_tokens < 0:
             raise ValueError("max_new_tokens must be >= 0")
@@ -158,40 +196,44 @@ class GPT(model.Model):
             # the builder holds the draft's decode core: key on what
             # shapes it, not on the draft object
             sig = ("spec", B, S0, max_new_tokens, int(spec_k), dtype,
-                   kv_dtype, draft_model.num_heads, draft_model.dim,
+                   moe_capacity_factor, kv_dtype, draft_model.num_heads,
+                   draft_model.dim,
                    draft_model.num_kv_heads, draft_model.pos_encoding,
-                   draft_model.rope_theta, draft_model.max_seq)
+                   draft_model.rope_theta, draft_model.max_seq,
+                   _moe_sig(draft_model))
             fn = cache.get(sig)
             if fn is None:
                 fn = cache[sig] = serving.build_spec_decode(
                     self, draft_model, B, S0, max_new_tokens, int(spec_k),
-                    dtype, kv_dtype)
+                    dtype, kv_dtype, moe_capacity_factor)
             out = fn(serving.decode_state(self, dtype),
                      serving.decode_state(draft_model, dtype),
                      self._ids(ids))
             self.spec_stats = dict(fn.stats)
             return out.cpu().numpy().astype(np.int32)
         sig = (B, S0, max_new_tokens, float(temperature), top_k, dtype,
-               kv_dtype)
+               moe_capacity_factor, kv_dtype)
         fn = cache.get(sig)
         if fn is None:
             fn = cache[sig] = serving.build_decode(
                 self, B, S0, max_new_tokens, float(temperature), top_k,
-                dtype, kv_dtype)
+                dtype, kv_dtype, moe_capacity_factor)
         out = fn(serving.decode_state(self, dtype), self._ids(ids), seed)
         return out.cpu().numpy().astype(np.int32)
 
     @torch.no_grad()
     def generate_beam(self, prompt, max_new_tokens, num_beams=4,
                       length_penalty=1.0, eos_id=None, pad_id=None,
-                      dtype=None, return_scores=False, kv_dtype=None):
+                      dtype=None, return_scores=False,
+                      moe_capacity_factor=None, kv_dtype=None):
         """Beam-search decoding (serving.build_beam_decode): prefill
         once, tile the KV cache across beams, reorder its rows by the
         winning parent beams each step. With `eos_id`, finished
         hypotheses move to a length-normalized pool and the tail after
         eos is `pad_id` (default eos_id). Returns (B, S0 +
         max_new_tokens) numpy int32 ids (and the chosen hypothesis'
-        joint log-prob, (B,) fp32, when `return_scores`)."""
+        joint log-prob, (B,) fp32, when `return_scores`).
+        `moe_capacity_factor` as in `generate`."""
         ids = self._prompt(prompt)
         if ids.shape[1] < 1:
             raise ValueError("prompt must contain at least one token")
@@ -203,18 +245,27 @@ class GPT(model.Model):
         serving.kv_label(kv_dtype)
         B, S0 = ids.shape
         sig = ("beam", B, S0, max_new_tokens, num_beams,
-               float(length_penalty), eos_id, pad_id, dtype, kv_dtype)
+               float(length_penalty), eos_id, pad_id, dtype,
+               moe_capacity_factor, kv_dtype)
         cache = self.__dict__.setdefault("_decode_cache", {})
         fn = cache.get(sig)
         if fn is None:
             fn = cache[sig] = serving.build_beam_decode(
                 self, B, S0, max_new_tokens, num_beams,
-                float(length_penalty), eos_id, dtype, pad_id, kv_dtype)
+                float(length_penalty), eos_id, dtype, pad_id, kv_dtype,
+                moe_capacity_factor)
         out, scores = fn(serving.decode_state(self, dtype), self._ids(ids))
         out = out.cpu().numpy().astype(np.int32)
         if return_scores:
             return out, scores.cpu().numpy()
         return out
+
+
+def _moe_sig(m):
+    """What of a model's MoE shapes its decode: per block (k, capacity
+    factor), or None for a dense block."""
+    return tuple((b.moe.k, b.moe.capacity_factor) if b.moe_experts
+                 else None for b in m.blocks)
 
 
 def _singa_name(name: str) -> str:
@@ -272,8 +323,76 @@ def load_singa_states(model: GPT, path: str) -> None:
     load_singa_params(model, params)
 
 
+@torch.no_grad()
+def load_gpt2_weights(m: GPT, state: dict) -> GPT:
+    """Load GPT-2-convention weights into `m` for serving, in place.
+
+    `state` maps torch-style GPT-2 names to numpy arrays (e.g.
+    `{k: v.numpy() for k, v in torch_model.state_dict().items()}`):
+    `wte.weight`, `wpe.weight`, `blocks.{i}.{ln1,ln2}.{weight,bias}`,
+    `blocks.{i}.attn.{weight,bias}` (fused qkv, (3E, E) and (3E,)),
+    `blocks.{i}.proj.{weight,bias}`, `blocks.{i}.{ff1,ff2}.{weight,bias}`,
+    `ln_f.{weight,bias}`. Torch's Linear stores (out, in), so weights are
+    transposed into the (in, out) layout; the fused attention weight is
+    split into Wq, Wk and Wv, and the head gets wte's transpose (tied).
+    The model must have learned positions, no more than the checkpoint's
+    (`max_seq` <= wpe rows), and `attn_bias=True`; a shape mismatch
+    raises, as in the JAX package."""
+    E = m.dim
+
+    def put(t, arr):
+        arr = np.asarray(arr, np.float32)
+        if tuple(t.shape) != arr.shape:
+            raise ValueError(f"shape mismatch: param {tuple(t.shape)} vs "
+                             f"weight {arr.shape}")
+        t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+    wte = np.asarray(state["wte.weight"], np.float32)
+    put(m.tok_embed.W, wte)
+    n_wpe = state["wpe.weight"].shape[0]
+    if m.max_seq > n_wpe:
+        raise ValueError(
+            f"model max_seq={m.max_seq} exceeds the checkpoint's {n_wpe} "
+            f"position embeddings; build the GPT with max_seq<={n_wpe}")
+    if m.pos_encoding != "learned":
+        raise ValueError("GPT-2 weights need learned positions")
+    put(m.pos_embed, np.asarray(state["wpe.weight"])[:m.max_seq])
+    put(m.head.W, wte.T)
+    put(m.ln_f.gamma, state["ln_f.weight"])
+    put(m.ln_f.beta, state["ln_f.bias"])
+    for i, blk in enumerate(m.blocks):
+        if not blk.attn.use_bias:
+            raise ValueError("build the GPT with attn_bias=True for GPT-2 "
+                             "weights")
+        if blk.moe_experts:
+            raise ValueError("GPT-2 weights fill a dense MLP, not an MoE")
+        pre = f"blocks.{i}."
+        put(blk.ln1.gamma, state[pre + "ln1.weight"])
+        put(blk.ln1.beta, state[pre + "ln1.bias"])
+        put(blk.ln2.gamma, state[pre + "ln2.weight"])
+        put(blk.ln2.beta, state[pre + "ln2.bias"])
+        qkv_w = np.asarray(state[pre + "attn.weight"], np.float32)
+        qkv_b = np.asarray(state[pre + "attn.bias"], np.float32)
+        if qkv_w.shape != (3 * E, E):
+            raise ValueError(f"shape mismatch: attn.weight {qkv_w.shape}, "
+                             f"want {(3 * E, E)}")
+        a = blk.attn
+        for j, (W, b) in enumerate(((a.Wq, a.bq), (a.Wk, a.bk),
+                                    (a.Wv, a.bv))):
+            put(W, qkv_w[j * E:(j + 1) * E].T)
+            put(b, qkv_b[j * E:(j + 1) * E])
+        put(a.Wo, np.asarray(state[pre + "proj.weight"]).T)
+        put(a.bo, state[pre + "proj.bias"])
+        put(blk.fc1.W, np.asarray(state[pre + "ff1.weight"]).T)
+        put(blk.fc1.b, state[pre + "ff1.bias"])
+        put(blk.fc2.W, np.asarray(state[pre + "ff2.weight"]).T)
+        put(blk.fc2.b, state[pre + "ff2.bias"])
+    return m
+
+
 def create_model(vocab_size=256, **kwargs):
     return GPT(vocab_size, **kwargs)
 
 
-__all__ = ["GPT", "create_model", "load_singa_params", "load_singa_states"]
+__all__ = ["GPT", "create_model", "load_gpt2_weights", "load_singa_params",
+           "load_singa_states"]

@@ -17,6 +17,13 @@ Layouts are the JAX package's:
 - Wq/Wk/Wv fuse into one (E, E + 2*Hkv*D) matmul at decode-param prep;
   `dtype="int8"` stores the big matrices as int8 plus a per-output-column
   scale (`_quant8`) and multiplies through `_mm`.
+- An MoE block's MLP is `parallel.moe.moe_ffn` over every row of the
+  call (`moeWg`, `moeW1`, `moeb1`, `moeW2`, `moeb2`; kept bf16 under
+  `dtype="int8"`). Its capacity is batch-global, so a row's drop depends
+  on the other rows of the same step: B in a token step, B * S0 in a
+  prefill, B * k in a verify step, every slot (inactive ones too) in the
+  engine's step, the bucket-padded prompt in its prefill, as in the JAX
+  package. `moe_capacity_factor` overrides the layers' factor.
 
 Where the JAX package runs prefill + `lax.scan` (or `lax.while_loop`) as
 compiled programs, the port runs eagerly: the decode builders are Python
@@ -36,7 +43,9 @@ import weakref
 import torch
 
 from . import autograd
+from .autograd import _top_k
 from .layer import layernorm
+from .parallel.moe import moe_ffn
 from .ops.attention import (flash_attention, flash_decode, nibble_pack,
                             paged_attention)
 
@@ -123,11 +132,13 @@ class _DecodeCore:
     serving engine: the fp32-island LayerNorm, the causal prefill (which
     also yields the K/V rows), the single-token block step and the
     k-token verify step, each against a dense or a paged cache, in fp or
-    quantized (int8/int4) KV."""
+    quantized (int8/int4) KV. `moe_ks` holds per block (k, capacity
+    factor) for an MoE block, None for a dense one."""
 
-    def __init__(self, H, E, S0, T, scale, kv_heads=None, rope=False,
-                 rope_theta=10000.0, kv_dtype=None):
+    def __init__(self, H, E, S0, T, scale, moe_ks=None, kv_heads=None,
+                 rope=False, rope_theta=10000.0, kv_dtype=None):
         self.H, self.E, self.S0, self.T, self.scale = H, E, S0, T, scale
+        self.moe_ks = moe_ks or []
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
         # quantized KV: per-(head, position) symmetric scales; K's fold
@@ -148,9 +159,18 @@ class _DecodeCore:
     def ln(self, x, g, b, eps=1e-5):
         return layernorm(x, g, b, eps)
 
-    def mlp(self, bp, x):
-        return _mm(autograd.gelu(_mm(x, bp["W1"]) + bp["bb1"]),
-                   bp["W2"]) + bp["bb2"]
+    def mlp(self, bp, x, li):
+        """Block `li`'s MLP on (..., E): the dense two-layer one, or the
+        MoE FFN over all of x's rows at once."""
+        kcf = self.moe_ks[li] if li < len(self.moe_ks) else None
+        if kcf is None:
+            return _mm(autograd.gelu(_mm(x, bp["W1"]) + bp["bb1"]),
+                       bp["W2"]) + bp["bb2"]
+        k, cf = kcf
+        y, _, _ = moe_ffn(x.reshape(-1, x.shape[-1]), bp["moeWg"],
+                          bp["moeW1"], bp["moeb1"], bp["moeW2"],
+                          bp["moeb2"], capacity_factor=cf, k=k)
+        return y.reshape(x.shape).to(x.dtype)
 
     def head(self, p, h):
         return _mm(self.ln(h, p["gf"], p["bf"]), p["head"])
@@ -280,8 +300,8 @@ class _DecodeCore:
         shape = tuple(pos.shape) + (rcos.shape[-1],)
         return h, (rcos.reshape(shape), rsin.reshape(shape))
 
-    def _block(self, bp, h, n, S, rope, attend):
-        """One transformer block on h (n, [S,] E): qkv (rotated), then
+    def _block(self, li, bp, h, n, S, rope, attend):
+        """Block `li` on h (n, [S,] E): qkv (rotated), then
         `attend(q, kn, vn)` -> the attention output (n, [S,] E), then the
         output projection and the MLP."""
         x = self.ln(h, bp["g1"], bp["b1"])
@@ -294,7 +314,7 @@ class _DecodeCore:
         o = attend(q, kn, vn, x.dtype)
         h = h + _mm(o, bp["Wo"]) + bp["bo"]
         x = self.ln(h, bp["g2"], bp["b2"])
-        return h + self.mlp(bp, x)
+        return h + self.mlp(bp, x, li)
 
     def prefill_parts(self, p, prompt, n, use_kernel=None):
         """Causal pass over the (n, S) prompt: the final hidden states
@@ -310,7 +330,7 @@ class _DecodeCore:
             rcos, rsin = autograd.rope_tables(
                 torch.arange(S, device=prompt.device), D, self.rope_theta)
         kvs = []
-        for bp in p["blocks"]:
+        for li, bp in enumerate(p["blocks"]):
             x = self.ln(h, bp["g1"], bp["b1"])
             q, k, v = self.qkv(bp, x, n, S)
             if self.rope:
@@ -324,7 +344,7 @@ class _DecodeCore:
             h = h + _mm(o.transpose(1, 2).reshape(n, S, self.E),
                         bp["Wo"]) + bp["bo"]
             x = self.ln(h, bp["g2"], bp["b2"])
-            h = h + self.mlp(bp, x)
+            h = h + self.mlp(bp, x, li)
             kvs.append((k, v))
         return h, kvs
 
@@ -359,7 +379,7 @@ class _DecodeCore:
         def put(dst, rows):
             dst[:, :, pos_idx] = rows[:, :, 0]
 
-        for cache, bp in zip(caches, p["blocks"]):
+        for li, (cache, bp) in enumerate(zip(caches, p["blocks"])):
             def attend(q, kn, vn, dt, cache=cache):
                 K, V, Ks, Vs = self._store(cache, kn[:, :, None],
                                            vn[:, :, None], n, 1, put)
@@ -367,7 +387,7 @@ class _DecodeCore:
                                   self.scale, Ks, Vs, self.G,
                                   use_kernel=use_kernel)
                 return self._unpack_o(O2.to(dt), n)
-            h = self._block(bp, h, n, None, rope, attend)
+            h = self._block(li, bp, h, n, None, rope, attend)
         return self.head(p, h), caches
 
     def verify_step(self, p, toks, caches, pos, active, n, k,
@@ -394,14 +414,14 @@ class _DecodeCore:
         def put(dst, rows):
             dst[ni, :, pi] = rows.transpose(1, 2)[ok]
 
-        for cache, bp in zip(caches, p["blocks"]):
+        for li, (cache, bp) in enumerate(zip(caches, p["blocks"])):
             def attend(q, kn, vn, dt, cache=cache):
                 K, V, Ks, Vs = self._store(cache, kn, vn, n, k, put)
                 O2 = flash_decode(self._pack_q_multi(q, n, k), K, V,
                                   lens_att, self.scale, Ks, Vs, self.G,
                                   use_kernel=use_kernel, q_tokens=k)
                 return self._unpack_o_multi(O2.to(dt), n, k)
-            h = self._block(bp, h, n, k, rope, attend)
+            h = self._block(li, bp, h, n, k, rope, attend)
         return self.head(p, h), caches
 
     def paged_token_step(self, p, tok, pools, page_table, lens, active, n,
@@ -428,7 +448,7 @@ class _DecodeCore:
         def put(dst, new):
             dst[pvec, :, off] = new[:, :, 0][rows]
 
-        for pool, bp in zip(pools, p["blocks"]):
+        for li, (pool, bp) in enumerate(zip(pools, p["blocks"])):
             def attend(q, kn, vn, dt, pool=pool):
                 K, V, Ks, Vs = self._store(pool, kn[:, :, None],
                                            vn[:, :, None], n, 1, put)
@@ -436,7 +456,7 @@ class _DecodeCore:
                                      ln_att, ps, self.scale, Ks, Vs, self.G,
                                      use_kernel=use_kernel)
                 return self._unpack_o(O2.to(dt), n)
-            h = self._block(bp, h, n, None, rope, attend)
+            h = self._block(li, bp, h, n, None, rope, attend)
         return self.head(p, h), pools
 
     def paged_verify_step(self, p, toks, pools, page_table, lens, active,
@@ -467,7 +487,7 @@ class _DecodeCore:
         def put(dst, rows):
             dst[pg, :, off] = rows.transpose(1, 2)[ok]
 
-        for pool, bp in zip(pools, p["blocks"]):
+        for li, (pool, bp) in enumerate(zip(pools, p["blocks"])):
             def attend(q, kn, vn, dt, pool=pool):
                 K, V, Ks, Vs = self._store(pool, kn, vn, n, k, put)
                 O2 = paged_attention(self._pack_q_multi(q, n, k), K, V,
@@ -475,18 +495,25 @@ class _DecodeCore:
                                      Vs, self.G, use_kernel=use_kernel,
                                      q_tokens=k)
                 return self._unpack_o_multi(O2.to(dt), n, k)
-            h = self._block(bp, h, n, k, rope, attend)
+            h = self._block(li, bp, h, n, k, rope, attend)
         return self.head(p, h), pools
 
 
-def _decode_core(m, S0, max_new, kv_dtype=None):
-    """The _DecodeCore matching model `m`'s configuration."""
+def _decode_core(m, S0, max_new, moe_capacity_factor=None, kv_dtype=None):
+    """The _DecodeCore matching model `m`'s configuration. An MoE block
+    routes with its own capacity factor unless `moe_capacity_factor`
+    overrides it: a tight training factor need not drop tokens when
+    serving (float(num_experts) drops none)."""
     T = S0 + max_new
     if T > m.max_seq:
         raise ValueError(f"prompt {S0} + new {max_new} exceeds max_seq "
                          f"{m.max_seq}")
+    moe_ks = [(b.moe.k, float(moe_capacity_factor
+                              if moe_capacity_factor is not None
+                              else b.moe.capacity_factor))
+              if b.moe_experts else None for b in m.blocks]
     return _DecodeCore(m.num_heads, m.dim, S0, T,
-                       (m.dim // m.num_heads) ** -0.5,
+                       (m.dim // m.num_heads) ** -0.5, moe_ks,
                        kv_heads=m.num_kv_heads,
                        rope=m.pos_encoding == "rope",
                        rope_theta=m.rope_theta, kv_dtype=kv_dtype)
@@ -497,7 +524,8 @@ def _decode_core(m, S0, max_new, kv_dtype=None):
 @torch.no_grad()
 def decode_params(m):
     """The decode-param tree of model `m` (fp32, unused biases
-    zero-filled, QKV fused)."""
+    zero-filled, QKV fused; an MoE block's expert weights in place of
+    the MLP's)."""
     blocks = []
     for b in m.blocks:
         a = b.attn
@@ -510,8 +538,14 @@ def decode_params(m):
                                  + a.Wv.shape[1],)),
             "Wo": a.Wo, "bo": a.bo if a.use_bias else zeros,
             "g2": b.ln2.gamma, "b2": b.ln2.beta,
-            "W1": b.fc1.W, "bb1": b.fc1.b, "W2": b.fc2.W, "bb2": b.fc2.b,
         }
+        if b.moe_experts:
+            bp.update({"moeWg": b.moe.Wg, "moeW1": b.moe.W1,
+                       "moeb1": b.moe.b1, "moeW2": b.moe.W2,
+                       "moeb2": b.moe.b2})
+        else:
+            bp.update({"W1": b.fc1.W, "bb1": b.fc1.b, "W2": b.fc2.W,
+                       "bb2": b.fc2.b})
         blocks.append({k: v.detach() for k, v in bp.items()})
     emb = m.tok_embed.W.detach()
     return {
@@ -549,13 +583,14 @@ def decode_state(m, dtype):
 # ---- the decode loops -------------------------------------------------------
 
 def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
-                 kv_dtype=None):
+                 kv_dtype=None, moe_capacity_factor=None):
     """Greedy/sampled decode fn: (params, prompt (B, S0) on the model's
     device, seed) -> ids (B, S0 + max_new). Prefill plus the first token,
     then a Python loop of `token_step`s, one sampled token each.
     Sampling draws from a torch.Generator seeded with `seed` on the
-    model's device. `kv_dtype` quantizes the caches."""
-    core = _decode_core(m, S0, max_new, kv_dtype)
+    model's device. `kv_dtype` quantizes the caches;
+    `moe_capacity_factor` overrides the MoE layers' factor."""
+    core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
 
     def sample(logits, gen):
         logits = logits.float()
@@ -624,7 +659,7 @@ def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
 
 
 def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
-                      kv_dtype=None):
+                      kv_dtype=None, moe_capacity_factor=None):
     """Draft-model speculative GREEDY decode fn: (target params, draft
     params, prompt) -> ids (B, S0 + max_new); the call's counts
     (drafted, accepted, bonus, rounds) are left in `decode.stats`.
@@ -641,8 +676,8 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     K = int(spec_k)
-    core = _decode_core(m, S0, max_new, kv_dtype)
-    core_d = _decode_core(draft, S0, max_new)
+    core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
+    core_d = _decode_core(draft, S0, max_new, moe_capacity_factor)
 
     @torch.no_grad()
     def decode(pt, pd, prompt):
@@ -689,13 +724,6 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     return decode
 
 
-def _top_k(x, k):
-    """(values, indices) of the k largest along the last dim, ties to the
-    lower index first, as lax.top_k orders them."""
-    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
-
-
 def _take_rows(buf, idx):
     """buf (B, K, L) rows picked per batch by idx (B, k) -> (B, k, L)."""
     return torch.gather(buf, 1, idx[..., None].expand(*idx.shape,
@@ -716,7 +744,8 @@ def _pool_merge(pool_tok, pool_norm, pool_raw, cand_tok, cand_norm,
 
 
 def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
-                      eos_id, dtype=None, pad_id=None, kv_dtype=None):
+                      eos_id, dtype=None, pad_id=None, kv_dtype=None,
+                      moe_capacity_factor=None):
     """Beam-search decode fn: (params, prompt) -> (ids (B, S0 + max_new),
     the chosen hypothesis' joint log-prob (B,)). Prefill once, tile the
     caches across beams, then one token_step a step whose cache rows are
@@ -725,7 +754,7 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
     semantics) and the tail after eos is `pad_id` (default eos_id)."""
     V = m.vocab_size
     K = num_beams
-    core = _decode_core(m, S0, max_new, kv_dtype)
+    core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
     NEG = -1e9
     pad = 0 if eos_id is None else (pad_id if pad_id is not None
                                     else eos_id)

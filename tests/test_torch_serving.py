@@ -210,7 +210,8 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.models.xceptionnet, singa_tpu_torch.data, "
         "singa_tpu_torch.io, singa_tpu_torch.snapshot, "
         "singa_tpu_torch.overlap, singa_tpu_torch.native, "
-        "singa_tpu_torch._ckpt\n"
+        "singa_tpu_torch._ckpt, singa_tpu_torch.parallel, "
+        "singa_tpu_torch.parallel.moe, singa_tpu_torch.ops.rnn\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
         "m.startswith('singa_tpu.')]\n"

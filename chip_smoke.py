@@ -6,7 +6,8 @@
     python3 chip_smoke.py --ab-train OTHER_CHECKOUT
 
 The third form only times the train steps of the two checkouts in the
-same turns: phase 6's bench GPT, and phase 7's ResNet-50 in a checkout
+same turns: phase 6's bench GPT (eager and as a graph), and phase 7's
+ResNet-50 (as a graph) in a checkout
 that has the SINGA Tensor API (host clock, each step fenced by
 loss.item(); 2 warm-up steps, then 7). The second form only times the kernels K1 (flash forward), K2a (fused
 backward), K2b and K2c (the split backward's dQ and dK/dV), K3
@@ -167,10 +168,25 @@ Phases, each of which exits non-zero on failure:
    the same shape; examples/rnn/char_rnn.py's model (Embedding,
    CudnnRNN(128), Linear; b32 x 100, vocab 65) 5 steps eager and 5 as a
    CUDA graph from the same weights (1e-5), ms a step and tokens/s.
-11. The `kernels` JSON line (the decode kernels with a `modes` entry per
+11. ONNX export and import (sonnx), fp32: 11a GPT-2-small (phase 3's
+   model) traced on the tape by sonnx.export on ids b2 x 128, exactly 12
+   K1 launches in a window around the export call (`onnx_export`), the
+   graph's MatMul/Softmax/Tanh/LayerNormalization/Gather and its one
+   input, then load_model and prepare on the card, the imported logits
+   against the raw forward within ONNX_TOL of max |ref|; the file's MB
+   and the export, save, load and prepare seconds and the run's ms. 11b
+   the zoo's ResNet-50 (b8 x 224) exported and imported, eval logits
+   within ONNX_TOL, then a SONNXModel subclass retrained with SGD 6 steps
+   eagerly and 6 as a CUDA graph from the file on cuDNN's deterministic
+   algorithms (losses finite, graph against eager within 1e-5), ms a
+   step. 11c a ResNet-18 at ImageNet widths exported by torch's
+   TorchScript exporter (sonnx.interop), imported on the card against
+   torch's forward within ONNX_TOL. NonZero runs eagerly and refuses a
+   capture.
+12. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
-   `moe_generate` and `moe_engine`), then the card line, then the result
-   line.
+   `moe_generate`, `moe_engine` and `onnx_export`), then the card line,
+   then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -2796,6 +2812,286 @@ def phase_rnn(torch, layer, model, opt, autograd, tensor, device):
         fail("the char-RNN's CUDA-graph step differs from its eager step")
 
 
+# ---- phase 11: ONNX export and import (sonnx) --------------------------------
+# imported graph against the exporting model's (or torch's) forward, max
+# abs error over max |ref|, fp32 with TF32 off: the same math in another
+# order (MatMul/Softmax in place of K1, a folded batch norm in 11c)
+ONNX_TOL = 1e-4
+ONNX_B, ONNX_S = 2, 128          # 11a's GPT-2-small batch
+ONNX_RESNET_B = 8                # 11b's ResNet-50 batch (224 x 224)
+ONNX_STEPS = 6                   # 11b's SGD steps, eager and as a graph
+ONNX_GPT_OPS = {"MatMul", "Softmax", "Tanh", "LayerNormalization", "Gather"}
+
+
+def _max_rel(got, ref):
+    """max |got - ref| / max |ref| (fp32)."""
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _run_eval(autograd, rep, xs):
+    prev = autograd.training
+    autograd.training = False
+    try:
+        return rep.run(xs)
+    finally:
+        autograd.training = prev
+
+
+def _onnx_gpt(torch, model, sonnx, tensor, autograd, A, dev, root):
+    """11a: GPT-2-small traced on the tape and exported (K1 once per layer
+    in the trace, counted in its own window), read back and run on the
+    card against the raw forward."""
+    L = GPT2_SMALL["num_layers"]
+    print(f"  11a: GPT-2-small ({sum(p.numel() for p in model.parameters())} "
+          f"parameters, random weights from seed {SEED}), ids b{ONNX_B} x "
+          f"{ONNX_S}, fp32")
+    rng = np.random.RandomState(SEED + 21)
+    ids = rng.randint(0, GPT2_SMALL["vocab_size"],
+                      (ONNX_B, ONNX_S)).astype(np.int32)
+    with torch.no_grad():
+        ref = model.forward(torch.from_numpy(ids).to(model.device))
+    tx = tensor.from_numpy(ids, device=dev)
+    path = os.path.join(root, "gpt2_small.onnx")
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    proto = sonnx.export(model, [tx], path)
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    counts = dict(A.LAUNCHES)
+    check_launches("onnx_export (sonnx.export of GPT-2-small)", counts,
+                   {"flash_fwd": L})
+    # the codec's write alone: the same model saved a second time over
+    # the file export wrote
+    t0 = time.perf_counter()
+    sonnx.save_model(proto, path)
+    t_save = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    ops = {n.op_type for n in proto.graph.node}
+    print(f"  exported {len(proto.graph.node)} nodes, "
+          f"{len(proto.graph.initializer)} initializers, "
+          f"{len(proto.graph.input)} graph input(s); {mb:.1f} MB")
+    if not ONNX_GPT_OPS <= ops or len(proto.graph.input) != 1:
+        fail(f"GPT-2-small's graph lacks {sorted(ONNX_GPT_OPS - ops)} or "
+             f"has {len(proto.graph.input)} inputs")
+    del proto
+    t0 = time.perf_counter()
+    loaded = sonnx.load_model(path)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = sonnx.prepare(loaded, dev)
+    torch.cuda.synchronize()
+    t_prepare = time.perf_counter() - t0
+    out = _run_eval(autograd, rep, [tx])[0]
+    run_ms = time_ms(torch, lambda: _run_eval(autograd, rep, [tx]), n=5,
+                     warm=1, device=False)
+    err = _max_rel(out.data, ref)
+    print(f"  export (trace, graph and file) {t_export:.2f} s; the save "
+          f"alone, a second write of the same model, {t_save:.2f} s; "
+          f"load {t_load:.2f} s; prepare "
+          f"{t_prepare:.2f} s; imported run {run_ms:.2f} ms (events "
+          f"around the call); logits max abs error {err:.3e} of max "
+          f"|ref| (tol {ONNX_TOL})")
+    if not err <= ONNX_TOL:
+        fail("the imported GPT-2-small disagrees with the model")
+    del rep, loaded
+    os.remove(path)
+    return counts
+
+
+def _retrainer(sonnx, layer, proto, dev):
+    class Retrain(sonnx.SONNXModel):
+        def __init__(self):
+            super().__init__(proto, dev)
+            self.sce = layer.SoftMaxCrossEntropy()
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.sce(out, y)
+            self.optimizer(loss)
+            return out, loss
+    return Retrain()
+
+
+def _onnx_resnet(torch, models, opt, layer, tensor, autograd, sonnx, dev,
+                 root):
+    """11b: the zoo's ResNet-50 exported and imported (eval logits
+    against its own forward), then retrained as a SONNXModel, eagerly and
+    as a CUDA graph from the same file, on cuDNN's deterministic
+    algorithms."""
+    B = ONNX_RESNET_B
+    print(f"  11b: ResNet-50 (zoo, {RESNET_CLASSES} classes), b{B} x 3 x "
+          f"{RESNET_HW} x {RESNET_HW}, fp32")
+    rng = np.random.RandomState(SEED + 22)
+    x = rng.randn(B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, B).astype(np.int32)
+    tx = tensor.Tensor(data=x, device=dev)
+    ty = tensor.from_numpy(y, device=dev)
+    dev.SetRandSeed(SEED)
+    m = models.create_model("resnet50", num_channels=3,
+                            num_classes=RESNET_CLASSES)
+    m.compile([tx], is_train=False, use_graph=False)
+    ref = m(tx).data
+    path = os.path.join(root, "resnet50.onnx")
+    t0 = time.perf_counter()
+    proto = sonnx.export(m, [tx], path)
+    t_export = time.perf_counter() - t0
+    del m
+    rep = sonnx.prepare(sonnx.load_model(path), dev)
+    err = _max_rel(_run_eval(autograd, rep, [tx])[0].data, ref)
+    print(f"  exported {len(proto.graph.node)} nodes, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB in {t_export:.2f} s; "
+          f"imported eval logits max abs error {err:.3e} of max |ref| "
+          f"(tol {ONNX_TOL})")
+    if not err <= ONNX_TOL:
+        fail("the imported ResNet-50 disagrees with the model")
+    del rep
+    deterministic = torch.backends.cudnn.deterministic
+    runs = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for label, graph in (("eager", False), ("graph", True)):
+            rm = _retrainer(sonnx, layer, sonnx.load_model(path), dev)
+            rm.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
+            rm.compile([tx], is_train=True, use_graph=graph)
+            losses, ms = _steps(torch, rm, tx, ty, ONNX_STEPS)
+            runs[label] = (losses, ms, rm.get_states(), rm.graph_backend)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (la, ma, sa, _), (lb, mb, sb, backend) = runs["eager"], runs["graph"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    serr, same = _compare_states(torch, sa, sb)
+    print(f"  SONNXModel retrain, SGD(0.01, 0.9), {ONNX_STEPS} steps, cuDNN "
+          f"deterministic: eager losses "
+          + ", ".join(f"{v:.5f}" for v in la)
+          + f"; graph ({backend}) max relative loss difference {rel:.3e}, "
+          f"parameters and running stats max abs difference {serr:.3e} "
+          f"(tol {GRAPH_TOL} each); bitwise equal: {same and la == lb}")
+    print(f"  ms a step (steps 3-{ONNX_STEPS}, host clock fenced by "
+          f"loss.item()): eager {statistics.median(ma[2:]):.2f}, graph "
+          f"{statistics.median(mb[2:]):.2f}")
+    if backend != "cuda_graph":
+        fail("the SONNXModel in graph mode did not run a CUDA graph")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("the SONNXModel's CUDA-graph steps differ from its eager steps")
+    os.remove(path)
+
+
+def _torch_resnet18(torch):
+    """ResNet-18 at ImageNet widths as examples/onnx/resnet18.py builds it
+    (its own copy: this script imports nothing from examples/)."""
+    nn = torch.nn
+
+    class Basic(nn.Module):
+        def __init__(self, cin, cout, stride=1):
+            super().__init__()
+            self.c1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.b1 = nn.BatchNorm2d(cout)
+            self.c2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.b2 = nn.BatchNorm2d(cout)
+            self.down = None
+            if stride != 1 or cin != cout:
+                self.down = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            idt = self.down(x) if self.down else x
+            y = torch.relu(self.b1(self.c1(x)))
+            return torch.relu(self.b2(self.c2(y)) + idt)
+
+    class ResNet18(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stem = nn.Sequential(
+                nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+                nn.ReLU(True), nn.MaxPool2d(3, 2, 1))
+            blocks = []
+            cin = 64
+            for cout, stride in [(64, 1), (64, 1), (128, 2), (128, 1),
+                                 (256, 2), (256, 1), (512, 2), (512, 1)]:
+                blocks.append(Basic(cin, cout, stride))
+                cin = cout
+            self.blocks = nn.Sequential(*blocks)
+            self.pool = nn.AdaptiveAvgPool2d(1)
+            self.fc = nn.Linear(512, 1000)
+
+        def forward(self, x):
+            y = self.pool(self.blocks(self.stem(x)))
+            return self.fc(torch.flatten(y, 1))
+
+    return ResNet18()
+
+
+def _onnx_torch_resnet18(torch, sonnx, tensor, autograd, dev, root):
+    """11c: a file from an independent producer: torch's TorchScript
+    exporter (through sonnx.interop) writes a ResNet-18, the port imports
+    and runs it on the card against torch's own forward."""
+    from singa_tpu_torch.sonnx.interop import export_torch_module
+    torch.manual_seed(SEED)
+    tm = _torch_resnet18(torch)
+    x = np.random.RandomState(SEED + 23).randn(2, 3, 224, 224) \
+        .astype(np.float32)
+    path = os.path.join(root, "resnet18_torch.onnx")
+    t0 = time.perf_counter()
+    export_torch_module(tm, torch.from_numpy(x), path, opset=13)
+    t_export = time.perf_counter() - t0
+    tm = tm.to(dev.torch_device).eval()
+    with torch.no_grad():
+        ref = tm(torch.from_numpy(x).to(dev.torch_device))
+    loaded = sonnx.load_model(path)
+    ops = sorted({n.op_type for n in loaded.graph.node})
+    rep = sonnx.prepare(loaded, dev)
+    out = _run_eval(autograd, rep, [tensor.Tensor(data=x, device=dev)])[0]
+    err = _max_rel(out.data, ref)
+    print(f"  11c: torch's ResNet-18 (ImageNet widths, b2 x 224 x 224) "
+          f"exported by torch {torch.__version__} in {t_export:.2f} s, "
+          f"{len(loaded.graph.node)} nodes ({', '.join(ops)}); imported "
+          f"on the card: max abs error {err:.3e} of max |ref| against "
+          f"torch's forward (tol {ONNX_TOL})")
+    if not err <= ONNX_TOL:
+        fail("the torch-exported ResNet-18 disagrees with torch")
+    os.remove(path)
+
+
+def _onnx_nonzero(torch, autograd, tensor, dev):
+    """NonZero runs eagerly on the card and refuses a CUDA-graph
+    capture with its message."""
+    a = np.array([[0.0, 1.5, 0.0], [2.0, 0.0, -1.0]], np.float32)
+    t = tensor.Tensor(data=a, device=dev)
+    got = autograd.nonzero(t).data.cpu().numpy()
+    if not np.array_equal(got, np.array(np.nonzero(a))):
+        fail(f"NonZero on the card gave {got.tolist()}")
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            autograd.nonzero(t)
+    except RuntimeError as e:
+        if "cannot be captured" not in str(e):
+            raise
+        print(f"  NonZero eager on the card: {got.tolist()}; under a "
+              f"capture it raises: {str(e)[:60]}...")
+    else:
+        fail("a CUDA graph captured NonZero")
+
+
+def phase_onnx(torch, model, models, opt, layer, tensor, autograd, device,
+               A, root):
+    """Phase 11 (see the module's docstring); returns the export window's
+    launch counts."""
+    from singa_tpu_torch import sonnx
+    print("== phase 11: ONNX export and import (sonnx)")
+    dev = device.best_device()
+    counts = _onnx_gpt(torch, model, sonnx, tensor, autograd, A, dev, root)
+    _onnx_resnet(torch, models, opt, layer, tensor, autograd, sonnx, dev,
+                 root)
+    torch.cuda.empty_cache()
+    _onnx_torch_resnet18(torch, sonnx, tensor, autograd, dev, root)
+    _onnx_nonzero(torch, autograd, tensor, dev)
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -2930,7 +3226,8 @@ def ab_turn(torch, root, tag):
 
 def ab_train_turn(torch, root, tag):
     """One turn of --ab-train: the bench GPT's train step (phase 6's
-    model, batch and optimizer, bf16 amp) of the checkout at `root`, and
+    model, batch and optimizer, bf16 amp), eager and as a CUDA graph, of
+    the checkout at `root`, and
     ResNet-50's (phase 7's) where that checkout has the SINGA Tensor API;
     2 warm-up steps, then the median of 7, each fenced by loss.item()."""
     sys.path.insert(0, os.path.abspath(root))
@@ -2947,12 +3244,15 @@ def ab_train_turn(torch, root, tag):
 
     tx, ty = (t.cuda() for t in _train_batch(
         torch, BENCH_GPT["vocab_size"], TRAIN_B, TRAIN_S, SEED + 3))
-    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
-    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
-    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
-    line(f"bench GPT b{TRAIN_B} x {TRAIN_S}", m, tx, ty)
-    del m
-    torch.cuda.empty_cache()
+    for graph in (False, True):
+        m = models.create_model("gpt", device="cuda", seed=SEED,
+                                **BENCH_GPT)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=graph, amp="bfloat16")
+        line(f"bench GPT b{TRAIN_B} x {TRAIN_S} "
+             f"{'graph' if graph else 'eager'}", m, tx, ty)
+        del m
+        torch.cuda.empty_cache()
     if importlib.util.find_spec("singa_tpu_torch.tensor") is None:
         return
     from singa_tpu_torch import device, tensor
@@ -3080,6 +3380,11 @@ def main():
     clock.lap("phase 9c")
     phase_rnn(torch, layer, model_mod, opt, autograd, tensor, device)
     clock.lap("phase 10")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["onnx_export"] = phase_onnx(torch, model, models, opt, layer,
+                                            tensor, autograd, device, A,
+                                            root)
+    clock.lap("phase 11")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

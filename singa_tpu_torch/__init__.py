@@ -31,6 +31,12 @@ What is ported so far:
     the recurrences: ops.rnn (lstm_scan, lstm_scan_ex, reverse_padded,
         gru_scan) and layer.RNN, LSTM, CudnnRNN / FusedRNN
     models.transformer.load_gpt2_weights (GPT-2-convention state dicts)
+    sonnx: ONNX export of a forward traced on the tape (the GPT included:
+        GPT.forward on a Tensor in training mode records it), import into
+        a runnable, retrainable graph (SONNXModel), the self-contained
+        protobuf codec, and torch's TorchScript exporter without the
+        `onnx` package (sonnx.interop); utils (SAME padding, the tape's
+        postorder walk)
 
 The attention paths run on six hand-written CUDA kernels in `csrc/`
 (flash-attention forward, its fused and split backward, flash-decode and
@@ -42,7 +48,8 @@ every kernel wrapper runs its plain PyTorch version instead.
 """
 
 from . import (autograd, data, device, io, layer, model, models,  # noqa: F401
-               native, opt, overlap, snapshot, tensor)
+               native, opt, overlap, snapshot, sonnx, tensor, utils)
 
 __all__ = ["autograd", "data", "device", "io", "layer", "model", "models",
-           "native", "opt", "overlap", "snapshot", "tensor"]
+           "native", "opt", "overlap", "snapshot", "sonnx", "tensor",
+           "utils"]

@@ -6,10 +6,15 @@ autograd graph: each `Operator` runs torch ops on the `.data` of its
 `tensor.Tensor` inputs, and the operators whose backward the JAX package
 writes by hand (the softmax cross-entropy, the compute cast, flash
 attention) are `torch.autograd.Function`s with the same rule. An
-operator's outputs carry it as their `creator` and its inputs' creators
-in `src` (a leaf gets a `Dummy`), as in the JAX package, so `backward`
-can hand a `stores_grad` leaf its gradient as a Tensor. A layer's
-parameters are `nn.Parameter`s passed in raw.
+operator's outputs carry it as their `creator`; `src` holds one
+`(creator, id, tensor, stores_grad)` entry per input in input order, its
+`y_id2idx` maps each output's id to its index, and `_out_shapes` the
+outputs' (shape, dtype), as in the JAX package: the ONNX exporter walks
+them, and `backward` hands a `stores_grad` leaf its gradient as a Tensor.
+A leaf Tensor gets a `Dummy` creator. A layer's parameters are
+`nn.Parameter`s passed in raw; each raw input gets a `Dummy` leaf entry of
+its own, which never stores a gradient (torch hands the parameter its
+gradient).
 
 Every operator also takes raw `torch.Tensor`s, as the GPT's layers pass
 them: with no Tensor among its inputs it returns the raw result and
@@ -18,8 +23,11 @@ mode (`training`) and when an input requires grad, and runs under
 `torch.no_grad()` otherwise.
 
 `backward` is a generator of (param, grad), as in the JAX package. The
-operators that only `sonnx` reaches come with the ONNX slice (ROADMAP.md
-lists them).
+operators that only `sonnx` reaches (UpSample ... LessOrEqual) follow the
+JAX package's forwards; integer outputs (ArgMax, TopK's indices, Shape,
+Size, NonZero) are int32, as the JAX package's are with x64 off. NonZero
+has a data-dependent shape: it runs eagerly and raises inside a CUDA-graph
+capture.
 """
 
 from __future__ import annotations
@@ -55,8 +63,11 @@ class Operator:
 
     def __init__(self, name: str | None = None):
         self.name = name or type(self).__name__
-        self.src = []              # the inputs' creators, when recorded
+        self.src = []        # [(src_op, x_id, x, x_stores_grad)] per input
+        self.y_id2idx = {}   # id(output Tensor) -> output index
         self.requires_grad = False
+        self._n_out = 1
+        self._out_shapes = []
 
     def __call__(self, *xs):
         return self._do_forward(*xs)
@@ -73,6 +84,9 @@ class Operator:
         if self.requires_grad:
             for x in xs:
                 if not isinstance(x, Tensor):
+                    # a raw input (a layer's nn.Parameter, a constant): a
+                    # leaf entry that stores no gradient
+                    self.src.append((Dummy(x), id(x), x, False))
                     continue
                 if x.creator is None:
                     # a leaf: a stores_grad one gets its gradient from
@@ -82,16 +96,23 @@ class Operator:
                             and not x.data.requires_grad):
                         x.data.requires_grad_(True)
                     x.creator = Dummy(x)
-                self.src.append(x.creator)
+                self.src.append((x.creator, id(x), x, x.stores_grad))
             ys = self.forward(*raw)
         else:
             with torch.no_grad():
                 ys = self.forward(*raw)
+        single = not isinstance(ys, tuple)
+        if single:
+            ys = (ys,)
+        self._n_out = len(ys)
+        self._out_shapes = [(tuple(y.shape), y.dtype) for y in ys]
         creator = self if self.requires_grad else None
-        if isinstance(ys, tuple):
-            return tuple(Tensor._wrap(y, dev, self.requires_grad, creator)
-                         for y in ys)
-        return Tensor._wrap(ys, dev, self.requires_grad, creator)
+        outs = []
+        for i, y in enumerate(ys):
+            t = Tensor._wrap(y, dev, self.requires_grad, creator)
+            self.y_id2idx[id(t)] = i
+            outs.append(t)
+        return outs[0] if single else tuple(outs)
 
     def forward(self, *xs):
         raise NotImplementedError
@@ -100,14 +121,16 @@ class Operator:
 class Dummy(Operator):
     """Leaf placeholder: wraps a parameter or an input Tensor."""
 
-    def __init__(self, tensor: Tensor, name=None):
+    def __init__(self, tensor, name=None):
         super().__init__(name or "Dummy")
-        self.tensor = tensor
-        self.requires_grad = tensor.requires_grad
+        self.tensor = tensor        # a Tensor, or a raw input
+        self.y_id2idx = {id(tensor): 0}
+        self.requires_grad = bool(getattr(tensor, "requires_grad", False))
 
 
 def _stored_leaves(y: Tensor) -> dict:
-    """{id(leaf.data): leaf} of the stores_grad leaf Tensors behind y."""
+    """{id(leaf.data): leaf} of the stores_grad leaf Tensors behind y (a
+    raw input's leaf is never one)."""
     out, seen, stack = {}, set(), [y.creator]
     while stack:
         op = stack.pop()
@@ -115,10 +138,11 @@ def _stored_leaves(y: Tensor) -> dict:
             continue
         seen.add(id(op))
         if isinstance(op, Dummy):
-            if op.tensor.stores_grad:
-                out[id(op.tensor.data)] = op.tensor
+            t = op.tensor
+            if isinstance(t, Tensor) and t.stores_grad:
+                out[id(t.data)] = t
         else:
-            stack.extend(op.src)
+            stack.extend(entry[0] for entry in op.src)
     return out
 
 
@@ -526,10 +550,14 @@ class Expand(Operator):
 class Pad(Operator):
     """ONNX pads [begin_0, ..., begin_n-1, end_0, ..., end_n-1]."""
 
+    _TORCH_MODE = {"constant": "constant", "reflect": "reflect",
+                   "edge": "replicate"}
+
     def __init__(self, mode, pads, constant=0.0):
         super().__init__()
-        self.mode = {"constant": "constant", "reflect": "reflect",
-                     "edge": "replicate"}[mode]
+        if mode not in self._TORCH_MODE:
+            raise KeyError(mode)
+        self.mode = mode         # the ONNX name, which the exporter writes
         self.pads = [int(p) for p in pads]
         self.constant = constant
 
@@ -542,7 +570,7 @@ class Pad(Operator):
             return F.pad(x, tp, value=self.constant)
         while len(tp) > 2 and tp[-1] == 0 and tp[-2] == 0:
             tp = tp[:-2]         # torch pads only trailing dims so
-        return F.pad(x, tp, mode=self.mode)
+        return F.pad(x, tp, mode=self._TORCH_MODE[self.mode])
 
 
 class Cast(Operator):
@@ -978,7 +1006,8 @@ class _FlashAttention(Operator):
         self.use_kernel = use_kernel
 
     def forward(self, q, k, v):
-        return flash_attention(q, k, v, self.causal,
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), self.causal,
                                use_kernel=self.use_kernel)
 
 
@@ -1195,7 +1224,12 @@ def batchnorm_2d(x, gamma, beta, running_mean, running_var, momentum=0.9,
     them."""
     rm, rv = _raw(running_mean), _raw(running_var)
     if train:
-        y = _BatchNorm2d(eps)(x, gamma, beta)
+        op = _BatchNorm2d(eps)
+        # the running statistics and momentum, for the ONNX exporter (its
+        # BatchNormalization node takes all five inputs)
+        op._bn_extras = (rm, rv)
+        op._bn_momentum = momentum
+        y = op(x, gamma, beta)
         _update_running(x, rm, rv, momentum)
         return y, rm, rv
     y = _BatchNorm2dInfer(eps)(x, gamma, beta, running_mean, running_var)
@@ -1331,3 +1365,567 @@ def round(x):  # noqa: A001  (name mandated by reference parity)
 
 def rounde(x):
     return Rounde()(x)
+
+
+# ======================= the operators only ONNX reaches ====================
+# Counterparts of the JAX package's UpSample ... LessOrEqual and Rope
+# (singa_tpu/autograd.py): the ONNX backend's handlers and the exporter
+# reach them. Forwards are torch ops; torch autograd gives the gradients,
+# which match the JAX vjps (TopK's values scatter back through the
+# selected slots, as the JAX hand backward does).
+
+_INDEX = torch.int32     # the JAX package's integer outputs with x64 off
+
+
+def _axes(x, axes):
+    return tuple(range(x.dim())) if axes is None else tuple(axes)
+
+
+def _index_tensor(indices, x, axis):
+    """Host indices as a long tensor on x's device, negatives wrapped."""
+    idx = torch.as_tensor(np.asarray(indices, np.int64), device=x.device)
+    return idx % x.shape[axis]
+
+
+class UpSample(Operator):
+    def __init__(self, scales, mode="nearest"):
+        super().__init__()
+        self.scales = [float(s) for s in scales]
+        if mode != "nearest":
+            raise ValueError("only nearest upsample is supported")
+
+    def forward(self, x):
+        for a, s in enumerate(self.scales):
+            if s != 1.0:
+                x = x.repeat_interleave(int(s), dim=a)
+        return x
+
+
+class DepthToSpace(Operator):
+    def __init__(self, blocksize, mode="DCR"):
+        super().__init__()
+        self.b, self.mode = blocksize, mode
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        b = self.b
+        if self.mode == "DCR":
+            y = x.reshape(n, b, b, c // (b * b), h, w)
+            y = y.permute(0, 3, 4, 1, 5, 2)
+        else:  # CRD
+            y = x.reshape(n, c // (b * b), b, b, h, w)
+            y = y.permute(0, 1, 4, 2, 5, 3)
+        return y.reshape(n, c // (b * b), h * b, w * b)
+
+
+class SpaceToDepth(Operator):
+    def __init__(self, blocksize):
+        super().__init__()
+        self.b = blocksize
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        b = self.b
+        y = x.reshape(n, c, h // b, b, w // b, b)
+        y = y.permute(0, 3, 5, 1, 2, 4)
+        return y.reshape(n, c * b * b, h // b, w // b)
+
+
+class Shape(Operator):
+    never_requires_grad = True
+
+    def forward(self, x):
+        return torch.tensor(tuple(x.shape), dtype=_INDEX, device=x.device)
+
+
+class NonZero(Operator):
+    """Indices of the non-zero elements, (ndim, n): a data-dependent
+    shape, so it runs eagerly (the JAX package computes it on the host)
+    and raises inside a CUDA-graph capture."""
+    never_requires_grad = True
+
+    def forward(self, x):
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "NonZero has a data-dependent output shape and cannot be "
+                "captured in a CUDA graph; run this graph eagerly "
+                "(compile(..., use_graph=False))")
+        return torch.stack(torch.nonzero(x, as_tuple=True)).to(_INDEX)
+
+
+class OneHot(Operator):
+    """jax.nn.one_hot: an index outside [0, depth) gives a row of `off`."""
+    never_requires_grad = True
+
+    def __init__(self, depth, values=(0.0, 1.0), axis=-1):
+        super().__init__()
+        self.depth, self.values, self.axis = depth, values, axis
+
+    def forward(self, idx):
+        off, on = (float(v) for v in self.values)
+        classes = torch.arange(self.depth, device=idx.device)
+        oh = (idx.long().unsqueeze(-1) == classes).float()
+        if self.axis != -1:
+            oh = torch.movedim(oh, -1, self.axis)
+        return oh * (on - off) + off
+
+
+class ConstantOfShape(Operator):
+    never_requires_grad = True
+
+    def __init__(self, value=0.0, dtype=torch.float32):
+        super().__init__()
+        self.value, self.dtype = value, _resolve_dtype(dtype)
+
+    def forward(self, shape):
+        return torch.full(tuple(int(s) for s in shape.tolist()), self.value,
+                          dtype=self.dtype, device=shape.device)
+
+
+class ScatterElements(Operator):
+    def __init__(self, indices, axis=0):
+        super().__init__()
+        self.indices = np.asarray(indices, np.int64)
+        self.axis = axis
+
+    def forward(self, x, updates):
+        a = self.axis % x.dim()
+        return x.scatter(a, _index_tensor(self.indices, x, a), updates)
+
+
+class Rope(Operator):
+    """Rotary position embedding on (B, H, S, D) q or k (NeoX halves),
+    positions 0..S-1. `seq_axis` (positions offset under sequence
+    parallelism) comes with the distribution slice."""
+
+    def __init__(self, theta=10000.0, seq_axis=None):
+        super().__init__("Rope")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "Rope's seq_axis comes with the distribution slice")
+        self.theta = float(theta)
+        self.seq_axis = seq_axis
+
+    def forward(self, x):
+        cos, sin = rope_tables(torch.arange(x.shape[-2], device=x.device),
+                               x.shape[-1], self.theta)
+        return apply_rope(x, cos, sin)
+
+
+class _ArgReduce(Operator):
+    never_requires_grad = True
+    _fn = None
+
+    def __init__(self, axis=0, keepdims=True, select_last_index=False):
+        super().__init__()
+        self.axis, self.keepdims = int(axis), bool(keepdims)
+        self.last = bool(select_last_index)
+
+    def forward(self, x):
+        # torch's argmax/argmin take the first of equal values
+        fn = type(self)._fn
+        if self.last:
+            n = x.shape[self.axis]
+            y = n - 1 - fn(torch.flip(x, (self.axis,)), dim=self.axis)
+        else:
+            y = fn(x, dim=self.axis)
+        y = y.to(_INDEX)
+        return y.unsqueeze(self.axis) if self.keepdims else y
+
+
+class ArgMax(_ArgReduce):
+    _fn = staticmethod(torch.argmax)
+
+
+class ArgMin(_ArgReduce):
+    _fn = staticmethod(torch.argmin)
+
+
+def _prod(x, axes, keepdims):
+    for a in sorted((a % x.dim() for a in axes), reverse=True):
+        x = torch.prod(x, dim=a, keepdim=True)
+    if not keepdims:
+        x = x.squeeze(tuple(a % (x.dim()) for a in axes))
+    return x
+
+
+class _Reduce(Operator):
+    """Shared shell for the ONNX Reduce* family."""
+    _fn = None
+
+    def __init__(self, axes=None, keepdims=True):
+        super().__init__()
+        self.axes = tuple(int(a) for a in axes) if axes is not None else None
+        self.keepdims = bool(keepdims)
+
+    def forward(self, x):
+        return type(self)._fn(x, _axes(x, self.axes), self.keepdims)
+
+
+class ReduceMax(_Reduce):
+    _fn = staticmethod(lambda x, a, k: torch.amax(x, dim=a, keepdim=k))
+
+
+class ReduceMin(_Reduce):
+    _fn = staticmethod(lambda x, a, k: torch.amin(x, dim=a, keepdim=k))
+
+
+class ReduceProd(_Reduce):
+    _fn = staticmethod(_prod)
+
+
+class ReduceL1(_Reduce):
+    _fn = staticmethod(
+        lambda x, a, k: torch.sum(torch.abs(x), dim=a, keepdim=k))
+
+
+class ReduceL2(_Reduce):
+    _fn = staticmethod(
+        lambda x, a, k: torch.sqrt(torch.sum(x * x, dim=a, keepdim=k)))
+
+
+class ReduceLogSum(_Reduce):
+    _fn = staticmethod(
+        lambda x, a, k: torch.log(torch.sum(x, dim=a, keepdim=k)))
+
+
+class ReduceLogSumExp(_Reduce):
+    _fn = staticmethod(lambda x, a, k: torch.logsumexp(x, dim=a, keepdim=k))
+
+
+class ReduceSumSquare(_Reduce):
+    _fn = staticmethod(lambda x, a, k: torch.sum(x * x, dim=a, keepdim=k))
+
+
+class LogSoftmax(Operator):
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = int(axis)
+
+    def forward(self, x):
+        return torch.log_softmax(x, dim=self.axis)
+
+
+class Hardmax(Operator):
+    """One-hot of the first maximum along `axis`."""
+    never_requires_grad = True
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self.axis = int(axis)
+
+    def forward(self, x):
+        idx = torch.argmax(x, dim=self.axis, keepdim=True)
+        return torch.zeros_like(x).scatter(self.axis, idx, 1.0)
+
+
+class HardSwish(Operator):
+    def forward(self, x):
+        return x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+class Celu(Operator):
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self.alpha = float(alpha)
+
+    def forward(self, x):
+        a = self.alpha
+        return torch.clamp(x, min=0.0) + torch.clamp(
+            a * (torch.exp(x / a) - 1.0), max=0.0)
+
+
+class ThresholdedRelu(Operator):
+    def __init__(self, alpha=1.0):
+        super().__init__()
+        self.alpha = float(alpha)
+
+    def forward(self, x):
+        return torch.where(x > self.alpha, x, torch.zeros_like(x))
+
+
+class Shrink(Operator):
+    def __init__(self, bias=0.0, lambd=0.5):
+        super().__init__()
+        self.bias, self.lambd = float(bias), float(lambd)
+
+    def forward(self, x):
+        zero = torch.zeros_like(x)
+        return torch.where(x < -self.lambd, x + self.bias,
+                           torch.where(x > self.lambd, x - self.bias, zero))
+
+
+class Mod(Operator):
+    """fmod=1: the sign of the dividend (C's fmod); fmod=0: the sign of
+    the divisor (Python's %). Float operands carry gradient (1 for the
+    dividend almost everywhere)."""
+
+    def __init__(self, fmod=0):
+        super().__init__()
+        self.fmod = int(fmod)
+
+    def forward(self, a, b):
+        return torch.fmod(a, b) if self.fmod else torch.remainder(a, b)
+
+
+class CumSum(Operator):
+    def __init__(self, axis=0, exclusive=0, reverse=0):
+        super().__init__()
+        self.axis = int(axis)
+        self.exclusive, self.reverse = int(exclusive), int(reverse)
+
+    def forward(self, x):
+        ax = self.axis % x.dim()
+        if self.reverse:
+            x = torch.flip(x, (ax,))
+        y = torch.cumsum(x, dim=ax)
+        if self.exclusive:
+            # shift by one along the axis, a zero first
+            y = torch.cat([torch.zeros_like(y.narrow(ax, 0, 1)),
+                           y.narrow(ax, 0, y.shape[ax] - 1)], dim=ax)
+        if self.reverse:
+            y = torch.flip(y, (ax,))
+        return y
+
+
+class EyeLike(Operator):
+    never_requires_grad = True
+
+    def __init__(self, k=0, dtype=None):
+        super().__init__()
+        self.k = int(k)
+        self.dtype = dtype
+
+    def forward(self, x):
+        n, m = x.shape[-2], x.shape[-1]
+        dt = _resolve_dtype(self.dtype) or x.dtype
+        ones = torch.ones((n, m), dtype=dt, device=x.device)
+        return torch.triu(torch.tril(ones, self.k), self.k)
+
+
+class Size(Operator):
+    never_requires_grad = True
+
+    def forward(self, x):
+        return torch.tensor(x.numel(), dtype=_INDEX, device=x.device)
+
+
+class IsNaN(Operator):
+    never_requires_grad = True
+
+    def forward(self, x):
+        return torch.isnan(x).float()
+
+
+class IsInf(Operator):
+    never_requires_grad = True
+
+    def __init__(self, detect_negative=1, detect_positive=1):
+        super().__init__()
+        self.neg, self.pos = bool(detect_negative), bool(detect_positive)
+
+    def forward(self, x):
+        hit = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+        if self.pos:
+            hit = hit | torch.isposinf(x)
+        if self.neg:
+            hit = hit | torch.isneginf(x)
+        return hit.float()
+
+
+class Trilu(Operator):
+    def __init__(self, upper=1, k=0):
+        super().__init__()
+        self.upper, self.k = int(upper), int(k)
+
+    def forward(self, x):
+        return torch.triu(x, self.k) if self.upper else torch.tril(x, self.k)
+
+
+class GatherElements(Operator):
+    """torch.gather along `axis` (ONNX GatherElements)."""
+
+    def __init__(self, axis, indices):
+        super().__init__()
+        self.axis = int(axis)
+        self.indices = np.asarray(indices, np.int64)
+
+    def forward(self, x):
+        a = self.axis % x.dim()
+        return torch.gather(x, a, _index_tensor(self.indices, x, a))
+
+
+class TopK(Operator):
+    """(values, indices) of the k largest (or smallest) along `axis`;
+    equal values in index order, as lax.top_k gives them (`_top_k`). The
+    values carry gradient, the int32 indices none."""
+
+    def __init__(self, k, axis=-1, largest=True):
+        super().__init__()
+        self.k, self.axis, self.largest = int(k), int(axis), bool(largest)
+
+    def forward(self, x):
+        ax = self.axis % x.dim()
+        xs = torch.movedim(x, ax, -1)
+        v, i = _top_k(xs if self.largest else -xs, self.k)
+        v = v if self.largest else -v
+        return (torch.movedim(v, -1, ax),
+                torch.movedim(i, -1, ax).to(_INDEX))
+
+
+class LRN(Operator):
+    """Local response normalization over channels; the ONNX window is
+    [c - floor((size-1)/2), c + ceil((size-1)/2)]."""
+
+    def __init__(self, size, alpha=1e-4, beta=0.75, bias=1.0):
+        super().__init__()
+        self.size = int(size)
+        self.alpha, self.beta, self.bias = float(alpha), float(beta), \
+            float(bias)
+
+    def forward(self, x):
+        half = (self.size - 1) // 2
+        sq = F.pad(x * x, (0, 0, 0, 0, half, self.size - 1 - half))
+        acc = builtins.sum(sq[:, i:i + x.shape[1]]
+                           for i in range(self.size))
+        return x / torch.pow(self.bias + self.alpha / self.size * acc,
+                             self.beta)
+
+
+class MeanVarianceNormalization(Operator):
+    def __init__(self, axes=(0, 2, 3)):
+        super().__init__()
+        self.axes = tuple(int(a) for a in axes)
+
+    def forward(self, x):
+        v, m = torch.var_mean(x, dim=self.axes, keepdim=True, correction=0)
+        return (x - m) / torch.sqrt(v + 1e-9)
+
+
+class LpNormalization(Operator):
+    def __init__(self, axis=-1, p=2):
+        super().__init__()
+        self.axis, self.p = int(axis), int(p)
+
+    def forward(self, x):
+        if self.p == 1:
+            n = torch.sum(torch.abs(x), dim=self.axis, keepdim=True)
+        else:
+            n = torch.sqrt(torch.sum(x * x, dim=self.axis, keepdim=True))
+        return x / torch.clamp(n, min=1e-12)
+
+
+class InstanceNorm2d(Operator):
+    """Per-sample, per-channel normalization over H and W (NCHW)."""
+
+    def __init__(self, eps=1e-5):
+        super().__init__()
+        self.eps = float(eps)
+
+    def forward(self, x, gamma, beta):
+        v, m = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+        xhat = (x - m) * torch.rsqrt(v + self.eps)
+        return xhat * gamma.reshape(1, -1, 1, 1) + beta.reshape(1, -1, 1, 1)
+
+
+class _ConvTranspose2d(Operator):
+    """Transposed convolution (NCHW) with ONNX's weight layout, (C_in,
+    C_out / group, kH, kW), which is torch's; out = (in - 1) * stride -
+    2 * pad + dilation * (k - 1) + output_padding + 1."""
+
+    def __init__(self, stride=(1, 1), padding=(0, 0), output_padding=(0, 0),
+                 dilation=(1, 1), group=1):
+        super().__init__()
+        self.stride = tuple(int(s) for s in stride)
+        self.padding = tuple(int(p) for p in padding)
+        self.output_padding = tuple(int(p) for p in output_padding)
+        self.dilation = tuple(int(d) for d in dilation)
+        self.group = int(group)
+
+    def forward(self, x, W, b=None):
+        return F.conv_transpose2d(x, W, b, self.stride, self.padding,
+                                  self.output_padding, self.group,
+                                  self.dilation)
+
+
+class GlobalMaxPool(Operator):
+    def forward(self, x):
+        return torch.amax(x, dim=(2, 3), keepdim=True)
+
+
+class Einsum(Operator):
+    def __init__(self, equation):
+        super().__init__()
+        self.equation = equation
+
+    def forward(self, *xs):
+        return torch.einsum(self.equation, *xs)
+
+
+class GreaterOrEqual(_CmpBinary):
+    _fn = staticmethod(torch.ge)
+
+
+class LessOrEqual(_CmpBinary):
+    _fn = staticmethod(torch.le)
+
+
+argmax = _functional(ArgMax)
+argmin = _functional(ArgMin)
+reduce_max = _functional(ReduceMax)
+reduce_min = _functional(ReduceMin)
+reduce_prod = _functional(ReduceProd)
+log_softmax = _functional(LogSoftmax)
+hardswish = _functional(HardSwish)
+celu = _functional(Celu)
+cumsum = _functional(CumSum)
+trilu = _functional(Trilu)
+topk = _functional(TopK)
+lrn = _functional(LRN)
+einsum = _functional(Einsum)
+global_max_pool = _functional(GlobalMaxPool)
+
+
+def upsample(x, mode="nearest", scales=None):
+    return UpSample(scales, mode)(x)
+
+
+def depth_to_space(x, blocksize, mode="DCR"):
+    return DepthToSpace(blocksize, mode)(x)
+
+
+def space_to_depth(x, blocksize):
+    return SpaceToDepth(blocksize)(x)
+
+
+def onehot(depth, indices, values=(0.0, 1.0), axis=-1):
+    return OneHot(depth, values, axis)(indices)
+
+
+def instance_norm(x, gamma, beta, eps=1e-5):
+    return InstanceNorm2d(eps)(x, gamma, beta)
+
+
+def conv_transpose2d(x, W, b=None, stride=(1, 1), padding=(0, 0),
+                     output_padding=(0, 0), dilation=(1, 1), group=1):
+    op = _ConvTranspose2d(stride, padding, output_padding, dilation, group)
+    return op(x, W, b) if b is not None else op(x, W)
+
+
+def scatter_elements(x, indices, updates, axis=0):
+    idx = _raw(indices)
+    if torch.is_tensor(idx):
+        idx = idx.detach().cpu().numpy()
+    return ScatterElements(idx, axis)(x, updates)
+
+
+def shape(x):
+    return Shape()(x)
+
+
+def constant_of_shape(x, value=0):
+    return ConstantOfShape(value)(x)
+
+
+def nonzero(x):
+    return NonZero()(x)

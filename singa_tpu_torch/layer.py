@@ -26,8 +26,13 @@ Embedding the looked-up rows; MultiHeadAttention its input, the four
 projections and each bias. Batch norm, LayerNorm and the losses are fp32
 islands.
 
-The GPT's layers (LayerNorm, MultiHeadAttention, TransformerBlock) keep
-the port's form: built with their widths, and fed raw torch tensors.
+The transformer layers (LayerNorm, MultiHeadAttention, TransformerBlock)
+take the JAX package's signatures and defaults and defer their widths to
+the first input; the GPT builds them with `dim=` and `generator=`, which
+draws the weights at construction. Every step of their forwards is an
+autograd operator, so a Tensor input records on the tape (and the ONNX
+exporter can write it), while raw torch tensors, the GPT's training and
+serving path, take the same torch ops with nothing recorded.
 """
 
 from __future__ import annotations
@@ -737,51 +742,88 @@ class CudnnRNN(Layer):
 FusedRNN = CudnnRNN
 
 
-# ---- the GPT's transformer stack, built with its widths --------------------
+# ---- the transformer stack (JAX layer.py:611-783) ---------------------------
+
+
+def _no_mesh(seq_axis, tp_axis):
+    if seq_axis is not None or tp_axis is not None:
+        raise NotImplementedError(
+            "seq_axis and tp_axis (ring attention, tensor parallelism) "
+            "come with the distribution slice")
 
 
 class LayerNorm(Layer):
-    """LayerNorm as an fp32 island (biased variance), output in the input
-    dtype: variance in bf16 is lossy."""
+    """LayerNorm over the last axis as an fp32 island (biased variance),
+    output in the input dtype: variance in bf16 is lossy. gamma and beta
+    are made at the first call, of the input's width, or at construction
+    with `dim`."""
 
-    def __init__(self, dim, eps=1e-5):
-        super().__init__()
+    def __init__(self, eps=1e-5, name=None, dim=None):
+        super().__init__(name)
         self.eps = eps
-        self.gamma = nn.Parameter(torch.ones(dim))
-        self.beta = nn.Parameter(torch.zeros(dim))
-        self._initialized = True
+        if dim is not None:
+            self.gamma = nn.Parameter(torch.ones(dim))
+            self.beta = nn.Parameter(torch.zeros(dim))
+            self._initialized = True
+
+    def initialize(self, x):
+        d = (x.shape[-1],)
+        self._new_param("gamma", d, x, value=1.0)
+        self._new_param("beta", d, x, value=0.0)
 
     def forward(self, x):
         return autograd.layernorm(x, self.gamma, self.beta, self.eps)
 
 
 class MultiHeadAttention(Layer):
-    """Self-attention over (B, S, E) through the flash-attention kernel;
-    `num_kv_heads` < num_heads is GQA (each kv head serves num_heads /
-    num_kv_heads consecutive query heads), `rope` rotates q and k."""
+    """Self-attention over (B, S, E) through the flash-attention kernel
+    (autograd.attention: K1 forward, K2 backward). `num_kv_heads` <
+    num_heads is GQA (each kv head serves num_heads / num_kv_heads
+    consecutive query heads), `rope` rotates q and k. Wq, Wk, Wv, Wo
+    (and with `bias` bq, bk, bv, bo) are glorot-uniform, made at the
+    first call from the input's width, or at construction with `dim`
+    (drawn from `generator`)."""
 
-    def __init__(self, dim, num_heads, causal=True, bias=False,
-                 num_kv_heads=None, rope=False, rope_theta=10000.0,
-                 generator=None):
-        super().__init__()
+    def __init__(self, num_heads, causal=False, seq_axis=None, tp_axis=None,
+                 bias=False, num_kv_heads=None, rope=False,
+                 rope_theta=10000.0, name=None, dim=None, generator=None):
+        super().__init__(name)
+        _no_mesh(seq_axis, tp_axis)
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
-        if num_heads % self.num_kv_heads or dim % num_heads:
-            raise ValueError(f"dim {dim}, {num_heads} heads, "
-                             f"{self.num_kv_heads} kv heads do not divide")
+        if num_heads % self.num_kv_heads:
+            raise ValueError(f"{num_heads} heads, {self.num_kv_heads} kv "
+                             "heads do not divide")
         self.causal = causal
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
         self.use_bias = bias
-        kv_e = self.num_kv_heads * (dim // num_heads)
+        if dim is not None:
+            def make(attr, shape, glorot):
+                setattr(self, attr, nn.Parameter(
+                    glorot_uniform(*shape, generator) if glorot
+                    else torch.zeros(shape)))
+            self._make_params(dim, make)
+            self._initialized = True
+
+    def _make_params(self, e, make):
+        """Wq, bq, Wk, bk, Wv, bv, Wo, bo for width `e`, in that order:
+        `make(attr, shape, glorot)` makes one (glorot-uniform, else
+        zeros)."""
+        if e % self.num_heads:
+            raise ValueError(f"width {e} does not divide into "
+                             f"{self.num_heads} heads")
+        kv_e = self.num_kv_heads * (e // self.num_heads)
         for attr in ("Wq", "Wk", "Wv", "Wo"):
-            out_e = kv_e if attr in ("Wk", "Wv") else dim
-            setattr(self, attr, nn.Parameter(
-                glorot_uniform(dim, out_e, generator)))
-            if bias:
-                setattr(self, "b" + attr[1].lower(), nn.Parameter(
-                    torch.zeros(out_e)))
-        self._initialized = True
+            out_e = kv_e if attr in ("Wk", "Wv") else e
+            make(attr, (e, out_e), True)
+            if self.use_bias:
+                make("b" + attr[1].lower(), (out_e,), False)
+
+    def initialize(self, x):
+        self._make_params(x.shape[-1], lambda attr, shape, glorot: (
+            self._new_param(attr, shape, x, initializer.glorot_uniform
+                            if glorot else None)))
 
     def forward(self, x):
         B, S, E = x.shape
@@ -791,68 +833,88 @@ class MultiHeadAttention(Layer):
             if self.use_bias else (None,) * 4
 
         def proj(W, b, heads):
-            y = x @ W
+            y = autograd.matmul(x, W)
             if b is not None:
-                y = y + autograd.compute_cast(b)
-            return y.reshape(B, S, heads, -1).transpose(1, 2)  # (B,H,S,D)
+                y = autograd.add_bias(y, autograd.compute_cast(b), axis=0)
+            y = autograd.reshape(y, (B, S, heads, -1))
+            return autograd.transpose(y, (0, 2, 1, 3))    # (B, H, S, D)
 
         q = proj(Wq, bq, self.num_heads)
         k = proj(Wk, bk, self.num_kv_heads)
         v = proj(Wv, bv, self.num_kv_heads)
         if self.rope:
             # rotate before the kv-head repeat, as the JAX layer does
-            cos, sin = autograd.rope_tables(
-                torch.arange(S, device=x.device), q.shape[-1],
-                self.rope_theta)
-            q, k = autograd.apply_rope(q, cos, sin), \
-                autograd.apply_rope(k, cos, sin)
+            q = autograd.Rope(self.rope_theta)(q)
+            k = autograd.Rope(self.rope_theta)(k)
         grp = self.num_heads // self.num_kv_heads
         if grp > 1:
             # GQA: each kv head serves `grp` consecutive query heads; the
             # repeat's gradient sums over the group
-            k = k.repeat_interleave(grp, dim=1)
-            v = v.repeat_interleave(grp, dim=1)
-        o = autograd.attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=self.causal)
-        y = o.transpose(1, 2).reshape(B, S, E) @ Wo
+            k = autograd.UpSample([1, grp, 1, 1])(k)
+            v = autograd.UpSample([1, grp, 1, 1])(v)
+        o = autograd.attention(q, k, v, causal=self.causal)
+        o = autograd.reshape(autograd.transpose(o, (0, 2, 1, 3)),
+                             (B, S, -1))
+        y = autograd.matmul(o, Wo)
         if bo is not None:
-            y = y + autograd.compute_cast(bo)
+            y = autograd.add_bias(y, autograd.compute_cast(bo), axis=0)
         return y
 
 
 class TransformerBlock(Layer):
-    """Pre-LN causal block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU
-    MLP. `moe_experts` > 0 replaces the MLP by a top-`moe_k` MoE FFN
+    """Pre-LN block: x + MHA(LN(x)); x + MLP(LN(x)), tanh-GELU MLP.
+    `moe_experts` > 0 replaces the MLP by a top-`moe_k` MoE FFN
     (`self.moe`, no fc1/fc2): x + MoE(LN(x)), its router losses on
-    `self.moe` after each forward."""
+    `self.moe` after each forward. fc1/fc2 (or the experts' width) follow
+    the first input's width, or `dim` at construction, drawn from
+    `generator`. `ep_axis` is accepted and runs on one device, as the
+    JAX layer does outside a mesh."""
 
-    def __init__(self, dim, num_heads, mlp_ratio=4, attn_bias=False,
-                 num_kv_heads=None, rope=False, rope_theta=10000.0,
-                 generator=None, moe_experts=0, moe_k=1, ep_axis=None,
-                 moe_capacity_factor=1.25):
-        super().__init__()
-        self.ln1 = LayerNorm(dim)
+    def __init__(self, num_heads, mlp_ratio=4, causal=True, seq_axis=None,
+                 tp_axis=None, attn_bias=False, moe_experts=0, moe_k=1,
+                 ep_axis=None, moe_capacity_factor=1.25, num_kv_heads=None,
+                 rope=False, rope_theta=10000.0, name=None, dim=None,
+                 generator=None):
+        super().__init__(name)
+        _no_mesh(seq_axis, tp_axis)
+        self.ln1 = LayerNorm(dim=dim)
         self.attn = MultiHeadAttention(
-            dim, num_heads, causal=True, bias=attn_bias,
+            num_heads, causal=causal, bias=attn_bias,
             num_kv_heads=num_kv_heads, rope=rope, rope_theta=rope_theta,
-            generator=generator)
-        self.ln2 = LayerNorm(dim)
+            dim=dim, generator=generator)
+        self.ln2 = LayerNorm(dim=dim)
+        self.mlp_ratio = mlp_ratio
         self.moe_experts = moe_experts
         if moe_experts:
-            self.moe = MoE(moe_experts, hidden=dim * mlp_ratio,
-                           capacity_factor=moe_capacity_factor,
+            self.moe = MoE(moe_experts, hidden=dim * mlp_ratio if dim
+                           else None, capacity_factor=moe_capacity_factor,
                            ep_axis=ep_axis, k=moe_k, dim=dim,
                            generator=generator)
-        else:
-            self.fc1 = Linear(dim, dim * mlp_ratio, generator=generator)
-            self.fc2 = Linear(dim * mlp_ratio, dim, generator=generator)
-        self._initialized = True
+        if dim is not None:
+            if not moe_experts:
+                self._make_mlp(dim, generator)
+            self._initialized = True
+
+    def _make_mlp(self, e, generator=None):
+        """fc1 (e -> mlp_ratio * e) and fc2 back, drawn now from
+        `generator`, else at their first call."""
+        h = e * self.mlp_ratio
+        self.fc1 = Linear(e, h, generator=generator)
+        self.fc2 = Linear(h, e, generator=generator)
+
+    def initialize(self, x):
+        e = x.shape[-1]
+        if self.moe_experts:
+            self.moe.hidden = e * self.mlp_ratio
+            return
+        self._make_mlp(e)
 
     def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+        x = autograd.add(x, self.attn(self.ln1(x)))
         if self.moe_experts:
-            return x + self.moe(self.ln2(x))
-        return x + self.fc2(autograd.gelu(self.fc1(self.ln2(x))))
+            return autograd.add(x, self.moe(self.ln2(x)))
+        return autograd.add(x, self.fc2(autograd.gelu(self.fc1(
+            self.ln2(x)))))
 
 
 class MoE(Layer):

@@ -22,9 +22,23 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import autograd
 from .. import device as device_mod
 from .. import layer, model, serving
-from ..tensor import _raw
+from ..tensor import Tensor, _raw
+
+
+class _PosSlice(autograd.Operator):
+    """The first `length` rows of the position table (the JAX package's
+    `_PosSlice` at offset 0: sequence parallelism, which offsets it,
+    comes with the distribution slice)."""
+
+    def __init__(self, length):
+        super().__init__("PosSlice")
+        self.length = length
+
+    def forward(self, table):
+        return table[:self.length]
 
 
 class GPT(model.Model):
@@ -71,13 +85,13 @@ class GPT(model.Model):
                                  out_dtype="float32", generator=gen)
         self.blocks = nn.ModuleList(
             layer.TransformerBlock(
-                dim, num_heads, mlp_ratio, attn_bias=attn_bias,
+                num_heads, mlp_ratio, causal=True, attn_bias=attn_bias,
                 num_kv_heads=num_kv_heads, rope=pos_encoding == "rope",
-                rope_theta=rope_theta, generator=gen,
-                moe_experts=moe_experts, moe_k=moe_k, ep_axis=ep_axis,
-                moe_capacity_factor=moe_capacity_factor)
+                rope_theta=rope_theta, moe_experts=moe_experts, moe_k=moe_k,
+                ep_axis=ep_axis, moe_capacity_factor=moe_capacity_factor,
+                dim=dim, generator=gen)
             for _ in range(num_layers))
-        self.ln_f = layer.LayerNorm(dim)
+        self.ln_f = layer.LayerNorm(dim=dim)
         self.sce = layer.SoftMaxCrossEntropy()
         if pos_encoding == "learned":
             self.pos_embed = nn.Parameter(
@@ -93,11 +107,23 @@ class GPT(model.Model):
         """(B, S) token ids (a tensor, a Tensor or an array) -> (B, S, V)
         fp32 logits. Under the bf16 policy the embedding rows are bf16
         and adding the fp32 position table makes the residual stream
-        fp32, as in the JAX package."""
-        ids = torch.as_tensor(_raw(ids), device=self.device).long()
+        fp32, as in the JAX package.
+
+        A `tensor.Tensor` of ids in training mode (`autograd.training`)
+        runs on the tape, as the JAX GPT does, and returns a Tensor with
+        creators (what `sonnx.export` traces); anything else runs the
+        same operators on raw tensors and records nothing. The position
+        rows go through `_PosSlice` and Expand on both paths (on raw
+        tensors the same values as the broadcast add)."""
+        on_tape = isinstance(ids, Tensor) and autograd.training
+        if not on_tape:
+            ids = torch.as_tensor(_raw(ids), device=self.device).long()
         h = self.tok_embed(ids)
         if self.pos_encoding == "learned":
-            h = h + self.pos_embed[:ids.shape[1]]
+            table = Tensor._wrap(self.pos_embed, h.device, True) \
+                if on_tape else self.pos_embed
+            pos = _PosSlice(ids.shape[1])(table)
+            h = autograd.add(h, autograd.expand(pos, h.shape))
         for b in self.blocks:
             h = b(h)
         return self.head(self.ln_f(h))
@@ -116,8 +142,9 @@ class GPT(model.Model):
         """One training step: forward, the mean cross-entropy over every
         position (plus the MoE router losses), backward and the
         optimizer's update. Returns (logits (B, S, V) fp32, loss),
-        detached from the spent graph."""
-        logits = nn.Module.__call__(self, ids)
+        detached from the spent graph. Tensor ids train on the raw path
+        too (the tape would give torch's same gradients)."""
+        logits = nn.Module.__call__(self, _raw(ids))
         flat = logits.reshape(-1, self.vocab_size)
         tflat = torch.as_tensor(_raw(targets),
                                 device=self.device).reshape(-1)

@@ -64,8 +64,9 @@ def _lstm(x, hx, cx, Wx, Wh, b, lengths=None):
 class _LSTMScan(Operator):
     """Multi-step LSTM as one tape node: (ys, hy, cy)."""
 
-    def __init__(self):
+    def __init__(self, hidden: int):
         super().__init__("LSTMScan")
+        self.hidden = hidden
 
     def forward(self, x, hx, cx, Wx, Wh, b):
         return _lstm(x, hx, cx, Wx, Wh, b)
@@ -73,7 +74,7 @@ class _LSTMScan(Operator):
 
 def lstm_scan(x, hx, cx, Wx, Wh, b):
     """x (seq, batch, feature) -> (ys, hy, cy)."""
-    return _LSTMScan()(x, hx, cx, Wx, Wh, b)
+    return _LSTMScan(Wh.shape[0])(x, hx, cx, Wx, Wh, b)
 
 
 class _LSTMScanEx(Operator):
@@ -83,8 +84,9 @@ class _LSTMScanEx(Operator):
     at each sample's last step. Lengths are an integer input that
     carries no gradient."""
 
-    def __init__(self):
+    def __init__(self, hidden: int):
         super().__init__("LSTMScanEx")
+        self.hidden = hidden
 
     def forward(self, x, lengths, hx, cx, Wx, Wh, b):
         return _lstm(x, hx, cx, Wx, Wh, b, lengths)
@@ -92,7 +94,7 @@ class _LSTMScanEx(Operator):
 
 def lstm_scan_ex(x, lengths, hx, cx, Wx, Wh, b):
     """Variable-length lstm_scan; lengths (batch,) int."""
-    return _LSTMScanEx()(x, lengths, hx, cx, Wx, Wh, b)
+    return _LSTMScanEx(Wh.shape[0])(x, lengths, hx, cx, Wx, Wh, b)
 
 
 class _ReversePadded(Operator):
@@ -112,12 +114,13 @@ def reverse_padded(x, lengths):
 
 
 class _GRUScan(Operator):
-    def __init__(self, linear_before_reset: bool = True):
+    def __init__(self, hidden: int, linear_before_reset: bool = True):
         super().__init__("GRUScan")
+        self.hidden = hidden
         self.lbr = bool(linear_before_reset)
 
     def forward(self, x, hx, Wx, Wh, b, rb=None):
-        H, lbr = Wh.shape[0], self.lbr
+        H, lbr = self.hidden, self.lbr
         zx_all = x @ Wx + b
         # without linear_before_reset the candidate's recurrent term is
         # recomputed from r*h, so only the r and u columns are needed
@@ -151,7 +154,7 @@ def gru_scan(x, hx, Wx, Wh, b, rb=None, linear_before_reset: bool = True):
     added to h @ Wh inside the reset multiply; without it the reset gate
     multiplies h before the candidate's recurrent matmul (ONNX GRU,
     linear_before_reset=0)."""
-    op = _GRUScan(linear_before_reset)
+    op = _GRUScan(Wh.shape[0], linear_before_reset)
     return op(x, hx, Wx, Wh, b, rb) if rb is not None \
         else op(x, hx, Wx, Wh, b)
 

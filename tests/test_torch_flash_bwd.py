@@ -120,8 +120,8 @@ def test_gqa_rope_attention_param_grads_match_jax():
     jparams = jm.get_params()
     want = {n: tensor.to_numpy(grads[p]) for n, p in jparams.items()}
 
-    tm = tl.MultiHeadAttention(E, 4, causal=True, bias=True, num_kv_heads=2,
-                               rope=True)
+    tm = tl.MultiHeadAttention(4, causal=True, bias=True, num_kv_heads=2,
+                               rope=True, dim=E)
     with torch.no_grad():
         for n, p in tm.named_parameters():
             p.copy_(torch.tensor(tensor.to_numpy(jparams[n])))

@@ -216,7 +216,7 @@ def test_moe_block_matches_jax():
     j = jl.TransformerBlock(4, moe_experts=4, moe_k=2)
     with _Train():
         j(jt.from_numpy(x, device=jdev))
-    t = tl.TransformerBlock(64, 4, moe_experts=4, moe_k=2,
+    t = tl.TransformerBlock(4, moe_experts=4, moe_k=2, dim=64,
                             generator=torch.Generator().manual_seed(0))
     assert not hasattr(t, "fc1") and t.moe.k == 2
     assert list(t.get_params()) == list(j.get_params())

@@ -183,10 +183,28 @@ Phases, each of which exits non-zero on failure:
    TorchScript exporter (sonnx.interop), imported on the card against
    torch's forward within ONNX_TOL. NonZero runs eagerly and refuses a
    capture.
-12. The `kernels` JSON line (the decode kernels with a `modes` entry per
+12. observe (metrics and spans) on the main paths. 12a phase 5's engine
+   (GPT-2-small bf16, 8 slots, page 16, 8 requests of prompt 256, +32)
+   with observe on, under torch.profiler: exact K1/K4 counts; requests,
+   admissions, tokens, prefills, steps and the TTFT histogram's count
+   equal to the run's own; the profiler's `serving.engine_prefill` and
+   `serving.engine_step` ranges as many as the span histogram counts;
+   the exposition parsed line by line; then the run with observe on and
+   off in three same-call turns (wall ms, tokens/s; printed only). 12b
+   the bench GPT step as a CUDA graph at Device.SetVerbosity(1),
+   SetSkipIteration(1), 6 steps: singa_steps_total and `model.step` 6,
+   exactly 8 + 8 K1/K2a a step, 5 fenced step times, the singa_hbm_*
+   gauges from the caching allocator, PrintTimeProfiling; then the
+   replayed step with observe on and off in turns. 12c mlp/native.py,
+   hfl/fedavg.py (two client processes) and qabot/qabot_train.py,
+   unmodified, through tests/test_torch_examples.py's alias runner on
+   the card, each within its own time limit and printing its last line
+   of work (model_selection/ms_mlp.py needs scikit-learn, which the
+   card's host lacks).
+13. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
-   `moe_generate`, `moe_engine` and `onnx_export`), then the card line,
-   then the result line.
+   `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine` and
+   `observe_train`), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -195,6 +213,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1476,7 +1495,11 @@ K3_KERNELS = ("flash_decode_kernel<", "flash_decode_kernel_merge")
 K4_KERNELS = ("paged_kernel<", "paged_kernel_merge")
 # profiler ranges (torch.profiler.record_function) that the port opens:
 # the optimizer's updates
-PROFILER_RANGES = ("opt.apply_updates",)
+#: observe.span's profiler ranges are named SPAN_TRACE_PREFIX + the span's
+#: path ("singa.span/model.step/opt.apply_updates"); observe.py's
+#: SPAN_TRACE_PREFIX, kept here so the script imports no module of the
+#: port before its checks
+SPAN_PREFIX = "singa.span/"
 TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
@@ -1490,9 +1513,10 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     busy share of the wall time (profiler on), and the time split into
     the named kernel categories, matrix products and the rest. The top
     kernels are printed, and those named in `require`, which must have
-    run; `spans` names profiler ranges (torch.profiler.record_function)
-    whose kernels' device time is printed too (they are also counted in
-    the categories)."""
+    run; `spans` names observe spans (their profiler ranges are
+    SPAN_PREFIX + the span's path; a span matches at any depth) whose
+    kernels' device time is printed too (they are also counted in the
+    categories)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1504,13 +1528,13 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     # device-side events only (kernels, copies): a CPU op's own device
-    # time counts the kernels it launched a second time. A profiler range
-    # of the port (PROFILER_RANGES) also shows on the device as one event
-    # spanning first to last kernel, idle gaps included: not a kernel
+    # time counts the kernels it launched a second time. An observe span's
+    # range also shows on the device as one event spanning first to last
+    # kernel, idle gaps included: not a kernel
     rows = [(e.device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-            and e.key not in PROFILER_RANGES]
+            and not e.key.startswith(SPAN_PREFIX)]
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
@@ -1543,10 +1567,13 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
     for span in spans:
         # the kernels launched inside the range (its host-side event's
         # device time), and the range's extent on the device's timeline
+        def is_span(name):
+            return name.startswith(SPAN_PREFIX) and (
+                name == SPAN_PREFIX + span or name.endswith("/" + span))
         ms = sum(e.device_time_total for e in prof.events()
-                 if e.name == span and e.device_type == DeviceType.CPU) / 1e3
+                 if is_span(e.name) and e.device_type == DeviceType.CPU) / 1e3
         extent = sum(e.device_time_total for e in prof.key_averages()
-                     if e.key == span and e.device_type == DeviceType.CUDA)
+                     if is_span(e.key) and e.device_type == DeviceType.CUDA)
         print(f"    range {span}: kernels {ms:.3f} ms of device time "
               f"({ms / busy:.1%}); on the device's timeline it spans "
               f"{extent / 1e3:.3f} ms" if ms else
@@ -1672,7 +1699,7 @@ def phase_train_fp32(torch, models, opt, transformer):
     mc = models.create_model("gpt", device="cpu", seed=SEED + 5, **cfg)
     mg = models.create_model("gpt", device="cuda", seed=SEED + 6, **cfg)
     transformer.load_singa_params(mg, {k: p.detach().numpy()
-                                       for k, p in mc.get_params().items()})
+                                       for k, p in mc._raw_params().items()})
     runs = []
     for m in (mc, mg):
         m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
@@ -1681,9 +1708,9 @@ def phase_train_fp32(torch, models, opt, transformer):
         runs.append(_steps(torch, m, tx.to(dev), ty.to(dev), 3)[0])
     lc, lg = runs
     rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
-    pc = mc.get_params()
+    pc = mc._raw_params()
     perr = max(float((p.detach().cpu() - pc[k].detach()).abs().max())
-               for k, p in mg.get_params().items())
+               for k, p in mg._raw_params().items())
     print(f"  losses card {[round(x, 6) for x in lg]}, CPU "
           f"{[round(x, 6) for x in lc]}: max relative difference "
           f"{rel:.3e}; params after 3 steps max abs difference {perr:.3e} "
@@ -1784,7 +1811,7 @@ def phase_resnet(torch, models, opt, tensor, device, layer):
                             num_classes=RESNET_CLASSES)
     m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
     m.compile([tx], is_train=True, use_graph=False, amp="bfloat16")
-    n_params = sum(p.numel() for p in m.get_params().values())
+    n_params = sum(p.numel() for p in m._raw_params().values())
     print(f"  model: {n_params} parameters on {next(m.parameters()).device}, "
           f"built and compiled in {time.perf_counter() - t0:.2f} s; "
           "eager (phase 8b runs the step as a CUDA graph)")
@@ -1835,12 +1862,12 @@ def phase_resnet_fp32(torch, models, opt, tensor, device):
         m.compile([tx], is_train=True, use_graph=False)
         built.append((m, tx, ty))
     (mc, _, _), (mg, _, _) = built
-    mg.set_states(mc.get_states())
+    mg.set_states(mc._raw_states())
     lc, lg = (_steps(torch, m, tx, ty, 2)[0] for m, tx, ty in built)
     rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
-    sc = mc.get_states()
+    sc = mc._raw_states()
     serr = max(float((t.detach().cpu() - sc[k].detach()).abs().max())
-               for k, t in mg.get_states().items())
+               for k, t in mg._raw_states().items())
     print(f"  losses card {[round(v, 6) for v in lg]}, CPU "
           f"{[round(v, 6) for v in lc]}: max relative difference {rel:.3e}; "
           f"parameters and running stats after 2 steps max abs difference "
@@ -1968,7 +1995,7 @@ def phase_graph_gpt(torch, models, opt, A):
         fail(f"graph mode on the card ran {mg.graph_backend!r}, not a CUDA "
              "graph")
     rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
-    serr, same = _compare_states(torch, me.get_states(), mg.get_states())
+    serr, same = _compare_states(torch, me._raw_states(), mg._raw_states())
     print(f"  fp32 GPT (dim 512, 2 layers, S 256), {EXACT_STEPS} steps: "
           f"losses eager {[round(v, 6) for v in le]}, graph "
           f"{[round(v, 6) for v in lg]}: max relative difference {rel:.3e}; "
@@ -2149,12 +2176,12 @@ def _small_resnet_pair(torch, opt, tx, ty, graphs):
         m.set_optimizer(opt.SGD(lr=0.01, momentum=0.9, weight_decay=1e-5))
         m.compile([tx], is_train=True, use_graph=graph)
         if pair:
-            m.set_states(pair[0].get_states())
+            m.set_states(pair[0]._raw_states())
         pair.append(m)
     out = []
     for m in pair:
         kept = [m(tx, ty)[1] for _ in range(EXACT_STEPS)]
-        out.append(([float(v.data.detach()) for v in kept], m.get_states()))
+        out.append(([float(v.data.detach()) for v in kept], m._raw_states()))
     (la, sa), (lb, sb) = out
     rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
     serr, same = _compare_states(torch, sa, sb)
@@ -2254,7 +2281,7 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
           f"(bf16, printed only: relative difference "
           f"{abs(h2r[0] - h2[0]) / abs(h2[0]):.3e})")
     del fresh
-    states = m.get_states()
+    states = m._raw_states()
     nbytes = sum(t.numel() * t.element_size() for t in states.values())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2453,7 +2480,7 @@ def phase_moe_fp32(torch, models, opt, transformer):
     tx, ty = _train_batch(torch, cfg["vocab_size"], 4, 256, SEED + 13)
     mc = models.create_model("gpt", device="cpu", seed=SEED + 14, **cfg)
     weights = {k: p.detach().numpy().copy()
-               for k, p in mc.get_params().items()}
+               for k, p in mc._raw_params().items()}
     runs = {}
     for label, dev, graph in (("cpu", "cpu", False), ("card", "cuda", False),
                               ("card graph", "cuda", True)):
@@ -2468,9 +2495,9 @@ def phase_moe_fp32(torch, models, opt, transformer):
             # graph comparison
             rel = max(abs(a - b) / abs(a)
                       for a, b in zip(runs["cpu"][1], runs["card"][1]))
-            pc = mc.get_params()
+            pc = mc._raw_params()
             perr = max(float((q.detach().cpu() - pc[k].detach()).abs().max())
-                       for k, q in m.get_params().items())
+                       for k, q in m._raw_params().items())
             print(f"  losses card {[round(x, 6) for x in runs['card'][1]]}, "
                   f"CPU {[round(x, 6) for x in runs['cpu'][1]]}: max "
                   f"relative difference {rel:.3e}; params after 3 steps "
@@ -2486,7 +2513,7 @@ def phase_moe_fp32(torch, models, opt, transformer):
     if mg.graph_backend != "cuda_graph":
         fail(f"graph mode ran {mg.graph_backend!r}, not a CUDA graph")
     grel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
-    serr, same = _compare_states(torch, me.get_states(), mg.get_states())
+    serr, same = _compare_states(torch, me._raw_states(), mg._raw_states())
     print(f"  card graph against eager, {EXACT_STEPS} steps: losses max "
           f"relative difference {grel:.3e}, parameters max abs difference "
           f"{serr:.3e} (tol {GRAPH_TOL} each); bitwise equal: "
@@ -2783,7 +2810,7 @@ def phase_rnn(torch, layer, model, opt, autograd, tensor, device):
         m.compile([tx], is_train=True, use_graph=graph)
         if states is None:
             states = {k: v.detach().clone() for k, v in
-                      m.get_states().items()}
+                      m._raw_states().items()}
         else:
             m.set_states(states)
         losses, ms = [], []
@@ -2796,7 +2823,7 @@ def phase_rnn(torch, layer, model, opt, autograd, tensor, device):
     if mg.graph_backend != "cuda_graph" or not np.isfinite(le + lg).all():
         fail(f"char-RNN graph ran {mg.graph_backend!r}, losses {le} {lg}")
     rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
-    serr, _ = _compare_states(torch, me.get_states(), mg.get_states())
+    serr, _ = _compare_states(torch, me._raw_states(), mg._raw_states())
     tok = CHAR_B * CHAR_S
     for label, ls, ms in (("eager", le, mse), ("graph", lg, msg)):
         print(f"  char-RNN (vocab {CHAR_V}, CudnnRNN({CHAR_H}), b{CHAR_B} x "
@@ -2956,7 +2983,7 @@ def _onnx_resnet(torch, models, opt, layer, tensor, autograd, sonnx, dev,
             rm.set_optimizer(opt.SGD(lr=0.01, momentum=0.9))
             rm.compile([tx], is_train=True, use_graph=graph)
             losses, ms = _steps(torch, rm, tx, ty, ONNX_STEPS)
-            runs[label] = (losses, ms, rm.get_states(), rm.graph_backend)
+            runs[label] = (losses, ms, rm._raw_states(), rm.graph_backend)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     (la, ma, sa, _), (lb, mb, sb, backend) = runs["eager"], runs["graph"]
@@ -3090,6 +3117,231 @@ def phase_onnx(torch, model, models, opt, layer, tensor, autograd, device,
     _onnx_torch_resnet18(torch, sonnx, tensor, autograd, dev, root)
     _onnx_nonzero(torch, autograd, tensor, dev)
     return counts
+
+
+# ---- phase 12: observe (metrics, spans) on the main paths -----------------
+
+OBS_TURNS = 3                 # same-call turns of observe on and off
+OBS_TRAIN_STEPS = 6           # 12b's graph-mode steps (skip 1 -> 5 fenced)
+#: 12c: (example, its smallest arguments, timeout seconds, a line its run
+#: must print), run unmodified through tests/test_torch_examples.py's
+#: runner on the card: the examples that the API faults broke.
+#: model_selection/ms_mlp.py is not among them: it reads scikit-learn's
+#: digits, and the card's host has no scikit-learn; hfl/fedavg.py, which
+#: fault 2 broke the same way, runs in its place (its clients are two
+#: processes on the one card)
+OBS_EXAMPLES = (("mlp/native.py", ["-m", "20"], 300, "epoch 19:"),
+                ("hfl/fedavg.py", ["--clients", "2", "--rounds", "1",
+                                   "--port", "{port}"], 300,
+                 "[client0] round 0 local loss="),
+                ("qabot/qabot_train.py", ["--epochs", "1"], 300,
+                 "top-1 retrieval acc"))
+_PROM_SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [^ ]+$")
+
+
+def _prometheus_lines(text):
+    """Parse the exposition line by line (tests/test_observe.py's
+    grammar): every line a # HELP/# TYPE header or a sample whose family
+    has a # TYPE before it. Returns the number of samples; fails on any
+    other line."""
+    typed, n = set(), 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if kind not in ("counter", "gauge", "histogram"):
+                fail(f"exposition: bad # TYPE line {line!r}")
+            typed.add(name)
+            continue
+        if line.startswith("# HELP "):
+            continue
+        base = line.split("{")[0].split(" ")[0]
+        family = re.sub(r"_(bucket|sum|count)$", "", base)
+        if not _PROM_SAMPLE.match(line) or not (base in typed
+                                                or family in typed):
+            fail(f"exposition: unparseable sample line {line!r}")
+        n += 1
+    return n
+
+
+def _value(observe, name, **labels):
+    m = observe.get_registry().get(name)
+    if m is None:
+        fail(f"metric {name} was never registered")
+    return m.count(**labels) if m.kind == "histogram" else m.value(**labels)
+
+
+def phase_observe_serve(torch, model, engine, observe, A):
+    """12a: phase 5's engine run (GPT-2-small bf16, 8 slots, page 16, 8
+    requests of prompt 256, +32) with observe on, under torch.profiler:
+    exact K1/K4 counts, the singa_serve_* counts against the run, the
+    engine spans in the profiler's events against the span histogram,
+    the exposition parsed line by line; then the same run with observe
+    on and off in turns (printed only: the engine is host-bound)."""
+    print("== phase 12a: observe on the serving engine")
+    from torch.profiler import ProfilerActivity, profile
+    L = len(model.blocks)
+    rng = np.random.RandomState(SEED + 12)
+    reqs_in = [(rng.randint(0, model.vocab_size, (256,)).astype(np.int32),
+                32) for _ in range(8)]
+    kw = dict(timeout_s=300, max_slots=8, dtype="bfloat16")
+    serve(engine, model, reqs_in[:1], **kw)        # warm
+    observe.enable(True)
+    observe.get_registry().reset()
+    torch.cuda.synchronize()
+    A.reset_launches()
+    # the spans open on the engine's own thread: the profiler's
+    # callbacks are per thread unless told to profile all threads
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=every_thread) as prof:
+        reqs, wall, rep, steps = serve(engine, model, reqs_in, **kw)
+        torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    check_launches("observe serving", counts,
+                   {"flash_fwd": L * len(reqs_in),
+                    "paged_attention": L * steps})
+    ntok = sum(len(r.tokens) for r in reqs)
+    want = {("singa_serve_requests_total", "completed"): len(reqs_in),
+            ("singa_serve_admitted_total", None): len(reqs_in),
+            ("singa_serve_tokens_total", None): ntok,
+            ("singa_serve_prefills_total", None): counts["flash_fwd"] // L,
+            ("singa_serve_ttft_seconds", None): len(reqs_in),
+            ("singa_serve_steps_total", None): steps}
+    got = {k: _value(observe, k[0], **({"outcome": k[1]} if k[1] else {}))
+           for k in want}
+    print(f"  registry: {got} (expected {want})")
+    if got != want:
+        fail(f"singa_serve_* counts {got}, expected {want}")
+    from torch.autograd import DeviceType
+    h = observe.get_registry().get("singa_span_seconds")
+    spans = {}
+    for path in ("serving.engine_prefill", "serving.engine_step"):
+        # the host-side range (the profiler also mirrors each range as
+        # an event on the device's timeline)
+        n_prof = sum(1 for e in prof.events()
+                     if e.name == SPAN_PREFIX + path
+                     and e.device_type == DeviceType.CPU)
+        spans[path] = (n_prof, h.count(span=path))
+    print(f"  spans (profiler events, histogram count): {spans}")
+    if any(a != b or a == 0 for a, b in spans.values()):
+        fail(f"profiler ranges and span histogram disagree: {spans}")
+    n = _prometheus_lines(observe.to_prometheus_text())
+    print(f"  exposition: {n} sample lines parse; {ntok} tokens in "
+          f"{wall:.3f} s (profiler on), {steps} steps")
+    turns = {"on": [], "off": []}
+    for _ in range(OBS_TURNS):
+        for label in ("on", "off"):
+            observe.enable(label == "on")
+            t0 = time.perf_counter()
+            rs, _, _, _ = serve(engine, model, reqs_in, **kw)
+            turns[label].append((time.perf_counter() - t0,
+                                 sum(len(r.tokens) for r in rs)))
+    observe.enable(True)
+    for label, ts in turns.items():
+        print(f"  engine, observe {label}: wall ms "
+              f"{', '.join(f'{w * 1e3:.2f}' for w, _ in ts)}; tokens/s "
+              f"{', '.join(f'{n / w:.1f}' for w, n in ts)}")
+    return counts
+
+
+def phase_observe_train(torch, models, opt, device, observe, A):
+    """12b: the bench GPT step as a CUDA graph (phase 8's model) at
+    Device.SetVerbosity(1) and SetSkipIteration(1), OBS_TRAIN_STEPS
+    steps: singa_steps_total and the model.step spans count every call,
+    K1/K2a launch 8 + 8 a step (the warm-up live, the capture's counts at
+    each replay), dev.step_times holds the fenced steps past the first,
+    the singa_hbm_* gauges come from the caching allocator; then the
+    replayed step with observe on and off in turns."""
+    print("== phase 12b: observe on the graph-mode training step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    dev = device.best_device()
+    saved = (dev.verbosity, dev.skip_iteration)
+    dev.step_times.clear()
+    dev.SetVerbosity(1)
+    dev.SetSkipIteration(1)
+    observe.enable(True)
+    observe.get_registry().reset()
+    try:
+        m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+        torch.cuda.synchronize()
+        A.reset_launches()
+        losses, ms = _steps(torch, m, tx, ty, OBS_TRAIN_STEPS)
+        counts = dict(A.LAUNCHES)
+        if m.graph_backend != "cuda_graph":
+            fail(f"12b ran {m.graph_backend!r}, not a CUDA graph")
+        check_launches("observe graph training", counts,
+                       {"flash_fwd": L * OBS_TRAIN_STEPS,
+                        "flash_bwd_fused": L * OBS_TRAIN_STEPS})
+        h = observe.get_registry().get("singa_span_seconds")
+        got = {"singa_steps_total": _value(observe, "singa_steps_total"),
+               "model.step": h.count(span="model.step"),
+               "step_times": len(dev.step_times),
+               "singa_step_fenced_seconds":
+                   _value(observe, "singa_step_fenced_seconds")}
+        want = {"singa_steps_total": OBS_TRAIN_STEPS,
+                "model.step": OBS_TRAIN_STEPS,
+                "step_times": OBS_TRAIN_STEPS - 1,
+                "singa_step_fenced_seconds": OBS_TRAIN_STEPS - 1}
+        print(f"  counts {got} (expected {want}); step ms "
+              f"{', '.join(f'{x:.2f}' for x in ms)}; fenced "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in dev.step_times)} ms")
+        if got != want:
+            fail(f"12b counts {got}, expected {want}")
+        stats = torch.cuda.memory_stats()
+        hbm = {k: _value(observe, k) for k in (
+            "singa_hbm_bytes_in_use", "singa_hbm_peak_bytes_in_use",
+            "singa_hbm_bytes_limit")}
+        print(f"  hbm gauges {hbm}; allocator now "
+              f"{stats['allocated_bytes.all.current']}, reserved peak "
+              f"{stats['reserved_bytes.all.peak']}")
+        limit = torch.cuda.get_device_properties(0).total_memory
+        if not (0 < hbm["singa_hbm_bytes_in_use"]
+                <= hbm["singa_hbm_peak_bytes_in_use"] <= limit
+                and hbm["singa_hbm_bytes_limit"] == limit):
+            fail(f"singa_hbm_* gauges not set from memory_stats: {hbm}")
+        dev.PrintTimeProfiling()
+        dev.SetVerbosity(0)
+        turns = {"on": [], "off": []}
+        for _ in range(OBS_TURNS):
+            for label in ("on", "off"):
+                observe.enable(label == "on")
+                turns[label] += _steps(torch, m, tx, ty, GRAPH_STEPS)[1]
+        observe.enable(True)
+        for label, v in turns.items():
+            print(f"  graph step, observe {label}: ms "
+                  f"{', '.join(f'{x:.2f}' for x in v)}; median "
+                  f"{statistics.median(v):.2f}")
+    finally:
+        dev.verbosity, dev.skip_iteration = saved
+        dev.step_times.clear()
+        observe.enable(True)
+    del m
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_observe_examples(root):
+    """12c: the examples the API faults broke, unmodified, through the
+    test suite's alias runner on the card (`best_device` left as the
+    card); each must exit 0 within its own time limit and print its
+    line."""
+    print("== phase 12c: the repaired examples on the card")
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from test_torch_examples import run_case
+    for example, args, limit, line in OBS_EXAMPLES:
+        t0 = time.perf_counter()
+        rc, out = run_case(example, args, limit, device="cuda")
+        secs = time.perf_counter() - t0
+        tail = out.strip().splitlines()[-2:]
+        print(f"  {example}: exit {rc} in {secs:.1f} s; {' | '.join(tail)}")
+        if rc != 0 or line not in out:
+            fail(f"{example} {args} exited {rc} (expected 0 and a line with "
+                 f"{line!r}):\n{out[-3000:]}")
 
 
 def decode_modes(A, rows, name, by_mode):
@@ -3304,7 +3556,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from singa_tpu_torch import (autograd, device, engine, layer, models,
-                                 opt, overlap, serving, snapshot, tensor)
+                                 observe, opt, overlap, serving, snapshot,
+                                 tensor)
     from singa_tpu_torch import model as model_mod
     from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
@@ -3385,6 +3638,14 @@ def main():
                                             tensor, autograd, device, A,
                                             root)
     clock.lap("phase 11")
+    by_path["observe_engine"] = phase_observe_serve(torch, model, engine,
+                                                    observe, A)
+    clock.lap("phase 12a")
+    by_path["observe_train"] = phase_observe_train(torch, models, opt,
+                                                   device, observe, A)
+    clock.lap("phase 12b")
+    phase_observe_examples(os.path.dirname(os.path.abspath(__file__)))
+    clock.lap("phase 12c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

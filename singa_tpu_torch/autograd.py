@@ -33,6 +33,7 @@ capture.
 from __future__ import annotations
 
 import builtins
+from collections import deque
 
 import numpy as np
 import torch
@@ -40,8 +41,8 @@ import torch.nn.functional as F
 
 from . import device as device_module
 from .ops.attention import flash_attention
-from .tensor import (Tensor, _raw, _resolve_dtype, softmax_cross_entropy_bwd,
-                     softmax_cross_entropy_fwd)
+from .tensor import (Tensor, _param_view, _raw, _resolve_dtype,
+                     softmax_cross_entropy_bwd, softmax_cross_entropy_fwd)
 
 #: global train/eval switch (singa_tpu/autograd.py `training`); set by
 #: Model.train()/eval()
@@ -128,6 +129,26 @@ class Dummy(Operator):
         self.requires_grad = bool(getattr(tensor, "requires_grad", False))
 
 
+def infer_dependency(op: Operator) -> dict:
+    """{operator: pending consumer edges} over the tape's `src` records
+    below `op`, counting only sources that require grad (the reference's
+    autograd.py:71-102, as the JAX package's `infer_dependency`). The
+    port's `backward` lets torch order the reverse pass; this is the
+    reference's API over the same records."""
+    counts = {op: 0}
+    queue = deque([op])
+    while queue:
+        cur = queue.popleft()
+        for src_op, _, _, _ in cur.src:
+            if src_op.requires_grad:
+                if src_op in counts:
+                    counts[src_op] += 1
+                else:
+                    counts[src_op] = 1
+                    queue.append(src_op)
+    return counts
+
+
 def _stored_leaves(y: Tensor) -> dict:
     """{id(leaf.data): leaf} of the stores_grad leaf Tensors behind y (a
     raw input's leaf is never one)."""
@@ -151,9 +172,10 @@ def backward(y, dy=None):
     (param, grad) for every leaf that requires grad and was reached, so
     a distributed optimizer can start reducing as grads arrive. The
     grads come from one torch.autograd.grad call over the leaves of the
-    graph, then are yielded in the leaves' order: a stores_grad leaf
-    Tensor as (Tensor, Tensor), a layer's nn.Parameter as (parameter,
-    grad)."""
+    graph, then are yielded in the leaves' order, as (Tensor, Tensor) for
+    a Tensor `y` (a layer's nn.Parameter as its `get_params()` view,
+    `tensor._param_view`) and as (parameter, grad) for a raw `y`, the
+    GPT's path."""
     t = _raw(y)
     if t.grad_fn is None:
         raise RuntimeError("backward needs a loss computed in training "
@@ -175,6 +197,8 @@ def backward(y, dy=None):
         if g is None:
             continue
         w = stored.get(id(p))
+        if w is None and isinstance(y, Tensor):
+            w = _param_view(p)
         if w is not None:
             yield w, Tensor._wrap(g, w.device)
         else:

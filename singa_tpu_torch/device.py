@@ -3,8 +3,10 @@
 A `Device` wraps a `torch.device` where the JAX package's wraps a
 `jax.Device`: it is where tensors land, and the device's random stream,
 an explicit `torch.Generator` that the initializers and `Dropout` draw
-from (`SetRandSeed` seeds it). The JAX Device's graph and profiling
-flags come with the operations layers (`xprof`).
+from (`SetRandSeed` seeds it). It keeps the reference's profiling
+switches (`SetVerbosity`, `SetSkipIteration`, `PrintTimeProfiling`);
+`StartTrace`/`StopTrace` come with the port's `xprof` (ROADMAP.md
+Queue 1 item 7).
 
 The port runs on CUDA. The CPU is used only when a caller asks for it by
 name (the CPU parity tests do), never as a silent fallback: the default
@@ -20,6 +22,7 @@ off for its fp32 checks). The library sets neither flag.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,6 +35,11 @@ class Device:
         self.lang = lang
         self._generator = None
         self._seed = 0
+        self.graph_enabled = True
+        self.verbosity = 0
+        self.skip_iteration = 5
+        #: fenced wall seconds per step at verbosity >= 1
+        self.step_times: "list[float]" = []
 
     # ---- RNG ------------------------------------------------------------
     @property
@@ -60,10 +68,54 @@ class Device:
         self.generator.set_state(torch.as_tensor(state, dtype=torch.uint8)
                                  .cpu())
 
+    def rand_key(self) -> int:
+        """A fresh seed drawn from the device's random stream (the JAX
+        Device splits its key here): seed a generator of your own from
+        it."""
+        return int(torch.randint(0, 2 ** 62, (), generator=self.generator,
+                                 device=self.torch_device))
+
     def Sync(self):
         """Fence: wait for all queued work on this device."""
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
+
+    # ---- graph control (the reference's core_device.i) ------------------
+    def EnableGraph(self, enable: bool = True):
+        """The reference's switch; a model's graph mode is set by
+        `Model.compile(use_graph=...)` or `Model.graph(...)`."""
+        self.graph_enabled = bool(enable)
+
+    def ResetGraph(self):
+        """A Model drops its CUDA graphs itself (`Model.graph`, a load)."""
+
+    # ---- profiling (the reference's device.h:115-129) -------------------
+    def SetVerbosity(self, v: int):
+        """At verbosity >= 1 a Model's graph-mode step records its fenced
+        wall time (a device synchronize after the step) into
+        `step_times`, past the first `skip_iteration` steps."""
+        self.verbosity = int(v)
+
+    def SetSkipIteration(self, n: int):
+        self.skip_iteration = int(n)
+
+    def PrintTimeProfiling(self):
+        """The step summary of the fenced times in `step_times` (the
+        reference's Graph::PrintTimeProfiling, whole steps: the forward
+        and backward are one CUDA graph). The cost analysis that the JAX
+        package prints at verbosity >= 2 comes with the port's
+        `introspect` (ROADMAP.md Queue 1 item 3)."""
+        if not self.step_times:
+            print("time profiling: no steps recorded "
+                  "(SetVerbosity(>=1) before training)")
+            return
+        t = np.asarray(self.step_times)
+        print(f"time profiling: {len(t)} steps, "
+              f"mean {t.mean() * 1e3:.3f} ms, std {t.std() * 1e3:.3f} ms, "
+              f"min {t.min() * 1e3:.3f} ms")
+        if self.verbosity >= 2:
+            print("  cost analysis: not available until the port's "
+                  "introspect module (ROADMAP.md Queue 1 item 3)")
 
     # ---- info ------------------------------------------------------------
     @property
@@ -75,6 +127,11 @@ class Device:
 
     def __repr__(self):
         return f"Device(lang={self.lang}, id={self.id}, torch={self.torch_device})"
+
+    def __reduce__(self):
+        # one Device per torch device: a copy or an unpickled Device is
+        # the process's own
+        return (of, (str(self.torch_device),))
 
 
 _DEVICES: dict = {}   # torch.device -> Device
@@ -119,6 +176,14 @@ def create_cpu_device() -> Device:
     return of("cpu")
 
 
+def create_cuda_gpu(set_default: bool = False) -> Device:
+    """The first CUDA device (the reference's canonical call). The
+    default device is the card already, so `set_default` changes
+    nothing."""
+    del set_default
+    return best_device()
+
+
 def create_cuda_gpu_on(device_id: int) -> Device:
     _require_cuda()
     return of(torch.device("cuda", int(device_id)))
@@ -144,6 +209,49 @@ def get_gpu_mem_size(id: int):  # noqa: A002  (name mandated by parity)
             torch.cuda.memory_allocated(id))
 
 
+def get_gpu_ids() -> list:
+    return list(range(get_num_gpus()))
+
+
+def device_query(id: int, verbose=False) -> dict:  # noqa: A002
+    """{id, kind (the card's name), platform} of card `id`."""
+    _require_cuda()
+    info = {"id": id, "kind": torch.cuda.get_device_name(id),
+            "platform": "gpu"}
+    if verbose:
+        print(info)
+    return info
+
+
+def enable_lazy_alloc(flag: bool):
+    """No-op: PyTorch's caching allocator allocates at first use."""
+    del flag
+
+
+def _no_opencl():
+    raise AssertionError(
+        "built without OpenCL (as the reference's USE_OPENCL=OFF wheels); "
+        "use the CUDA or CPU devices")
+
+
+def get_num_opencl_platforms():
+    _no_opencl()
+
+
+def get_num_opencl_devices():
+    _no_opencl()
+
+
+def create_opencl_device():
+    _no_opencl()
+
+
+# the JAX package's names for the accelerator calls
+create_tpu_device = create_cuda_gpu
+create_tpu_device_on = create_cuda_gpu_on
+create_tpu_devices = create_cuda_gpus
+
+
 def resolve(device=None) -> torch.device:
     """`device=` argument (a Device, a torch.device, a string or None) ->
     torch.device: None means the default device."""
@@ -154,7 +262,10 @@ def resolve(device=None) -> torch.device:
     return torch.device(device)
 
 
-__all__ = ["Device", "best_device", "create_cpu_device",
+__all__ = ["Device", "best_device", "create_cpu_device", "create_cuda_gpu",
            "create_cuda_gpu_on", "create_cuda_gpus", "create_cuda_gpus_on",
-           "get_default_device", "get_gpu_mem_size", "get_num_gpus", "of",
-           "resolve"]
+           "create_opencl_device", "create_tpu_device",
+           "create_tpu_device_on", "create_tpu_devices", "device_query",
+           "enable_lazy_alloc", "get_default_device", "get_gpu_ids",
+           "get_gpu_mem_size", "get_num_gpus", "get_num_opencl_devices",
+           "get_num_opencl_platforms", "of", "resolve"]

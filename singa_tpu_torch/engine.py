@@ -21,9 +21,17 @@ quantizes the pools. With `draft_model` and `spec_k`, each sync runs
 spec_k tokens against its own fp pools (indexed by the same page table),
 the target verifies them in one `paged_verify_step`, and the longest
 accepted prefix plus the target's own token commit, so the tokens equal
-plain greedy decoding's. The engine runs on its model's device. The JAX
-engine's links to the operations layers (observe, slo, watchdog, memory,
-introspect, resilience) and its `prewarm` are not ported yet.
+plain greedy decoding's. The engine runs on its model's device.
+
+Telemetry (`observe`): the sixteen `singa_serve_*` metrics of the JAX
+engine, set where it sets them (`_metrics()`), and the spans
+`serving.engine_prefill` around each admission's prefill and
+`serving.engine_step` around each sync's decode and its host read. The
+decode thread records while `submit` records from the caller's thread:
+every metric carries its own lock, and the engine reads its slot state
+under its own. The JAX engine's other operations links (slo's request
+timelines, watchdog, memory, introspect, resilience) and its `prewarm`
+come with later slices (ROADMAP.md Queue 1 items 2 and 3).
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from . import serving
+from . import observe, serving
 
 #: every terminal state a request can reach
 REQUEST_OUTCOMES = ("completed", "evicted", "rejected", "timeout")
@@ -43,9 +51,76 @@ OUTCOME_COMPLETED = "completed"
 OUTCOME_EVICTED = "evicted"
 OUTCOME_REJECTED = "rejected"
 OUTCOME_TIMEOUT = "timeout"
+#: KV-cache storage modes, as serving.KV_DTYPES: the `kv_dtype=` label of
+#: singa_serve_kv_pool_bytes is proven against this tuple by
+#: tools/check_metrics_names.py rule 5
+KV_DTYPES = ("fp", "int8", "int4")
 #: seconds the idle decode loop waits for a submission before it checks
 #: deadlines and the stop flag again
 _POLL_S = 0.01
+
+_metrics_cache: "dict | None" = None
+
+
+def _metrics():
+    """The engine's metrics, registered with the JAX engine's names, types
+    and help strings (spelled out so the static lint sees every one).
+    Memoized, and rebuilt when the registry was reset."""
+    global _metrics_cache
+    c = _metrics_cache
+    if c is not None and observe.get_registry().get(
+            "singa_serve_requests_total") is c["requests"]:
+        return c
+    _metrics_cache = c = {
+        "requests": observe.counter(
+            "singa_serve_requests_total",
+            "engine requests finished, by terminal outcome"),
+        "admitted": observe.counter(
+            "singa_serve_admitted_total",
+            "requests admitted into a decode slot"),
+        "tokens": observe.counter(
+            "singa_serve_tokens_total",
+            "tokens generated by the serving engine"),
+        "steps": observe.counter(
+            "singa_serve_steps_total",
+            "engine decode steps executed (all slots, per step)"),
+        "prefills": observe.counter(
+            "singa_serve_prefills_total",
+            "engine prefill calls (one per admission)"),
+        "queue_depth": observe.gauge(
+            "singa_serve_queue_depth",
+            "requests waiting in the admission queue"),
+        "occupancy": observe.gauge(
+            "singa_serve_slot_occupancy",
+            "decode slots currently active"),
+        "slots": observe.gauge(
+            "singa_serve_slots",
+            "decode slots the engine was built with"),
+        "pages_in_use": observe.gauge(
+            "singa_serve_pages_in_use",
+            "KV-cache pages currently allocated to sequences"),
+        "pages": observe.gauge(
+            "singa_serve_page_pool_pages",
+            "KV-cache pages in the pool (capacity)"),
+        "queue_delay": observe.histogram(
+            "singa_serve_queue_delay_seconds",
+            "submit-to-admission wall seconds per request"),
+        "ttft": observe.histogram(
+            "singa_serve_ttft_seconds",
+            "submit-to-first-token wall seconds per request"),
+        "request_s": observe.histogram(
+            "singa_serve_request_seconds",
+            "submit-to-terminal wall seconds per request"),
+        "rate": observe.gauge(
+            "singa_serve_request_tokens_per_sec",
+            "last completed request's generation rate"),
+        "kv_pool_bytes": observe.gauge(
+            "singa_serve_kv_pool_bytes",
+            "target KV page-pool bytes by cache storage mode (the "
+            "draft model's fp pool is reported separately via "
+            "engine.report draft_pool_bytes)"),
+    }
+    return c
 
 
 class EngineRequest:
@@ -61,13 +136,18 @@ class EngineRequest:
         self.deadline_s = deadline_s
         self.ttft_deadline_s = ttft_deadline_s
         self.submitted = time.monotonic()
+        self.admitted = None
         self.first_token_ts = None
+        self.finished_ts = None
         self.outcome = None
         self.tokens: "list[int]" = []
         self.slot = None
         self.pages: "list[int]" = []
         self.detail = None
         self._done = threading.Event()
+
+    def done(self) -> bool:
+        return self._done.is_set()
 
     def wait(self, timeout=None) -> bool:
         return self._done.wait(timeout)
@@ -249,6 +329,14 @@ class ServingEngine:
                 n = ServingEngine._seq
             self._thread = threading.Thread(
                 target=self._loop, name=f"torch-serve-{n}", daemon=True)
+        if observe.is_enabled():
+            m = _metrics()
+            m["slots"].set(float(self.max_slots))
+            m["pages"].set(float(self.num_pages))
+            m["pages_in_use"].set(0.0)
+            kvl = serving.kv_label(self.kv_dtype)
+            assert kvl in KV_DTYPES, self.kv_dtype
+            m["kv_pool_bytes"].set(float(self.pool_bytes()), kv_dtype=kvl)
         self._thread.start()
         return self
 
@@ -300,6 +388,11 @@ class ServingEngine:
             self._free_pages = list(range(self.num_pages))
             self._pools = self._dpools = None
             self._draining = False
+        if observe.is_enabled():
+            m = _metrics()
+            m["pages_in_use"].set(0.0)
+            m["occupancy"].set(0.0)
+            m["queue_depth"].set(0.0)
         return handed_back
 
     def running(self) -> bool:
@@ -347,6 +440,8 @@ class ServingEngine:
         if reason is not None:
             req.detail = reason
             self._finish(req, OUTCOME_REJECTED)
+        elif observe.is_enabled():
+            _metrics()["queue_depth"].set(float(len(self._queue)))
         return req
 
     # -- terminal bookkeeping ------------------------------------------------
@@ -354,10 +449,32 @@ class ServingEngine:
         if outcome not in REQUEST_OUTCOMES:
             raise ValueError(outcome)
         with self._lock:
+            # submit()'s rejects land here on the caller's thread, the
+            # rest on the engine's: one gate for both
             if req.outcome is not None:
                 return
             req.outcome = outcome
+            req.finished_ts = time.monotonic()
             self._finished[outcome] += 1
+        if observe.is_enabled():
+            m = _metrics()
+            m["requests"].inc(outcome=outcome)
+            total_s = req.finished_ts - req.submitted
+            m["request_s"].observe(total_s)
+            if outcome == OUTCOME_COMPLETED and req.tokens and total_s > 0:
+                m["rate"].set(len(req.tokens) / total_s)
+            observe.get_registry().emit({
+                "kind": "serve_request", "id": req.id,
+                "outcome": outcome,
+                "prompt_tokens": int(len(req.prompt)),
+                "new_tokens": len(req.tokens),
+                "queue_delay_s": round(req.admitted - req.submitted, 6)
+                if req.admitted else None,
+                "ttft_s": round(req.ttft_s, 6)
+                if req.ttft_s is not None else None,
+                "total_s": round(total_s, 6),
+                "detail": req.detail,
+            })
         req._done.set()
 
     def _bucket(self, s0: int) -> int:
@@ -481,11 +598,22 @@ class ServingEngine:
         bucket = self._bucket(s0)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :s0] = req.prompt
-        tok0 = self._prefill(
-            torch.as_tensor(padded, device=self.device), s0,
-            torch.as_tensor(pages, dtype=torch.long, device=self.device))
+        req.admitted = time.monotonic()
+        with observe.span("serving.engine_prefill", bucket=bucket,
+                          prompt_tokens=s0):
+            tok0 = self._prefill(
+                torch.as_tensor(padded, device=self.device), s0,
+                torch.as_tensor(pages, dtype=torch.long,
+                                device=self.device))
         req.first_token_ts = time.monotonic()
         req.tokens.append(tok0)
+        if observe.is_enabled():
+            m = _metrics()
+            m["admitted"].inc()
+            m["prefills"].inc()
+            m["tokens"].inc()
+            m["queue_delay"].observe(req.admitted - req.submitted)
+            m["ttft"].observe(req.first_token_ts - req.submitted)
         if req.max_new == 1 or (self.eos_id is not None
                                 and tok0 == self.eos_id):
             self._evict(req, OUTCOME_COMPLETED)
@@ -537,6 +665,13 @@ class ServingEngine:
             finally:
                 with self._lock:
                     self._admitting -= 1
+        if observe.is_enabled():
+            m = _metrics()
+            with self._lock:
+                m["queue_depth"].set(float(len(self._queue)))
+                m["pages_in_use"].set(
+                    float(self.num_pages - len(self._free_pages)))
+                m["occupancy"].set(float(np.sum(self._active)))
 
     def _loop(self):
         try:
@@ -560,6 +695,8 @@ class ServingEngine:
             for r in rest:
                 r.detail = r.detail or detail
                 self._finish(r, OUTCOME_EVICTED)
+            observe.get_registry().emit(
+                {"kind": "serve", "event": "loop_error", "detail": detail})
             raise
 
     def _loop_body(self):
@@ -583,14 +720,19 @@ class ServingEngine:
                 lens = torch.as_tensor(self._lens, device=dev)
                 limits = torch.as_tensor(self._limits, device=dev)
                 active = torch.as_tensor(self._active, device=dev)
+                n_active = int(self._active.sum())
+                queued = len(self._queue)
             spec = self.dcore is not None
-            out = (self._decode_spec if spec else self._decode)(
-                tok, ptab, lens, limits, active)
-            # one host read a sync: tokens, takes and counts
-            tok_new, lens_new, act_new, toks, takes, *counts = (
-                t.cpu().numpy() for t in out)
+            with observe.span("serving.engine_step", slots=n_active,
+                              steps=self.steps_per_sync, queue=queued):
+                out = (self._decode_spec if spec else self._decode)(
+                    tok, ptab, lens, limits, active)
+                # one host read a sync: tokens, takes and counts
+                tok_new, lens_new, act_new, toks, takes, *counts = (
+                    t.cpu().numpy() for t in out)
             act_before = active.cpu().numpy()
             finished = []
+            emitted = 0
             with self._lock:
                 if spec:
                     for key, c in zip(("drafted", "accepted", "bonus"),
@@ -603,8 +745,10 @@ class ServingEngine:
                         continue
                     # round/step h committed the first takes[h, i] of
                     # its candidates toks[h, i] (prefix order)
+                    n_before = len(req.tokens)
                     for th, kh in zip(toks[:, i], takes[:, i]):
                         req.tokens.extend(int(t) for t in th[:kh])
+                    emitted += len(req.tokens) - n_before
                     self._lens[i] = lens_new[i]
                     self._active[i] = act_new[i]
                     self._tok[i] = tok_new[i]
@@ -613,6 +757,19 @@ class ServingEngine:
                 self._steps += self.steps_per_sync
             for req in finished:
                 self._evict(req, OUTCOME_COMPLETED)
+            if spec:
+                dr, ac, bo = (int(c) for c in counts[0])
+                if dr or bo:
+                    serving.record_spec(dr, ac, bo, self.steps_per_sync)
+            if observe.is_enabled():
+                m = _metrics()
+                m["steps"].inc(self.steps_per_sync)
+                if emitted:
+                    m["tokens"].inc(emitted)
+                with self._lock:
+                    m["occupancy"].set(float(np.sum(self._active)))
+                    m["pages_in_use"].set(
+                        float(self.num_pages - len(self._free_pages)))
 
     # -- reporting -----------------------------------------------------------
     def report(self) -> dict:
@@ -639,4 +796,5 @@ class ServingEngine:
             }
 
 
-__all__ = ["EngineRequest", "REQUEST_OUTCOMES", "ServingEngine"]
+__all__ = ["EngineRequest", "KV_DTYPES", "REQUEST_OUTCOMES",
+           "ServingEngine"]

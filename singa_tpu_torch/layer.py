@@ -48,7 +48,7 @@ from torch import nn
 from . import autograd, initializer
 from . import device as device_module
 from .autograd import _layernorm as layernorm
-from .tensor import Tensor, _raw
+from .tensor import Tensor, _param_view, _raw
 
 
 def _uniform(shape, limit, gen):
@@ -138,16 +138,30 @@ class Layer(nn.Module, metaclass=LayerMeta):
             if inp.dtype != x_dtype:
                 inp.to_type(x_dtype)
 
-    def get_params(self) -> "OrderedDict[str, torch.Tensor]":
+    def _raw_params(self) -> "OrderedDict[str, torch.Tensor]":
         """{attribute path: nn.Parameter}, own parameters first, then each
-        sublayer's in registration order."""
+        sublayer's in registration order: what the port's internals
+        (the optimizer, checkpoints, the exporter) work on."""
         return OrderedDict(self.named_parameters())
 
-    def get_states(self) -> "OrderedDict[str, torch.Tensor]":
-        """Parameters, then states (buffers)."""
-        out = self.get_params()
+    def _raw_states(self) -> "OrderedDict[str, torch.Tensor]":
+        """Parameters, then states (buffers), raw."""
+        out = self._raw_params()
         out.update(self.named_buffers())
         return out
+
+    def get_params(self) -> "OrderedDict[str, Tensor]":
+        """{attribute path: Tensor} in `_raw_params`' order, as the JAX
+        package's: each Tensor is a view over the parameter's storage
+        (`tensor._param_view`), so `t.numpy()` reads it and
+        `t.copy_from_numpy(a)` or `t.set_value(v)` writes it."""
+        return OrderedDict((k, _param_view(v))
+                           for k, v in self._raw_params().items())
+
+    def get_states(self) -> "OrderedDict[str, Tensor]":
+        """Parameters, then states (buffers), as Tensor views."""
+        return OrderedDict((k, _param_view(v))
+                           for k, v in self._raw_states().items())
 
     @torch.no_grad()
     def _copy_into(self, own, states, strict):
@@ -166,13 +180,13 @@ class Layer(nn.Module, metaclass=LayerMeta):
     def set_params(self, params: dict):
         """Copy numpy arrays, Tensors or tensors into the parameters of the
         same name, in place; an unknown name raises."""
-        self._copy_into(self.get_params(), params, strict=True)
+        self._copy_into(self._raw_params(), params, strict=True)
 
     def set_states(self, states: dict):
         """Copy into the states of the same name, in place (so version
         counters move); unknown names are ignored, as in the JAX package;
         a shape mismatch raises."""
-        self._copy_into(self.get_states(), states, strict=False)
+        self._copy_into(self._raw_states(), states, strict=False)
 
     def register_layers(self, *args):
         """Register sublayers held in lists or closures rather than

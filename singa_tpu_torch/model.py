@@ -10,7 +10,7 @@ up the optimizer, as the JAX package's compile does.
 
 The buffered graph (SINGA's `ModelMeta.buffer_operation`, the JAX
 package's jitted step): every subclass's `train_one_batch` is wrapped
-(`__init_subclass__`), so `m(x, y)` and `m.train_one_batch(x, y)` both go
+(`ModelMeta`), so `m(x, y)` and `m.train_one_batch(x, y)` both go
 through it. In graph mode (`compile(use_graph=True)`), on CUDA and not
 `sequential`, each input signature (every tensor's shape, dtype and
 device, `autograd.training`, the compute dtype) is a CUDA graph of the
@@ -45,29 +45,43 @@ states, the device generator's state and `meta.json`), asynchronously by
 default (`overlap`); `load_checkpoint` resumes from it. The JAX package
 writes its checkpoints with orbax, which the port cannot read or write.
 
-The profiler ranges carry the JAX package's span names: `model.build`,
-`model.eval`, `model.fit_epoch`, `data.wait`, `checkpoint.save`.
+Telemetry (`observe`), with the JAX package's span and metric names. A
+graph-mode training call runs inside the span `model.step` (tag: the
+optimizer's `step_tag()`), whether it runs eagerly (the CPU, a new
+signature's warm-up) or replays a graph, and then books
+`observe.record_step` (dispatch wall seconds, the device's memory
+gauges). A new signature's first call runs inside `model.build` (its
+warm-up, and the capture at its second call), and books
+`record_step_build` and `record_compile` (the batch class, the state
+bytes a step updates in place). At `Device.SetVerbosity(1)` and above,
+each graph-mode step past the device's `skip_iteration` is fenced (a
+synchronize after the call; never inside a capture), its wall time
+appended to `Device.step_times` and booked by `record_step_fenced`. The
+eager path (`use_graph=False`) books none of these, as in the JAX
+package; the optimizer's own hooks fire there. Other spans:
+`model.eval`, `model.fit_epoch`, `data.wait`, `checkpoint.save`,
+`checkpoint.load`; `record_checkpoint_bytes` after a save.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
 import os
 import shutil
+import time
 import zipfile
 
 import numpy as np
 import torch
 from torch import nn
 
-from . import _ckpt, autograd, layer, overlap
+from . import _ckpt, autograd, layer, observe, overlap
 from . import device as device_module
 from .ops import attention as _attention
 from .tensor import Tensor, _raw
-
-_range = torch.profiler.record_function
 
 #: what compile(health=...) and set_health_monitor raise with
 _HEALTH_LATER = ("the health monitor comes with the operations layers, a "
@@ -160,18 +174,27 @@ def _buffer_operation(func):
     return train_one_batch
 
 
-class Model(layer.Layer):
+class ModelMeta(layer.LayerMeta):
+    """The Model classes' metaclass (SINGA's ModelMeta): it routes each
+    class's own `train_one_batch` through the buffered step
+    (`buffer_operation`), so `m(x, y)` and `m.train_one_batch(x, y)`
+    both take it."""
+
+    buffer_operation = staticmethod(_buffer_operation)
+
+    def __new__(mcs, name, bases, attrs):
+        fn = attrs.get("train_one_batch")
+        if fn is not None and not getattr(fn, "_singa_buffered", False):
+            attrs["train_one_batch"] = _buffer_operation(fn)
+        return super().__new__(mcs, name, bases, attrs)
+
+
+class Model(layer.Layer, metaclass=ModelMeta):
     """Base user model: subclass, define `forward` and (optionally)
     `train_one_batch`. A new model is in eval mode until
     `compile(is_train=True)`; `m(x)` in eval mode runs `forward` with no
     autograd graph, `m(x, y)` in train mode runs `train_one_batch`. Both
     take `tensor.Tensor`s or raw tensors."""
-
-    def __init_subclass__(cls, **kwargs):
-        super().__init_subclass__(**kwargs)
-        fn = cls.__dict__.get("train_one_batch")
-        if fn is not None and not getattr(fn, "_singa_buffered", False):
-            cls.train_one_batch = _buffer_operation(fn)
 
     def __init__(self, name=None):
         super().__init__(name)
@@ -187,6 +210,7 @@ class Model(layer.Layer):
         self._eval_steps = {}
         self._static_args = None
         self._build_count = 0        # train signatures built
+        self._graph_steps = 0        # graph-mode training calls
         self._eval_trace_count = 0   # eval signatures built
         self._eval_per_sample = None
         self._eval_probed_nbs = set()
@@ -268,7 +292,7 @@ class Model(layer.Layer):
                 autograd.training = prev
         self.train(is_train)
         if self._optimizer is not None:
-            self._optimizer.setup(self.get_params().values())
+            self._optimizer.setup(self._raw_params().values())
 
     def train(self, mode: bool = True):
         """nn.Module's recursive mode switch, which also sets the global
@@ -301,7 +325,7 @@ class Model(layer.Layer):
                 if self.graph_mode and self._device is not None \
                         and args and not kwargs \
                         and all(_is_tensor(a) for a in args):
-                    with _range("model.eval"):
+                    with observe.span("model.eval"):
                         return self._eval_step(args)
                 return super().__call__(*args, **kwargs)
         finally:
@@ -341,10 +365,43 @@ class Model(layer.Layer):
 
         key = self._signature(vals)
         entry = self._train_steps.get(key)
+        raws = [_raw(v) for v in vals if _is_tensor(v)]
+        bs = raws[0].shape[0] if raws and raws[0].dim() > 0 else None
         if entry is None:
             entry = self._train_steps[key] = _Buffered()
             self._build_count += 1
-        return self._run_buffered(entry, call, vals)
+            observe.record_compile(
+                bs, recompile=len(self._train_steps) > 1,
+                donated_bytes=self._step_state_bytes())
+        tag = self._optimizer.step_tag() \
+            if self._optimizer is not None else 0
+        dev = device_module.of(self._device)
+        profiling = dev.verbosity > 0 \
+            and self._graph_steps >= dev.skip_iteration
+        first = entry.calls == 0
+        t0 = time.perf_counter()
+        with observe.span("model.step", tag=tag):
+            out = self._run_buffered(entry, call, vals)
+            if profiling:
+                # after the call returns: a capture has ended by then
+                dev.Sync()
+                fenced = time.perf_counter() - t0
+                dev.step_times.append(fenced)
+                observe.record_step_fenced(fenced)
+        seconds = time.perf_counter() - t0
+        self._graph_steps += 1
+        if first:
+            observe.record_step_build(seconds)
+        observe.record_step(seconds, batch=bs, tag=tag, device=dev)
+        return out
+
+    def _step_state_bytes(self) -> int:
+        """Bytes of what a training step updates in place: parameters,
+        buffers and the optimizer's states."""
+        ts = list(self._raw_states().values())
+        if self._optimizer is not None:
+            ts += self._optimizer.state_arrays()
+        return sum(t.numel() * t.element_size() for t in ts)
 
     def _eval_forward(self, vs):
         prev = autograd.training
@@ -402,9 +459,14 @@ class Model(layer.Layer):
                 h = nb // 2
                 half = _leaves(self._eval_run(
                     [_map_out(a, lambda t: t[:h]) for a in args]))
-                ok = all(torch.allclose(a.float(), b[:h].float(), rtol=1e-5,
-                                        atol=1e-6)
-                         for a, b in zip(half, outs))
+                # an output whose half-batch run is shaped otherwise (a
+                # time-major input, batch on axis 1) is not per-sample:
+                # shapes first, then values
+                ok = len(half) == len(outs) and all(
+                    tuple(a.shape) == (h,) + tuple(b.shape[1:])
+                    and torch.allclose(a.float(), b[:h].float(), rtol=1e-5,
+                                       atol=1e-6)
+                    for a, b in zip(half, outs))
             self._eval_probed_nbs.add(nb)
             self._eval_per_sample = shaped and ok
         return out
@@ -417,7 +479,9 @@ class Model(layer.Layer):
         entry.calls += 1
         if dev.type != "cuda" or self.sequential:
             self.graph_backend = "eager"
-            return _detached(fn(vals))
+            with observe.span("model.build") if entry.calls == 1 \
+                    else contextlib.nullcontext():
+                return _detached(fn(vals))
         self.graph_backend = "cuda_graph"
         cur = torch.cuda.current_stream(dev)
         if entry.calls == 1:
@@ -425,7 +489,7 @@ class Model(layer.Layer):
                 self._side_stream = torch.cuda.Stream(dev)
             side = self._side_stream
             side.wait_stream(cur)
-            with _range("model.build"), torch.cuda.stream(side):
+            with observe.span("model.build"), torch.cuda.stream(side):
                 out = _detached(fn(vals))
             cur.wait_stream(side)
             return out
@@ -459,7 +523,7 @@ class Model(layer.Layer):
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(device_module.of(dev).generator)
         before = _attention.launch_counts()
-        with _range("model.build"):
+        with observe.span("model.build"):
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   capture_error_mode="thread_local"):
                 out = fn(statics)
@@ -488,7 +552,7 @@ class Model(layer.Layer):
         end = object()
         for epoch in range(epochs):
             losses = []
-            with _range("model.fit_epoch"):
+            with observe.span("model.fit_epoch", epoch=epoch):
                 it = iter(data)
                 prefetcher = None
                 if prefetch_to_device:
@@ -496,7 +560,7 @@ class Model(layer.Layer):
                         it, model=self, size=int(prefetch_to_device))
                 try:
                     while True:
-                        with _range("data.wait"):
+                        with observe.span("data.wait"):
                             batch = next(it, end)
                         if batch is end:
                             break
@@ -527,7 +591,7 @@ class Model(layer.Layer):
         """numpy copies of the states (device to host), `aux.<key>` for
         the aux states."""
         states = {k: t.detach().cpu().numpy()
-                  for k, t in self.get_states().items()}
+                  for k, t in self._raw_states().items()}
         for k, v in (aux_states or {}).items():
             v = _raw(v)
             states[f"aux.{k}"] = np.asarray(
@@ -537,14 +601,19 @@ class Model(layer.Layer):
     def save_states(self, fpath: str, aux_states: dict | None = None):
         """zip(tensor_dict.npz + states_attr.json) under the JAX names;
         `aux_states` go in as `aux.<key>`."""
-        _write_states_zip(fpath, self._host_states(aux_states))
+        states = self._host_states(aux_states)
+        with observe.span("checkpoint.save"):
+            _write_states_zip(fpath, states)
+        observe.record_checkpoint_bytes(
+            sum(int(v.nbytes) for v in states.values()))
 
     def load_states(self, fpath: str) -> dict:
         """Load a save_states zip (either package's); returns the aux
         states, without their `aux.` prefix."""
-        loaded = _read_states_zip(fpath)
-        self.set_states({k: v for k, v in loaded.items()
-                         if not k.startswith("aux.")})
+        with observe.span("checkpoint.load"):
+            loaded = _read_states_zip(fpath)
+            self.set_states({k: v for k, v in loaded.items()
+                             if not k.startswith("aux.")})
         self._reset_steps()
         return {k[len("aux."):]: v for k, v in loaded.items()
                 if k.startswith("aux.")}
@@ -585,11 +654,14 @@ class Model(layer.Layer):
                                  "(pass overwrite=True to replace it)")
             else:
                 _ckpt.set_aside_checkpoint(path, ".reclaimed")
-        with _range("checkpoint.save"):
+        t0 = time.perf_counter()
+        with observe.span("checkpoint.save"):
             states = self._host_states()
             opt_states = self._optimizer.get_states() \
                 if self._optimizer is not None else {}
             rng = self._rng_device().rng_state.numpy()
+        nbytes = sum(int(v.nbytes) for v in (*states.values(),
+                                              *opt_states.values(), rng))
         meta = {"format": "singa_tpu_torch.checkpoint", "version": 1,
                 "step": int(step), "model": type(self).__name__,
                 "files": ["model.zip", "opt.npz", "rng.npy"]}
@@ -608,10 +680,13 @@ class Model(layer.Layer):
             os.replace(tmp, path)
 
         if async_save:
-            overlap.start_async_save(path, write)
+            overlap.start_async_save(path, write,
+                                     blocking_s=time.perf_counter() - t0)
         else:
-            write()
+            with observe.span("checkpoint.save"):
+                write()
             overlap.clear_write_failed(path)
+        observe.record_checkpoint_bytes(nbytes)
         return path
 
     def load_checkpoint(self, path: str):
@@ -622,11 +697,13 @@ class Model(layer.Layer):
         if not os.path.isfile(os.path.join(path, "meta.json")):
             raise FileNotFoundError(f"no checkpoint at {path} (meta.json "
                                     "missing)")
-        self.set_states(_read_states_zip(os.path.join(path, "model.zip")))
-        if self._optimizer is not None:
-            self._optimizer.setup(self.get_params().values())
-            with np.load(os.path.join(path, "opt.npz")) as z:
-                self._optimizer.set_states({k: z[k] for k in z.files})
+        with observe.span("checkpoint.load"):
+            self.set_states(_read_states_zip(os.path.join(path,
+                                                          "model.zip")))
+            if self._optimizer is not None:
+                self._optimizer.setup(self._raw_params().values())
+                with np.load(os.path.join(path, "opt.npz")) as z:
+                    self._optimizer.set_states({k: z[k] for k in z.files})
         self._rng_device().rng_state = torch.from_numpy(
             np.load(os.path.join(path, "rng.npy")))
         self._reset_steps()
@@ -660,4 +737,4 @@ def _input_device(x) -> torch.device:
     return device_module.resolve(None)
 
 
-__all__ = ["Model"]
+__all__ = ["Model", "ModelMeta"]

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import io
 import zipfile
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -57,15 +58,26 @@ class GPT(model.Model):
     (layer.MoE) with capacity factor `moe_capacity_factor`; the training
     loss adds each block's load-balance loss times `moe_aux_weight` and
     its router z-loss times `moe_z_weight`. `ep_axis` is accepted and
-    runs on one device."""
+    runs on one device. The positional order is the JAX GPT's;
+    `seq_axis`, `tp_axis` and `vocab_tp` raise until model parallelism
+    is ported (`vocab_pad_multiple` and `vocab_tp_return_logits` only
+    shape a vocab-parallel head), and `device` and `seed` come last."""
 
     def __init__(self, vocab_size, max_seq=1024, dim=256, num_heads=8,
-                 num_layers=4, mlp_ratio=4, attn_bias=False,
-                 num_kv_heads=None, pos_encoding="learned",
-                 rope_theta=10000.0, device=None, seed=0, moe_experts=0,
-                 moe_k=2, ep_axis=None, moe_capacity_factor=1.25,
-                 moe_aux_weight=0.01, moe_z_weight=1e-3):
-        super().__init__()
+                 num_layers=4, mlp_ratio=4, seq_axis=None, tp_axis=None,
+                 attn_bias=False, vocab_tp=False, vocab_pad_multiple=128,
+                 vocab_tp_return_logits=True, moe_experts=0, moe_k=2,
+                 ep_axis=None, moe_capacity_factor=1.25,
+                 moe_aux_weight=0.01, moe_z_weight=1e-3, num_kv_heads=None,
+                 pos_encoding="learned", rope_theta=10000.0, name=None,
+                 device=None, seed=0):
+        super().__init__(name)
+        for arg, val in (("seq_axis", seq_axis), ("tp_axis", tp_axis),
+                         ("vocab_tp", vocab_tp)):
+            if val:
+                raise NotImplementedError(
+                    f"GPT({arg}=...) comes with model parallelism "
+                    "(ROADMAP.md Queue 1 item 5)")
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding {pos_encoding!r}")
         dev = device_mod.resolve(device)
@@ -160,13 +172,14 @@ class GPT(model.Model):
                     v.detach() for v in (m.aux_loss, m.z_loss, m.overflow))
         return logits.detach(), loss.detach()
 
-    def get_params(self):
+    def _raw_params(self):
         """{JAX name: parameter} in the JAX GPT's order: its blocks are
         `TransformerBlock_<i>` and it registers the position table on
         itself, first; the optimizer's checkpoint keys follow this
-        order."""
+        order (`get_params()` returns Tensor views in the same order)."""
         own = {_singa_name(n): p for n, p in self.named_parameters()}
-        return dict(sorted(own.items(), key=lambda kv: kv[0] != "pos_embed"))
+        return OrderedDict(sorted(own.items(),
+                                  key=lambda kv: kv[0] != "pos_embed"))
 
     def _prompt(self, prompt):
         ids = prompt.cpu().numpy() if isinstance(prompt, torch.Tensor) \
@@ -232,7 +245,7 @@ class GPT(model.Model):
             if fn is None:
                 fn = cache[sig] = serving.build_spec_decode(
                     self, draft_model, B, S0, max_new_tokens, int(spec_k),
-                    dtype, kv_dtype, moe_capacity_factor)
+                    dtype, moe_capacity_factor, kv_dtype)
             out = fn(serving.decode_state(self, dtype),
                      serving.decode_state(draft_model, dtype),
                      self._ids(ids))
@@ -244,7 +257,7 @@ class GPT(model.Model):
         if fn is None:
             fn = cache[sig] = serving.build_decode(
                 self, B, S0, max_new_tokens, float(temperature), top_k,
-                dtype, kv_dtype, moe_capacity_factor)
+                dtype, moe_capacity_factor, kv_dtype)
         out = fn(serving.decode_state(self, dtype), self._ids(ids), seed)
         return out.cpu().numpy().astype(np.int32)
 
@@ -279,8 +292,8 @@ class GPT(model.Model):
         if fn is None:
             fn = cache[sig] = serving.build_beam_decode(
                 self, B, S0, max_new_tokens, num_beams,
-                float(length_penalty), eos_id, dtype, pad_id, kv_dtype,
-                moe_capacity_factor)
+                float(length_penalty), eos_id, dtype, pad_id,
+                moe_capacity_factor, kv_dtype)
         out, scores = fn(serving.decode_state(self, dtype), self._ids(ids))
         out = out.cpu().numpy().astype(np.int32)
         if return_scores:

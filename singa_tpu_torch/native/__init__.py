@@ -126,4 +126,9 @@ def snapshot() -> ctypes.CDLL:
     return _load("snapshot", _annotate_snapshot)
 
 
-__all__ = ["BUILD_DIR", "recordio", "snapshot"]
+# the JAX package's names (its versions return None without a C++
+# toolchain; these raise with g++'s output, as `recordio`/`snapshot` do)
+lib = recordio
+snapshot_lib = snapshot
+
+__all__ = ["BUILD_DIR", "lib", "recordio", "snapshot", "snapshot_lib"]

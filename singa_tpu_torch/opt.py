@@ -22,11 +22,13 @@ of the step it replays, not the value it had at capture.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from . import autograd
-from .tensor import Tensor
+from . import autograd, observe
+from .tensor import _raw
 
 
 # ---- learning-rate schedules ---------------------------------------------
@@ -98,7 +100,7 @@ class Optimizer:
         (Model.compile passes the JAX package's parameter order), so the
         checkpoint keys p{j}.{k} line up with the JAX package's."""
         for p in params:
-            self._state(p)
+            self._state(_raw(p))
 
     def get_states(self) -> dict:
         """numpy copies under the JAX package's keys: `step_counter` and
@@ -129,24 +131,61 @@ class Optimizer:
         parameter's update, then one step of the counter (JAX's order: an
         update reads the counter of the step it belongs to). Parameters
         created after `setup` (at a layer's first call) get their state
-        at their first update. The updates run inside the profiler range
-        `opt.apply_updates` (the JAX package's span name), which
-        torch.profiler attributes the update kernels to; backward hands
-        over every grad at once, so the range holds only the updates."""
+        at their first update. The updates run inside the span
+        `opt.apply_updates` (`observe.span`: a profiler range to which
+        torch.profiler attributes the update kernels);
+        backward hands over every grad at once, so the span holds only
+        the updates. `observe.record_opt_update` counts the parameters
+        updated each time this body runs on the host: every step eagerly,
+        and under a CUDA graph at the warm-up call and at the capture
+        only (a replay runs no Python)."""
+        t0 = time.perf_counter()
         pairs = list(autograd.backward(loss))
-        with torch.profiler.record_function("opt.apply_updates"):
+        with observe.span("opt.apply_updates"):
             for p, g in pairs:
-                if isinstance(p, Tensor):
-                    p, g = p.data, g.data
                 self.apply(p, g)
         self.step()
+        observe.record_opt_update(len(pairs), time.perf_counter() - t0,
+                                  "local")
 
     @torch.no_grad()
     def step(self):
         self.step_counter.add_(1.0)
 
     def apply(self, param, grad):
+        """Update `param` from `grad` in place: SINGA Tensors (the pairs
+        `autograd.backward` yields for a Tensor loss) or raw tensors (the
+        GPT's path)."""
+        self._apply(_raw(param), _raw(grad))
+
+    def _apply(self, param, grad):
         raise NotImplementedError
+
+    def step_tag(self) -> int:
+        """The step variant a graph-mode step is built for: a local
+        optimizer has one (the JAX package keys its executables on
+        it)."""
+        return 0
+
+    def state_arrays(self) -> list:
+        """The step counter, then every parameter's state tensors (keys
+        sorted), in creation order: the tensors a step updates in
+        place."""
+        arrs = [self.step_counter]
+        for pid in self._state_order:
+            st = self._states[pid]
+            arrs.extend(st[k] for k in sorted(st))
+        return arrs
+
+    @torch.no_grad()
+    def load_state_arrays(self, arrs):
+        """Copy `state_arrays()`-ordered values into the states, in
+        place."""
+        for dst, src in zip(self.state_arrays(), arrs):
+            dst.copy_(torch.as_tensor(src))
+
+    def device_check(self, *args):
+        pass
 
     def _lr(self):
         return self.lr(self.step_counter)
@@ -177,7 +216,7 @@ class SGD(Optimizer):
         return {}
 
     @torch.no_grad()
-    def apply(self, param, grad):
+    def _apply(self, param, grad):
         g = self._decayed(param, grad, self.weight_decay)
         if self.momentum > 0:
             buf = self._state(param)["momentum_buf"]
@@ -200,7 +239,7 @@ class RMSProp(Optimizer):
                                                     requires_grad=False)}
 
     @torch.no_grad()
-    def apply(self, param, grad):
+    def _apply(self, param, grad):
         g = self._decayed(param, grad, self.weight_decay)
         avg = self._state(param)["running_average"]
         avg.mul_(self.rho).add_((1 - self.rho) * g * g)
@@ -219,7 +258,7 @@ class AdaGrad(Optimizer):
         return {"history": torch.zeros_like(param, requires_grad=False)}
 
     @torch.no_grad()
-    def apply(self, param, grad):
+    def _apply(self, param, grad):
         g = self._decayed(param, grad, self.weight_decay)
         hist = self._state(param)["history"]
         hist.add_(g * g)
@@ -243,7 +282,7 @@ class Adam(Optimizer):
                 "v": torch.zeros_like(param, requires_grad=False)}
 
     @torch.no_grad()
-    def apply(self, param, grad):
+    def _apply(self, param, grad):
         g = self._decayed(param, grad, self.weight_decay)
         st = self._state(param)
         t = self.step_counter + 1.0

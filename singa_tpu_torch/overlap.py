@@ -25,6 +25,12 @@ card ahead of use, and checkpoints written while training goes on.
   barrier that raised it, until a new write to that path starts.
 
 Threads are daemons named `torch-prefetch-<n>` and `torch-ckpt-<n>`.
+Telemetry, as the JAX package's: the consumer's ring wait is the span
+`data.wait` (the producer thread runs under `observe.suppress_spans`),
+`observe.record_prefetch` books the ring's depth, the consumer's blocked
+time and the batches moved, `observe.record_ckpt_async` the pending
+saves and the caller's blocking time, and the barrier is the span
+`checkpoint.wait`.
 """
 
 from __future__ import annotations
@@ -34,12 +40,14 @@ import contextlib
 import itertools
 import os
 import threading
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
 from . import device as device_module
+from . import observe
 from .tensor import Tensor
 
 _END = object()          # ring marker: the source is exhausted
@@ -127,6 +135,12 @@ class DevicePrefetcher:
         return out, moved, ev
 
     def _produce(self):
+        # the source's own spans (a loader's data.wait) must not fire on
+        # this thread: only the consumer's ring wait is a data stall
+        with observe.suppress_spans():
+            self._produce_loop()
+
+    def _produce_loop(self):
         try:
             while True:
                 with self._cond:
@@ -143,6 +157,8 @@ class DevicePrefetcher:
                     if self._stop:
                         return
                     self._ring.append(item)
+                    observe.record_prefetch(depth=len(self._ring),
+                                            produced=True)
                     self._cond.notify_all()
         except BaseException as e:  # noqa: BLE001  relayed to the consumer
             self._err = e
@@ -156,7 +172,10 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        with self._cond:
+        t0 = time.perf_counter()
+        # the ring wait is the host's data stall (nested under fit's own
+        # data.wait span)
+        with observe.span("data.wait"), self._cond:
             while not self._ring:
                 if self._closed:
                     raise StopIteration
@@ -173,12 +192,15 @@ class DevicePrefetcher:
                 err, self._err = self._err, None   # raise it once
             else:
                 self._ring.popleft()
+                depth = len(self._ring)
                 self._cond.notify_all()
         if item is _END:
             self.close()
             if err is not None:
                 raise err
             raise StopIteration
+        observe.record_prefetch(depth=depth,
+                                blocked_s=time.perf_counter() - t0)
         out, moved, ev = item
         if ev is not None:
             stream = torch.cuda.current_stream(self._td)
@@ -200,6 +222,7 @@ class DevicePrefetcher:
             self._thread.join(timeout=timeout)
         with self._cond:
             self._ring.clear()
+            observe.record_prefetch(depth=0)
 
     def __enter__(self):
         return self
@@ -283,12 +306,13 @@ def wait_for_checkpoints():
     if not entries:
         return
     errors = []
-    with torch.profiler.record_function("checkpoint.wait"):
+    with observe.span("checkpoint.wait"):
         for e in entries:
             try:
                 e.wait()
             except BaseException as err:  # noqa: BLE001  re-raised below
                 errors.append((e, err))
+    observe.record_ckpt_async(pending_checkpoints())
     if errors:
         with _ckpt_lock:
             _failed_paths.update(os.path.abspath(e.path) for e, _ in errors)
@@ -298,18 +322,21 @@ def wait_for_checkpoints():
             f"{len(entries)} pending save(s) failed)") from err
 
 
-def start_async_save(path: str, write) -> None:
+def start_async_save(path: str, write, blocking_s=None) -> None:
     """Run `write()` on a thread as the async write of the checkpoint at
     `path`; `wait_for_checkpoints()` waits for it. The caller has taken
-    the device-to-host snapshot that `write` writes."""
+    the device-to-host snapshot that `write` writes, in `blocking_s`
+    seconds (booked by `observe.record_ckpt_async`)."""
     global _atexit_installed
     clear_write_failed(path)
     entry = _PendingSave(path, write)
     with _ckpt_lock:
         _pending.append(entry)
+        n = len(_pending)
         if not _atexit_installed:
             _atexit_installed = True
             atexit.register(_atexit_barrier)
+    observe.record_ckpt_async(n, blocking_s=blocking_s)
     entry.thread.start()
 
 

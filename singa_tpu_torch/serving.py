@@ -38,11 +38,12 @@ comparisons.
 
 from __future__ import annotations
 
+import time
 import weakref
 
 import torch
 
-from . import autograd
+from . import autograd, observe
 from .autograd import _top_k
 from .layer import layernorm
 from .parallel.moe import moe_ffn
@@ -55,6 +56,12 @@ DTYPES = (None, "bfloat16", "int8")
 #: KV-cache storage modes ("fp" is the activation-dtype cache, the
 #: kv_dtype=None API spelling)
 KV_DTYPES = ("fp", "int8", "int4")
+#: speculative-decoding per-token verdicts (the `verdict=` label on
+#: singa_spec_tokens_total, proven against this tuple by
+#: tools/check_metrics_names.py rule 5): "drafted" every draft proposal,
+#: "accepted" the proposals the target verified, "bonus" the target's own
+#: token each round emits, "wasted" = drafted - accepted
+SPEC_VERDICTS = ("drafted", "accepted", "bonus", "wasted")
 _KVQ = ("int8", "int4")
 #: the decode-param matrices `dtype="int8"` quantizes (and the head)
 _Q8_KEYS = ("Wqkv", "Wo", "W1", "W2", "head")
@@ -557,13 +564,33 @@ def decode_params(m):
     }
 
 
+def decode_raw(m) -> list:
+    """Every parameter the decode reads: the identity basis of the
+    decode-param tree's memo."""
+    arrs = [m.tok_embed.W, m.ln_f.gamma, m.ln_f.beta]
+    if m.pos_encoding != "rope":
+        arrs.append(m.pos_embed)
+    arrs.append(m.head.W)
+    for b in m.blocks:
+        a = b.attn
+        arrs += [b.ln1.gamma, b.ln1.beta, b.ln2.gamma, b.ln2.beta,
+                 a.Wq, a.Wk, a.Wv, a.Wo]
+        if a.use_bias:
+            arrs += [a.bq, a.bk, a.bv, a.bo]
+        if b.moe_experts:
+            arrs += [b.moe.Wg, b.moe.W1, b.moe.b1, b.moe.W2, b.moe.b2]
+        else:
+            arrs += [b.fc1.W, b.fc1.b, b.fc2.W, b.fc2.b]
+    return arrs
+
+
 def decode_state(m, dtype):
     """Memoized decode-param tree per serving dtype: the QKV fusion and
     the cast run once per weight set. The memo holds weak references to
-    the parameters with their version counters and hits only while every
-    parameter is the same tensor, unmodified in place
+    the parameters (`decode_raw`) with their version counters and hits
+    only while every parameter is the same tensor, unmodified in place
     (load_singa_params bumps the counters)."""
-    params = list(m.parameters())
+    params = decode_raw(m)
     cached = getattr(m, "_param_cache", None)
     if cached is not None:
         refs, trees = cached
@@ -583,13 +610,20 @@ def decode_state(m, dtype):
 # ---- the decode loops -------------------------------------------------------
 
 def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
-                 kv_dtype=None, moe_capacity_factor=None):
+                 moe_capacity_factor=None, kv_dtype=None):
     """Greedy/sampled decode fn: (params, prompt (B, S0) on the model's
     device, seed) -> ids (B, S0 + max_new). Prefill plus the first token,
     then a Python loop of `token_step`s, one sampled token each.
     Sampling draws from a torch.Generator seeded with `seed` on the
-    model's device. `kv_dtype` quantizes the caches;
-    `moe_capacity_factor` overrides the MoE layers' factor."""
+    model's device. `moe_capacity_factor` overrides the MoE layers'
+    factor; `kv_dtype` quantizes the caches (the JAX package's order).
+
+    The call runs inside the span `serving.decode`, the prefill and the
+    first token inside `serving.prefill`, the token loop inside
+    `serving.decode_scan`. With observe enabled the prefill and the call
+    are fenced (a device synchronize) for an honest TTFT and latency,
+    and `observe.record_decode` books them; disabled, nothing is
+    fenced."""
     core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
 
     def sample(logits, gen):
@@ -603,20 +637,86 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
         probs = torch.softmax(logits, dim=-1)
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
+    kind = "greedy" if temperature == 0.0 else "sampled"
+
     @torch.no_grad()
     def decode(p, prompt, seed=0):
+        obs = observe.is_enabled()
         gen = torch.Generator(device=prompt.device)
         gen.manual_seed(int(seed))
-        logits, caches = core.prefill(p, prompt, B)
-        tok = sample(logits, gen)
-        out = [tok]
-        for i in range(max_new - 1):
-            logits, caches = core.token_step(p, tok, caches, i, B)
-            tok = sample(logits, gen)
-            out.append(tok)
-        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+        with observe.span("serving.decode", batch=B, new_tokens=max_new):
+            t0 = time.perf_counter()
+            ttft = None
+            with observe.span("serving.prefill", batch=B,
+                              prompt_tokens=S0):
+                logits, caches = core.prefill(p, prompt, B)
+                tok = sample(logits, gen)
+                if obs:
+                    _fence(prompt.device)
+                    ttft = time.perf_counter() - t0
+            out = [tok]
+            if max_new > 1:
+                with observe.span("serving.decode_scan", batch=B,
+                                  new_tokens=max_new):
+                    for i in range(max_new - 1):
+                        logits, caches = core.token_step(p, tok, caches, i,
+                                                         B)
+                        tok = sample(logits, gen)
+                        out.append(tok)
+            ids = torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+            if obs:
+                _fence(prompt.device)
+                observe.record_decode(
+                    kind, time.perf_counter() - t0, new_tokens=B * max_new,
+                    batch=B, ttft=ttft, prompt_tokens=B * S0)
+        return ids
 
     return decode
+
+
+def _fence(device):
+    """Wait for the device's queued work (the serving telemetry's
+    fence; observe enabled only)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _spec_metrics():
+    """Speculative-decoding metrics, spelled out for the static lint
+    (verdict= values are members of SPEC_VERDICTS)."""
+    return {
+        "tokens": observe.counter(
+            "singa_spec_tokens_total",
+            "speculative-decoding tokens by verdict (drafted / "
+            "accepted / bonus / wasted)"),
+        "rounds": observe.counter(
+            "singa_spec_rounds_total",
+            "speculative verify rounds (one draft+verify cycle)"),
+        "acceptance": observe.gauge(
+            "singa_spec_acceptance_rate",
+            "last call/sync's accepted-over-drafted fraction"),
+    }
+
+
+def record_spec(drafted: int, accepted: int, bonus: int, rounds: int):
+    """Book one speculative call's (or engine sync's) draft economics into
+    the singa_spec_* metrics. Returns the acceptance fraction (None when
+    nothing was drafted)."""
+    rate = accepted / drafted if drafted > 0 else None
+    if not observe.is_enabled():
+        return rate
+    m = _spec_metrics()
+    if drafted:
+        m["tokens"].inc(float(drafted), verdict="drafted")
+        m["tokens"].inc(float(accepted), verdict="accepted")
+        m["tokens"].inc(float(drafted - accepted), verdict="wasted")
+    if bonus:
+        m["tokens"].inc(float(bonus), verdict="bonus")
+    if rounds:
+        m["rounds"].inc(float(rounds))
+    if rate is not None:
+        m["acceptance"].set(rate)
+    return rate
 
 
 def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
@@ -659,7 +759,8 @@ def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
 
 
 def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
-                      kv_dtype=None, moe_capacity_factor=None):
+                      moe_capacity_factor=None, kv_dtype=None,
+                      use_kernel=None):
     """Draft-model speculative GREEDY decode fn: (target params, draft
     params, prompt) -> ids (B, S0 + max_new); the call's counts
     (drafted, accepted, bonus, rounds) are left in `decode.stats`.
@@ -672,7 +773,11 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     prefix, so the tokens equal greedy `build_decode`'s. The JAX package
     runs the rounds as one `lax.while_loop`; here a Python loop does,
     with the per-row state on the device and one host read a round (is
-    any row still active)."""
+    any row still active). `use_kernel` goes to every attention op, as
+    in `_DecodeCore`. Spans: `serving.decode`, `serving.prefill` (both
+    prefills and the first token), `serving.spec_verify` (the rounds);
+    with observe enabled `record_spec` and `observe.record_decode`
+    ("spec") book the call."""
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     K = int(spec_k)
@@ -681,12 +786,24 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
 
     @torch.no_grad()
     def decode(pt, pd, prompt):
+        with observe.span("serving.decode", batch=B, new_tokens=max_new,
+                          spec_k=K):
+            return _spec(pt, pd, prompt)
+
+    def _spec(pt, pd, prompt):
+        obs = observe.is_enabled()
         dev = prompt.device
-        logits0, caches = core.prefill(pt, prompt, B)
-        # the draft only fills its own cache over the prompt: the first
-        # token is the target's
-        _, dcaches = core_d.prefill(pd, prompt, B)
-        tok = torch.argmax(logits0.float(), dim=-1)
+        t0 = time.perf_counter()
+        ttft = None
+        with observe.span("serving.prefill", batch=B, prompt_tokens=S0):
+            logits0, caches = core.prefill(pt, prompt, B, use_kernel)
+            # the draft only fills its own cache over the prompt: the
+            # first token is the target's
+            _, dcaches = core_d.prefill(pd, prompt, B, use_kernel)
+            tok = torch.argmax(logits0.float(), dim=-1)
+            if obs:
+                _fence(dev)
+                ttft = time.perf_counter() - t0
         buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
         buf[:, 0] = tok
         cnt = torch.ones(B, dtype=torch.long, device=dev)
@@ -694,31 +811,41 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
         jj = torch.arange(K + 1, device=dev)[None, :]
         counts = torch.zeros(3, dtype=torch.long, device=dev)
         rounds = 0
-        while max_new > 1:
-            active = cnt < max_new
-            if not bool(active.any()):
-                break
-            pos = S0 + cnt - 1              # the pending token's position
+        with observe.span("serving.spec_verify", batch=B,
+                          new_tokens=max_new):
+            while max_new > 1:
+                active = cnt < max_new
+                if not bool(active.any()):
+                    break
+                pos = S0 + cnt - 1          # the pending token's position
 
-            def draft_step(t, j):
-                return core_d.verify_step(pd, t[:, None], dcaches, pos + j,
-                                          active, B, 1)[0][:, 0]
+                def draft_step(t, j):
+                    return core_d.verify_step(pd, t[:, None], dcaches,
+                                              pos + j, active, B, 1,
+                                              use_kernel)[0][:, 0]
 
-            def verify(feed):
-                return core.verify_step(pt, feed, caches, pos, active, B,
-                                        K + 1)[0]
+                def verify(feed):
+                    return core.verify_step(pt, feed, caches, pos, active,
+                                            B, K + 1, use_kernel)[0]
 
-            g, take, tok, c, _ = _spec_round(draft_step, verify, tok, active,
-                                             max_new - cnt, K)
-            keep = jj < take[:, None]
-            buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
-            cnt = cnt + take
-            counts += c
-            rounds += 1
+                g, take, tok, c, _ = _spec_round(draft_step, verify, tok,
+                                                 active, max_new - cnt, K)
+                keep = jj < take[:, None]
+                buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
+                cnt = cnt + take
+                counts += c
+                rounds += 1
+        ids = torch.cat([prompt, buf], dim=1)
         drafted, accepted, n_bonus = (int(c) for c in counts.cpu())
         decode.stats = {"drafted": drafted, "accepted": accepted,
                         "bonus": n_bonus, "rounds": rounds}
-        return torch.cat([prompt, buf], dim=1)
+        if obs:
+            record_spec(drafted, accepted, n_bonus, rounds)
+            _fence(dev)
+            observe.record_decode(
+                "spec", time.perf_counter() - t0, new_tokens=B * max_new,
+                batch=B, ttft=ttft, prompt_tokens=B * S0)
+        return ids
 
     decode.stats = None
     return decode
@@ -744,14 +871,17 @@ def _pool_merge(pool_tok, pool_norm, pool_raw, cand_tok, cand_norm,
 
 
 def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
-                      eos_id, dtype=None, pad_id=None, kv_dtype=None,
-                      moe_capacity_factor=None):
+                      eos_id, dtype=None, pad_id=None,
+                      moe_capacity_factor=None, kv_dtype=None):
     """Beam-search decode fn: (params, prompt) -> (ids (B, S0 + max_new),
     the chosen hypothesis' joint log-prob (B,)). Prefill once, tile the
     caches across beams, then one token_step a step whose cache rows are
     reordered by the winning parent beams. With `eos_id`, finished
     hypotheses move to a length-normalized pool (the JAX package's
-    semantics) and the tail after eos is `pad_id` (default eos_id)."""
+    semantics) and the tail after eos is `pad_id` (default eos_id).
+    With observe enabled the call runs inside the span
+    `serving.beam_decode`, fenced, and `observe.record_decode` ("beam")
+    books it; disabled, neither."""
     V = m.vocab_size
     K = num_beams
     core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
@@ -821,9 +951,23 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
         return (torch.cat([prompt, all_tok[nb, best]], dim=1),
                 all_raw[nb, best])
 
-    return decode
+    def run(p, prompt):
+        if not observe.is_enabled():
+            return decode(p, prompt)
+        t0 = time.perf_counter()
+        with observe.span("serving.beam_decode", batch=B, beams=K):
+            out = decode(p, prompt)
+            _fence(prompt.device)
+        # one call: no prefill seam is timed, so no TTFT sample
+        observe.record_decode("beam", time.perf_counter() - t0,
+                              new_tokens=B * max_new, batch=B,
+                              prompt_tokens=B * S0)
+        return out
+
+    return run
 
 
-__all__ = ["DTYPES", "KV_DTYPES", "build_beam_decode", "build_decode",
-           "build_spec_decode", "decode_params", "decode_state", "kv_label",
+__all__ = ["DTYPES", "KV_DTYPES", "SPEC_VERDICTS", "build_beam_decode",
+           "build_decode", "build_spec_decode", "decode_params",
+           "decode_raw", "decode_state", "kv_label", "record_spec",
            "tree_leaves"]

@@ -25,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from . import native
+from . import native, observe
 from .tensor import Tensor
 
 
@@ -79,7 +79,7 @@ class Snapshot:
     def flush(self):
         if not self.mode_write:
             return
-        with torch.profiler.record_function("snapshot.flush"):
+        with observe.span("snapshot.flush"):
             if self.fpath.endswith(".npz"):
                 np.savez(self._prefix() + ".npz", **self._store)
                 stale = self._prefix() + ".bin"
@@ -95,6 +95,8 @@ class Snapshot:
                     for k, v in self._store.items()}
             with open(self._prefix() + ".meta", "w") as f:
                 json.dump(meta, f, indent=1)
+        observe.record_checkpoint_bytes(
+            sum(int(v.nbytes) for v in self._store.values()))
 
     def _flush_native(self, lb):
         path = self._prefix() + ".bin"
@@ -118,7 +120,7 @@ class Snapshot:
 
     # -- read side ------------------------------------------------------------
     def _load(self):
-        with torch.profiler.record_function("snapshot.load"):
+        with observe.span("snapshot.load"):
             prefix = self._prefix()
             bin_path = None if self.fpath.endswith(".npz") \
                 else prefix + ".bin"

@@ -63,6 +63,22 @@ def _raw(x):
     return x.data if isinstance(x, Tensor) else x
 
 
+def _param_view(p: torch.Tensor) -> "Tensor":
+    """The one Tensor over a layer's raw parameter or state `p`, made at
+    first use and kept on `p`: `Layer.get_params()`/`get_states()` return
+    it and `autograd.backward` yields it, so its identity is stable and a
+    write through it (`set_value`, `copy_from_numpy`, `copy_from`, `+=`)
+    reaches the layer's tensor in place."""
+    t = getattr(p, "_singa_tensor", None)
+    if t is None or t.data is not p:
+        t = Tensor._wrap(p, device_module.of(p.device), p.requires_grad)
+        t.stores_grad = p.requires_grad
+        p._singa_tensor = t
+    elif t.device.torch_device != p.device:
+        t.device = device_module.of(p.device)
+    return t
+
+
 class Tensor:
     """nd-array on a Device, with autograd hooks (`creator`, the
     autograd Operator that produced it; `requires_grad`; `stores_grad`)."""
@@ -188,26 +204,36 @@ class Tensor:
         with torch.no_grad():
             self.data.copy_(torch.as_tensor(value).reshape(self.shape))
 
+    def _replace(self, value):
+        """Rebind `data` to `value`, as the JAX package's Tensor does; a
+        view over a layer's parameter or state (`get_params()`,
+        `get_states()`) writes in place instead, so the layer sees it."""
+        if getattr(self.data, "_singa_tensor", None) is self:
+            with torch.no_grad():
+                self.data.copy_(value)
+        else:
+            self.data = value
+
     def add_column(self, v: "Tensor"):
-        self.data = self.data + v.data[:, None]
+        self._replace(self.data + v.data[:, None])
 
     def add_row(self, v: "Tensor"):
-        self.data = self.data + v.data[None, :]
+        self._replace(self.data + v.data[None, :])
 
     def div_column(self, v: "Tensor"):
-        self.data = self.data / v.data[:, None]
+        self._replace(self.data / v.data[:, None])
 
     def div_row(self, v: "Tensor"):
-        self.data = self.data / v.data[None, :]
+        self._replace(self.data / v.data[None, :])
 
     def mult_column(self, v: "Tensor"):
-        self.data = self.data * v.data[:, None]
+        self._replace(self.data * v.data[:, None])
 
     def mult_row(self, v: "Tensor"):
-        self.data = self.data * v.data[None, :]
+        self._replace(self.data * v.data[None, :])
 
     def copy_from(self, t: "Tensor"):
-        self.data = t.data.to(self.device.torch_device)
+        self._replace(t.data.to(self.device.torch_device))
 
     def copy_from_numpy(self, arr):
         self._set(np.asarray(arr))
@@ -312,19 +338,19 @@ class Tensor:
         return self._new((self.data >= _raw(x)).to(float32), False)
 
     def __iadd__(self, x):
-        self.data = self.data + _raw(x)
+        self._replace(self.data + _raw(x))
         return self
 
     def __isub__(self, x):
-        self.data = self.data - _raw(x)
+        self._replace(self.data - _raw(x))
         return self
 
     def __imul__(self, x):
-        self.data = self.data * _raw(x)
+        self._replace(self.data * _raw(x))
         return self
 
     def __itruediv__(self, x):
-        self.data = self.data / _raw(x)
+        self._replace(self.data / _raw(x))
         return self
 
     def __getitem__(self, idx):
@@ -472,7 +498,7 @@ def mult(A: Tensor, B: Tensor) -> Tensor:
 
 def axpy(alpha, x: Tensor, y: Tensor):
     """y += alpha * x, in place on y."""
-    y.data = y.data + alpha * x.data
+    y._replace(y.data + alpha * x.data)
     return y
 
 

@@ -1,0 +1,148 @@
+"""Public-name parity between `singa_tpu` and the port, module by module.
+
+For each module of `singa_tpu` that has a counterpart in
+`singa_tpu_torch` (the same relative path), the JAX file is parsed with
+`ast` (nothing of it is imported), and every public top-level function
+and class, and every public alias of one (`create_cuda_gpu =
+create_tpu_device`), must resolve on the port's module; for the classes
+in CLASSES every public method (the class's own and those of its bases in
+the same file) must resolve on the port's class.
+
+A name that waits for a later slice of the port is listed in PENDING,
+by module, with the ROADMAP.md Queue 1 item that brings it. A listed
+name that resolves fails the test: the list can only shrink.
+"""
+
+import ast
+import importlib
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_PKG = os.path.join(ROOT, "singa_tpu")
+PORT_PKG = os.path.join(ROOT, "singa_tpu_torch")
+
+#: {module: {name or "Class.method": Queue 1 item that ports it}}
+PENDING = {
+    "autograd": {n: 5 for n in (
+        "axis_bound", "tp_copy", "tp_reduce", "vocab_parallel_embedding",
+        "vocab_parallel_argmax", "vocab_parallel_sce", "gather_last")},
+    "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
+    "engine": {
+        **{n: 2 for n in (
+            "pctile", "add_request_listener", "remove_request_listener",
+            "request_listeners", "clear_request_listeners", "get_engines",
+            "reset", "serving_report", "EngineRequest.mark",
+            "ServingEngine.timelines", "ServingEngine.active_timelines",
+            "ServingEngine.sync_records", "ServingEngine.recent_ttfts",
+            "ServingEngine.rps", "ServingEngine.decode_tok_s")},
+        "ServingEngine.prewarm": 3},
+    "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
+    "opt": {"DistOpt": 4, "SGD.state_specs": 5, "Adam.state_specs": 5,
+            "Optimizer.state_specs": 5},
+    "overlap": {"async_available": 7, "overlap_report": 7},
+    "serving": {"poisson_workload": 2},
+    "utils": {"dense_allreduce_types": 4},
+    "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
+    "parallel.moe": {"moe_ffn_ep": 5},
+    "models.transformer": {"PipelinedGPT": 5, "create_pipelined": 5},
+}
+
+#: (module, class) whose public methods must resolve
+CLASSES = {
+    "tensor": ("Tensor",), "layer": ("Layer",), "model": ("Model",),
+    "device": ("Device",), "opt": ("Optimizer", "SGD", "Adam"),
+    "engine": ("ServingEngine", "EngineRequest"),
+}
+
+
+def _modules():
+    """Dotted names of the JAX modules with a port counterpart (a package
+    as `<package>.__init__`)."""
+    out = []
+    for root, _, files in os.walk(PORT_PKG):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, f), PORT_PKG)
+            if not os.path.exists(os.path.join(JAX_PKG, rel)):
+                continue
+            out.append(rel[:-3].replace(os.sep, "."))
+    return sorted(out)
+
+
+def _public_names(tree):
+    defs = {n.name: n for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef))}
+    names = [n for n in defs if not n.startswith("_")]
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Name) \
+                and node.value.id in defs:
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)
+                      and not t.id.startswith("_")]
+    return names, defs
+
+
+def _methods(cls, defs):
+    """Public methods of `cls` and of its bases defined in the same file
+    (class-level aliases included)."""
+    out, seen, todo = [], set(), [cls]
+    while todo:
+        node = defs.get(todo.pop())
+        if node is None or node.name in seen:
+            continue
+        seen.add(node.name)
+        for b in node.body:
+            if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and not b.name.startswith("_"):
+                out.append(b.name)
+            elif isinstance(b, ast.Assign) and isinstance(b.value, ast.Name):
+                out += [t.id for t in b.targets if isinstance(t, ast.Name)
+                        and not t.id.startswith("_")]
+        todo += [ast.unparse(base) for base in node.bases]
+    return out
+
+
+MODULES = _modules()
+
+
+def test_the_sweep_covers_the_ported_modules():
+    assert {"tensor", "autograd", "layer", "model", "opt", "device",
+            "serving", "engine", "observe", "config", "channel",
+            "image_tool", "ops.attention", "models.transformer",
+            "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
+    assert set(PENDING) <= set(MODULES)
+    assert all(item in (2, 3, 4, 5, 6, 7)
+               for names in PENDING.values() for item in names.values())
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_public_names_resolve_on_the_port(name):
+    with open(os.path.join(JAX_PKG, name.replace(".", os.sep) + ".py")) \
+            as f:
+        tree = ast.parse(f.read())
+    port = importlib.import_module(
+        "singa_tpu_torch." + name.removesuffix("__init__").rstrip(".")
+        if name != "__init__" else "singa_tpu_torch")
+    names, defs = _public_names(tree)
+    pending = PENDING.get(name, {})
+    missing, early = [], []
+    wanted = [(n, getattr(port, n, None)) for n in names]
+    for cls in CLASSES.get(name, ()):
+        pcls = getattr(port, cls)
+        wanted += [(f"{cls}.{m}", getattr(pcls, m, None))
+                   for m in _methods(cls, defs)]
+    for key, got in wanted:
+        if key in pending:
+            if got is not None:
+                early.append(key)
+        elif got is None:
+            missing.append(key)
+    listed = {k for k, _ in wanted}
+    stale = sorted(set(pending) - listed)
+    assert not missing, f"{name}: JAX names missing on the port: {missing}"
+    assert not early, (f"{name}: {early} resolve on the port now; take "
+                       "them out of PENDING")
+    assert not stale, f"{name}: PENDING names JAX does not have: {stale}"

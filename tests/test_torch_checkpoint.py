@@ -84,7 +84,7 @@ def _build(seed):
 
 
 def _snapshot(m):
-    return ({k: v.detach().clone() for k, v in m.get_states().items()},
+    return ({k: v.detach().clone() for k, v in m._raw_states().items()},
             m.optimizer.get_states())
 
 
@@ -260,7 +260,7 @@ def test_jax_loads_the_checkpoint_model_zip(tmp_path):
     assert sorted(js) == sorted(ts)
     for k in js:
         np.testing.assert_array_equal(jt.to_numpy(js[k]),
-                                      ts[k].detach().numpy(), err_msg=k)
+                                      ts[k].numpy(), err_msg=k)
     with np.load(os.path.join(path, "opt.npz")) as z:
         ours = {k: z[k] for k in z.files}
     theirs = jm.optimizer.get_states()

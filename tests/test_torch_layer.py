@@ -130,7 +130,7 @@ def test_layer_matches_jax(name):
                                    rtol=RTOL, atol=ATOL,
                                    err_msg=f"{name} training={mode}")
     for k, v in j.get_states().items():
-        np.testing.assert_allclose(t.get_states()[k].detach().numpy(),
+        np.testing.assert_allclose(t.get_states()[k].numpy(),
                                    jt.to_numpy(v), rtol=RTOL, atol=ATOL,
                                    err_msg=k)
 

@@ -215,7 +215,7 @@ def test_recurrent_layer_matches_jax(name):
     want = {jnames[id(p)]: jt.to_numpy(g) for p, g in jg.items()
             if id(p) in jnames}
     tnames = {id(v): k for k, v in tp.items()}
-    got = {tnames[id(p)]: g.detach().numpy() for p, g in tg.items()
+    got = {tnames[id(p)]: g.numpy() for p, g in tg.items()
            if id(p) in tnames}
     assert sorted(got) == sorted(want) == sorted(jp)
     for k in want:
@@ -250,7 +250,7 @@ def test_lstm_step_matches_jax():
     tnames = {id(v): k for k, v in t.get_params().items()}
     want = {jnames[id(p)]: jt.to_numpy(g) for p, g in jg.items()
             if id(p) in jnames}
-    got = {tnames[id(p)]: g.detach().numpy() for p, g in tg.items()
+    got = {tnames[id(p)]: g.numpy() for p, g in tg.items()
            if id(p) in tnames}
     assert sorted(got) == sorted(want) == ["Wh", "Wx", "b"]
     for k in want:
@@ -307,6 +307,6 @@ def test_char_rnn_three_steps_match_jax():
     np.testing.assert_allclose(tls, jls, rtol=1e-5)
     assert tls[-1] < tls[0]
     for k, v in jm.get_params().items():
-        np.testing.assert_allclose(tm.get_params()[k].detach().numpy(),
+        np.testing.assert_allclose(tm.get_params()[k].numpy(),
                                    jt.to_numpy(v), atol=1e-5, rtol=0,
                                    err_msg=k)

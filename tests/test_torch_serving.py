@@ -193,7 +193,8 @@ def test_gpt_without_device_raises_without_cuda():
 
 def test_port_imports_neither_jax_nor_singa_tpu():
     """A fresh interpreter importing every module of the port holds no
-    jax and no singa_tpu module afterwards."""
+    jax and no singa_tpu module afterwards, nor PIL (image_tool imports
+    it at first use: the card's host has none)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import sys\n"
@@ -214,10 +215,12 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.parallel.moe, singa_tpu_torch.ops.rnn, "
         "singa_tpu_torch.utils, singa_tpu_torch.sonnx, "
         "singa_tpu_torch.sonnx.onnx_pb, singa_tpu_torch.sonnx.frontend, "
-        "singa_tpu_torch.sonnx.backend, singa_tpu_torch.sonnx.interop\n"
+        "singa_tpu_torch.sonnx.backend, singa_tpu_torch.sonnx.interop, "
+        "singa_tpu_torch.observe, singa_tpu_torch.config, "
+        "singa_tpu_torch.channel, singa_tpu_torch.image_tool\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
-        "m.startswith('singa_tpu.')]\n"
+        "m.startswith('singa_tpu.') or m == 'PIL']\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=root)

@@ -243,6 +243,5 @@ def test_sonnx_model_states_round_trip(tmp_path):
     b.load_states(str(tmp_path / "a.zip"))
     for (k, p), (_, q) in zip(a.get_states().items(),
                               b.get_states().items()):
-        np.testing.assert_array_equal(p.detach().numpy(),
-                                      q.detach().numpy(), err_msg=k)
+        np.testing.assert_array_equal(p.numpy(), q.numpy(), err_msg=k)
     np.testing.assert_array_equal(a(tx).numpy(), b(tx).numpy())

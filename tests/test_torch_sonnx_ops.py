@@ -199,7 +199,8 @@ def test_tape_record_has_one_entry_per_input():
     """src holds (creator, id, input, stores_grad) per input in order: a
     raw nn.Parameter as a leaf that stores no gradient, a leaf Tensor as
     its Dummy; y_id2idx and _out_shapes describe the outputs; backward's
-    pairs are unchanged by the raw leaf."""
+    pairs are unchanged by the raw leaf (the parameter's pair is its
+    Tensor view, as for a layer's parameter)."""
     cpu = tdevice.create_cpu_device()
     x = tt.Tensor(data=np.ones((2, 3), np.float32), device=cpu,
                   stores_grad=True)
@@ -222,8 +223,11 @@ def test_tape_record_has_one_entry_per_input():
     assert topk._n_out == 2 and topk.y_id2idx == {id(v): 0, id(i): 1}
     assert topk._out_shapes[1] == ((2, 2), torch.int32)
     got = {id(p): g for p, g in pairs}
-    assert set(got) == {id(x), id(w)}
-    assert isinstance(got[id(x)], tt.Tensor) and torch.is_tensor(got[id(w)])
+    assert set(got) == {id(x), id(tt._param_view(w))}
+    assert tt._param_view(w).data is w
+    got[id(w)] = got.pop(id(tt._param_view(w)))
+    assert isinstance(got[id(x)], tt.Tensor) \
+        and isinstance(got[id(w)], tt.Tensor)
     # every y ties: TopK keeps columns 0 and 1, whose W columns get x's
     # column sums
     np.testing.assert_allclose(got[id(w)].numpy(),

@@ -292,8 +292,9 @@ def test_raw_tensors_pass_through_without_the_tape():
 def test_eval_mode_records_nothing_and_backward_pairs():
     """Out of training an op records no creator and no torch graph; in
     training, backward yields (Tensor, Tensor) for stores_grad leaves
-    and (parameter, grad) for raw parameters, and stops at leaves that
-    do not store grads."""
+    and for raw parameters (the parameter's Tensor view, as
+    `get_params()` returns it), and stops at leaves that do not store
+    grads."""
     cpu = tdevice.create_cpu_device()
     x = tt.Tensor(data=np.ones((2, 3), np.float32), device=cpu,
                   stores_grad=True)
@@ -311,8 +312,11 @@ def test_eval_mode_records_nothing_and_backward_pairs():
     finally:
         tag.training = prev
     got = {id(p): g for p, g in pairs}
-    assert set(got) == {id(x), id(w)}
-    assert isinstance(got[id(x)], tt.Tensor) and torch.is_tensor(got[id(w)])
+    assert set(got) == {id(x), id(tt._param_view(w))}
+    assert tt._param_view(w).data is w
+    got[id(w)] = got.pop(id(tt._param_view(w)))
+    assert isinstance(got[id(x)], tt.Tensor) \
+        and isinstance(got[id(w)], tt.Tensor)
     np.testing.assert_allclose(got[id(x)].numpy(), np.ones((2, 3)))
     np.testing.assert_allclose(got[id(w)].numpy(), np.full((3, 2), 2.0))
     with pytest.raises(NotImplementedError, match="distribution"):

@@ -89,7 +89,7 @@ def _assert_params_close(jm, tm, atol):
     got = tm.get_params()
     assert list(got) == list(want)
     for k, w in want.items():
-        np.testing.assert_allclose(got[k].detach().numpy(), w, atol=atol,
+        np.testing.assert_allclose(got[k].numpy(), w, atol=atol,
                                    rtol=0, err_msg=k)
 
 
@@ -155,7 +155,7 @@ def test_checkpoints_load_both_ways(tmp_path):
     assert t2.load_states(jax_zip) == {}
     for k, v in jm.get_params().items():
         np.testing.assert_array_equal(
-            t2.get_params()[k].detach().numpy(), tensor.to_numpy(v))
+            t2.get_params()[k].numpy(), tensor.to_numpy(v))
     with pytest.raises(ValueError, match="shape"):
         t2.set_states({"head.W": np.zeros((3, 3), np.float32)})
 

@@ -123,7 +123,7 @@ def check_zoo_model(name):
         tl_.append(loss.item())
     rel = max(abs(a - b) / abs(a) for a, b in zip(jl_, tl_))
     js = jm.get_states()
-    err = {k: float(np.abs(ts[k].detach().numpy() - jt.to_numpy(v)).max())
+    err = {k: float(np.abs(ts[k].numpy() - jt.to_numpy(v)).max())
            for k, v in js.items()}
     worst = max(err, key=err.get)
     print(f"{name}: losses JAX {jl_} port {tl_}, worst relative loss "
@@ -144,7 +144,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
     assert int(jm.load_states(port_zip)["epoch"]) == 3
     for k, v in jm.get_states().items():
         np.testing.assert_array_equal(jt.to_numpy(v),
-                                      tm.get_states()[k].detach().numpy(), k)
+                                      tm.get_states()[k].numpy(), k)
     jm(jx, jy)
     jax_zip = os.path.join(tmp_path, "jax.zip")
     jm.save_states(jax_zip)
@@ -152,7 +152,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
     fresh.compile([tx], is_train=False)
     assert fresh.load_states(jax_zip) == {}
     for k, v in jm.get_states().items():
-        np.testing.assert_array_equal(fresh.get_states()[k].detach().numpy(),
+        np.testing.assert_array_equal(fresh.get_states()[k].numpy(),
                                       jt.to_numpy(v), k)
 
 
@@ -163,7 +163,7 @@ def test_resnet50_parameter_count():
     m.compile([tt.from_numpy(np.zeros((1, 3, 32, 32), np.float32),
                              device=tdevice.create_cpu_device())],
               is_train=False)
-    assert sum(p.numel() for p in m.get_params().values()) == 25_557_032
+    assert sum(p.numel() for p in m._raw_params().values()) == 25_557_032
     assert tmodels.create_model("resnet").__class__ is tresnet.ResNet
     with pytest.raises(ValueError, match="unknown model"):
         tmodels.create_model("nope")

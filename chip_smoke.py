@@ -201,10 +201,39 @@ Phases, each of which exits non-zero on failure:
    the card, each within its own time limit and printing its last line
    of work (model_selection/ms_mlp.py needs scikit-learn, which the
    card's host lacks).
-13. The `kernels` JSON line (the decode kernels with a `modes` entry per
+13. slo, health and fault injection on the main paths. 13a slo's A/B
+   on a ServingEngine (GPT-2-small bf16, 8 slots, page 16,
+   steps_per_sync 2): `prewarm` over the workload's prompt lengths, an
+   SLOTracker (TTFT p99 0.25 s, availability 0.9, windows 2 s / 20 s,
+   burn threshold 2, sustain 2, min_requests 5, evaluated every 0.1 s),
+   `serving.poisson_workload(seed=7, 16 requests, 6 rps, prompts 64-256,
+   +16-64)` plus one long anchor request; the clean arm at 100%
+   ttft_p99 attainment with no breach, the degraded arm (a FaultPlan
+   delay of 0.4 s on every "serving.engine_step") breaching within
+   sustain + 3 burning evaluations with a KIND_SLO anomaly on the active
+   monitor; in both the request trace passes `slo._check_flow_trace`
+   and the chosen request's syncs lie inside the `serving.engine_step`
+   spans; exact K1/K4 counts against the engine's own prefills and
+   steps; a clean p99 TTFT above half the target scales the target and
+   the delay by one printed factor. 13b GPT.generate greedy (b8, prompt
+   256, +32, bf16) with a tracker installed and observe off: one
+   `note_decode`, 8 records, exact K1/K3, no non-finite logit booked;
+   then observe on and +inf in one element of the output head:
+   `singa_health_nan_logits_total{kind="greedy"}` equal to a plain
+   recount. 13c the bench GPT step as a CUDA graph with
+   `compile(health=HealthMonitor("skip_step"))`, 6 steps: finite stats,
+   grad_norm and the group norms within 1e-2 of the eager health steps,
+   8 + 8 K1/K2a a step; +inf in a block weight between replays: the
+   replay reports the anomaly and keeps every parameter, slot and the
+   step counter bitwise; restored, the next step is clean and steps the
+   counter; the replayed step with health off, warn and skip_step in
+   same-call turns (median of 15 each); halt raising HealthError with a
+   bundle that `load_flight_bundle` reads.
+14. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
-   `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine` and
-   `observe_train`), then the card line, then the result line.
+   `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
+   `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate` and
+   `health_train`), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -3344,6 +3373,409 @@ def phase_observe_examples(root):
                  f"{line!r}):\n{out[-3000:]}")
 
 
+# ---- phase 13: slo, health and fault injection on the main paths ----------
+
+#: 13a: the SLO A/B's settings (slo._ab_leg's): the workload of
+#: serving.poisson_workload plus one long anchor request, the engine
+SLO_WORKLOAD = dict(seed=7, n_req=16, rps=6.0, vocab=50257,
+                    prompt_lens=(64, 256), new_lens=(16, 64))
+SLO_ENGINE = dict(max_slots=8, page_size=16, steps_per_sync=2,
+                  max_ctx=1024, dtype="bfloat16")
+SLO_TTFT, SLO_DELAY = 0.25, 0.4     # p99 TTFT target, injected sync delay
+SLO_EVAL_S = 0.1                    # the evaluation cadence
+HEALTH_STEPS = 6                    # 13c's steps per model
+HEALTH_TURN_STEPS = 5               # 13c's steps per timed turn (3 turns)
+HEALTH_TOL = 1e-2                   # graph against eager stats, bf16 amp
+
+
+def _slo_config(slo, target):
+    return slo.SLOConfig(ttft_p99_s=target, availability=0.9,
+                         window_s=20.0, fast_window_s=2.0,
+                         slow_window_s=20.0, burn_threshold=2.0, sustain=2,
+                         min_requests=5, eval_interval_s=1e9)
+
+
+def _slo_arm(torch, model, engine, serving, slo, health, resilience,
+             observe, A, target, delay):
+    """One arm of 13a (slo._ab_leg on one engine): a fresh engine,
+    prewarmed over the workload's prompt lengths, then the tracker, then
+    the anchor and the Poisson arrivals while the tracker is evaluated
+    every SLO_EVAL_S; `delay` (None for the clean arm) stalls every sync
+    through a FaultPlan. The launch counters and the span ring are reset
+    after the prewarm and read after the run."""
+    L = len(model.blocks)
+    wl = serving.poisson_workload(**SLO_WORKLOAD)
+    prompts, new_lens = wl["prompts"], wl["new_lens"]
+    n_hi = SLO_WORKLOAD["new_lens"][1]
+    eng = engine.ServingEngine(model, queue_limit=4 * len(prompts),
+                               **SLO_ENGINE).start()
+    mon = health.HealthMonitor(policy="warn")
+    health.set_active_monitor(mon)
+    anomalies = observe.counter("singa_health_anomaly_total",
+                                "training anomalies by kind")
+    slo0 = anomalies.value(kind=health.KIND_SLO)
+    rec = {}
+    try:
+        buckets, _ = eng.prewarm([len(p) for p in prompts], max_new=2,
+                                 timeout_s=300)
+        torch.cuda.synchronize()
+        tracker = slo.SLOTracker(_slo_config(slo, target)).install()
+        if delay is not None:
+            resilience.install_fault_plan(resilience.FaultPlan().delay(
+                "serving.engine_step", delay, times=10 ** 9))
+        observe.enable_span_records(8192)
+        steps0, pre0 = eng.report()["steps"], len(eng.timelines())
+        A.reset_launches()
+        t0 = time.perf_counter()
+        handles = [eng.submit(prompts[0], n_hi)]
+        for i in range(1, len(prompts)):
+            dt = t0 + float(wl["arrivals"][i]) - time.perf_counter()
+            if dt > 0:
+                time.sleep(dt)
+            handles.append(eng.submit(prompts[i], int(new_lens[i])))
+        breach_eval = None
+        burning = idle = 0
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            time.sleep(SLO_EVAL_S)
+            v = tracker.evaluate()
+            if any(o["burning"] or o["breach"]
+                   for o in v["objectives"].values()):
+                burning += 1
+            if v["breaching"] and breach_eval is None:
+                breach_eval = burning
+            if all(h.done() for h in handles):
+                idle += 1
+                if breach_eval is not None or delay is None or idle > 40:
+                    break
+        stuck = [h.id for h in handles if not h.wait(600)]
+        wall = time.perf_counter() - t0
+        if stuck:
+            fail(f"13a: requests {stuck} stalled")
+        torch.cuda.synchronize()
+        counts = dict(A.LAUNCHES)
+        rep = eng.report()
+        v = tracker.evaluate()
+        rec.update(
+            wall=wall, tokens=sum(len(h.tokens) for h in handles),
+            ttfts=sorted(h.ttft_s for h in handles), report=rep,
+            verdict=v, breach_eval=breach_eval,
+            status=mon.verdict()["status"],
+            slo_anomalies=anomalies.value(kind=health.KIND_SLO) - slo0,
+            outcomes=[h.outcome for h in handles], buckets=buckets)
+        # the engine's own prefills (an admit event each) and steps
+        prefills = sum(1 for t in eng.timelines()[pre0:]
+                       if any(ev[0] == "admit" for ev in t["events"]))
+        check_launches(f"13a {'degraded' if delay else 'clean'} engine",
+                       counts, {"flash_fwd": L * prefills,
+                                "paged_attention":
+                                    L * (rep["steps"] - steps0)})
+        rec["counts"] = counts
+        trace = slo.engine_trace_events(eng)
+        res = slo._check_flow_trace(trace, eng)
+        spans = [r for r in observe.span_records()
+                 if r["name"] == "serving.engine_step"]
+        chosen = next(t for t in eng.timelines()
+                      if t["syncs"] and t["outcome"] == "completed"
+                      and not t["synthetic"])
+        by_id = {s["sync"]: s for s in eng.sync_records()}
+        inside = all(any(r["tid"] == s["tid"] and r["t0"] <= s["t0"]
+                         and s["t0"] + s["dur"] <= r["t0"] + r["dur"]
+                         for r in spans)
+                     for s in (by_id[i] for i in chosen["syncs"]))
+        rec["trace"] = dict(res, syncs_in_spans=inside,
+                            chosen_syncs=len(chosen["syncs"]))
+        if not (res["schema_ok"] and res["flow_ok"] and inside):
+            fail(f"13a: the request trace's flow links fail: "
+                 f"{rec['trace']}")
+    finally:
+        resilience.clear_fault_plan()
+        observe.disable_span_records()
+        eng.stop()
+        slo.reset()
+        health.set_active_monitor(None)
+    return rec
+
+
+def _arm_line(label, r):
+    t = r["ttfts"]
+    p50, p99 = t[len(t) // 2], t[min(len(t) - 1, int(0.99 * len(t)))]
+    tok_s = r["report"]["decode_tok_s"]
+    att = r["verdict"]["objectives"]["ttft_p99"]["attainment"]
+    print(f"  {label}: wall {r['wall']:.3f} s, {r['tokens']} tokens, "
+          f"{r['tokens'] / r['wall']:.1f} tok/s, TTFT p50 {p50 * 1e3:.1f} "
+          f"ms p99 {p99 * 1e3:.1f} ms, decode_tok_s {tok_s}, ttft_p99 "
+          f"attainment {att}, breaching {r['verdict']['breaching']}, "
+          f"breach after {r['breach_eval']} burning evaluations, monitor "
+          f"{r['status']}, trace {r['trace']}")
+    return p99
+
+
+def phase_slo_engine(torch, model, engine, serving, slo, health, resilience,
+                     observe, A):
+    """13a: slo's A/B on one ServingEngine (GPT-2-small bf16, 8 slots,
+    page 16, steps_per_sync 2): the clean arm at 100% ttft_p99
+    attainment and no breach, the degraded arm (a FaultPlan delay on every
+    sync) breaching within sustain + 3 burning evaluations with a KIND_SLO
+    anomaly on the active monitor; in both the request trace's flow links
+    inside sync records inside the serving.engine_step spans, and exact
+    K1/K4 counts against the engine's own prefills and steps. A clean p99
+    TTFT above half the target scales the target and the delay by one
+    factor (printed)."""
+    print("== phase 13a: SLO burn rates on the serving engine (clean and "
+          "degraded arms)")
+    args = (torch, model, engine, serving, slo, health, resilience,
+            observe, A)
+    factor = 1.0
+    clean = _slo_arm(*args, SLO_TTFT, None)
+    p99 = _arm_line("clean", clean)
+    if p99 > SLO_TTFT / 2:
+        factor = round(2.0 * p99 / SLO_TTFT * 1.25, 3)
+        print(f"  clean p99 TTFT {p99 * 1e3:.1f} ms is above half the "
+              f"target: target and delay scaled by {factor}")
+        clean = _slo_arm(*args, SLO_TTFT * factor, None)
+        _arm_line("clean (scaled)", clean)
+    print(f"  TTFT factor {factor}: target {SLO_TTFT * factor:.3f} s, "
+          f"delay {SLO_DELAY * factor:.3f} s")
+    deg = _slo_arm(*args, SLO_TTFT * factor, SLO_DELAY * factor)
+    _arm_line("degraded", deg)
+    c_att = clean["verdict"]["objectives"]["ttft_p99"]["attainment"]
+    if c_att != 1.0 or clean["verdict"]["breaching"] \
+            or clean["slo_anomalies"] or \
+            any(o != "completed" for o in clean["outcomes"]):
+        fail(f"13a clean arm: attainment {c_att}, breaching "
+             f"{clean['verdict']['breaching']}, anomalies "
+             f"{clean['slo_anomalies']}, outcomes {clean['outcomes']}")
+    sustain = _slo_config(slo, 1.0).sustain
+    if deg["breach_eval"] is None or deg["breach_eval"] > sustain + 3 \
+            or "ttft_p99" not in deg["verdict"]["breaching"] \
+            or deg["slo_anomalies"] < 1 or deg["status"] != "warn":
+        fail(f"13a degraded arm: breach after {deg['breach_eval']} "
+             f"evaluations (limit {sustain + 3}), breaching "
+             f"{deg['verdict']['breaching']}, KIND_SLO anomalies "
+             f"{deg['slo_anomalies']}, monitor {deg['status']}")
+    return clean["counts"], deg["counts"]
+
+
+def phase_slo_generate(torch, model, serving, slo, health, observe, A):
+    """13b: GPT.generate greedy (b8, prompt 256, +32, bf16) with an SLO
+    tracker installed and observe disabled: exactly one note_decode per
+    call (8 records), no non-finite logit booked, K1/K3 as phase 4 counts
+    them; then observe enabled and +inf in one element of the output
+    head: singa_health_nan_logits_total{kind="greedy"} rises by exactly
+    the non-finite logits a plain recount of the call finds (the output
+    ids teacher-forced through the plain prefill)."""
+    print("== phase 13b: the dense decode path feeds the SLO tracker")
+    L, V = len(model.blocks), model.vocab_size
+    B, S0, new = 8, 256, 32
+    prompts = np.random.RandomState(SEED + 13).randint(
+        0, V, (B, S0)).astype(np.int32)
+    model.generate(prompts[:, :8], 2, dtype="bfloat16")     # warm
+    calls = []
+    note = slo.note_decode
+
+    def counted(*a, **k):
+        calls.append(a[0])
+        return note(*a, **k)
+
+    observe.enable(False)
+    observe.get_registry().reset()
+    tracker = slo.SLOTracker(slo.SLOConfig(latency_p99_s=600.0,
+                                           eval_interval_s=1e9)).install()
+    slo.note_decode = counted
+    try:
+        torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        out = model.generate(prompts, new, dtype="bfloat16")
+        wall = time.perf_counter() - t0
+        counts = dict(A.LAUNCHES)
+        recs = tracker.window_records(window_s=1e9)
+    finally:
+        slo.note_decode = note
+        slo.reset()
+        observe.enable(True)
+    print(f"  generate b{B} prompt {S0} +{new}: {wall:.3f} s; note_decode "
+          f"calls {calls}, tracker records {len(recs)} (ttft "
+          f"{recs[0]['ttft_s'] if recs else None}, total "
+          f"{recs[0]['total_s'] if recs else None})")
+    if calls != ["greedy"] or len(recs) != B or out.shape != (B, S0 + new):
+        fail(f"13b: note_decode calls {calls}, {len(recs)} records")
+    if observe.get_registry().get("singa_health_nan_logits_total"):
+        fail("13b: a non-finite logit was booked on the healthy call")
+    check_launches("13b generate (tracker installed)", counts,
+                   {"flash_fwd": L, "flash_decode": L * (new - 1)})
+    W = model.head.W
+    i, j = 5, 7
+    with torch.no_grad():
+        old = W[i, j].clone()
+        W[i, j] = float("inf")
+    try:
+        observe.get_registry().reset()
+        bad = model.generate(prompts, new, dtype="bfloat16")
+        c = observe.get_registry().get("singa_health_nan_logits_total")
+        booked = c.value(kind="greedy") if c is not None else 0.0
+        # the plain recount: the same ids teacher-forced through the plain
+        # prefill with the same (poisoned) bf16 decode params
+        p = serving.decode_state(model, "bfloat16")
+        core = serving._decode_core(model, S0 + new, 1)
+        ids = torch.as_tensor(bad[:, :S0 + new - 1].astype(np.int64),
+                              device=model.device)
+        with torch.no_grad():
+            h, _ = core.prefill_parts(p, ids, B, use_kernel=False)
+            logits = core.head(p, h[:, S0 - 1:])
+            recount = int((~torch.isfinite(logits)).sum())
+    finally:
+        with torch.no_grad():
+            W[i, j] = old
+    print(f"  +inf at head.W[{i}, {j}]: booked {booked:.0f} non-finite "
+          f"logits (kind greedy), plain recount {recount}")
+    if booked != recount or recount <= 0:
+        fail(f"13b: booked {booked} non-finite logits, recount {recount}")
+    return counts
+
+
+def _health_run(torch, models, opt, health, tx, ty, use_graph, mon, n):
+    """The bench GPT (seed SEED) compiled with `mon`, n steps: (model,
+    the monitor's ring, the losses)."""
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=use_graph, amp="bfloat16",
+              health=mon)
+    losses = [m(tx, ty)[1].item() for _ in range(n)]
+    return m, list(mon.recorder.ring) if mon is not None else None, losses
+
+
+def _opt_snapshot(torch, m):
+    return ([t.detach().clone() for t in m._raw_states().values()]
+            + [t.detach().clone() for t in m.optimizer.state_arrays()])
+
+
+def _opt_equal(torch, m, snap):
+    now = list(m._raw_states().values()) + m.optimizer.state_arrays()
+    return len(now) == len(snap) and all(
+        torch.equal(a, b) for a, b in zip(now, snap))
+
+
+def phase_health_train(torch, models, opt, health, observe, A, root):
+    """13c: the bench GPT step as a CUDA graph with
+    compile(health=HealthMonitor("skip_step")): 6 steps with finite
+    stats, grad_norm and the group norms within HEALTH_TOL of the same
+    model's eager health steps, exactly 8 + 8 K1/K2a a step; +inf written
+    into a block weight between replays: the next replay reports the
+    anomaly and leaves every parameter, optimizer slot and the step
+    counter bitwise as they were; the element restored, the next step is
+    clean and steps the counter; the replayed step with health off, warn
+    and skip_step in same-call turns (median of 15 each); halt raising
+    HealthError with a bundle that load_flight_bundle reads."""
+    print("== phase 13c: training health on the graph-mode step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    observe.enable(True)
+    em, ering, elosses = _health_run(
+        torch, models, opt, health, tx, ty, False,
+        health.HealthMonitor(policy="warn", out_dir=root), HEALTH_STEPS)
+    del em
+    torch.cuda.empty_cache()
+    mon = health.HealthMonitor(policy="skip_step", out_dir=root)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    gm, gring, glosses = _health_run(torch, models, opt, health, tx, ty,
+                                     True, mon, HEALTH_STEPS)
+    counts = dict(A.LAUNCHES)
+    if gm.graph_backend != "cuda_graph":
+        fail(f"13c ran {gm.graph_backend!r}, not a CUDA graph")
+    check_launches("13c graph training with health", counts,
+                   {"flash_fwd": L * HEALTH_STEPS,
+                    "flash_bwd_fused": L * HEALTH_STEPS})
+    worst = 0.0
+    for e, g in zip(ering, gring):
+        vals = [(e["grad_norm"], g["grad_norm"])] + [
+            (e["groups"][k][s], g["groups"][k][s]) for k in e["groups"]
+            for s in ("param_norm", "update_norm")]
+        if not all(np.isfinite(b) for _, b in vals) or g["anomaly_kinds"]:
+            fail(f"13c: non-finite or anomalous graph-mode stats {g}")
+        worst = max([worst] + [abs(a - b) / max(abs(a), 1e-12)
+                               for a, b in vals])
+    print(f"  {HEALTH_STEPS} steps, {len(gring[0]['groups'])} groups: "
+          f"grad_norm eager {[round(r['grad_norm'], 4) for r in ering]}, "
+          f"graph {[round(r['grad_norm'], 4) for r in gring]}; max relative "
+          f"difference of the norms {worst:.3e} (tol {HEALTH_TOL}); losses "
+          f"eager {[round(x, 4) for x in elosses]}, graph "
+          f"{[round(x, 4) for x in glosses]}")
+    if worst > HEALTH_TOL or len(ering) != len(gring) != HEALTH_STEPS:
+        fail("13c: graph-mode health stats differ from the eager step's")
+    W = gm.blocks[0].attn.Wq
+    with torch.no_grad():
+        old = W[0, 0].clone()
+        W[0, 0] = float("inf")
+    snap = _opt_snapshot(torch, gm)
+    counter = float(gm.optimizer.step_counter)
+    _, loss = gm(tx, ty)
+    kept = _opt_equal(torch, gm, snap)
+    last = mon.recorder.ring[-1]
+    print(f"  +inf in TransformerBlock_0.attn.Wq[0, 0], replayed step: "
+          f"action {mon.last_action}, anomaly {last['anomaly_kinds']}, "
+          f"non-finite grads {last['nonfinite_grads']}; every parameter, "
+          f"slot and step_counter bitwise kept: {kept} (counter "
+          f"{counter} -> {float(gm.optimizer.step_counter)})")
+    if mon.last_action != "skip" or not kept or \
+            float(gm.optimizer.step_counter) != counter:
+        fail("13c: the skip_step replay did not keep the pre-step state")
+    with torch.no_grad():
+        W[0, 0] = old
+    _, loss = gm(tx, ty)
+    if mon.last_action != "ok" or not np.isfinite(loss.item()) or \
+            float(gm.optimizer.step_counter) != counter + 1:
+        fail(f"13c: the step after the restore: {mon.last_action}, loss "
+             f"{loss.item()}, counter {float(gm.optimizer.step_counter)}")
+    print(f"  restored: next step ok, loss {loss.item():.4f}, counter "
+          f"{float(gm.optimizer.step_counter)}")
+    built = {"off": _health_run(torch, models, opt, health, tx, ty, True,
+                                None, 2)[0],
+             "warn": _health_run(torch, models, opt, health, tx, ty, True,
+                                 health.HealthMonitor(policy="warn",
+                                                      out_dir=root), 2)[0],
+             "skip_step": gm}
+    ms = {k: [] for k in built}
+    order = list(built) + list(built)[::-1] + list(built)
+    for label in order:
+        ms[label] += _steps(torch, built[label], tx, ty,
+                            HEALTH_TURN_STEPS)[1]
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    for k, v in ms.items():
+        print(f"  replayed step, health {k}: ms "
+              f"{', '.join(f'{x:.2f}' for x in v)}; median {med[k]:.2f}")
+    print(f"  health overhead: warn {med['warn'] / med['off'] - 1:+.2%}, "
+          f"skip_step {med['skip_step'] / med['off'] - 1:+.2%} of the "
+          f"step (median of {len(ms['off'])} each)")
+    del built
+    hm = health.HealthMonitor(policy="halt", out_dir=root)
+    gm.set_health_monitor(hm)
+    gm(tx, ty)
+    gm(tx, ty)
+    with torch.no_grad():
+        W[0, 0] = float("inf")
+    try:
+        gm(tx, ty)
+        fail("13c: halt did not raise")
+    except health.HealthError as e:
+        bundle = health.load_flight_bundle(e.bundle_path)
+        print(f"  halt: HealthError at step {bundle['header']['step']} "
+              f"({bundle['header']['reason']}), bundle with "
+              f"{len(bundle['steps'])} steps and {len(bundle['events'])} "
+              "events")
+        if bundle["header"].get("kind") != "flight_header" \
+                or not bundle["steps"]:
+            fail(f"13c: the halt bundle does not load: {bundle}")
+    finally:
+        gm.set_health_monitor(None)
+    del gm
+    torch.cuda.empty_cache()
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -3555,9 +3987,9 @@ def main():
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from singa_tpu_torch import (autograd, device, engine, layer, models,
-                                 observe, opt, overlap, serving, snapshot,
-                                 tensor)
+    from singa_tpu_torch import (autograd, device, engine, health, layer,
+                                 models, observe, opt, overlap, resilience,
+                                 serving, slo, snapshot, tensor)
     from singa_tpu_torch import model as model_mod
     from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
@@ -3646,6 +4078,19 @@ def main():
     clock.lap("phase 12b")
     phase_observe_examples(os.path.dirname(os.path.abspath(__file__)))
     clock.lap("phase 12c")
+    by_path["slo_clean"], by_path["slo_degraded"] = phase_slo_engine(
+        torch, model, engine, serving, slo, health, resilience, observe, A)
+    clock.lap("phase 13a")
+    by_path["slo_generate"] = phase_slo_generate(torch, model, serving, slo,
+                                                 health, observe, A)
+    clock.lap("phase 13b")
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        by_path["health_train"] = phase_health_train(torch, models, opt,
+                                                     health, observe, A,
+                                                     root)
+    clock.lap("phase 13c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

@@ -37,6 +37,10 @@ What is ported so far:
         protobuf codec, and torch's TorchScript exporter without the
         `onnx` package (sonnx.interop); utils (SAME padding, the tape's
         postorder walk)
+    observe (metrics, spans); slo (request timelines, SLO burn rates,
+        tail attribution, the request trace); health (step stats on the
+        device, warn / skip_step / halt, the flight recorder, the
+        non-finite logit watch); resilience's fault injection (FaultPlan)
 
 The attention paths run on six hand-written CUDA kernels in `csrc/`
 (flash-attention forward, its fused and split backward, flash-decode and

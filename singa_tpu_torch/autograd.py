@@ -334,9 +334,27 @@ class Equal(_CmpBinary):
 
 # ---- activations ---------------------------------------------------------
 
+class _ReluFn(torch.autograd.Function):
+    """relu with jax.nn.relu's gradient: g where x > 0, else 0. torch's
+    own passes g where its output is not <= 0, so at a NaN input (output
+    NaN) it passes g through, and a NaN batch poisons every upstream
+    gradient where JAX's stops at the NaN entries."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.zeros((), dtype=g.dtype,
+                                                 device=g.device))
+
+
 class ReLU(Operator):
     def forward(self, x):
-        return torch.relu(x)
+        return _ReluFn.apply(x)
 
 
 class LeakyRelu(Operator):

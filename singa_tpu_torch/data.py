@@ -7,7 +7,8 @@ ahead of use by a bounded background thread; with the same seed it
 yields the JAX package's batches in the same order (both shuffle with
 `np.random.RandomState(seed)`). Batches are host numpy arrays: moving
 them to the card is `overlap.DevicePrefetcher`'s work
-(`Model.fit(..., prefetch_to_device=N)`).
+(`Model.fit(..., prefetch_to_device=N)`). Both pass the fault point
+"data.next" (`resilience`) before each batch's wait.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import threading
 from multiprocessing import Event, Process, Queue
 
 import numpy as np
+
+from . import resilience
 
 
 class ImageBatchIter:
@@ -65,6 +68,7 @@ class ImageBatchIter:
         assert self.p is not None, 'call start before next'
         if self.stop_flag.is_set():
             raise StopIteration   # end() was called
+        resilience.fault_point("data.next")
         while True:
             try:
                 return self.queue.get(timeout=0.2)
@@ -197,6 +201,7 @@ class NumpyBatchIter:
         t.start()
         try:
             for b in range(self.num_batches):
+                resilience.fault_point("data.next")
                 with lock:
                     while b not in ready:
                         # a transform that raised killed the thread

@@ -78,15 +78,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import _ckpt, autograd, layer, observe, overlap
+from . import _ckpt, autograd, health, layer, observe, overlap, resilience
 from . import device as device_module
 from .ops import attention as _attention
 from .tensor import Tensor, _raw
-
-#: what compile(health=...) and set_health_monitor raise with
-_HEALTH_LATER = ("the health monitor comes with the operations layers, a "
-                 "later slice of the port (ROADMAP.md Queue 1)")
-
 
 def _is_tensor(x) -> bool:
     return isinstance(x, Tensor) or torch.is_tensor(x)
@@ -165,6 +160,8 @@ def _buffer_operation(func):
         autograd.compute_dtype = self.amp
         try:
             if not (self.graph_mode and self.training):
+                if self._health_monitor is not None and self.training:
+                    return self._eager_health_step(func, args, kwargs)
                 return func(self, *args, **kwargs)
             return self._train_step(func, args, kwargs)
         finally:
@@ -216,6 +213,12 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._eval_probed_nbs = set()
         self._graph_pool = None
         self._side_stream = None
+        self._health_monitor = None
+        self._health_steps = 0
+        self._health_layout = None   # the packed stats' entries
+        # pre-update values of a skip_step step: one for the optimizer's
+        # per-parameter holds, one for the buffers held over the step
+        self._health_scratch = (health.Scratch(), health.Scratch())
         nn.Module.train(self, False)
 
     # ---- configuration ----------------------------------------------------
@@ -223,7 +226,18 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._optimizer = opt
 
     def set_health_monitor(self, monitor):
-        raise NotImplementedError(_HEALTH_LATER)
+        """Attach (or detach, with None) a health.HealthMonitor. The
+        policy is part of a graph-mode step (skip_step records the select
+        into it), so the training graphs built so far are dropped."""
+        prev = self._health_monitor
+        self._health_monitor = monitor
+        self._reset_steps()
+        if monitor is not None:
+            health.set_active_monitor(monitor)
+        elif prev is not None and health.active_monitor() is prev:
+            # only the owner's detach clears the process registration
+            health.set_active_monitor(None)
+        return monitor
 
     @property
     def optimizer(self):
@@ -239,6 +253,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self.sequential = sequential
         self._train_steps = {}
         self._eval_steps = {}
+        self._release_pool()
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False, amp=None, eval_buckets="auto",
@@ -261,10 +276,23 @@ class Model(layer.Layer, metaclass=ModelMeta):
         first call of each batch size (out(x[:h]) against out(x)[:h])
         and buckets later calls only if every output passed; True forces
         it (an output that is not per-sample raises); False buckets
-        nothing. `health` must be None (the health monitor comes with the
-        operations layers)."""
+        nothing.
+
+        health: a health.HealthMonitor to attach, True for a default
+        (warn) one, False to detach, None to leave it as it is; attaching
+        or detaching drops the training graphs built so far."""
         if health is not None:
-            raise NotImplementedError(_HEALTH_LATER)
+            from . import health as _health
+            if health is False:
+                self.set_health_monitor(None)
+            elif health is True:
+                self.set_health_monitor(_health.HealthMonitor())
+            elif isinstance(health, _health.HealthMonitor):
+                self.set_health_monitor(health)
+            else:
+                raise TypeError(
+                    f"health= expects a health.HealthMonitor, True, "
+                    f"False, or None; got {type(health).__name__}")
         if not inputs:
             raise ValueError("compile needs the example inputs")
         deferred = self._deferred()
@@ -379,9 +407,18 @@ class Model(layer.Layer, metaclass=ModelMeta):
         profiling = dev.verbosity > 0 \
             and self._graph_steps >= dev.skip_iteration
         first = entry.calls == 0
+        mon = self._health_monitor
         t0 = time.perf_counter()
         with observe.span("model.step", tag=tag):
-            out = self._run_buffered(entry, call, vals)
+            if mon is None:
+                out = self._run_buffered(entry, call, vals)
+            else:
+                out, packed = self._run_buffered(
+                    entry, self._health_body(call, mon.policy == "skip_step"),
+                    vals)
+                # the step's one read of its stats (inside the span: on
+                # the card it is the step's fence)
+                stats = packed.cpu().tolist()
             if profiling:
                 # after the call returns: a capture has ended by then
                 dev.Sync()
@@ -393,6 +430,74 @@ class Model(layer.Layer, metaclass=ModelMeta):
         if first:
             observe.record_step_build(seconds)
         observe.record_step(seconds, batch=bs, tag=tag, device=dev)
+        if mon is not None:
+            self._health_feed(stats, raws, in_graph_skip=True)
+        return out
+
+    # ---- training health (health) -------------------------------------------
+    def _health_groups(self):
+        """{id(raw parameter): layer group}: the first component of the
+        parameter's name ("l1.W" -> "l1")."""
+        return {id(t): name.split(".", 1)[0]
+                for name, t in self._raw_params().items()}
+
+    def _health_body(self, call, skip):
+        """`call` as a graph-mode step with the health collector active:
+        returns (outputs, the packed stats tensor). With `skip` the
+        optimizer selects a flagged step's update back, and so does this
+        body for the model's buffers (batch norm's running statistics),
+        held over the whole step; both holds live in the model's
+        persistent scratch, sized at the warm-up call."""
+        opt_scratch, buf_scratch = self._health_scratch
+
+        def body(vs):
+            col = health.StepStatsCollector(self._health_groups(), skip=skip,
+                                            scratch=opt_scratch)
+            bufs = list(self.buffers()) if skip else []
+            held = buf_scratch.hold(bufs) if bufs else []
+            health._set_collector(col)
+            try:
+                out = call(vs)
+            finally:
+                health._set_collector(None)
+            col.finalize()
+            if bufs:
+                health.select_back(col.anomaly(), held, bufs)
+            self._health_layout = col.layout
+            return out, col.packed
+
+        return body
+
+    def _health_feed(self, values, input_arrs, in_graph_skip):
+        """Feed one step's host stats (the packed tensor's values) to the
+        monitor; its policy acts here (halt raises HealthError)."""
+        mon = self._health_monitor
+        self._health_steps += 1
+        provider = None
+        if input_arrs is not None and mon.snapshot_batch:
+            def provider():
+                return [a.detach().cpu().numpy() for a in input_arrs]
+        return mon.on_step(health.unpack(values, self._health_layout),
+                           step=self._health_steps, batch_provider=provider,
+                           amp=self.amp is not None,
+                           in_graph_skip=in_graph_skip)
+
+    def _eager_health_step(self, func, args, kwargs):
+        """The eager step (use_graph=False) with the same collector,
+        finalized eagerly: warn and halt only, as in the JAX package
+        (skip_step's rollback belongs to the graph-mode step, so an eager
+        anomaly under skip_step is booked as warn)."""
+        col = health.StepStatsCollector(self._health_groups())
+        health._set_collector(col)
+        try:
+            out = func(self, *args, **kwargs)
+        finally:
+            health._set_collector(None)
+        col.finalize()
+        self._health_layout = col.layout
+        self._health_feed(col.packed.cpu().tolist(),
+                          [_raw(a) for a in args if _is_tensor(a)],
+                          in_graph_skip=False)
         return out
 
     def _step_state_bytes(self) -> int:
@@ -536,6 +641,15 @@ class Model(layer.Layer, metaclass=ModelMeta):
         package drops its compiled step)."""
         self._train_steps = {}
         self._static_args = None
+        self._release_pool()
+
+    def _release_pool(self):
+        """Forget the graph pool once no graph holds it: a capture into a
+        pool whose graphs were all destroyed fails inside the caching
+        allocator, so the next capture makes a new one."""
+        if not any(e.graph is not None for e in (
+                *self._train_steps.values(), *self._eval_steps.values())):
+            self._graph_pool = None
 
     # ---- the training loop --------------------------------------------------
     def fit(self, data, epochs=1, verbose=0, prefetch_to_device=0):
@@ -547,7 +661,11 @@ class Model(layer.Layer, metaclass=ModelMeta):
 
         prefetch_to_device=N wraps each epoch in an
         `overlap.DevicePrefetcher`, which moves up to N batches to the
-        model's device ahead of use; it is closed on every exit path."""
+        model's device ahead of use; it is closed on every exit path.
+
+        Each fetch passes the fault point "data.next". A health monitor's
+        halt raises HealthError out of fit with the epoch's progress as
+        `partial`: {"epoch", "steps_completed", "losses", "last_loss"}."""
         history = []
         end = object()
         for epoch in range(epochs):
@@ -561,6 +679,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 try:
                     while True:
                         with observe.span("data.wait"):
+                            resilience.fault_point("data.next")
                             batch = next(it, end)
                         if batch is end:
                             break
@@ -571,6 +690,13 @@ class Model(layer.Layer, metaclass=ModelMeta):
                             and len(out) > 1 else out
                         if _is_tensor(loss):
                             losses.append(_raw(loss).detach())
+                except health.HealthError as e:
+                    vals = _host_losses(losses)
+                    e.partial = {"epoch": epoch,
+                                 "steps_completed": len(vals),
+                                 "losses": vals,
+                                 "last_loss": vals[-1] if vals else None}
+                    raise
                 finally:
                     if prefetcher is not None:
                         prefetcher.close()
@@ -578,8 +704,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 raise ValueError(
                     f"fit epoch {epoch} saw no batches - `data` must be "
                     "re-iterable across epochs (a list, not a generator)")
-            vals = torch.stack([v.float().reshape(()) for v in losses]) \
-                .cpu().tolist()
+            vals = _host_losses(losses)
             mean = sum(vals) / len(vals)
             history.append(mean)
             if verbose:
@@ -708,6 +833,13 @@ class Model(layer.Layer, metaclass=ModelMeta):
             np.load(os.path.join(path, "rng.npy")))
         self._reset_steps()
         return self
+
+
+def _host_losses(losses) -> list:
+    """Device losses as floats, in one transfer."""
+    if not losses:
+        return []
+    return torch.stack([v.float().reshape(()) for v in losses]).cpu().tolist()
 
 
 def _write_states_zip(fpath, states: dict):

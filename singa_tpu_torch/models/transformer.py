@@ -25,7 +25,7 @@ from torch import nn
 
 from .. import autograd
 from .. import device as device_mod
-from .. import layer, model, serving
+from .. import health, layer, model, serving
 from ..tensor import Tensor, _raw
 
 
@@ -259,7 +259,7 @@ class GPT(model.Model):
                 self, B, S0, max_new_tokens, float(temperature), top_k,
                 dtype, moe_capacity_factor, kv_dtype)
         out = fn(serving.decode_state(self, dtype), self._ids(ids), seed)
-        return out.cpu().numpy().astype(np.int32)
+        return _host_ids(out, fn.nan_logits, fn.kind)
 
     @torch.no_grad()
     def generate_beam(self, prompt, max_new_tokens, num_beams=4,
@@ -295,10 +295,22 @@ class GPT(model.Model):
                 float(length_penalty), eos_id, dtype, pad_id,
                 moe_capacity_factor, kv_dtype)
         out, scores = fn(serving.decode_state(self, dtype), self._ids(ids))
-        out = out.cpu().numpy().astype(np.int32)
+        out = _host_ids(out, fn.nan_logits, fn.kind)
         if return_scores:
             return out, scores.cpu().numpy()
         return out
+
+
+def _host_ids(ids, nan_logits, kind):
+    """A decode call's ids as numpy int32, read in one copy together with
+    its count of non-finite logits (when the call counted them), which
+    `health.record_nan_logits` books under `kind`."""
+    if nan_logits is None:
+        return ids.cpu().numpy().astype(np.int32)
+    flat = torch.cat([ids.reshape(-1).long(),
+                      nan_logits.reshape(1)]).cpu().numpy()
+    health.record_nan_logits(int(flat[-1]), kind)
+    return flat[:-1].reshape(tuple(ids.shape)).astype(np.int32)
 
 
 def _moe_sig(m):

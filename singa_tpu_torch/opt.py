@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from . import autograd, observe
+from . import autograd, health, observe
 from .tensor import _raw
 
 
@@ -138,19 +138,58 @@ class Optimizer:
         the updates. `observe.record_opt_update` counts the parameters
         updated each time this body runs on the host: every step eagerly,
         and under a CUDA graph at the warm-up call and at the capture
-        only (a replay runs no Python)."""
+        only (a replay runs no Python).
+
+        With a `health.StepStatsCollector` active, the collector sees the
+        loss and every gradient before the first update (its anomaly flag
+        is then final), and each parameter's value just before and just
+        after its update. Under `skip=True` each parameter and its
+        optimizer slots are held (the collector's scratch) before the
+        update and selected back where the flag is set, and the counter
+        steps only where it is not: a flagged step leaves them all
+        bitwise as they were, with no host read."""
         t0 = time.perf_counter()
         pairs = list(autograd.backward(loss))
+        col = health.collector()
+        if col is not None:
+            col.observe_loss(_raw(loss))
+            for p, g in pairs:
+                col.observe_grad(_raw(p), _raw(g))
         with observe.span("opt.apply_updates"):
             for p, g in pairs:
-                self.apply(p, g)
-        self.step()
+                if col is None:
+                    self.apply(p, g)
+                else:
+                    self._apply_observed(col, p, g)
+        if col is not None and col.skip:
+            self._step_unless(col.anomaly())
+        else:
+            self.step()
         observe.record_opt_update(len(pairs), time.perf_counter() - t0,
                                   "local")
+
+    def _apply_observed(self, col, param, grad):
+        """One update fed to the health collector (see
+        backward_and_update); the pre-update values live only until the
+        parameter's update and select are done."""
+        raw = _raw(param)
+        held = [raw] + ([v for _, v in sorted(self._state(raw).items())]
+                        if col.skip else [])
+        old = col.scratch.hold(held) if col.scratch is not None \
+            else [t.detach().clone() for t in held]
+        self.apply(param, grad)
+        col.observe_update(raw, old[0], raw)
+        if col.skip:
+            health.select_back(col.anomaly(), old, held)
 
     @torch.no_grad()
     def step(self):
         self.step_counter.add_(1.0)
+
+    @torch.no_grad()
+    def _step_unless(self, flag):
+        self.step_counter.copy_(torch.where(flag, self.step_counter,
+                                            self.step_counter + 1.0))
 
     def apply(self, param, grad):
         """Update `param` from `grad` in place: SINGA Tensors (the pairs

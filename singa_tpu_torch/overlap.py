@@ -30,7 +30,8 @@ Telemetry, as the JAX package's: the consumer's ring wait is the span
 `observe.record_prefetch` books the ring's depth, the consumer's blocked
 time and the batches moved, `observe.record_ckpt_async` the pending
 saves and the caller's blocking time, and the barrier is the span
-`checkpoint.wait`.
+`checkpoint.wait`. Fault points (`resilience`): "data.next" before each
+ring wait, "ckpt.wait" (ctx: path) before each pending write is awaited.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from . import device as device_module
-from . import observe
+from . import observe, resilience
 from .tensor import Tensor
 
 _END = object()          # ring marker: the source is exhausted
@@ -175,7 +176,29 @@ class DevicePrefetcher:
         t0 = time.perf_counter()
         # the ring wait is the host's data stall (nested under fit's own
         # data.wait span)
-        with observe.span("data.wait"), self._cond:
+        with observe.span("data.wait"):
+            resilience.fault_point("data.next")
+            item, depth, err = self._take()
+        if item is _END:
+            self.close()
+            if err is not None:
+                raise err
+            raise StopIteration
+        observe.record_prefetch(depth=depth,
+                                blocked_s=time.perf_counter() - t0)
+        out, moved, ev = item
+        if ev is not None:
+            stream = torch.cuda.current_stream(self._td)
+            stream.wait_event(ev)
+            for t in moved:
+                t.record_stream(stream)
+        return out
+
+    def _take(self):
+        """The ring's next item (waiting for one) -> (item, depth after,
+        the producer's error when the item is the end marker)."""
+        depth = err = None
+        with self._cond:
             while not self._ring:
                 if self._closed:
                     raise StopIteration
@@ -194,20 +217,7 @@ class DevicePrefetcher:
                 self._ring.popleft()
                 depth = len(self._ring)
                 self._cond.notify_all()
-        if item is _END:
-            self.close()
-            if err is not None:
-                raise err
-            raise StopIteration
-        observe.record_prefetch(depth=depth,
-                                blocked_s=time.perf_counter() - t0)
-        out, moved, ev = item
-        if ev is not None:
-            stream = torch.cuda.current_stream(self._td)
-            stream.wait_event(ev)
-            for t in moved:
-                t.record_stream(stream)
-        return out
+        return item, depth, err
 
     def close(self, timeout: float = 5.0):
         """Stop the producer and join it (a producer inside the source's
@@ -309,6 +319,7 @@ def wait_for_checkpoints():
     with observe.span("checkpoint.wait"):
         for e in entries:
             try:
+                resilience.fault_point("ckpt.wait", path=e.path)
                 e.wait()
             except BaseException as err:  # noqa: BLE001  re-raised below
                 errors.append((e, err))

@@ -41,9 +41,10 @@ from __future__ import annotations
 import time
 import weakref
 
+import numpy as np
 import torch
 
-from . import autograd, observe
+from . import autograd, health, observe, resilience, slo
 from .autograd import _top_k
 from .layer import layernorm
 from .parallel.moe import moe_ffn
@@ -618,12 +619,17 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
     model's device. `moe_capacity_factor` overrides the MoE layers'
     factor; `kv_dtype` quantizes the caches (the JAX package's order).
 
-    The call runs inside the span `serving.decode`, the prefill and the
-    first token inside `serving.prefill`, the token loop inside
-    `serving.decode_scan`. With observe enabled the prefill and the call
-    are fenced (a device synchronize) for an honest TTFT and latency,
-    and `observe.record_decode` books them; disabled, nothing is
-    fenced."""
+    The call runs inside the span `serving.decode`, passing the fault
+    point "serving.decode" first; the prefill and the first token inside
+    `serving.prefill`, the token loop inside `serving.decode_scan`. With
+    observe enabled, or an `slo` tracker installed, the prefill and the
+    call are fenced (a device synchronize) for an honest TTFT and
+    latency: observe's `record_decode` books them, and `slo.note_decode`
+    feeds the tracker; otherwise nothing is fenced. With observe enabled
+    the non-finite logits of the prefill and of every step are counted
+    on the device into `decode.nan_logits` (a 0-d int64 tensor, else
+    None), which the caller reads with the tokens
+    (`GPT.generate` books it by `health.record_nan_logits`)."""
     core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
 
     def sample(logits, gen):
@@ -642,16 +648,21 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
     @torch.no_grad()
     def decode(p, prompt, seed=0):
         obs = observe.is_enabled()
+        timed = obs or slo.get_tracker() is not None
         gen = torch.Generator(device=prompt.device)
         gen.manual_seed(int(seed))
+        nf = None
         with observe.span("serving.decode", batch=B, new_tokens=max_new):
+            resilience.fault_point("serving.decode", batch=B)
             t0 = time.perf_counter()
             ttft = None
             with observe.span("serving.prefill", batch=B,
                               prompt_tokens=S0):
                 logits, caches = core.prefill(p, prompt, B)
-                tok = sample(logits, gen)
                 if obs:
+                    nf = _nonfinite(logits)
+                tok = sample(logits, gen)
+                if timed:
                     _fence(prompt.device)
                     ttft = time.perf_counter() - t0
             out = [tok]
@@ -661,22 +672,36 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
                     for i in range(max_new - 1):
                         logits, caches = core.token_step(p, tok, caches, i,
                                                          B)
+                        if obs:
+                            nf = nf + _nonfinite(logits)
                         tok = sample(logits, gen)
                         out.append(tok)
             ids = torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
-            if obs:
+            decode.nan_logits = nf
+            if timed:
                 _fence(prompt.device)
-                observe.record_decode(
-                    kind, time.perf_counter() - t0, new_tokens=B * max_new,
-                    batch=B, ttft=ttft, prompt_tokens=B * S0)
+                total = time.perf_counter() - t0
+                if obs:
+                    observe.record_decode(
+                        kind, total, new_tokens=B * max_new, batch=B,
+                        ttft=ttft, prompt_tokens=B * S0)
+                slo.note_decode(kind, total, B * max_new, ttft=ttft,
+                                batch=B)
         return ids
 
+    decode.kind = kind
+    decode.nan_logits = None
     return decode
+
+
+def _nonfinite(logits):
+    """The count of non-finite entries, a 0-d int64 device tensor."""
+    return (~torch.isfinite(logits)).sum()
 
 
 def _fence(device):
     """Wait for the device's queued work (the serving telemetry's
-    fence; observe enabled only)."""
+    fence: observe enabled or an SLO tracker installed)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -730,15 +755,16 @@ def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
     (n,) and cut after an `eos_id`. Returns (g, take, tok, counts,
     ended): the target's greedy tokens (n, K + 1), how many of them each
     row commits, the new pending tokens, the round's (drafted, accepted,
-    bonus) counts and the rows that committed an eos, all on the
-    device."""
+    bonus) counts, the rows that committed an eos and the count of
+    non-finite logits among those each row commits (the rest are ladder
+    positions past the row's budget), all on the device."""
     dt, drafts = tok, []
     for j in range(K + 1):
         dt = torch.argmax(draft_step(dt, j).float(), dim=-1)
         drafts.append(dt)
     drafts = torch.stack(drafts[:K], dim=1)
-    g = torch.argmax(verify(torch.cat([tok[:, None], drafts], dim=1))
-                     .float(), dim=-1)
+    logits = verify(torch.cat([tok[:, None], drafts], dim=1))
+    g = torch.argmax(logits.float(), dim=-1)
     a = torch.cumprod((g[:, :K] == drafts).long(), dim=1).sum(dim=1)
     take = torch.where(active, torch.minimum(a + 1, budget),
                        torch.zeros_like(a))
@@ -755,7 +781,10 @@ def _spec_round(draft_step, verify, tok, active, budget, K, eos_id=None):
     tok = torch.where(active, g[nidx, torch.clamp(take - 1, 0, K)], tok)
     counts = torch.stack([K * active.sum(), (take - bonus.long()).sum(),
                           bonus.sum()])
-    return g, take, tok, counts, ended
+    jj = torch.arange(K + 1, device=g.device)[None, :]
+    nf = ((~torch.isfinite(logits))
+          & (jj < take[:, None])[..., None]).sum()
+    return g, take, tok, counts, ended, nf
 
 
 def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
@@ -774,10 +803,13 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     runs the rounds as one `lax.while_loop`; here a Python loop does,
     with the per-row state on the device and one host read a round (is
     any row still active). `use_kernel` goes to every attention op, as
-    in `_DecodeCore`. Spans: `serving.decode`, `serving.prefill` (both
-    prefills and the first token), `serving.spec_verify` (the rounds);
-    with observe enabled `record_spec` and `observe.record_decode`
-    ("spec") book the call."""
+    in `_DecodeCore`. Spans: `serving.decode` (the fault point
+    "serving.decode" first), `serving.prefill` (both prefills and the
+    first token), `serving.spec_verify` (the rounds); with observe
+    enabled `record_spec`, `observe.record_decode` ("spec") and
+    `health.record_nan_logits` (the prefill's logits and each round's
+    committed ones, read with the counts) book the call, fenced, and
+    with a tracker installed `slo.note_decode` feeds it."""
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     K = int(spec_k)
@@ -788,10 +820,12 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     def decode(pt, pd, prompt):
         with observe.span("serving.decode", batch=B, new_tokens=max_new,
                           spec_k=K):
+            resilience.fault_point("serving.decode", batch=B)
             return _spec(pt, pd, prompt)
 
     def _spec(pt, pd, prompt):
         obs = observe.is_enabled()
+        timed = obs or slo.get_tracker() is not None
         dev = prompt.device
         t0 = time.perf_counter()
         ttft = None
@@ -801,7 +835,8 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
             # first token is the target's
             _, dcaches = core_d.prefill(pd, prompt, B, use_kernel)
             tok = torch.argmax(logits0.float(), dim=-1)
-            if obs:
+            nf = _nonfinite(logits0)
+            if timed:
                 _fence(dev)
                 ttft = time.perf_counter() - t0
         buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
@@ -828,23 +863,31 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
                     return core.verify_step(pt, feed, caches, pos, active,
                                             B, K + 1, use_kernel)[0]
 
-                g, take, tok, c, _ = _spec_round(draft_step, verify, tok,
-                                                 active, max_new - cnt, K)
+                g, take, tok, c, _, n = _spec_round(
+                    draft_step, verify, tok, active, max_new - cnt, K)
                 keep = jj < take[:, None]
                 buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
                 cnt = cnt + take
                 counts += c
+                nf = nf + n
                 rounds += 1
         ids = torch.cat([prompt, buf], dim=1)
-        drafted, accepted, n_bonus = (int(c) for c in counts.cpu())
+        # the call's one read of its counts, the non-finite logits with
+        # them
+        drafted, accepted, n_bonus, n_nf = torch.cat(
+            [counts, nf.reshape(1)]).tolist()
         decode.stats = {"drafted": drafted, "accepted": accepted,
                         "bonus": n_bonus, "rounds": rounds}
-        if obs:
-            record_spec(drafted, accepted, n_bonus, rounds)
+        if timed:
             _fence(dev)
-            observe.record_decode(
-                "spec", time.perf_counter() - t0, new_tokens=B * max_new,
-                batch=B, ttft=ttft, prompt_tokens=B * S0)
+            total = time.perf_counter() - t0
+            if obs:
+                record_spec(drafted, accepted, n_bonus, rounds)
+                observe.record_decode(
+                    "spec", total, new_tokens=B * max_new, batch=B,
+                    ttft=ttft, prompt_tokens=B * S0)
+                health.record_nan_logits(n_nf, "spec")
+            slo.note_decode("spec", total, B * max_new, ttft=ttft, batch=B)
         return ids
 
     decode.stats = None
@@ -879,9 +922,12 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
     reordered by the winning parent beams. With `eos_id`, finished
     hypotheses move to a length-normalized pool (the JAX package's
     semantics) and the tail after eos is `pad_id` (default eos_id).
-    With observe enabled the call runs inside the span
-    `serving.beam_decode`, fenced, and `observe.record_decode` ("beam")
-    books it; disabled, neither."""
+    With observe enabled, or an `slo` tracker installed, the call runs
+    inside the span `serving.beam_decode`, fenced: `observe.record_decode`
+    ("beam") books it (observe enabled) and `slo.note_decode` feeds the
+    tracker. With observe enabled the non-finite logits of the prefill
+    and every step are counted into `run.nan_logits`, read by the
+    caller with the tokens (`GPT.generate_beam`)."""
     V = m.vocab_size
     K = num_beams
     core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
@@ -894,9 +940,10 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
             score.device)
 
     @torch.no_grad()
-    def decode(p, prompt):
+    def decode(p, prompt, count_nf):
         dev = prompt.device
         logits0, caches = core.prefill(p, prompt, B)
+        nf = _nonfinite(logits0) if count_nf else None
         # beam b*K+k from prompt b
         caches = _tree_map(lambda a: a.repeat_interleave(K, dim=0), caches)
         logp0 = torch.log_softmax(logits0.float(), dim=-1)      # (B, V)
@@ -925,6 +972,8 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
         for i in range(max_new - 1):
             logits, caches = core.token_step(p, tokens[:, :, i].reshape(
                 B * K), caches, i, B * K)
+            if count_nf:
+                nf = nf + _nonfinite(logits)
             logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
             flat = (scores[..., None] + logp).reshape(B, K * V)
             cs, idx = _top_k(flat, min(2 * K, K * V))
@@ -948,26 +997,61 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
         all_tok = torch.cat([pool_tok, tokens], dim=1)
         best = torch.argmax(all_norm, dim=1)
         nb = torch.arange(B, device=dev)
+        run.nan_logits = nf
         return (torch.cat([prompt, all_tok[nb, best]], dim=1),
                 all_raw[nb, best])
 
     def run(p, prompt):
-        if not observe.is_enabled():
-            return decode(p, prompt)
+        obs = observe.is_enabled()
+        if not obs and slo.get_tracker() is None:
+            return decode(p, prompt, False)
         t0 = time.perf_counter()
         with observe.span("serving.beam_decode", batch=B, beams=K):
-            out = decode(p, prompt)
+            out = decode(p, prompt, obs)
             _fence(prompt.device)
         # one call: no prefill seam is timed, so no TTFT sample
-        observe.record_decode("beam", time.perf_counter() - t0,
-                              new_tokens=B * max_new, batch=B,
-                              prompt_tokens=B * S0)
+        total = time.perf_counter() - t0
+        if obs:
+            observe.record_decode("beam", total, new_tokens=B * max_new,
+                                  batch=B, prompt_tokens=B * S0)
+        slo.note_decode("beam", total, B * max_new, batch=B)
         return out
 
+    run.kind = "beam"
+    run.nan_logits = None
     return run
+
+
+def poisson_workload(seed, n_req, rps, vocab, prompt_lens, new_lens,
+                     new_dist="bimodal"):
+    """The seeded Poisson serving workload (the JAX package's, draw for
+    draw): exponential inter-arrival times at `rps`, uniform prompt
+    lengths in `prompt_lens = (lo, hi)`, output lengths in `new_lens =
+    (lo, hi)`, bimodal by default (75% short, 25% long). Fully determined
+    by `seed`. Returns {"arrivals": float array of cumulative offsets
+    (s), "prompts": list of int32 prompt arrays, "new_lens": int
+    array}."""
+    p_lo, p_hi = (int(x) for x in prompt_lens)
+    n_lo, n_hi = (int(x) for x in new_lens)
+    n_req = int(n_req)
+    rng = np.random.RandomState(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / float(rps), n_req))
+    prompts = [rng.randint(0, int(vocab),
+                           (rng.randint(p_lo, p_hi + 1),)).astype(np.int32)
+               for _ in range(n_req)]
+    if new_dist == "bimodal":
+        short_hi = max(n_lo + 1, n_lo + (n_hi - n_lo) // 4)
+        long_lo = max(short_hi, n_hi - (n_hi - n_lo) // 8)
+        is_long = rng.rand(n_req) < 0.25
+        lens = np.where(is_long,
+                        rng.randint(long_lo, n_hi + 1, n_req),
+                        rng.randint(n_lo, short_hi + 1, n_req))
+    else:
+        lens = rng.randint(n_lo, n_hi + 1, n_req)
+    return {"arrivals": arrivals, "prompts": prompts, "new_lens": lens}
 
 
 __all__ = ["DTYPES", "KV_DTYPES", "SPEC_VERDICTS", "build_beam_decode",
            "build_decode", "build_spec_decode", "decode_params",
-           "decode_raw", "decode_state", "kv_label", "record_spec",
-           "tree_leaves"]
+           "decode_raw", "decode_state", "kv_label", "poisson_workload",
+           "record_spec", "tree_leaves"]

@@ -10,7 +10,9 @@ the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
 by module, with the ROADMAP.md Queue 1 item that brings it. A listed
-name that resolves fails the test: the list can only shrink.
+name that resolves fails the test: the list only shrinks, except when a
+module is ported in part (`resilience`'s fault injection came before the
+rest of it), which adds that module's unported names.
 """
 
 import ast
@@ -29,20 +31,17 @@ PENDING = {
         "axis_bound", "tp_copy", "tp_reduce", "vocab_parallel_embedding",
         "vocab_parallel_argmax", "vocab_parallel_sce", "gather_last")},
     "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
-    "engine": {
-        **{n: 2 for n in (
-            "pctile", "add_request_listener", "remove_request_listener",
-            "request_listeners", "clear_request_listeners", "get_engines",
-            "reset", "serving_report", "EngineRequest.mark",
-            "ServingEngine.timelines", "ServingEngine.active_timelines",
-            "ServingEngine.sync_records", "ServingEngine.recent_ttfts",
-            "ServingEngine.rps", "ServingEngine.decode_tok_s")},
-        "ServingEngine.prewarm": 3},
     "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
     "opt": {"DistOpt": 4, "SGD.state_specs": 5, "Adam.state_specs": 5,
             "Optimizer.state_specs": 5},
     "overlap": {"async_available": 7, "overlap_report": 7},
-    "serving": {"poisson_workload": 2},
+    "resilience": {n: 3 for n in (
+        "manifest_path", "param_signature", "build_manifest",
+        "write_manifest", "read_manifest", "is_complete_checkpoint",
+        "validate_manifest", "list_checkpoints", "latest_checkpoint",
+        "set_aside_checkpoint", "keep_last_k", "TrainController",
+        "fit_resilient", "active_controller", "resilience_report", "main")},
+    "slo": {"main": 6},
     "utils": {"dense_allreduce_types": 4},
     "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
     "parallel.moe": {"moe_ffn_ep": 5},
@@ -54,6 +53,9 @@ CLASSES = {
     "tensor": ("Tensor",), "layer": ("Layer",), "model": ("Model",),
     "device": ("Device",), "opt": ("Optimizer", "SGD", "Adam"),
     "engine": ("ServingEngine", "EngineRequest"),
+    "health": ("HealthMonitor", "StepStatsCollector", "FlightRecorder"),
+    "resilience": ("FaultPlan",),
+    "slo": ("SLOConfig", "SLOTracker", "TailCollector"),
 }
 
 
@@ -111,7 +113,8 @@ MODULES = _modules()
 def test_the_sweep_covers_the_ported_modules():
     assert {"tensor", "autograd", "layer", "model", "opt", "device",
             "serving", "engine", "observe", "config", "channel",
-            "image_tool", "ops.attention", "models.transformer",
+            "image_tool", "ops.attention", "models.transformer", "slo",
+            "health", "resilience",
             "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)

@@ -1,5 +1,5 @@
-"""The port's four API faults (ROADMAP.md Queue 3, faults 1-4), each held
-to `singa_tpu` on the same seeded numpy inputs:
+"""The port's API faults (ROADMAP.md Queue 3, faults 1-5), each held to
+`singa_tpu` on the same seeded numpy inputs:
 
 1. `opt.Optimizer.apply` takes SINGA Tensors: three steps of
    `for p, g in autograd.backward(loss): opt.apply(p, g)`
@@ -14,6 +14,9 @@ to `singa_tpu` on the same seeded numpy inputs:
 4. `serving.build_decode(m, 4, 16, 8, 0.0, None, None, None, "int8")`
    (JAX's positional order: moe_capacity_factor, then kv_dtype) builds
    an int8 cache in both packages, with identical fp32 tokens.
+5. `autograd.relu`'s gradient at a NaN input is 0, as jax.nn.relu's
+   (torch's own relu passes the gradient through there): a tape with a
+   NaN entry gives equal gradients, NaN at the same entries.
 """
 
 import jax
@@ -251,3 +254,28 @@ def test_gpt_takes_the_jax_positional_order():
     for kw in ({"seq_axis": "sp"}, {"tp_axis": "tp"}, {"vocab_tp": True}):
         with pytest.raises(NotImplementedError, match="item 5"):
             ttr.GPT(61, device="cpu", **kw)
+
+
+# ---- fault 5: relu's gradient at NaN ----------------------------------------
+
+def test_relu_gradient_at_nan_matches_jax():
+    rng = np.random.RandomState(5)
+    x = rng.randn(4, 6).astype(np.float32)
+    x[1, 2] = np.nan
+    x[2, 3] = 0.0
+    w = rng.randn(6, 3).astype(np.float32)
+    grads = {}
+    for name, t, ag, dev in (("jax", jt, jag, JDEV), ("port", tt, tag, TDEV)):
+        with _Training():
+            xt = t.Tensor(data=x, device=dev, requires_grad=True,
+                          stores_grad=True)
+            wt = t.Tensor(data=w, device=dev, requires_grad=True,
+                          stores_grad=True)
+            y = ag.matmul(ag.relu(xt), wt)
+            loss = ag.sum(ag.mul(y, y))
+            grads[name] = {id(p): np.asarray(t.to_numpy(g))
+                           for p, g in ag.backward(loss)}
+            grads[name] = [grads[name][id(xt)], grads[name][id(wt)]]
+    for got, want in zip(grads["port"], grads["jax"]):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

@@ -21,6 +21,8 @@ bookkeeping and no capture (CUDA graphs exist only on the card, where
   per-sample raises in both packages;
 - health monitors and the graph flags."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from singa_tpu import opt as jopt
 from singa_tpu import tensor as jt
 from singa_tpu_torch import autograd as tag
 from singa_tpu_torch import device as tdevice
+from singa_tpu_torch import health
 from singa_tpu_torch import layer as tl
 from singa_tpu_torch import model as tmodel
 from singa_tpu_torch import models as tmodels
@@ -338,7 +341,8 @@ def test_eval_buckets_refuse_outputs_not_per_sample():
 
 def test_graph_flags_backend_and_health():
     """graph() with changed flags drops the built steps; sequential runs
-    eagerly; the health monitor is a later slice's."""
+    eagerly; attaching a health monitor (set_health_monitor, or
+    compile(health=True) for a default warn one) drops them too."""
     _, (_, tg) = _mlp_pair()
     x, y = (tt.from_numpy(a, device=_cpu()) for a in _mlp_batch())
     tg(x, y)
@@ -349,12 +353,15 @@ def test_graph_flags_backend_and_health():
     assert len(tg._train_steps) == 0 and tg.sequential
     tg(x, y)
     assert tg.graph_backend == "eager"
-    with pytest.raises(NotImplementedError, match="operations layers"):
-        tg.set_health_monitor(object())
+    mon = health.HealthMonitor(out_dir=os.environ.get("TMPDIR", "/tmp"))
+    tg.set_health_monitor(mon)
+    assert len(tg._train_steps) == 0 and tg._health_monitor is mon
+    tg.set_health_monitor(None)
     m = tmodels.create_model("mlp", data_size=10)
     m.set_optimizer(topt.SGD(lr=0.1))
-    with pytest.raises(NotImplementedError, match="operations layers"):
-        m.compile([x], is_train=True, use_graph=True, health=True)
+    m.compile([x], is_train=True, use_graph=True, health=True)
+    assert m._health_monitor.policy == "warn"
+    m.set_health_monitor(None)
     # training before compile raises, whichever way the step is called
     m2 = tmodels.create_model("mlp", data_size=10)
     with pytest.raises(RuntimeError, match="compile"):

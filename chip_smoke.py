@@ -229,11 +229,49 @@ Phases, each of which exits non-zero on failure:
    counter; the replayed step with health off, warn and skip_step in
    same-call turns (median of 15 each); halt raising HealthError with a
    bundle that `load_flight_bundle` reads.
-14. The `kernels` JSON line (the decode kernels with a `modes` entry per
+14. watchdog, memory and goodput on the main paths. 14a 13a's engine
+   after its prewarm under a calibrated watchdog (action "abort", floor
+   0.25 s) and a warn monitor: the Poisson workload clean (no breach,
+   a calibrated `decode` deadline, printed); a fresh engine with a
+   FaultPlan delay of (abort_at + 1) x that deadline on its first sync
+   and the workload submitted at once: warn, dump and abort, the hang
+   bundle's wedged thread the engine's inside the fault point's delay,
+   HangError ending the loop with every request evicted (the error in
+   each detail), a KIND_HANG anomaly; a fresh engine clean again; exact
+   K1/K4 counts in all three. 14b 13c's bench GPT step as a CUDA graph
+   (health warn) under a static 0.02 s step deadline installed before
+   the first call: the warm-up and the capture tainted by model.build,
+   no breach; the diagnostic wgmma_probe library deleted and rebuilt by
+   `_build.lib` inside a step guard: tainted by its introspect.build
+   span, its time in goodput's `compile`; then at a 0.3 s deadline a
+   torch.cuda._sleep stall of (abort_at + 1) x the deadline before a
+   replay: HangError from the step, the wedged thread this one inside
+   the stats read; the next replay clean (8 + 8 K1/K2a); the replayed
+   step with the watchdog off and on in same-call turns. 14c the memory
+   ledger on the card (memory_allocated as the total) with its
+   LeakDetector over 30 graph steps of 13c's step: every snapshot
+   reconciled, params / opt_state / flight_snapshot exact, build count
+   1, no leak; a 64 MB tensor kept a step flagged within 20 steps as
+   `unattributed`; the engine's kv_cache equal to its pools and to
+   `slo.fleet_serve_snapshot`; `estimate_fit` with the card's limit;
+   last a real OOM (an eager fp32 step at a batch whose logits exceed
+   the free memory) leaving a bundle `load_flight_bundle` reads, the
+   model's parameters among its top arrays, then a normal step. 14d
+   goodput over `fit` of the bench GPT as a graph with health
+   skip_step: a clean epoch of 12 batches, then one with four 0.05 s
+   "data.next" delays and a poisoned step, a checkpoint and an eval
+   call: compile at least the first call's build, data_wait at least
+   0.2 s and within [the delayed fetches' spans, those + the clean
+   epoch's data_wait], health_skip exactly the poisoned
+   step, checkpoint and eval above 0, the buckets equal to the wall
+   time within 1% with no overlap.
+15. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
-   `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate` and
-   `health_train`), then the card line, then the result line.
+   `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
+   `health_train`, `wd_clean`, `wd_aborted`, `wd_fresh`, `wd_train`,
+   `mem_train`, `mem_engine` and `goodput_fit`), then the card line,
+   then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -3776,6 +3814,679 @@ def phase_health_train(torch, models, opt, health, observe, A, root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: watchdog, memory ledger and goodput on the engine and the
+# graph-mode step
+WD_POLL_S = 0.01          # the watchdog checker's poll
+WD_FLOOR_S = 0.25         # 14a: the calibrated decode deadline's floor
+WD_FIRST_S = 0.02         # 14b: the static step deadline over the first calls
+WD_STEP_S = 0.3           # 14b: the static step deadline over the replays
+WD_TURN_STEPS = 5         # 14b: steps per timed turn (3 turns each)
+MEM_STEPS = 30            # 14c: clean graph steps under the ledger
+MEM_LEAK_MB = 64          # 14c: the tensor kept from each leaking step
+MEM_LEAK_LIMIT = 20       # 14c: steps within which the leak is flagged
+GP_BATCHES = 12           # 14d: batches of each fit epoch
+GP_DELAY_S, GP_DELAYS = 0.05, 4   # 14d: the data.next delays
+GP_POISON = 5             # 14d: the batch whose step is poisoned
+
+
+def _counter_sum(observe, name, **labels):
+    c = observe.get_registry().get(name)
+    return c.value(**labels) if c is not None else 0.0
+
+
+def _wd_counts(observe, op):
+    return {k: _counter_sum(observe, f"singa_watchdog_{k}_total", op=op)
+            for k in ("breach", "dump", "abort", "hard_abort")}
+
+
+def _engine_run(torch, model, engine, resilience, A, wl, burst=False,
+                plan=None):
+    """One ServingEngine (13a's configuration) over the Poisson workload
+    `wl` (its arrivals, or every request at once with `burst`), with
+    `plan` installed before the first submission. Returns (handles, wall
+    seconds, launch counts, the engine's prefills and steps of the run,
+    the engine, still running)."""
+    prompts, new_lens = wl["prompts"], wl["new_lens"]
+    eng = engine.ServingEngine(model, queue_limit=4 * len(prompts),
+                               **SLO_ENGINE).start()
+    try:
+        torch.cuda.synchronize()
+        steps0, pre0 = eng.report()["steps"], len(eng.timelines())
+        if plan is not None:
+            resilience.install_fault_plan(plan)
+        A.reset_launches()
+        t0 = time.perf_counter()
+        handles = [eng.submit(prompts[0], SLO_WORKLOAD["new_lens"][1])]
+        for i in range(1, len(prompts)):
+            dt = t0 + float(wl["arrivals"][i]) - time.perf_counter()
+            if dt > 0 and not burst:
+                time.sleep(dt)
+            handles.append(eng.submit(prompts[i], int(new_lens[i])))
+        stuck = [h.id for h in handles if not h.wait(600)]
+        wall = time.perf_counter() - t0
+        if stuck:
+            fail(f"phase 14: requests {stuck} stalled")
+        torch.cuda.synchronize()
+        counts = dict(A.LAUNCHES)
+        prefills = sum(1 for t in eng.timelines()[pre0:]
+                       if any(ev[0] == "admit" for ev in t["events"]))
+        steps = eng.report()["steps"] - steps0
+    except BaseException:
+        eng.stop()
+        raise
+    finally:
+        resilience.clear_fault_plan()
+    return handles, wall, counts, prefills, steps, eng
+
+
+def phase_watchdog_engine(torch, model, engine, serving, health, resilience,
+                          watchdog, observe, A, root):
+    """14a: the watchdog on 13a's engine (GPT-2-small bf16, 8 slots, page
+    16, steps_per_sync 2): after the prewarm, a calibrated watchdog
+    (action "abort", floor WD_FLOOR_S) and a warn monitor; the Poisson
+    workload clean (no breach, every request completed, a calibrated
+    `decode` deadline); then a fresh engine with a FaultPlan delay of
+    (abort_at + 1) x the deadline on its first sync and the workload
+    submitted at once: warn, dump and abort, the bundle's wedged thread
+    the engine's, inside the fault point's delay, HangError ending the
+    loop with every request evicted, a KIND_HANG anomaly; then a fresh
+    engine clean again. Exact K1/K4 counts against each run's own
+    prefills and steps (the aborted sync's decode launches)."""
+    print("== phase 14a: the watchdog on the serving engine")
+    L = len(model.blocks)
+    wl = serving.poisson_workload(**SLO_WORKLOAD)
+    mon = health.HealthMonitor(policy="warn", out_dir=root)
+    health.set_active_monitor(mon)
+    wd = None
+    by_path = {}
+    try:
+        eng = engine.ServingEngine(model, queue_limit=64, **SLO_ENGINE)
+        eng.start()
+        try:
+            eng.prewarm([len(p) for p in wl["prompts"]], max_new=2,
+                        timeout_s=300)
+        finally:
+            eng.stop()
+        wd = watchdog.install_watchdog(action="abort", floor_s=WD_FLOOR_S,
+                                       poll_interval_s=WD_POLL_S,
+                                       out_dir=root)
+        hs, wall, counts, pre, steps, eng = _engine_run(
+            torch, model, engine, resilience, A, wl)
+        eng.stop()
+        dl = wd.op_state("decode").deadline()
+        c0 = _wd_counts(observe, "decode")
+        print(f"  clean: {len(hs)} requests in {wall:.3f} s, "
+              f"{len(wd.op_state('decode').samples)} decode samples, "
+              f"calibrated decode deadline {dl} s (p99 x "
+              f"{wd.op_state('decode').multiplier}, floor {WD_FLOOR_S}); "
+              f"watchdog counts {c0}")
+        if dl is None or any(c0.values()) or \
+                any(h.outcome != "completed" for h in hs):
+            fail(f"14a clean: deadline {dl}, counts {c0}, outcomes "
+                 f"{[h.outcome for h in hs]}")
+        check_launches("14a clean engine (watchdog armed)", counts,
+                       {"flash_fwd": L * pre, "paged_attention": L * steps})
+        by_path["wd_clean"] = counts
+        delay = (wd.abort_at + 1.0) * dl
+        hang0 = _counter_sum(observe, "singa_health_anomaly_total",
+                             kind=health.KIND_HANG)
+        t0 = time.perf_counter()
+        hs, wall, counts, pre, steps, eng = _engine_run(
+            torch, model, engine, resilience, A, wl, burst=True,
+            plan=resilience.FaultPlan().delay("serving.engine_step", delay,
+                                              times=1))
+        # the loop re-raises after its drain: the thread ends just after
+        t = eng._thread
+        t.join(timeout=30)
+        alive = t.is_alive()
+        eng.stop()
+        c1 = {k: v - c0[k] for k, v in _wd_counts(observe, "decode").items()}
+        lb = dict(wd.last_breach or {})
+        b = watchdog.load_hang_bundle(wd.last_bundle)
+        wedged = [t for t in b["threads"] if t["wedged"]]
+        inner = wedged[0]["frames"][-1] if wedged else {}
+        details = {h.detail for h in hs}
+        hangs = _counter_sum(observe, "singa_health_anomaly_total",
+                             kind=health.KIND_HANG) - hang0
+        loop_err = [e for e in observe.get_registry().recent
+                    if e.get("event") == "loop_error"]
+        print(f"  delayed sync (+{delay:.3f} s = (abort_at + 1) x deadline): "
+              f"{len(hs)} requests in {wall:.3f} s; counts {c1}; last "
+              f"breach stage {lb.get('stage')} at {lb.get('seconds')} s "
+              f"(deadline {lb.get('deadline')}); bundle "
+              f"{os.path.basename(wd.last_bundle)}: {len(b['threads'])} "
+              f"threads, wedged {[t['name'] for t in wedged]} in "
+              f"{inner.get('func')} ({inner.get('code')}); outcomes "
+              f"{sorted({h.outcome for h in hs})}; KIND_HANG +{hangs:.0f}; "
+              f"loop alive {alive}")
+        if c1["breach"] < 1 or c1["dump"] < 1 or c1["abort"] < 1 \
+                or c1["hard_abort"] or lb.get("stage") != "abort":
+            fail(f"14a: the delayed sync did not climb warn, dump and abort: "
+                 f"{c1}, {lb}")
+        if len(wedged) != 1 or not wedged[0]["name"].startswith(
+                "torch-serve-") or inner.get("func") != "fire":
+            fail(f"14a: the hang bundle names {wedged}")
+        if any(h.outcome != "evicted" for h in hs) or \
+                any("HangError" not in (d or "") for d in details) or \
+                not loop_err or alive or hangs != 1:
+            fail(f"14a: the loop's drain: outcomes "
+                 f"{[h.outcome for h in hs]}, details {details}, "
+                 f"loop_error {bool(loop_err)}, alive {alive}, "
+                 f"KIND_HANG {hangs}")
+        check_launches("14a aborted engine", counts,
+                       {"flash_fwd": L * pre, "paged_attention":
+                            L * (steps + SLO_ENGINE["steps_per_sync"])})
+        by_path["wd_aborted"] = counts
+        hs, wall, counts, pre, steps, eng = _engine_run(
+            torch, model, engine, resilience, A, wl)
+        eng.stop()
+        c2 = {k: v - c0[k] - c1[k]
+              for k, v in _wd_counts(observe, "decode").items()}
+        print(f"  fresh engine, clean: {len(hs)} requests in {wall:.3f} s, "
+              f"new watchdog counts {c2}, deadline "
+              f"{wd.op_state('decode').deadline()} s")
+        if any(c2.values()) or any(h.outcome != "completed" for h in hs):
+            fail(f"14a fresh engine: counts {c2}, outcomes "
+                 f"{[h.outcome for h in hs]}")
+        check_launches("14a fresh engine", counts,
+                       {"flash_fwd": L * pre, "paged_attention": L * steps})
+        by_path["wd_fresh"] = counts
+    finally:
+        resilience.clear_fault_plan()
+        watchdog.uninstall_watchdog()
+        health.set_active_monitor(None)
+    return by_path
+
+
+def _bench_graph(torch, models, opt, health, tx, root, policy="warn",
+                 seed=SEED):
+    m = models.create_model("gpt", device="cuda", seed=seed, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16",
+              health=health.HealthMonitor(policy=policy, out_dir=root))
+    return m
+
+
+def _sleep_rate(torch):
+    """SM cycles a second that torch.cuda._sleep spins at on this card,
+    from one 0.05 s sleep timed by CUDA events."""
+    cycles = int(0.05 * SM_HZ)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    torch.cuda.synchronize()
+    return cycles / (a.elapsed_time(b) / 1e3)
+
+
+def phase_watchdog_train(torch, models, opt, health, watchdog, goodput,
+                         observe, A, build, root):
+    """14b: the watchdog on 13c's bench GPT step as a CUDA graph
+    (health warn). A static step deadline of WD_FIRST_S installed before
+    the first call: the warm-up and the capture (under model.build) are
+    tainted and do not breach; then the diagnostic wgmma_probe library,
+    deleted from .kernel_build/, built by `_build.lib` inside a step
+    guard at the same deadline: tainted by its introspect.build span, no
+    breach, its time booked to goodput's `compile`. With a deadline of
+    WD_STEP_S: a device stall (torch.cuda._sleep) of (abort_at + 1) x
+    the deadline queued before a replay breaches at the step's fence,
+    HangError from the step with the bundle's wedged thread this one,
+    inside the stats read; the next step clean, 8 + 8 K1/K2a a replay;
+    the replayed step with the watchdog off and on in same-call turns
+    (median of 15 each)."""
+    print("== phase 14b: the watchdog on the graph-mode training step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    counts = {}
+    tracker = goodput.install()
+    wd = watchdog.install_watchdog(deadlines={"step": WD_FIRST_S},
+                                   action="abort",
+                                   poll_interval_s=WD_POLL_S, out_dir=root)
+    try:
+        m = _bench_graph(torch, models, opt, health, tx, root)
+        first = []
+        for _ in range(2):                  # the warm-up, the capture
+            t0 = time.perf_counter()
+            m(tx, ty)[1].item()
+            first.append(time.perf_counter() - t0)
+        cb = _wd_counts(observe, "step")
+        print(f"  static step deadline {WD_FIRST_S} s: warm-up "
+              f"{first[0]:.3f} s and capture {first[1]:.3f} s, both under "
+              f"model.build; counts {cb}; backend {m.graph_backend}")
+        if m.graph_backend != "cuda_graph" or any(cb.values()) or \
+                min(first) <= WD_FIRST_S * wd.abort_at:
+            fail(f"14b: the first calls breached or were too short to "
+                 f"show the taint: {first}, {cb}")
+        name = "wgmma_probe"
+        path = build._lib_path(name)
+        build._libs.pop(name, None)
+        if os.path.exists(path):
+            os.remove(path)
+        comp0 = tracker.snapshot()["buckets"]["compile"]
+        t0 = time.perf_counter()
+        with watchdog.guard("step"):
+            build.lib(name)
+        nvcc_s = time.perf_counter() - t0
+        gained = tracker.snapshot()["buckets"]["compile"] - comp0
+        cn = _wd_counts(observe, "step")
+        print(f"  {name} built and loaded inside a step guard "
+              f"({WD_FIRST_S} s): {nvcc_s:.3f} s (nvcc "
+              f"{build.BUILD_SECONDS.get(name, 0.0):.3f} s); counts {cn}; "
+              f"goodput compile +{gained:.3f} s")
+        if any(cn.values()) or nvcc_s <= WD_FIRST_S * wd.abort_at or \
+                gained < 0.99 * nvcc_s or name not in build.BUILD_SECONDS:
+            fail(f"14b: the kernel build was not tainted or not booked: "
+                 f"{cn}, {nvcc_s}, {gained}")
+        watchdog.uninstall_watchdog()
+        wd = watchdog.install_watchdog(deadlines={"step": WD_STEP_S},
+                                       action="abort",
+                                       poll_interval_s=WD_POLL_S,
+                                       out_dir=root)
+        ms = _steps(torch, m, tx, ty, 3)[1]
+        if max(ms) > WD_STEP_S * 1e3 / 2:
+            fail(f"14b: replays of {ms} ms leave no room under the "
+                 f"{WD_STEP_S} s deadline")
+        rate = _sleep_rate(torch)
+        stall = (wd.abort_at + 1.0) * WD_STEP_S
+        torch.cuda.synchronize()
+        A.reset_launches()
+        torch.cuda._sleep(int(stall * rate))
+        t0 = time.perf_counter()
+        err = None
+        try:
+            m(tx, ty)
+        except watchdog.HangError as e:
+            err = e
+        took = time.perf_counter() - t0
+        counts["stall"] = dict(A.LAUNCHES)
+        cs = _wd_counts(observe, "step")
+        if err is None:
+            fail(f"14b: the stalled replay ({took:.3f} s) raised nothing; "
+                 f"counts {cs}")
+        b = watchdog.load_hang_bundle(err.bundle_path)
+        wedged = [t for t in b["threads"] if t["wedged"]]
+        inner = wedged[0]["frames"][-1] if wedged else {}
+        me = threading.current_thread().name
+        print(f"  device stall {stall:.3f} s ({int(stall * rate)} cycles at "
+              f"{rate / 1e9:.3f} GHz) before a replay: HangError({err.op}, "
+              f"{err.seconds:.3f} s) after {took:.3f} s; counts {cs}; "
+              f"wedged {[t['name'] for t in wedged]} in "
+              f"{inner.get('func')} ({inner.get('code')})")
+        if err.op != "step" or cs["breach"] != 1 or cs["dump"] != 1 or \
+                cs["abort"] != 1 or cs["hard_abort"] or len(wedged) != 1 \
+                or wedged[0]["name"] != me \
+                or inner.get("func") != "_train_step" \
+                or "packed.cpu()" not in (inner.get("code") or ""):
+            fail(f"14b: the stall's breach: {err.op}, {cs}, {wedged}")
+        check_launches("14b stalled replay", counts["stall"],
+                       {"flash_fwd": L, "flash_bwd_fused": L})
+        A.reset_launches()
+        _, loss = m(tx, ty)
+        counts["clean"] = dict(A.LAUNCHES)
+        if _wd_counts(observe, "step") != cs or not np.isfinite(loss.item()):
+            fail("14b: the step after the stall was not clean")
+        check_launches("14b next replay", counts["clean"],
+                       {"flash_fwd": L, "flash_bwd_fused": L})
+        ms = {"off": [], "on": []}
+        for label in ("off", "on", "on", "off", "off", "on"):
+            wd.enabled = label == "on"
+            ms[label] += _steps(torch, m, tx, ty, WD_TURN_STEPS)[1]
+        wd.enabled = True
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        for k, v in ms.items():
+            print(f"  replayed step, watchdog {k}: ms "
+                  f"{', '.join(f'{x:.2f}' for x in v)}; median {med[k]:.2f}")
+        print(f"  watchdog overhead: {med['on'] / med['off'] - 1:+.2%} of "
+              f"the step (median of {len(ms['on'])} each); step deadline "
+              f"samples {len(wd.op_state('step').samples)} (static)")
+        del m
+    finally:
+        watchdog.uninstall_watchdog()
+        goodput.uninstall()
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in counts.values()) for k in A.LAUNCHES}
+
+
+def _reconciles(s):
+    return (sum(s["regions"].values()) == s["total_bytes"]
+            and s["regions"]["unattributed"] >= 0
+            and sum(s["counts"].values()) == s["n_arrays"])
+
+
+def phase_memory(torch, models, opt, health, memory, engine, serving, slo,
+                 resilience, observe, A, gpt2, root):
+    """14c: the memory ledger on the card (total: the caching allocator's
+    memory_allocated) with its LeakDetector: 13c's graph step (health
+    skip_step) for MEM_STEPS steps, every snapshot reconciled, one taken
+    directly equal to memory_allocated(), params / opt_state /
+    flight_snapshot equal to the model's distinct parameter storages, the
+    optimizer's state_arrays() and the retained batch, the build count 1,
+    no leak verdict; then a MEM_LEAK_MB tensor kept from each step, the
+    leak flagged within MEM_LEAK_LIMIT steps naming `unattributed`; 14a's
+    engine served under the ledger, kv_cache equal to its pools and to
+    slo.fleet_serve_snapshot()["kv_cache_bytes"]; estimate_fit with the
+    card's limit; last, a real OOM: an eager fp32 step of a fresh bench
+    GPT at a batch whose logits alone exceed the free memory, the
+    OutOfMemoryError propagating, a flight_oom_step bundle that
+    load_flight_bundle reads with the model's parameters among its
+    top_arrays, singa_mem_oom_dumps_total + 1, and after
+    torch.cuda.empty_cache() a normal step."""
+    print("== phase 14c: the memory ledger on the card")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    counts = {}
+    led = memory.install_ledger(out_dir=root)
+    try:
+        m = _bench_graph(torch, models, opt, health, tx, root,
+                         policy="skip_step")
+        n0 = len(led.timeline)
+        A.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(MEM_STEPS):
+            m(tx, ty)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["train"] = dict(A.LAUNCHES)
+        snaps = list(led.timeline)[n0:]
+        s = led.snapshot()
+        alloc = torch.cuda.memory_allocated()
+        params = sum({p.untyped_storage().data_ptr():
+                      p.untyped_storage().nbytes()
+                      for p in m._raw_params().values()}.values())
+        opt_b = sum(a.numel() * a.element_size()
+                    for a in m.optimizer.state_arrays())
+        batch_b = sum(t.numel() * t.element_size() for t in (tx, ty))
+        r = s["regions"]
+        leak0 = _counter_sum(observe, "singa_health_anomaly_total",
+                             kind=health.KIND_MEM_LEAK)
+        print(f"  {MEM_STEPS} graph steps in {wall:.3f} s, {len(snaps)} step "
+              f"snapshots, all reconciled {all(map(_reconciles, snaps))}; "
+              f"direct snapshot: total {s['total_bytes']} = "
+              f"memory_allocated {alloc}; regions (MB) "
+              + ", ".join(f"{k} {v / 1e6:.3f}" for k, v in r.items())
+              + f"; {s['n_arrays']} blocks; build count {m._build_count}; "
+              f"leak verdicts {len(led.leak.verdicts)}, slope "
+              f"{led.leak.slope:.1f} B/step")
+        if len(snaps) != MEM_STEPS or not all(map(_reconciles, snaps)) \
+                or not _reconciles(s) or s["total_bytes"] != alloc:
+            fail("14c: a snapshot is missing or does not reconcile")
+        if (r["params"], r["opt_state"], r["flight_snapshot"]) != \
+                (params, opt_b, batch_b):
+            fail(f"14c: regions {r} against params {params}, opt_state "
+                 f"{opt_b}, flight_snapshot {batch_b}")
+        if m._build_count != 1 or led.leak.verdicts or leak0:
+            fail(f"14c: build count {m._build_count}, verdicts "
+                 f"{led.leak.verdicts}")
+        check_launches("14c graph steps under the ledger", counts["train"],
+                       {"flash_fwd": L * MEM_STEPS,
+                        "flash_bwd_fused": L * MEM_STEPS})
+        kept = []
+        A.reset_launches()
+        for i in range(MEM_LEAK_LIMIT + 5):
+            kept.append(torch.empty(MEM_LEAK_MB << 20, dtype=torch.uint8,
+                                    device="cuda"))
+            m(tx, ty)
+            if led.leak.verdicts:
+                break
+        counts["leak"] = dict(A.LAUNCHES)
+        v = led.leak.verdicts[0] if led.leak.verdicts else {}
+        leaks = _counter_sum(observe, "singa_health_anomaly_total",
+                             kind=health.KIND_MEM_LEAK)
+        print(f"  {MEM_LEAK_MB} MB kept a step: flagged after {i + 1} "
+              f"steps, suspect {v.get('suspect_region')} "
+              f"(+{v.get('suspect_delta_bytes')} B over {v.get('window')} "
+              f"snapshots, slope {v.get('slope_bytes_per_step')} B/step), "
+              f"action {v.get('action')}, KIND_MEM_LEAK {leaks:.0f}")
+        if not v or i + 1 > MEM_LEAK_LIMIT or leaks != 1 or \
+                v["suspect_region"] != "unattributed":
+            fail(f"14c: the leak was not flagged within {MEM_LEAK_LIMIT} "
+                 f"steps: {v}")
+        check_launches("14c leaking steps", counts["leak"],
+                       {"flash_fwd": L * (i + 1),
+                        "flash_bwd_fused": L * (i + 1)})
+        del kept
+        fit = memory.estimate_fit(m)
+        limit = torch.cuda.mem_get_info()[1]
+        print(f"  estimate_fit: estimated {fit['estimated_peak_bytes']} B, "
+              f"limit {fit['limit_bytes']} B, fits {fit['fits']}, headroom "
+              f"{fit['headroom_frac']}, source {fit['source']}")
+        if fit["limit_bytes"] != limit or fit["fits"] is not True:
+            fail(f"14c: estimate_fit {fit}")
+        del m
+        torch.cuda.empty_cache()
+        wl = serving.poisson_workload(**SLO_WORKLOAD)
+        n1 = len(led.timeline)
+        hs, wall, ecounts, pre, steps, eng = _engine_run(
+            torch, gpt2, engine, resilience, A, wl, burst=True)
+        try:
+            esnaps = list(led.timeline)[n1:]
+            s = led.snapshot()
+            pools = eng.pool_bytes() + eng.draft_pool_bytes()
+            kv_slo = slo.fleet_serve_snapshot()["kv_cache_bytes"]
+        finally:
+            eng.stop()
+        counts["engine"] = ecounts
+        print(f"  engine under the ledger: {len(hs)} requests in "
+              f"{wall:.3f} s, {len(esnaps)} engine snapshots (prefill and "
+              f"sync spans), all reconciled {all(map(_reconciles, esnaps))}; "
+              f"kv_cache {s['regions']['kv_cache']} B = pools {pools} B = "
+              f"fleet_serve_snapshot {kv_slo} B")
+        if not esnaps or not all(map(_reconciles, esnaps)) or \
+                s["regions"]["kv_cache"] != pools or kv_slo != pools or \
+                any(h.outcome != "completed" for h in hs):
+            fail("14c: the engine's kv_cache region")
+        Lg = len(gpt2.blocks)
+        check_launches("14c engine under the ledger", ecounts,
+                       {"flash_fwd": Lg * pre, "paged_attention": Lg * steps})
+        oom0 = _counter_sum(observe, "singa_mem_oom_dumps_total")
+        mo = models.create_model("gpt", device="cuda", seed=SEED + 1,
+                                 **BENCH_GPT)
+        mo.set_optimizer(opt.SGD(lr=0.1))
+        mo.compile([tx], is_train=True, use_graph=False)
+        free = torch.cuda.mem_get_info()[0]
+        B = free // (TRAIN_S * V * 4) + 8
+        bx = torch.randint(0, V, (B, TRAIN_S), device="cuda")
+        t0 = time.perf_counter()
+        caught = None
+        try:
+            mo(bx, bx)
+        except torch.OutOfMemoryError as e:
+            caught = str(e).splitlines()[0][:160]
+        took = time.perf_counter() - t0
+        del bx
+        bundles = sorted((f for f in os.listdir(root)
+                          if f.startswith("flight_oom_step")),
+                         key=lambda f: os.path.getmtime(
+                             os.path.join(root, f)))
+        b = health.load_flight_bundle(os.path.join(root, bundles[-1])) \
+            if bundles else {"header": {}}
+        oom = b["header"].get("oom") or {}
+        shapes = {(tuple(p.shape), p.numel() * p.element_size())
+                  for p in mo._raw_params().values()}
+        top = oom.get("top_arrays") or []
+        hits = [t for t in top if (tuple(t["shape"]), t["nbytes"]) in shapes]
+        dumps = _counter_sum(observe, "singa_mem_oom_dumps_total") - oom0
+        print(f"  eager fp32 step at batch {B} (free {free} B): "
+              f"OutOfMemoryError {caught is not None} after {took:.3f} s "
+              f"({caught}); bundle {bundles[-1] if bundles else None}: "
+              f"reason {b['header'].get('reason')}, key "
+              f"{oom.get('executable_key')}, total {oom.get('total_bytes')} "
+              f"B, {len(top)} top arrays, {len(hits)} of them the model's "
+              f"parameters; oom dumps +{dumps:.0f}")
+        if caught is None or b["header"].get("reason") != "oom" or \
+                oom.get("executable_key") != "step" or not hits or \
+                dumps != 1 or \
+                sum(oom.get("regions", {}).values()) != oom["total_bytes"]:
+            fail("14c: the OOM left no loadable bundle")
+        torch.cuda.empty_cache()
+        _, loss = mo(tx, ty)
+        print(f"  after empty_cache: an eager step at batch {TRAIN_B}, loss "
+              f"{loss.item():.4f}")
+        if not np.isfinite(loss.item()):
+            fail("14c: the step after the OOM")
+        del mo
+    finally:
+        memory.uninstall_ledger()
+    torch.cuda.empty_cache()
+    return ({k: counts["train"][k] + counts["leak"][k] for k in A.LAUNCHES},
+            counts["engine"])
+
+
+class _FitBatches:
+    """GP_BATCHES seeded batches, each built on the host and moved to the
+    card at its fetch. Before batch GP_POISON's step `w[0, 0]` is set to
+    `value` (None: its own value, so a clean epoch's fetches do the same
+    work as a poisoned one's) and restored at the next fetch."""
+
+    def __init__(self, torch, seed, w, value=None):
+        self.torch, self.seed, self.w, self.value = torch, seed, w, value
+
+    def __iter__(self):
+        torch = self.torch
+        V = BENCH_GPT["vocab_size"]
+        old = None
+        for i in range(GP_BATCHES):
+            with torch.no_grad():
+                if i == GP_POISON:
+                    old = self.w[0, 0].clone()
+                    self.w[0, 0] = old if self.value is None else self.value
+                elif i == GP_POISON + 1:
+                    self.w[0, 0] = old
+            x, y = _train_batch(torch, V, TRAIN_B, TRAIN_S, self.seed + i)
+            yield x.cuda(), y.cuda()
+
+
+def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
+                      resilience, observe, A, root):
+    """14d: goodput over `fit` of 13c's bench GPT as a CUDA graph with
+    health skip_step: a clean epoch of GP_BATCHES batches, then an epoch
+    with FaultPlan delays of GP_DELAY_S on the first GP_DELAYS
+    "data.next" fetches and batch GP_POISON's step poisoned (+inf in a
+    block weight), then one save_checkpoint (waited for) and one eval
+    call. compile holds at least the first call's build; the faulted
+    epoch's data_wait is at least the delays requested, equals its fit
+    fetches' data.wait spans (booked once), and lies in [slept, slept +
+    the clean epoch's], where slept is the delayed fetches' spans: the
+    delays as they ran with the fetch around each (a sleep overshoots
+    its request, and the woken thread's fetch runs slower); health_skip
+    is exactly the poisoned step's span, checkpoint and eval are above 0,
+    and the buckets (other included) add up to the run's wall time
+    within 1% with overlap_s 0. Exact K1/K2a counts over both epochs."""
+    print("== phase 14d: goodput over fit")
+    L = BENCH_GPT["num_layers"]
+    goodput.uninstall()
+    tracker = goodput.install()
+    t_run = time.perf_counter()
+    spans = []
+
+    def on_span(path, seconds, _attrs):
+        # fit's steps run inside its model.fit_epoch span
+        if path.endswith("model.step"):
+            spans.append(("model.step", seconds))
+        elif path.endswith("model.fit_epoch/data.wait"):
+            spans.append(("data.wait", seconds))
+        elif path.endswith("model.step/model.build"):
+            spans.append(("model.build", seconds))
+
+    observe.add_span_listener(on_span)
+    try:
+        m = models.create_model("gpt", device="cuda", seed=SEED,
+                                **BENCH_GPT)
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        w = m.blocks[0].attn.Wq
+        x0, _ = _train_batch(torch, BENCH_GPT["vocab_size"], TRAIN_B,
+                             TRAIN_S, SEED + 40)
+        x0 = x0.cuda()
+        m.compile([x0], is_train=True, use_graph=True, amp="bfloat16",
+                  health=health.HealthMonitor(policy="skip_step",
+                                              out_dir=root))
+        A.reset_launches()
+        s0 = tracker.snapshot()
+        m.fit(_FitBatches(torch, SEED + 40, w), epochs=1)
+        s1 = tracker.snapshot()
+        n1 = sum(1 for p, _ in spans if p == "model.step")
+        w1 = sum(1 for p, _ in spans if p == "data.wait")
+        plan = resilience.FaultPlan().delay("data.next", GP_DELAY_S,
+                                            times=GP_DELAYS)
+        fired = []
+        fire = plan.fire
+
+        def timed_fire(point, **ctx):
+            # the delays as they ran: a sleep overshoots its request
+            t0 = time.perf_counter()
+            try:
+                return fire(point, **ctx)
+            finally:
+                fired.append(time.perf_counter() - t0)
+
+        plan.fire = timed_fire
+        resilience.install_fault_plan(plan)
+        try:
+            m.fit(_FitBatches(torch, SEED + 40, w, float("inf")),
+                  epochs=1)
+        finally:
+            resilience.clear_fault_plan()
+        s2 = tracker.snapshot()
+        counts = dict(A.LAUNCHES)
+        steps = [s for p, s in spans if p == "model.step"]
+        builds = [s for p, s in spans if p == "model.build"]
+        poisoned = steps[n1 + GP_POISON]
+        m.save_checkpoint(os.path.join(root, "gp_ckpt"), step=2 * GP_BATCHES)
+        overlap.wait_for_checkpoints()
+        m.eval()
+        with torch.no_grad():
+            m(x0)
+        m.train()
+        snap = tracker.snapshot(final=True)
+        wall = time.perf_counter() - t_run
+    finally:
+        observe.remove_span_listener(on_span)
+        goodput.uninstall()
+    bk = snap["buckets"]
+    clean_dw = s1["buckets"]["data_wait"] - s0["buckets"]["data_wait"]
+    dw = s2["buckets"]["data_wait"] - s1["buckets"]["data_wait"]
+    delays = GP_DELAY_S * GP_DELAYS
+    # the faulted epoch's fetches that ran a delay (their fault point took
+    # the delay), as their data.wait spans: the delays as they ran, with
+    # the fetch around each
+    fw = [x for p, x in spans if p == "data.wait"][w1:]
+    slow = [i for i, f in enumerate(fired) if f >= GP_DELAY_S]
+    slept = sum(fw[i] for i in slow)
+    total = sum(bk.values())
+    waits = [x * 1e3 for p, x in spans if p == "data.wait"]
+    print("  " + tracker.report().replace("\n", "\n  "))
+    print(f"  fit's data.wait spans (ms), clean epoch: "
+          f"{', '.join(f'{x:.3f}' for x in waits[:w1])}; faulted epoch: "
+          f"{', '.join(f'{x:.3f}' for x in waits[w1:])}; the fault points "
+          f"(ms): {', '.join(f'{x * 1e3:.3f}' for x in fired)}")
+    print(f"  goodput ratio {snap['goodput_ratio']:.4f}; wall {wall:.3f} s "
+          f"(tracker {snap['wall_s']:.3f} s), bucket sum {total:.3f} s, "
+          f"overlap {snap['overlap_s']}; first call's build "
+          f"{builds[0]:.3f} s, all builds {sum(builds):.3f} s, compile "
+          f"{bk['compile']:.3f} s; data_wait clean epoch {clean_dw:.6f} s, "
+          f"faulted epoch {dw:.6f} s (its spans {sum(fw):.6f} s; the "
+          f"{len(slow)} delayed fetches {slept:.6f} s, {delays:.3f} s "
+          f"requested); poisoned step {poisoned:.6f} s, health_skip "
+          f"{bk['health_skip']:.6f} s")
+    if bk["compile"] < builds[0] or dw < delays or len(slow) != GP_DELAYS \
+            or abs(dw - sum(fw)) > 1e-9 * dw \
+            or not slept <= dw < slept + clean_dw \
+            or bk["health_skip"] != poisoned or bk["checkpoint"] <= 0 \
+            or bk["eval"] <= 0 or snap["overlap_s"] != 0 \
+            or abs(total - wall) > 0.01 * wall:
+        fail("14d: the goodput buckets do not account for the run")
+    check_launches("14d fit, two epochs", counts,
+                   {"flash_fwd": 2 * L * GP_BATCHES,
+                    "flash_bwd_fused": 2 * L * GP_BATCHES})
+    del m
+    torch.cuda.empty_cache()
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -3987,9 +4698,10 @@ def main():
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from singa_tpu_torch import (autograd, device, engine, health, layer,
-                                 models, observe, opt, overlap, resilience,
-                                 serving, slo, snapshot, tensor)
+    from singa_tpu_torch import (autograd, device, engine, goodput, health,
+                                 layer, memory, models, observe, opt,
+                                 overlap, resilience, serving, slo, snapshot,
+                                 tensor, watchdog)
     from singa_tpu_torch import model as model_mod
     from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
@@ -4084,13 +4796,33 @@ def main():
     by_path["slo_generate"] = phase_slo_generate(torch, model, serving, slo,
                                                  health, observe, A)
     clock.lap("phase 13b")
-    del model
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         by_path["health_train"] = phase_health_train(torch, models, opt,
                                                      health, observe, A,
                                                      root)
     clock.lap("phase 13c")
+    with tempfile.TemporaryDirectory() as root:
+        by_path.update(phase_watchdog_engine(
+            torch, model, engine, serving, health, resilience, watchdog,
+            observe, A, root))
+    clock.lap("phase 14a")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["wd_train"] = phase_watchdog_train(
+            torch, models, opt, health, watchdog, goodput, observe, A,
+            _build, root)
+    clock.lap("phase 14b")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["mem_train"], by_path["mem_engine"] = phase_memory(
+            torch, models, opt, health, memory, engine, serving, slo,
+            resilience, observe, A, model, root)
+    clock.lap("phase 14c")
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        by_path["goodput_fit"] = phase_goodput_fit(
+            torch, models, opt, health, goodput, overlap, resilience,
+            observe, A, root)
+    clock.lap("phase 14d")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

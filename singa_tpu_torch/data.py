@@ -7,8 +7,9 @@ ahead of use by a bounded background thread; with the same seed it
 yields the JAX package's batches in the same order (both shuffle with
 `np.random.RandomState(seed)`). Batches are host numpy arrays: moving
 them to the card is `overlap.DevicePrefetcher`'s work
-(`Model.fit(..., prefetch_to_device=N)`). Both pass the fault point
-"data.next" (`resilience`) before each batch's wait.
+(`Model.fit(..., prefetch_to_device=N)`). Each batch's wait is the span
+`data.wait` under the watchdog's `data_wait` deadline, and passes the
+fault point "data.next" (`resilience`) first.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from multiprocessing import Event, Process, Queue
 
 import numpy as np
 
-from . import resilience
+from . import observe, resilience, watchdog
 
 
 class ImageBatchIter:
@@ -68,7 +69,11 @@ class ImageBatchIter:
         assert self.p is not None, 'call start before next'
         if self.stop_flag.is_set():
             raise StopIteration   # end() was called
-        resilience.fault_point("data.next")
+        with observe.span("data.wait"), watchdog.guard("data_wait"):
+            resilience.fault_point("data.next")
+            return self._get()
+
+    def _get(self):
         while True:
             try:
                 return self.queue.get(timeout=0.2)
@@ -201,19 +206,21 @@ class NumpyBatchIter:
         t.start()
         try:
             for b in range(self.num_batches):
-                resilience.fault_point("data.next")
-                with lock:
-                    while b not in ready:
-                        # a transform that raised killed the thread
-                        # without a notify: do not wait for ever
-                        if not t.is_alive():
-                            raise RuntimeError(
-                                "NumpyBatchIter producer thread died "
-                                f"before batch {b}: the transform raised; "
-                                "see its traceback on stderr")
-                        lock.wait(timeout=0.2)
-                    batch = ready.pop(b)
-                    lock.notify_all()
+                with observe.span("data.wait"), \
+                        watchdog.guard("data_wait"):
+                    resilience.fault_point("data.next")
+                    with lock:
+                        while b not in ready:
+                            # a transform that raised killed the thread
+                            # without a notify: do not wait for ever
+                            if not t.is_alive():
+                                raise RuntimeError(
+                                    "NumpyBatchIter producer thread died "
+                                    f"before batch {b}: the transform "
+                                    "raised; see its traceback on stderr")
+                            lock.wait(timeout=0.2)
+                        batch = ready.pop(b)
+                        lock.notify_all()
                 yield batch
         finally:
             with lock:

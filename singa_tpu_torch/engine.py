@@ -45,9 +45,21 @@ fault point "serving.engine_step" (`resilience`) inside its span, before
 its decode. With observe enabled, the non-finite logits of a prefill and
 of a sync are counted on the device beside the tokens, come back in the
 same host copy, and are booked by `health.record_nan_logits(n,
-"engine")`. The JAX engine's watchdog guards, memory-ledger providers and
-introspect executors come with a later slice (ROADMAP.md Queue 1 item
-3).
+"engine")`.
+
+Run-time accounting: each prefill and each sync (its decode and host
+read) runs under the watchdog's `decode` deadline (`watchdog.guard`); a
+`HangError` raised at a guard's exit, or delivered into the host read
+by the watchdog's hard abort, ends the decode loop like any error: every
+queued and active request finishes evicted with the error in its
+`detail`, and a `loop_error` event is emitted. From `start()` to
+`stop()` the page pools (the target's and the draft's) are the memory
+ledger's kv_cache provider and the draft's decode parameters its params
+provider; an out-of-memory error in a prefill or a sync writes the OOM
+bundle under the JAX engine's executor keys (`serving.engine_prefill`,
+`serving.engine_step`, `serving.engine_spec_prefill`,
+`serving.engine_spec_step`). The JAX engine's introspect executors come
+with the port's `introspect` (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -59,7 +71,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from . import health, observe, resilience, serving
+from . import health, memory, observe, resilience, serving, watchdog
 from .slo import (PHASE_ADMIT, PHASE_DECODE, PHASE_FIRST_TOKEN,
                   PHASE_PREFILL, PHASE_QUEUE, PHASE_SUBMIT,
                   PHASE_TERMINAL)
@@ -348,24 +360,34 @@ class ServingEngine:
         return sum(t.numel() * t.element_size()
                    for t in serving.tree_leaves(tree or ()))
 
+    def _pool_arrays(self):
+        """The memory ledger's kv_cache provider: the target's and the
+        draft's page pools (draft KV is KV-cache memory like any other)."""
+        return serving.tree_leaves([self._pools or (), self._dpools or ()])
+
+    def _draft_param_arrays(self):
+        """The memory ledger's params provider for the draft's decode
+        parameters (the draft exists only for serving)."""
+        p = self._draft_params
+        return () if p is None else (
+            [v for k, v in p.items() if k != "blocks"]
+            + [v for bp in p["blocks"] for v in bp.values()])
+
     def pool_bytes(self) -> int:
-        """Bytes of the target's page pools (scales included)."""
+        """Bytes of the target's page pools (scales included); the
+        ledger's kv_cache provider adds the draft's."""
         return self._bytes(self._pools)
 
     def draft_pool_bytes(self) -> int:
         return self._bytes(self._dpools)
 
     def draft_param_bytes(self) -> int:
-        p = self._draft_params
-        if p is None:
-            return 0
-        return self._bytes([v for k, v in p.items() if k != "blocks"]
-                           + [v for bp in p["blocks"] for v in bp.values()])
+        return self._bytes(self._draft_param_arrays())
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "ServingEngine":
-        """Allocate the page pools and start the decode thread.
-        Idempotent."""
+        """Allocate the page pools, register them as the memory ledger's
+        kv_cache provider, and start the decode thread. Idempotent."""
         with self._lock:
             if self._thread is not None:
                 return self
@@ -382,6 +404,11 @@ class ServingEngine:
                 n = ServingEngine._seq
             self._thread = threading.Thread(
                 target=self._loop, name=f"torch-serve-{n}", daemon=True)
+        memory.register_provider(memory.REGION_KV_CACHE, self,
+                                 self._pool_arrays)
+        if self.dcore is not None:
+            memory.register_provider(memory.REGION_PARAMS, self,
+                                     self._draft_param_arrays)
         with _registry_lock:
             _engines.append(self)
         if observe.is_enabled():
@@ -445,6 +472,8 @@ class ServingEngine:
             self._free_pages = list(range(self.num_pages))
             self._pools = self._dpools = None
             self._draining = False
+        memory.unregister_provider(memory.REGION_KV_CACHE, self)
+        memory.unregister_provider(memory.REGION_PARAMS, self)
         with _registry_lock:
             if self in _engines:
                 _engines.remove(self)
@@ -752,8 +781,11 @@ class ServingEngine:
         req.mark(PHASE_ADMIT, slot=slot, pages=len(pages))
         req.mark(PHASE_PREFILL, bucket=bucket)
         obs = observe.is_enabled()
-        with observe.span("serving.engine_prefill", bucket=bucket,
-                          prompt_tokens=s0):
+        key = "serving.engine_spec_prefill" if self.dcore is not None \
+            else "serving.engine_prefill"
+        with watchdog.guard("decode", stage="engine_prefill"), \
+                observe.span("serving.engine_prefill", bucket=bucket,
+                             prompt_tokens=s0), memory.on_oom(key):
             got = self._prefill(
                 torch.as_tensor(padded, device=self.device), s0,
                 torch.as_tensor(pages, dtype=torch.long,
@@ -884,8 +916,12 @@ class ServingEngine:
                 queued = len(self._queue)
             spec = self.dcore is not None
             obs = observe.is_enabled()
-            with observe.span("serving.engine_step", slots=n_active,
-                              steps=self.steps_per_sync, queue=queued):
+            key = "serving.engine_spec_step" if spec \
+                else "serving.engine_step"
+            with watchdog.guard("decode", slots=n_active), \
+                    observe.span("serving.engine_step", slots=n_active,
+                                 steps=self.steps_per_sync, queue=queued), \
+                    memory.on_oom(key):
                 # the sync's window (the sync ring), inside its span
                 sync_t0 = time.perf_counter()
                 resilience.fault_point("serving.engine_step",

@@ -31,9 +31,13 @@ update was discarded on the device; a loss spike downgrades to warn),
 "halt" (dump, then raise HealthError).
 
 The mesh side (`finalize(comm=...)`, the agreed flag across shards) comes
-with distribution, ROADMAP.md Queue 1 item 4. The memory ledger's note
-on a flight snapshot comes with `memory`, and the bundle header's
-`executables` is None until `introspect` is ported (Queue 1 item 3).
+with distribution, ROADMAP.md Queue 1 item 4. The bundle header's
+`executables` is None until `introspect` is ported (Queue 1 item 3). The
+memory ledger attributes the step inputs a graph-mode step retains for
+the flight recorder (`memory.track_model`) to `flight_snapshot`, and a
+dump notes the batch it is given under the same region; a host copy
+(the port's batch snapshots are numpy arrays) holds no device tensor
+and notes nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -336,7 +340,12 @@ class FlightRecorder:
         tail = list(observe.get_registry().recent)[-self.event_tail:]
         snap_prefix = None
         if batch_arrays:
+            from . import memory
             from .snapshot import Snapshot
+            # the memory ledger's birth site: tensors held for this
+            # snapshot attribute to `flight_snapshot` while they live
+            memory.note_arrays(memory.REGION_FLIGHT_SNAPSHOT,
+                               list(batch_arrays))
             snap_prefix = os.path.splitext(path)[0] + "_batch"
             with Snapshot(snap_prefix, mode_write=True) as s:
                 for i, a in enumerate(batch_arrays):

@@ -61,6 +61,15 @@ eager path (`use_graph=False`) books none of these, as in the JAX
 package; the optimizer's own hooks fire there. Other spans:
 `model.eval`, `model.fit_epoch`, `data.wait`, `checkpoint.save`,
 `checkpoint.load`; `record_checkpoint_bytes` after a save.
+
+Run-time accounting: the watchdog's `step` guard arms over the
+`model.step` span (its fence is the health monitor's stats read), the
+`data_wait` guard over `fit`'s fetch and the `ckpt_save` guard over a
+checkpoint's blocking part (`watchdog`); a graph-mode step that the
+health monitor skipped is booked as `health_skip` (`goodput`); the
+first call of a training signature registers the model's parameters and
+retained inputs with the memory ledger, and an out-of-memory error in a
+training step, eager or graph-mode, writes the OOM bundle (`memory`).
 """
 
 from __future__ import annotations
@@ -78,7 +87,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import _ckpt, autograd, health, layer, observe, overlap, resilience
+from . import (_ckpt, autograd, goodput, health, layer, memory, observe,
+               overlap, resilience, watchdog)
 from . import device as device_module
 from .ops import attention as _attention
 from .tensor import Tensor, _raw
@@ -160,9 +170,12 @@ def _buffer_operation(func):
         autograd.compute_dtype = self.amp
         try:
             if not (self.graph_mode and self.training):
-                if self._health_monitor is not None and self.training:
-                    return self._eager_health_step(func, args, kwargs)
-                return func(self, *args, **kwargs)
+                # the eager step: an OOM writes the forensics bundle
+                # under the graph-mode step's key
+                with memory.on_oom("step"):
+                    if self._health_monitor is not None and self.training:
+                        return self._eager_health_step(func, args, kwargs)
+                    return func(self, *args, **kwargs)
             return self._train_step(func, args, kwargs)
         finally:
             autograd.compute_dtype = prev
@@ -214,6 +227,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._graph_pool = None
         self._side_stream = None
         self._health_monitor = None
+        self._last_input_arrs = None  # the last graph-mode step's inputs
         self._health_steps = 0
         self._health_layout = None   # the packed stats' entries
         # pre-update values of a skip_step step: one for the optimizer's
@@ -398,6 +412,9 @@ class Model(layer.Layer, metaclass=ModelMeta):
         if entry is None:
             entry = self._train_steps[key] = _Buffered()
             self._build_count += 1
+            # the memory ledger's birth site: parameters, and the
+            # retained inputs while a health monitor is attached
+            memory.track_model(self)
             observe.record_compile(
                 bs, recompile=len(self._train_steps) > 1,
                 donated_bytes=self._step_state_bytes())
@@ -408,14 +425,22 @@ class Model(layer.Layer, metaclass=ModelMeta):
             and self._graph_steps >= dev.skip_iteration
         first = entry.calls == 0
         mon = self._health_monitor
+        self._last_input_arrs = raws
         t0 = time.perf_counter()
-        with observe.span("model.step", tag=tag):
-            if mon is None:
-                out = self._run_buffered(entry, call, vals)
-            else:
-                out, packed = self._run_buffered(
-                    entry, self._health_body(call, mon.policy == "skip_step"),
-                    vals)
+        # the watchdog's `step` deadline arms over the span: the warm-up
+        # and the capture run under `model.build`, which taints it; with
+        # a health monitor the stats read is the step's fence, without
+        # one only the dispatch is guarded (as in the JAX package)
+        with watchdog.guard("step"), observe.span("model.step", tag=tag):
+            with memory.on_oom("step"):
+                if mon is None:
+                    out = self._run_buffered(entry, call, vals)
+                else:
+                    out, packed = self._run_buffered(
+                        entry,
+                        self._health_body(call, mon.policy == "skip_step"),
+                        vals)
+            if mon is not None:
                 # the step's one read of its stats (inside the span: on
                 # the card it is the step's fence)
                 stats = packed.cpu().tolist()
@@ -430,8 +455,11 @@ class Model(layer.Layer, metaclass=ModelMeta):
         if first:
             observe.record_step_build(seconds)
         observe.record_step(seconds, batch=bs, tag=tag, device=dev)
-        if mon is not None:
-            self._health_feed(stats, raws, in_graph_skip=True)
+        if mon is not None and self._health_feed(
+                stats, raws, in_graph_skip=True) == "skip":
+            # the update was discarded on the device: this step's wall
+            # time produced nothing, so goodput moves it out of `step`
+            goodput.mark_step_skipped()
         return out
 
     # ---- training health (health) -------------------------------------------
@@ -678,7 +706,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
                         it, model=self, size=int(prefetch_to_device))
                 try:
                     while True:
-                        with observe.span("data.wait"):
+                        with observe.span("data.wait"), \
+                                watchdog.guard("data_wait"):
                             resilience.fault_point("data.next")
                             batch = next(it, end)
                         if batch is end:
@@ -780,7 +809,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
             else:
                 _ckpt.set_aside_checkpoint(path, ".reclaimed")
         t0 = time.perf_counter()
-        with observe.span("checkpoint.save"):
+        # the blocking device-to-host part, under the ckpt_save deadline
+        with observe.span("checkpoint.save"), watchdog.guard("ckpt_save"):
             states = self._host_states()
             opt_states = self._optimizer.get_states() \
                 if self._optimizer is not None else {}
@@ -808,7 +838,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
             overlap.start_async_save(path, write,
                                      blocking_s=time.perf_counter() - t0)
         else:
-            with observe.span("checkpoint.save"):
+            with observe.span("checkpoint.save"), \
+                    watchdog.guard("ckpt_save"):
                 write()
             overlap.clear_write_failed(path)
         observe.record_checkpoint_bytes(nbytes)

@@ -760,18 +760,24 @@ def record_hbm(device):
     `allocated_bytes.all.current`, `singa_hbm_peak_bytes_in_use`
     `reserved_bytes.all.peak`, `singa_hbm_bytes_limit` the card's total
     memory. On the CPU, where no allocator keeps counters, the in-use
-    gauge is set to 0 so that `singa_hbm_bytes_in_use` always exists
-    after a step, as in the JAX package (whose CPU fallback, the memory
-    ledger's live-array total, comes with the port's `memory` module)."""
+    gauge falls back to the memory ledger's live total
+    (`memory.hbm_fallback_bytes`: the installed CPU ledger's latest
+    snapshot, else a throttled enumeration), so `singa_hbm_bytes_in_use`
+    always exists after a step, as in the JAX package."""
     if not _enabled:
         return
+    import torch
+    td = torch.device(getattr(device, "torch_device", device))
+    if td.type != "cuda":
+        from . import memory
+        try:
+            total = memory.hbm_fallback_bytes()
+        except Exception:
+            return  # a telemetry hook must never break the step
+        gauge("singa_hbm_bytes_in_use",
+              "device bytes in use").set(float(total))
+        return
     try:
-        import torch
-        td = torch.device(getattr(device, "torch_device", device))
-        if td.type != "cuda":
-            gauge("singa_hbm_bytes_in_use",
-                  "device bytes in use").set(0.0)
-            return
         stats = torch.cuda.memory_stats(td)
         limit = torch.cuda.get_device_properties(td).total_memory
     except Exception:

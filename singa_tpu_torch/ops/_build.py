@@ -6,6 +6,12 @@ beside the package (the directory is git-ignored), then loaded with
 `ctypes`. The library's file name carries a hash of the sources, so an
 edited kernel is rebuilt and an unchanged one is loaded as it is.
 `build_all()` starts one `nvcc` per source at once and waits for all.
+Each build and load runs inside the span `introspect.build` (attribute
+`kernel`: the source, or the sources of a parallel build), on the
+calling thread: the watchdog taints a guard it opens in (a first build
+takes tens of seconds inside the first step or decode call), and
+goodput books it as `compile`. The span's name is the JAX package's
+build span, whose own module (`introspect`) the port has not yet.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no `nvcc`.
@@ -21,6 +27,8 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from .. import observe
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -94,12 +102,14 @@ def _finish(name: str, path: str, tmp, proc, t0) -> ctypes.CDLL:
 def build_all() -> None:
     """Build every kernel library, one nvcc per source, all in parallel."""
     with _lock:
-        started = [(n, *_start(n)) for n in SOURCES if n not in _libs]
-        if not started:
+        names = [n for n in SOURCES if n not in _libs]
+        if not names:
             return
-        # one waiting thread per nvcc, so each source's time is its own
-        with ThreadPoolExecutor(len(started)) as ex:
-            built = list(ex.map(lambda a: _finish(*a), started))
+        with observe.span("introspect.build", kernel=",".join(names)):
+            started = [(n, *_start(n)) for n in names]
+            # one waiting thread per nvcc, so each source's time is its own
+            with ThreadPoolExecutor(len(started)) as ex:
+                built = list(ex.map(lambda a: _finish(*a), started))
         for (n, *_), so in zip(started, built):
             _libs[n] = so
 
@@ -108,7 +118,8 @@ def lib(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     with _lock:
         if name not in _libs:
-            _libs[name] = _finish(name, *_start(name))
+            with observe.span("introspect.build", kernel=name):
+                _libs[name] = _finish(name, *_start(name))
         return _libs[name]
 
 

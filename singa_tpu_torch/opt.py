@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from . import autograd, health, observe
+from . import autograd, health, memory, observe
 from .tensor import _raw
 
 
@@ -101,6 +101,8 @@ class Optimizer:
         checkpoint keys p{j}.{k} line up with the JAX package's."""
         for p in params:
             self._state(_raw(p))
+        # the memory ledger's birth site: the step counter and the slots
+        memory.track_optimizer(self)
 
     def get_states(self) -> dict:
         """numpy copies under the JAX package's keys: `step_counter` and

@@ -32,6 +32,9 @@ time and the batches moved, `observe.record_ckpt_async` the pending
 saves and the caller's blocking time, and the barrier is the span
 `checkpoint.wait`. Fault points (`resilience`): "data.next" before each
 ring wait, "ckpt.wait" (ctx: path) before each pending write is awaited.
+The ring wait runs under the watchdog's `data_wait` deadline and the
+barrier under `ckpt_wait`; the ring's batches are the memory ledger's
+`prefetch_ring` region from construction to `close()`.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from . import device as device_module
-from . import observe, resilience
+from . import memory, observe, resilience, watchdog
 from .tensor import Tensor
 
 _END = object()          # ring marker: the source is exhausted
@@ -95,6 +98,8 @@ class DevicePrefetcher:
         self._thread = threading.Thread(
             target=self._produce, name=f"torch-prefetch-{next(_ids)}",
             daemon=True)
+        # the memory ledger's birth site: the batches parked in the ring
+        memory.track_prefetcher(self)
         self._thread.start()
 
     # -- producer side ---------------------------------------------------
@@ -176,7 +181,7 @@ class DevicePrefetcher:
         t0 = time.perf_counter()
         # the ring wait is the host's data stall (nested under fit's own
         # data.wait span)
-        with observe.span("data.wait"):
+        with observe.span("data.wait"), watchdog.guard("data_wait"):
             resilience.fault_point("data.next")
             item, depth, err = self._take()
         if item is _END:
@@ -233,6 +238,7 @@ class DevicePrefetcher:
         with self._cond:
             self._ring.clear()
             observe.record_prefetch(depth=0)
+        memory.untrack(memory.REGION_PREFETCH_RING, self)
 
     def __enter__(self):
         return self
@@ -316,7 +322,8 @@ def wait_for_checkpoints():
     if not entries:
         return
     errors = []
-    with observe.span("checkpoint.wait"):
+    # the ckpt_wait deadline arms over the whole barrier
+    with observe.span("checkpoint.wait"), watchdog.guard("ckpt_wait"):
         for e in entries:
             try:
                 resilience.fault_point("ckpt.wait", path=e.path)

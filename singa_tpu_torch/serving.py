@@ -44,7 +44,7 @@ import weakref
 import numpy as np
 import torch
 
-from . import autograd, health, observe, resilience, slo
+from . import autograd, health, memory, observe, resilience, slo, watchdog
 from .autograd import _top_k
 from .layer import layernorm
 from .parallel.moe import moe_ffn
@@ -619,9 +619,13 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
     model's device. `moe_capacity_factor` overrides the MoE layers'
     factor; `kv_dtype` quantizes the caches (the JAX package's order).
 
-    The call runs inside the span `serving.decode`, passing the fault
-    point "serving.decode" first; the prefill and the first token inside
-    `serving.prefill`, the token loop inside `serving.decode_scan`. With
+    The call runs inside the span `serving.decode` under the watchdog's
+    `decode` deadline, passing the fault point "serving.decode" first;
+    the prefill and the first token inside `serving.prefill`, the token
+    loop inside `serving.decode_scan` (an out-of-memory error in either
+    writes the memory ledger's OOM bundle under that key). With a ledger
+    installed and no engine owning the kv_cache region, the caches are
+    noted as kv_cache until they die. With
     observe enabled, or an `slo` tracker installed, the prefill and the
     call are fenced (a device synchronize) for an honest TTFT and
     latency: observe's `record_decode` books them, and `slo.note_decode`
@@ -652,12 +656,15 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
         gen = torch.Generator(device=prompt.device)
         gen.manual_seed(int(seed))
         nf = None
-        with observe.span("serving.decode", batch=B, new_tokens=max_new):
+        # the watchdog's `decode` deadline arms over the whole call
+        with watchdog.guard("decode", batch=B), \
+                observe.span("serving.decode", batch=B, new_tokens=max_new):
             resilience.fault_point("serving.decode", batch=B)
             t0 = time.perf_counter()
             ttft = None
             with observe.span("serving.prefill", batch=B,
-                              prompt_tokens=S0):
+                              prompt_tokens=S0), \
+                    memory.on_oom("serving.prefill"):
                 logits, caches = core.prefill(p, prompt, B)
                 if obs:
                     nf = _nonfinite(logits)
@@ -665,10 +672,17 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
                 if timed:
                     _fence(prompt.device)
                     ttft = time.perf_counter() - t0
+            # the memory ledger's note: the caches are alive until the
+            # decode span exits (its snapshot), unless an engine's pools
+            # own the kv_cache region
+            if memory.get_ledger() is not None and \
+                    not memory.region_has_provider(memory.REGION_KV_CACHE):
+                memory.note_arrays(memory.REGION_KV_CACHE, caches)
             out = [tok]
             if max_new > 1:
                 with observe.span("serving.decode_scan", batch=B,
-                                  new_tokens=max_new):
+                                  new_tokens=max_new), \
+                        memory.on_oom("serving.decode_scan"):
                     for i in range(max_new - 1):
                         logits, caches = core.token_step(p, tok, caches, i,
                                                          B)
@@ -803,9 +817,12 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     runs the rounds as one `lax.while_loop`; here a Python loop does,
     with the per-row state on the device and one host read a round (is
     any row still active). `use_kernel` goes to every attention op, as
-    in `_DecodeCore`. Spans: `serving.decode` (the fault point
-    "serving.decode" first), `serving.prefill` (both prefills and the
-    first token), `serving.spec_verify` (the rounds); with observe
+    in `_DecodeCore`. Spans: `serving.decode` (the watchdog's `decode`
+    deadline over it, the fault point "serving.decode" first),
+    `serving.prefill` (both prefills and the first token; OOM key
+    "serving.spec_prefill"), `serving.spec_verify` (the rounds; OOM key
+    "serving.spec_verify"); the caches noted as kv_cache as in
+    `build_decode`; with observe
     enabled `record_spec`, `observe.record_decode` ("spec") and
     `health.record_nan_logits` (the prefill's logits and each round's
     committed ones, read with the counts) book the call, fenced, and
@@ -818,8 +835,9 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
 
     @torch.no_grad()
     def decode(pt, pd, prompt):
-        with observe.span("serving.decode", batch=B, new_tokens=max_new,
-                          spec_k=K):
+        with watchdog.guard("decode", batch=B), \
+                observe.span("serving.decode", batch=B, new_tokens=max_new,
+                             spec_k=K):
             resilience.fault_point("serving.decode", batch=B)
             return _spec(pt, pd, prompt)
 
@@ -829,7 +847,8 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
         dev = prompt.device
         t0 = time.perf_counter()
         ttft = None
-        with observe.span("serving.prefill", batch=B, prompt_tokens=S0):
+        with observe.span("serving.prefill", batch=B, prompt_tokens=S0), \
+                memory.on_oom("serving.spec_prefill"):
             logits0, caches = core.prefill(pt, prompt, B, use_kernel)
             # the draft only fills its own cache over the prompt: the
             # first token is the target's
@@ -839,6 +858,9 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
             if timed:
                 _fence(dev)
                 ttft = time.perf_counter() - t0
+        if memory.get_ledger() is not None and \
+                not memory.region_has_provider(memory.REGION_KV_CACHE):
+            memory.note_arrays(memory.REGION_KV_CACHE, (caches, dcaches))
         buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
         buf[:, 0] = tok
         cnt = torch.ones(B, dtype=torch.long, device=dev)
@@ -847,7 +869,8 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
         counts = torch.zeros(3, dtype=torch.long, device=dev)
         rounds = 0
         with observe.span("serving.spec_verify", batch=B,
-                          new_tokens=max_new):
+                          new_tokens=max_new), \
+                memory.on_oom("serving.spec_verify"):
             while max_new > 1:
                 active = cnt < max_new
                 if not bool(active.any()):
@@ -923,9 +946,11 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
     hypotheses move to a length-normalized pool (the JAX package's
     semantics) and the tail after eos is `pad_id` (default eos_id).
     With observe enabled, or an `slo` tracker installed, the call runs
-    inside the span `serving.beam_decode`, fenced: `observe.record_decode`
-    ("beam") books it (observe enabled) and `slo.note_decode` feeds the
-    tracker. With observe enabled the non-finite logits of the prefill
+    inside the span `serving.beam_decode` under the watchdog's `decode`
+    deadline, fenced: `observe.record_decode` ("beam") books it (observe
+    enabled) and `slo.note_decode` feeds the tracker. An out-of-memory
+    error writes the memory ledger's OOM bundle (key "serving.beam").
+    With observe enabled the non-finite logits of the prefill
     and every step are counted into `run.nan_logits`, read by the
     caller with the tokens (`GPT.generate_beam`)."""
     V = m.vocab_size
@@ -1004,9 +1029,12 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
     def run(p, prompt):
         obs = observe.is_enabled()
         if not obs and slo.get_tracker() is None:
-            return decode(p, prompt, False)
+            with memory.on_oom("serving.beam"):
+                return decode(p, prompt, False)
         t0 = time.perf_counter()
-        with observe.span("serving.beam_decode", batch=B, beams=K):
+        with watchdog.guard("decode", batch=B), \
+                observe.span("serving.beam_decode", batch=B, beams=K), \
+                memory.on_oom("serving.beam"):
             out = decode(p, prompt, obs)
             _fence(prompt.device)
         # one call: no prefill seam is timed, so no TTFT sample

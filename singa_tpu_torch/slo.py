@@ -30,9 +30,10 @@ timelines, SLOs, burn rates, tail attribution and the request trace.
 Clocks: events are stamped with `time.perf_counter()`, the clock of the
 observe span ring, and the tracker's windows run on the same stamps.
 
-`fleet_serve_snapshot` reads the engines' `pool_bytes` as the KV-cache
-bytes; the JAX package reads the memory ledger's kv_cache region, which
-comes with `memory` (ROADMAP.md Queue 1 item 3). The `--ab` command line
+`fleet_serve_snapshot` reads the memory ledger's kv_cache region as the
+KV-cache bytes when a ledger is installed (the target's and the draft's
+pools), else the engines' `pool_bytes` (the targets'). The `--ab` command
+line
 (`main`, `_ab_main`, `_ab_leg`) publishes through `fleet`'s shard writer
 and aggregator and comes with multi-replica serving (Queue 1 item 6);
 `chip_smoke.py` phase 13a runs the same A/B on one engine.
@@ -46,7 +47,7 @@ import threading
 import time
 from collections import deque
 
-from . import health, observe
+from . import health, memory, observe
 
 #: every lifecycle phase a request's timeline can record (the `phase=`
 #: label on singa_slo_phase_seconds is proven against this tuple by
@@ -1218,9 +1219,13 @@ def fleet_serve_snapshot(max_timelines: int = _SHARD_TIMELINES,
         if act is not None:
             active.extend(act()[-max_timelines:])
         syncs.extend(e.sync_records()[-max_syncs:])
-    # the engines' page pools; the memory ledger's kv_cache region comes
-    # with `memory`
+    # the memory ledger's kv_cache region (target and draft pools) when
+    # one is installed and has a snapshot, else the targets' page pools
     kv_bytes = pool_bytes
+    led = memory.get_ledger()
+    rb = led.region_bytes() if led is not None else None
+    if rb is not None:
+        kv_bytes = int(rb["regions"][memory.REGION_KV_CACHE])
     slo_part = None
     if tracker is not None:
         v = tracker.current_verdict()

@@ -42,6 +42,7 @@ PENDING = {
         "set_aside_checkpoint", "keep_last_k", "TrainController",
         "fit_resilient", "active_controller", "resilience_report", "main")},
     "slo": {"main": 6},
+    "watchdog": {"main": 6},
     "utils": {"dense_allreduce_types": 4},
     "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
     "parallel.moe": {"moe_ffn_ep": 5},
@@ -56,6 +57,9 @@ CLASSES = {
     "health": ("HealthMonitor", "StepStatsCollector", "FlightRecorder"),
     "resilience": ("FaultPlan",),
     "slo": ("SLOConfig", "SLOTracker", "TailCollector"),
+    "watchdog": ("Watchdog", "OpDeadline"),
+    "memory": ("MemoryLedger", "LeakDetector"),
+    "goodput": ("GoodputTracker",),
 }
 
 
@@ -114,7 +118,7 @@ def test_the_sweep_covers_the_ported_modules():
     assert {"tensor", "autograd", "layer", "model", "opt", "device",
             "serving", "engine", "observe", "config", "channel",
             "image_tool", "ops.attention", "models.transformer", "slo",
-            "health", "resilience",
+            "health", "resilience", "watchdog", "memory", "goodput",
             "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)

@@ -265,13 +265,44 @@ Phases, each of which exits non-zero on failure:
    epoch's data_wait], health_skip exactly the poisoned
    step, checkpoint and eval above 0, the buckets equal to the wall
    time within 1% with no overlap.
-15. The `kernels` JSON line (the decode kernels with a `modes` entry per
+15. introspect and the supervised training loop. 15a introspect on 13c's
+   bench GPT graph step (observe on, an EventLog and capture_hlo in a
+   temporary directory, verbosity 1): the first three calls give one
+   `compile` record for `step` (trace > 0, lower 0.0, compile = the
+   capture > 0), an op listing naming 8 flash_fwd and 8 flash_bwd_fused
+   launches and a .dot of the graph; the counted flops within 1% of the
+   shape count (matmuls x 3 + K1's and K2a's formulas), the bytes above
+   the states'; MFU in (0, 100] against the H100 SXM peak and
+   PrintTimeProfiling's GFLOP and MFU lines; ten more calls write only
+   `step` records (8 + 8 K1/K2a a replay); the replayed step with the
+   MFU callback set and cleared in same-call turns (printed);
+   estimate_fit from the executable beside a replayed step's peak; one
+   call at batch 12: one batch_bucket recompile "arg `arg0` batch 8->12
+   crossed bucket 8->16"; an eval build; flight and hang bundles
+   carrying the step build; GPT-2-small bf16 generate b8 (prompt 128,
+   +32) twice: one serving.prefill and one serving.decode_scan build;
+   13a's engine: serving.engine_prefill and serving.engine_step builds;
+   K1/K3/K4 exact. 15b fit_resilient on the bench GPT (12 seeded
+   batches, a save every 6 steps, keep 2, async) under a failing first
+   save and a failing step 9: completed, one retry, one restart from
+   step 6 replaying without stepping, step_6 and step_12 manifested and
+   valid, 15 model calls of 8 + 8 K1/K2a, the losses within 2e-2 of a
+   plain run; then a second controller with a static 0.3 s step
+   deadline (abort) and a 0.9 s stall at step 5: HangError, a
+   hang_restart from step 4, the hang report cleared, completed. 15c
+   8c's fp32 GPT preempted by a real SIGTERM at step 5 (manifest status
+   "preempt"), resumed by a fresh model at step 5, its losses within
+   1e-5 of an uninterrupted run's. Every checkpoint lies in a temporary
+   directory, deleted at the end of its part.
+16. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
    `health_train`, `wd_clean`, `wd_aborted`, `wd_fresh`, `wd_train`,
-   `mem_train`, `mem_engine` and `goodput_fit`), then the card line,
-   then the result line.
+   `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
+   `introspect_replays`, `introspect_generate`, `introspect_engine`,
+   `fit_resilient`, `hang_restart` and `preempt_resume`), then the card
+   line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -4487,6 +4518,546 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: build introspection and the supervised training loop
+INTRO_REPLAYS = 10        # 15a: calls after the first three
+INTRO_TURN_STEPS = 15     # 15a: steps per arm of the callback turns
+INTRO_FLOP_TOL = 0.01     # 15a: counted against the shape count, relative
+FR_BATCHES = 12           # 15b: seeded batches of fit_resilient
+FR_SAVE = 6               # 15b: save_every_steps
+FR_TOL = 2e-2             # 15b: bf16 amp losses against the plain run
+HANG_STEPS, HANG_SAVE, HANG_AT = 8, 4, 5    # 15b's hang controller
+PREEMPT_CFG = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+                   num_layers=2)            # 15c: 8c's fp32 GPT
+PREEMPT_BATCHES, PREEMPT_SAVE, PREEMPT_AT = 8, 3, 5
+
+
+def _gpt_step_flops(m, B, S):
+    """The GPT training step's FLOPs from its shapes: 3 x 2 x B x S x
+    in x out for each attention projection, fc1, fc2 and the head (every
+    matmul's input needs its gradient), plus per layer K1's 4 D and K2a's
+    10 D flops over the causal pairs. Returns (total, matmul forward)."""
+    mm = sum(2 * B * S * p.shape[0] * p.shape[1]
+             for n, p in m.named_parameters()
+             if p.dim() == 2 and n.rsplit(".", 1)[-1] in
+             ("Wq", "Wk", "Wv", "Wo", "W") and "embed" not in n)
+    H, L = m.num_heads, len(m.blocks)
+    pairs = B * H * S * (S + 1) / 2
+    return 3 * mm + L * 14 * (m.dim // H) * pairs, mm
+
+
+def _records(observe, since, kinds=("compile", "recompile")):
+    return [r for r in list(observe.get_registry().recent)[since:]
+            if r.get("kind") in kinds]
+
+
+def _check_execs(what, execs, fp):
+    got = [e for e in execs or () if e.get("key") == "step"]
+    pairs = [(e["key"], e["fingerprint"]) for e in execs or ()]
+    print(f"  {what} executables: {pairs}")
+    if not got or got[-1]["fingerprint"] != fp:
+        fail(f"15a: the {what} does not carry the step build {fp}")
+
+
+def phase_introspect(torch, models, opt, device, introspect, observe,
+                     memory, health, watchdog, engine, serving, resilience,
+                     A, root):
+    """15a: introspect on the bench GPT graph step (b8 x 1024, bf16 amp,
+    SGD, observe on, an EventLog and capture_hlo in `root`, verbosity 1):
+    the first three calls give exactly one `compile` record for `step`,
+    its record trace > 0, lower 0.0, compile (the capture) > 0, an op
+    listing naming L flash_fwd and L flash_bwd_fused launches and a .dot
+    of the graph; the counted flops within INTRO_FLOP_TOL of the shape
+    count, the bytes above the parameters' and optimizer states'; MFU in
+    (0, 100] against the H100 SXM peak and PrintTimeProfiling's GFLOP and
+    MFU lines at verbosity 2; ten more calls add only `step` records,
+    8 + 8 K1/K2a a replay; the replayed step with the MFU callback set and
+    cleared in same-call turns; estimate_fit from the executable beside a
+    replayed step's peak; one call at batch 12: one batch_bucket
+    recompile; an eval build; flight and hang bundles carrying the step
+    build; then GPT-2-small bf16 generate b8 (prompt 128, +32) twice (one
+    serving.prefill and one serving.decode_scan build) and 13a's engine
+    (serving.engine_prefill, serving.engine_step), with exact K1/K3/K4
+    counts. Returns the counted windows."""
+    import contextlib
+    import io as _io
+    print("== phase 15a: introspect on the bench GPT graph step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    by_path = {}
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    introspect.reset()
+    observe.enable(True)
+    observe.get_registry().reset()
+    log = os.path.join(root, "events.jsonl")
+    observe.set_event_log(log)
+    hlo = os.path.join(root, "hlo")
+    introspect.capture_hlo(hlo)
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    dev = device.of(m._device)
+    dev.SetVerbosity(1)
+    dev.SetSkipIteration(0)
+    dev.step_times = []
+    try:
+        torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m(tx, ty)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = dict(A.LAUNCHES)
+        check_launches("15a first three calls", counts,
+                       {"flash_fwd": 3 * L, "flash_bwd_fused": 3 * L})
+        by_path["introspect_first"] = counts
+        rec = introspect.last_build("step")
+        builds = [r for r in observe.EventLog.read(log)
+                  if r["kind"] in ("compile", "recompile")]
+        ph = rec["phases"]
+        with open(rec["hlo_path"]) as f:
+            text = f.read()
+        n_fwd = text.count("kernel flash_fwd(")
+        n_bwd = text.count("kernel flash_bwd_fused(")
+        dot = rec.get("graph_path")
+        print(f"  first three calls {first_s:.2f} s; build records "
+              f"{[(r['kind'], r['key']) for r in builds]}; phases trace "
+              f"{ph['trace']:.3f} s, lower {ph['lower']}, compile (capture) "
+              f"{ph['compile']:.3f} s; op listing "
+              f"{os.path.basename(rec['hlo_path'])}: "
+              f"{text.count(chr(10))} lines, {n_fwd} flash_fwd + {n_bwd} "
+              f"flash_bwd_fused launches; graph dump "
+              f"{os.path.basename(dot) if dot else None} "
+              f"({os.path.getsize(dot) if dot and os.path.exists(dot) else 0}"
+              f" bytes)")
+        if [(r["kind"], r["key"]) for r in builds] != [("compile", "step")] \
+                or not ph["trace"] > 0 or ph["lower"] != 0.0 \
+                or not ph["compile"] > 0 or n_fwd != L or n_bwd != L \
+                or not dot or not os.path.exists(dot) \
+                or not os.path.getsize(dot):
+            fail(f"15a: the step build {rec['phases']}, records {builds}")
+        # the count against the shapes
+        flops = rec["cost"]["flops"]
+        want, mm = _gpt_step_flops(m, TRAIN_B, TRAIN_S)
+        held = m._step_state_bytes()
+        nbytes = rec["cost"]["bytes accessed"]
+        print(f"  counted {flops / 1e12:.4f} TFLOP a step against "
+              f"{want / 1e12:.4f} from the shapes (matmuls {3 * mm / 1e12:.4f}"
+              f", K1 + K2a {(want - 3 * mm) / 1e12:.4f}): relative "
+              f"difference {abs(flops - want) / want:.3e} (tol "
+              f"{INTRO_FLOP_TOL}); {nbytes / 1e9:.3f} GB accessed, the "
+              f"parameters, buffers and optimizer states {held / 1e9:.3f} GB"
+              f"; {rec['cost']['aten ops']:.0f} aten ops, "
+              f"{rec['cost']['kernel launches']:.0f} kernel launches "
+              f"booked; memory {rec['memory']}")
+        if abs(flops - want) > INTRO_FLOP_TOL * want or nbytes <= held:
+            fail("15a: the counted cost disagrees with the shapes")
+        mfu = observe.get_registry().get("singa_mfu_pct")
+        peak = introspect.peak_tflops()
+        print(f"  singa_mfu_pct {mfu.value() if mfu else None} against "
+              f"{peak} TFLOP/s ({torch.cuda.get_device_name(0)})")
+        if mfu is None or not 0 < mfu.value() <= 100:
+            fail("15a: no MFU in (0, 100]")
+        # the cached path (its fenced times are PrintTimeProfiling's)
+        n_log = len(observe.EventLog.read(log))
+        dev.step_times = []
+        torch.cuda.synchronize()
+        A.reset_launches()
+        for _ in range(INTRO_REPLAYS):
+            m(tx, ty)
+        torch.cuda.synchronize()
+        counts = dict(A.LAUNCHES)
+        kinds = [r["kind"] for r in observe.EventLog.read(log)[n_log:]]
+        print(f"  {INTRO_REPLAYS} more calls: EventLog kinds "
+              f"{sorted(set(kinds))} x {len(kinds)}")
+        if kinds != ["step"] * INTRO_REPLAYS:
+            fail(f"15a: the cached path wrote {kinds}")
+        check_launches("15a replays", counts,
+                       {"flash_fwd": L * INTRO_REPLAYS,
+                        "flash_bwd_fused": L * INTRO_REPLAYS})
+        by_path["introspect_replays"] = counts
+        dev.SetVerbosity(2)
+        buf = _io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dev.PrintTimeProfiling()
+        dev.SetVerbosity(1)
+        print("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        if "GFLOP/step" not in buf.getvalue() or "MFU:" not in \
+                buf.getvalue():
+            fail("15a: PrintTimeProfiling printed no GFLOP or MFU line")
+        arms = {"set": [], "cleared": []}
+        for arm in ("set", "cleared", "cleared", "set"):
+            observe.set_step_callback(
+                introspect._mfu_callback if arm == "set" else None)
+            for _ in range(INTRO_TURN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m(tx, ty)
+                torch.cuda.synchronize()
+                arms[arm].append((time.perf_counter() - t0) * 1e3)
+        observe.set_step_callback(introspect._mfu_callback)
+        med = {k: statistics.median(v) for k, v in arms.items()}
+        print(f"  replayed step, MFU callback set {med['set']:.3f} ms, "
+              f"cleared {med['cleared']:.3f} ms (median of "
+              f"{2 * INTRO_TURN_STEPS} each, same-call turns; overhead "
+              f"{med['set'] - med['cleared']:+.3f} ms, recorded)")
+        # the fit estimate against a replayed step's peak
+        fit = memory.estimate_fit(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m(tx, ty)
+        torch.cuda.synchronize()
+        peak_b = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        print(f"  estimate_fit: source {fit['source']}, estimated "
+              f"{fit['estimated_peak_bytes'] / 2**30:.3f} GiB (arguments "
+              f"{fit['exec_arguments_bytes'] / 2**30:.3f}, outputs "
+              f"{fit['exec_outputs_bytes'] / 2**30:.3f}, temps "
+              f"{(fit['exec_temps_bytes'] or 0) / 2**30:.3f} GiB), fits "
+              f"{fit['fits']}; a replayed step's peak allocation "
+              f"{peak_b / 2**30:.3f} GiB (the process's; a replay "
+              f"allocates nothing, its graph's pool is reserved: "
+              f"{reserved / 2**30:.3f} GiB reserved)")
+        if fit["source"] != "executable" or not fit["exec_temps_bytes"] \
+                or fit["fits"] is not True:
+            fail(f"15a: estimate_fit {fit}")
+        # blame
+        since = len(observe.get_registry().recent)
+        x12, y12 = (t.cuda() for t in _train_batch(torch, V, 12, TRAIN_S,
+                                                   SEED + 4))
+        m(x12, y12)
+        recs = _records(observe, since)
+        c = observe.get_registry().get("singa_recompile_total")
+        n_bb = c.value(reason="batch_bucket", key="step") if c else 0
+        got = [(r["kind"], r["reason"], r["detail"]) for r in recs]
+        print(f"  one call at batch 12: {got}; "
+              f"singa_recompile_total{{batch_bucket, step}} {n_bb}")
+        if [(r["kind"], r["key"], r["reason"], r["detail"]) for r in recs] \
+                != [("recompile", "step", "batch_bucket",
+                     "arg `arg0` batch 8->12 crossed bucket 8->16")] \
+                or n_bb != 1:
+            fail("15a: the batch-12 call's blame")
+        del x12, y12
+        # eval
+        since = len(observe.get_registry().recent)
+        m.eval()
+        with torch.no_grad():
+            out = m(tx)
+        m.train()
+        recs = _records(observe, since)
+        print(f"  m.eval(); m(tx): {[(r['kind'], r['key']) for r in recs]}, "
+              f"logits {tuple(out.shape)}")
+        if not recs or any(r["key"] != "eval" for r in recs):
+            fail("15a: the eval call registered no eval build")
+        del out
+        # the bundles
+        fp = introspect.latest_fingerprint("step")
+        fr = health.FlightRecorder(out_dir=root)
+        fr.record({"step": 1, "loss": 1.0})
+        _check_execs("flight bundle", health.load_flight_bundle(
+            fr.dump(reason="nonfinite_grad", step=1))["header"]
+            ["executables"], fp)
+        wd = watchdog.install_watchdog(action="warn", out_dir=root)
+        try:
+            path = wd.dump_hang_bundle("step", 1.0)
+        finally:
+            watchdog.uninstall_watchdog()
+        _check_execs("hang bundle", watchdog.load_hang_bundle(path)[
+            "header"]["executables"], fp)
+    finally:
+        dev.SetVerbosity(0)
+        dev.step_times = []
+        introspect.capture_hlo(None)
+        observe.set_event_log(None)
+    del m
+    torch.cuda.empty_cache()
+
+    # serving: generate, then 13a's engine
+    gm = models.create_model("gpt", device="cuda", seed=SEED, **GPT2_SMALL)
+    Lg = len(gm.blocks)
+    prompts = np.random.RandomState(SEED + 15).randint(
+        0, gm.vocab_size, (8, 128)).astype(np.int32)
+    since = len(observe.get_registry().recent)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    a = gm.generate(prompts, 32, dtype="bfloat16")
+    t1 = time.perf_counter()
+    b = gm.generate(prompts, 32, dtype="bfloat16")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(A.LAUNCHES)
+    recs = _records(observe, since)
+    keys = [(r["kind"], r["key"]) for r in recs]
+    print(f"  GPT-2-small generate b8 prompt 128 +32, bf16, twice: "
+          f"{t1 - t0:.3f} s (the build: counted), {t2 - t1:.3f} s; builds "
+          f"{keys}; equal tokens {bool((a == b).all())}; scan build "
+          f"{introspect.last_build('serving.decode_scan')['cost']}")
+    if sorted(keys) != [("compile", "serving.decode_scan"),
+                        ("compile", "serving.prefill")]:
+        fail(f"15a: generate's builds {keys}")
+    check_launches("15a generate x 2", counts,
+                   {"flash_fwd": 2 * Lg, "flash_decode": 2 * Lg * 31})
+    by_path["introspect_generate"] = counts
+    wl = serving.poisson_workload(**SLO_WORKLOAD)
+    since = len(observe.get_registry().recent)
+    hs, wall, counts, pre, steps, eng = _engine_run(
+        torch, gm, engine, resilience, A, wl)
+    eng.stop()
+    keys = sorted({r["key"] for r in _records(observe, since)})
+    print(f"  13a's engine: {len(hs)} requests in {wall:.3f} s, {pre} "
+          f"prefills, {steps} steps; build keys {keys}")
+    if keys != ["serving.engine_prefill", "serving.engine_step"] or any(
+            h.outcome != "completed" for h in hs):
+        fail(f"15a: the engine's builds {keys}")
+    check_launches("15a engine", counts, {"flash_fwd": Lg * pre,
+                                          "paged_attention": Lg * steps})
+    by_path["introspect_engine"] = counts
+    del gm, eng, hs
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _timed(obj, name, sink):
+    """Wrap obj.name to append each call's seconds to `sink`."""
+    fn = getattr(obj, name)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            sink.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapper)
+
+
+def _plain_losses(torch, m, batches):
+    out = [m(*b)[1] for b in batches]
+    return torch.stack([o.float() for o in out]).cpu().tolist()
+
+
+def phase_fit_resilient(torch, models, opt, resilience, watchdog, observe,
+                        A, root):
+    """15b: fit_resilient on the bench GPT graph step (b8 x 1024, bf16 amp)
+    over FR_BATCHES seeded batches, save_every_steps FR_SAVE, keep 2,
+    async saves, under FaultPlan().fail("ckpt.save", nth=1).fail("step",
+    step=9): completed, 1 restart, final step 12, 12 history entries, one
+    retry, the restore at step 6 replaying without stepping, step_6 and
+    step_12 manifested (read and validated, fingerprints naming the step
+    build), 8 + 8 K1/K2a a model call (15 calls); the losses within FR_TOL
+    of a plain run of the same seeded model and batches. Then a second
+    controller over a fresh directory with a static step deadline
+    (action abort) and a FaultPlan delay past abort_at at step HANG_AT:
+    HangError restarts it from step HANG_SAVE, hang_restart emitted, the
+    hang report cleared, completed. Returns the counted windows."""
+    import shutil
+    print("== phase 15b: fit_resilient on the bench GPT graph step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    batches = [tuple(t.cuda() for t in _train_batch(torch, V, TRAIN_B,
+                                                    TRAIN_S, SEED + 40 + i))
+               for i in range(FR_BATCHES)]
+
+    def build():
+        g = models.create_model("gpt", device="cuda", seed=SEED,
+                                **BENCH_GPT)
+        g.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        g.compile([batches[0][0]], is_train=True, use_graph=True,
+                  amp="bfloat16")
+        return g
+
+    ref_m = build()
+    ref = _plain_losses(torch, ref_m, batches)
+    del ref_m
+    torch.cuda.empty_cache()
+    m = build()
+    saves, loads = [], []
+    _timed(m, "save_checkpoint", saves)
+    _timed(m, "load_checkpoint", loads)
+    ck = os.path.join(root, "fr")
+    observe.get_registry().reset()
+    since = len(observe.get_registry().recent)
+    plan = resilience.install_fault_plan(resilience.FaultPlan().fail(
+        "ckpt.save", nth=1).fail("step", step=9))
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rep = resilience.fit_resilient(
+            m, batches, ck, save_every_steps=FR_SAVE, keep=2,
+            async_save=True, handle_signals=False, retry_seed=SEED,
+            backoff_s=0.05)
+    finally:
+        resilience.clear_fault_plan()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    reg = observe.get_registry()
+    events = [r["event"] for r in list(reg.recent)[since:]
+              if r.get("kind") == "resilience"]
+    retries = reg.get("singa_resilience_retries_total")
+    retry_s = reg.get("singa_resilience_retry_seconds_total")
+    hist = dict(rep["history"])
+    worst = max(abs(hist[k] - ref[k]) / abs(ref[k]) for k in range(
+        FR_BATCHES)) if sorted(hist) == list(range(FR_BATCHES)) else None
+    print(f"  report: status {rep['status']}, restarts {rep['restarts']}, "
+          f"final step {rep['final_step']}, resumed step "
+          f"{rep['resumed_step']}, {len(rep['history'])} history entries; "
+          f"{wall:.2f} s; fired {plan.fired}; events {events}")
+    print(f"  retries {retries.value() if retries else 0} "
+          f"({retry_s.value() if retry_s else 0:.3f} s slept); save "
+          f"blocking s {[round(x, 3) for x in saves]}; restore s "
+          f"{[round(x, 3) for x in loads]}")
+    got = [round(hist.get(k, float("nan")), 4) for k in range(FR_BATCHES)]
+    print(f"  losses {got} "
+          f"against a plain run {[round(x, 4) for x in ref]}: largest "
+          f"relative difference {worst} (tol {FR_TOL})")
+    if rep["status"] != "completed" or rep["restarts"] != 1 \
+            or rep["final_step"] != FR_BATCHES \
+            or len(rep["history"]) != FR_BATCHES \
+            or not retries or retries.value() != 1 \
+            or events.count("restart") != 1 or "resume" not in events \
+            or worst is None or worst > FR_TOL:
+        fail(f"15b: fit_resilient {rep}")
+    resumed = [r for r in list(reg.recent)[since:]
+               if r.get("event") == "resume"]
+    if resumed[-1]["resumed_step"] != FR_SAVE:
+        fail(f"15b: restored step {resumed[-1]['resumed_step']}")
+    for s in (FR_SAVE, FR_BATCHES):
+        d = os.path.join(ck, f"step_{s}")
+        man = resilience.read_manifest(d)
+        probs = resilience.validate_manifest(man, m) if man else ["none"]
+        keys = [h["key"] for h in (man or {}).get("hlo_fingerprints", [])]
+        print(f"  step_{s}: manifest status {man and man['status']}, "
+              f"problems {probs}, fingerprints {keys}")
+        if man is None or probs or "step" not in keys:
+            fail(f"15b: the manifest of step_{s}")
+    calls = FR_BATCHES + (9 - FR_SAVE)
+    check_launches("15b fit_resilient (12 steps + 3 after the restore)",
+                   counts, {"flash_fwd": L * calls,
+                            "flash_bwd_fused": L * calls})
+    by_path = {"fit_resilient": counts}
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # a hang: the watchdog aborts a stalled step, the controller restarts
+    dl = WD_STEP_S
+    wd = watchdog.install_watchdog(action="abort", dump_at=1.5,
+                                   abort_at=2.0, hard_at=100.0,
+                                   poll_interval_s=WD_POLL_S,
+                                   deadlines={"step": dl}, out_dir=root)
+    delay = (wd.abort_at + 1.0) * dl
+    since = len(observe.get_registry().recent)
+    loads.clear()
+    resilience.install_fault_plan(resilience.FaultPlan().delay(
+        "step", delay, step=HANG_AT))
+    torch.cuda.synchronize()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rep = resilience.TrainController(
+            m, os.path.join(root, "hang"), save_every_steps=HANG_SAVE,
+            max_restarts=1, handle_signals=False).fit(batches[:HANG_STEPS])
+        report = watchdog.hang_report()
+        lb = dict(wd.last_breach or {})
+    finally:
+        resilience.clear_fault_plan()
+        watchdog.uninstall_watchdog()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    ev = [r for r in list(observe.get_registry().recent)[since:]
+          if r.get("kind") == "resilience"]
+    names = [r["event"] for r in ev]
+    res = [r for r in ev if r["event"] == "resume"]
+    print(f"  hang: static step deadline {dl} s, delay {delay:.3f} s at "
+          f"step {HANG_AT}: status {rep['status']}, restarts "
+          f"{rep['restarts']}, final step {rep['final_step']}, restored "
+          f"step {res[-1]['resumed_step'] if res else None} in "
+          f"{[round(x, 3) for x in loads]} s; {wall:.2f} s; last breach "
+          f"stage {lb.get('stage')} at {lb.get('seconds')} s; events "
+          f"{names}; hang_report after {report}")
+    if rep["status"] != "completed" or rep["restarts"] != 1 \
+            or "hang_restart" not in names or report is not None \
+            or not res or res[-1]["resumed_step"] != HANG_SAVE:
+        fail(f"15b: the hang restart {rep}")
+    calls = HANG_STEPS + (HANG_AT + 1 - HANG_SAVE)
+    check_launches("15b hang restart", counts,
+                   {"flash_fwd": L * calls, "flash_bwd_fused": L * calls})
+    by_path["hang_restart"] = counts
+    shutil.rmtree(os.path.join(root, "hang"), ignore_errors=True)
+    del m, batches
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_preempt_resume(torch, models, opt, resilience, A, root):
+    """15c: 8c's fp32 GPT (dim 512, 2 layers, S 256) under a controller
+    with save_every_steps PREEMPT_SAVE and a real SIGTERM at step
+    PREEMPT_AT (FaultPlan.send_signal, while the controller's handler is
+    installed): preempted, the final manifest's status "preempt"; a fresh
+    model from the same seed with a new controller over the directory
+    resumes at PREEMPT_AT and completes, its losses within GRAPH_TOL of
+    an uninterrupted run's. Returns the counted window."""
+    import signal
+    print("== phase 15c: preempt and resume (fp32)")
+    cfg, L = PREEMPT_CFG, PREEMPT_CFG["num_layers"]
+    batches = [tuple(t.cuda() for t in _train_batch(
+        torch, cfg["vocab_size"], 2, cfg["max_seq"], SEED + 60 + i))
+        for i in range(PREEMPT_BATCHES)]
+
+    def build():
+        g = models.create_model("gpt", device="cuda", seed=SEED + 5, **cfg)
+        g.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        g.compile([batches[0][0]], is_train=True, use_graph=True)
+        return g
+
+    ref = _plain_losses(torch, build(), batches)
+    ck = os.path.join(root, "preempt")
+    prev = signal.getsignal(signal.SIGTERM)
+    resilience.install_fault_plan(resilience.FaultPlan().send_signal(
+        "step", signal.SIGTERM, step=PREEMPT_AT))
+    torch.cuda.synchronize()
+    A.reset_launches()
+    try:
+        r1 = resilience.TrainController(
+            build(), ck, save_every_steps=PREEMPT_SAVE,
+            handle_signals=True).fit(batches)
+    finally:
+        resilience.clear_fault_plan()
+    if signal.getsignal(signal.SIGTERM) is not prev:
+        fail("15c: the SIGTERM handler was not restored")
+    _path, man = resilience.latest_checkpoint(ck)
+    ctrl = resilience.TrainController(build(), ck,
+                                      save_every_steps=PREEMPT_SAVE,
+                                      handle_signals=False)
+    r2 = ctrl.fit(batches)
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    hist = dict(r2["history"])
+    rel = max(abs(hist[k] - ref[k]) / abs(ref[k]) for k in hist)
+    print(f"  first run: {r1['status']} at step {r1['final_step']}, "
+          f"manifest step {man['step']} status {man['status']}; resumed "
+          f"at {r2['resumed_step']} (resume_restore_s "
+          f"{r2['resume_restore_s']}), {r2['status']}, losses from step "
+          f"{PREEMPT_AT} {[round(hist[k], 6) for k in sorted(hist)]} "
+          f"against uninterrupted {[round(x, 6) for x in ref[PREEMPT_AT:]]}"
+          f": relative difference {rel:.3e} (tol {GRAPH_TOL})")
+    if r1["status"] != "preempted" or r1["final_step"] != PREEMPT_AT \
+            or man["status"] != "preempt" or man["step"] != PREEMPT_AT \
+            or r2["status"] != "completed" \
+            or r2["resumed_step"] != PREEMPT_AT \
+            or sorted(hist) != list(range(PREEMPT_AT, PREEMPT_BATCHES)) \
+            or not rel <= GRAPH_TOL:
+            fail(f"15c: preempt {r1}, resume {r2}")
+    check_launches("15c preempt and resume", counts,
+                   {"flash_fwd": L * PREEMPT_BATCHES,
+                    "flash_bwd_fused": L * PREEMPT_BATCHES})
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -4699,9 +5270,9 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from singa_tpu_torch import (autograd, device, engine, goodput, health,
-                                 layer, memory, models, observe, opt,
-                                 overlap, resilience, serving, slo, snapshot,
-                                 tensor, watchdog)
+                                 introspect, layer, memory, models, observe,
+                                 opt, overlap, resilience, serving, slo,
+                                 snapshot, tensor, watchdog)
     from singa_tpu_torch import model as model_mod
     from singa_tpu_torch import io as sio
     from singa_tpu_torch.models import transformer
@@ -4823,6 +5394,19 @@ def main():
             torch, models, opt, health, goodput, overlap, resilience,
             observe, A, root)
     clock.lap("phase 14d")
+    with tempfile.TemporaryDirectory() as root:
+        by_path.update(phase_introspect(
+            torch, models, opt, device, introspect, observe, memory, health,
+            watchdog, engine, serving, resilience, A, root))
+    clock.lap("phase 15a")
+    with tempfile.TemporaryDirectory() as root:
+        by_path.update(phase_fit_resilient(torch, models, opt, resilience,
+                                           watchdog, observe, A, root))
+    clock.lap("phase 15b")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["preempt_resume"] = phase_preempt_resume(
+            torch, models, opt, resilience, A, root)
+    clock.lap("phase 15c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

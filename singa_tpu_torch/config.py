@@ -17,7 +17,13 @@ today, and where the value comes from:
   CUDA build the query initializes CUDA, and a process that imports the
   port and then forks workers that use the card must not have done so.
 - `use_tpu()` is False: the port never runs on a TPU.
+- `PEAK_TFLOPS` overrides the card's peak for `introspect`'s MFU gauge
+  (None: `introspect.PEAK_TFLOPS_BF16` by the card's name), from the
+  environment variable `SINGA_TPU_PEAK_TFLOPS` at import, as in the JAX
+  package.
 """
+
+import os
 
 import torch
 
@@ -26,6 +32,8 @@ USE_OPENCL = False
 USE_DNNL = False
 USE_DIST = False
 USE_ONNX = True
+PEAK_TFLOPS = (float(os.environ["SINGA_TPU_PEAK_TFLOPS"])
+               if os.environ.get("SINGA_TPU_PEAK_TFLOPS") else None)
 
 
 def use_tpu() -> bool:

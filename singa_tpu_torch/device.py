@@ -40,6 +40,9 @@ class Device:
         self.skip_iteration = 5
         #: fenced wall seconds per step at verbosity >= 1
         self.step_times: "list[float]" = []
+        #: the last step build's counted cost ({"flops", "bytes
+        #: accessed", ...}; `introspect` refreshes it at every step build)
+        self.cost_analysis: "dict | None" = None
 
     # ---- RNG ------------------------------------------------------------
     @property
@@ -102,9 +105,10 @@ class Device:
     def PrintTimeProfiling(self):
         """The step summary of the fenced times in `step_times` (the
         reference's Graph::PrintTimeProfiling, whole steps: the forward
-        and backward are one CUDA graph). The cost analysis that the JAX
-        package prints at verbosity >= 2 comes with the port's
-        `introspect` (ROADMAP.md Queue 1 item 3)."""
+        and backward are one CUDA graph). At verbosity >= 2 with a step
+        build's cost (`cost_analysis`, counted by `introspect`): GFLOP
+        and MB accessed per step, the TFLOP/s achieved and, on a card
+        introspect's peak table knows, MFU; at >= 3 every cost field."""
         if not self.step_times:
             print("time profiling: no steps recorded "
                   "(SetVerbosity(>=1) before training)")
@@ -113,9 +117,23 @@ class Device:
         print(f"time profiling: {len(t)} steps, "
               f"mean {t.mean() * 1e3:.3f} ms, std {t.std() * 1e3:.3f} ms, "
               f"min {t.min() * 1e3:.3f} ms")
-        if self.verbosity >= 2:
-            print("  cost analysis: not available until the port's "
-                  "introspect module (ROADMAP.md Queue 1 item 3)")
+        if self.verbosity >= 2 and self.cost_analysis:
+            from . import introspect
+            ca = self.cost_analysis
+            flops = ca.get("flops", 0.0)
+            bytes_ = ca.get("bytes accessed", 0.0)
+            achieved = flops / max(t.mean(), 1e-12) / 1e12
+            print(f"  counted cost: {flops / 1e9:.2f} GFLOP/step, "
+                  f"{bytes_ / 1e6:.1f} MB accessed/step, "
+                  f"{achieved:.2f} TFLOP/s achieved")
+            peak = introspect.peak_tflops(introspect.device_kind(self))
+            if peak:
+                print(f"  MFU: {achieved / peak * 100.0:.2f}% of "
+                      f"{peak:g} TFLOP/s peak")
+        if self.verbosity >= 3 and self.cost_analysis:
+            for k, v in sorted(self.cost_analysis.items()):
+                if isinstance(v, (int, float)):
+                    print(f"  {k}: {v:.3g}")
 
     # ---- info ------------------------------------------------------------
     @property

@@ -58,8 +58,14 @@ ledger's kv_cache provider and the draft's decode parameters its params
 provider; an out-of-memory error in a prefill or a sync writes the OOM
 bundle under the JAX engine's executor keys (`serving.engine_prefill`,
 `serving.engine_step`, `serving.engine_spec_prefill`,
-`serving.engine_spec_step`). The JAX engine's introspect executors come
-with the port's `introspect` (ROADMAP.md Queue 1 item 3).
+`serving.engine_spec_step`), which are also its `introspect` builds: the
+prefill and the sync's decode run through `introspect.AotExecutor`s kept
+on the model (`_executors`), whose signatures carry the decode params and
+the page pools as the JAX engine's do, so each new signature registers
+one build at its first call, counted on the engine thread, and a fresh
+engine of the same model and configuration builds nothing. A prefill's
+page list is padded to cover its bucket (the JAX engine's fixed length):
+one prefill build per bucket.
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from . import health, memory, observe, resilience, serving, watchdog
+from . import (health, introspect, memory, observe, resilience, serving,
+               watchdog)
 from .slo import (PHASE_ADMIT, PHASE_DECODE, PHASE_FIRST_TOKEN,
                   PHASE_PREFILL, PHASE_QUEUE, PHASE_SUBMIT,
                   PHASE_TERMINAL)
@@ -222,6 +229,44 @@ class EngineRequest:
         return self.first_token_ts - self.submitted
 
 
+def _prefill_stage(eng, *args):
+    """The engine's prefill behind its executor: (engine, params[, draft
+    params], pools[, draft pools], prompt, true_len, pages, count_nf)."""
+    return eng._prefill(*args[-4:])
+
+
+def _decode_stage(eng, *args):
+    """The engine's sync decode behind its executor: (engine, params[,
+    draft params], pools[, draft pools], tok, page_table, lens, limits,
+    active, count_nf)."""
+    fn = eng._decode_spec if eng.dcore is not None else eng._decode
+    return fn(*args[-6:])
+
+
+def _executors(model, draft_model):
+    """The (prefill, decode) AotExecutors of `model`'s engines under the
+    JAX engine's keys (the speculative ones have their own), kept on the
+    model so that every engine of it shares their builds."""
+    spec = draft_model is not None
+    cache = model.__dict__.setdefault("_engine_executors", {})
+    if spec not in cache:
+        state = ("params", "draft_params", "pools", "draft_pools") if spec \
+            else ("params", "pools")
+        cache[spec] = (
+            introspect.AotExecutor(
+                _prefill_stage, "serving.engine_spec_prefill" if spec
+                else "serving.engine_prefill",
+                names=("engine",) + state + ("prompt", "true_len", "pages",
+                                             "count_nf")),
+            introspect.AotExecutor(
+                _decode_stage, "serving.engine_spec_step" if spec
+                else "serving.engine_step",
+                names=("engine",) + state + ("tok", "page_table", "lens",
+                                             "limits", "active",
+                                             "count_nf")))
+    return cache[spec]
+
+
 class ServingEngine:
     """The request-level continuous-batching engine over one model.
 
@@ -294,6 +339,7 @@ class ServingEngine:
         self.dcore = None if draft_model is None else \
             serving._decode_core(draft_model, 0, self.max_ctx,
                                  moe_capacity_factor)
+        self._prefill_x, self._decode_x = _executors(model, draft_model)
         self.max_pages_per_seq = -(-self.max_ctx // self.page_size)
         if num_pages is None:
             num_pages = self.max_slots * self.max_pages_per_seq
@@ -663,6 +709,14 @@ class ServingEngine:
             req.slot = None
         self._finish(req, outcome)
 
+    def _state(self):
+        """The decode params and page pools (the draft's too under spec):
+        the executors' leading arguments, as in the JAX engine's
+        signatures."""
+        if self.dcore is None:
+            return self._params, self._pools
+        return self._params, self._draft_params, self._pools, self._dpools
+
     @staticmethod
     def _scatter(core, kvs, pools, pvec, off, true_len):
         """Write one model's per-block prompt K/V rows (n = 1, padded
@@ -776,6 +830,11 @@ class ServingEngine:
         bucket = self._bucket(s0)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :s0] = req.prompt
+        # the pages covering the bucket, a fixed length per bucket as in
+        # the JAX engine: one prefill build per bucket, not per max_new
+        page_arr = np.zeros(-(-bucket // self.page_size), np.int64)
+        n_pref = min(len(pages), len(page_arr))
+        page_arr[:n_pref] = pages[:n_pref]
         req.admitted = time.monotonic()
         req.last_slot = slot
         req.mark(PHASE_ADMIT, slot=slot, pages=len(pages))
@@ -786,10 +845,11 @@ class ServingEngine:
         with watchdog.guard("decode", stage="engine_prefill"), \
                 observe.span("serving.engine_prefill", bucket=bucket,
                              prompt_tokens=s0), memory.on_oom(key):
-            got = self._prefill(
+            got = self._prefill_x(
+                self, *self._state(),
                 torch.as_tensor(padded, device=self.device), s0,
-                torch.as_tensor(pages, dtype=torch.long,
-                                device=self.device), obs).tolist()
+                torch.as_tensor(page_arr, device=self.device),
+                obs).tolist()
         tok0 = got[0]
         req.first_token_ts = time.monotonic()
         req.tokens.append(tok0)
@@ -926,8 +986,8 @@ class ServingEngine:
                 sync_t0 = time.perf_counter()
                 resilience.fault_point("serving.engine_step",
                                        slots=n_active)
-                out = (self._decode_spec if spec else self._decode)(
-                    tok, ptab, lens, limits, active, obs)
+                out = self._decode_x(self, *self._state(), tok, ptab, lens,
+                                     limits, active, obs)
                 # one host read a sync: tokens, takes, counts, non-finite
                 tok_new, lens_new, act_new, toks, takes, *counts, nf = \
                     _host(out)

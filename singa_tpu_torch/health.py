@@ -32,7 +32,8 @@ update was discarded on the device; a loss spike downgrades to warn),
 
 The mesh side (`finalize(comm=...)`, the agreed flag across shards) comes
 with distribution, ROADMAP.md Queue 1 item 4. The bundle header's
-`executables` is None until `introspect` is ported (Queue 1 item 3). The
+`executables` are the last eight builds of `introspect`'s manifest (None
+before any build), which pin the step a dump came from. The
 memory ledger attributes the step inputs a graph-mode step retains for
 the flight recorder (`memory.track_model`) to `flight_snapshot`, and a
 dump notes the batch it is given under the same region; a host copy
@@ -51,7 +52,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from . import observe
+from . import introspect, observe
 
 POLICIES = ("warn", "skip_step", "halt")
 
@@ -333,7 +334,7 @@ class FlightRecorder:
         entry, then the EventLog tail) and return its path. With
         `batch_arrays` (host arrays) the batch is written next to it
         through `snapshot.Snapshot` as `<bundle>_batch.*`. The header's
-        `executables` is None until `introspect` is ported."""
+        `executables` are introspect's last eight builds (or None)."""
         os.makedirs(self.out_dir, exist_ok=True)
         if path is None:
             path = os.path.join(self.out_dir, f"flight_step{int(step)}.jsonl")
@@ -353,7 +354,9 @@ class FlightRecorder:
         header = {"kind": "flight_header", "ts": round(time.time(), 6),
                   "reason": reason, "step": int(step),
                   "n_steps": len(self.ring), "n_events": len(tail),
-                  "batch_snapshot": snap_prefix, "executables": None}
+                  "batch_snapshot": snap_prefix,
+                  "executables": introspect.executable_manifest()[-8:]
+                  or None}
         with open(path, "w", encoding="utf-8") as f:
             f.write(json.dumps(header, separators=(",", ":"),
                                default=str) + "\n")

@@ -53,14 +53,15 @@ singa_tpu/memory.py).
     under the JAX package's executor keys) dump a FlightRecorder-style
     JSONL bundle on `torch.OutOfMemoryError` (`on_oom`), which
     `health.load_flight_bundle` loads, and the error propagates
-    unchanged. The bundle's `executables` is None until the port's
-    `introspect` (ROADMAP.md Queue 1 item 3).
+    unchanged. The bundle's `executables` are the last eight builds of
+    `introspect`'s manifest (None before any build).
 
-  - **Pre-flight fit**: `estimate_fit(model, batch)` sets the measured
+  - **Pre-flight fit**: `estimate_fit(model, batch)` sets the larger of
+    the last step build's memory (`introspect.last_build("step")`:
+    arguments, outputs and, on the card, temps) and the measured
     parameter, optimizer and batch bytes against the device limit
     (`torch.cuda.mem_get_info` on the card, `SINGA_TPU_HBM_LIMIT_BYTES`
-    elsewhere). The executable-side fields are None and `source` is
-    "ledger" until `introspect` gives the step's build a memory record.
+    elsewhere); `source` says which side won.
 
 Overhead contract: a snapshot is host-only on both devices: no `.item()`,
 no synchronize and no read of tensor values, so a ledger installed
@@ -80,7 +81,7 @@ from collections import deque
 import torch
 
 from . import device as device_module
-from . import observe
+from . import introspect, observe
 
 # ---- regions (the lint in tools/check_metrics_names.py greps this) --------
 
@@ -738,7 +739,7 @@ def dump_oom_bundle(exc=None, key=None, out_dir=None,
             "top_arrays": top,
             "fit": fit,
         },
-        "executables": None,
+        "executables": introspect.executable_manifest()[-8:] or None,
     }
     with open(path, "w", encoding="utf-8") as f:
         f.write(json.dumps(header, separators=(",", ":"),
@@ -827,12 +828,14 @@ def _bytes_of(tensors) -> int:
 
 
 def estimate_fit(model=None, batch=None, device=None) -> dict:
-    """Pre-flight "does this training step fit" estimate: the measured
-    parameter + optimizer + batch bytes against the device limit. The
-    executable-side fields (`exec_*`) are None and `source` is "ledger"
-    until the port's `introspect` records the step build's memory (the
-    JAX package's answer before any build). `fits` is None when no limit
-    is known (the CPU without the env override)."""
+    """Pre-flight "does this training step fit" estimate: the step
+    build's memory (`introspect.last_build("step")`: arguments, outputs,
+    temps on the card; the `exec_*` fields) against the measured
+    parameter + optimizer + batch bytes, the larger of the two against
+    the device limit. The build record is process-wide, so the measured
+    floor always applies; `source` is "executable" when the build's
+    total is at least that floor, else "ledger". `fits` is None when no
+    limit is known (the CPU without the env override)."""
     params_b = opt_b = 0
     if model is not None:
         params_b = _bytes_of(model._raw_params().values())
@@ -844,7 +847,11 @@ def estimate_fit(model=None, batch=None, device=None) -> dict:
         params_b = int(regions.get(REGION_PARAMS, 0))
         opt_b = int(regions.get(REGION_OPT_STATE, 0))
     batch_b = _bytes_of(_iter_arrays(batch)) if batch is not None else 0
-    estimated = params_b + opt_b + batch_b
+    step = introspect.last_build("step")
+    mem = dict((step or {}).get("memory") or {})
+    exec_total = sum(int(v) for v in mem.values())
+    floor = params_b + opt_b + batch_b
+    estimated = max(exec_total, floor)
     dev = device if device is not None \
         else getattr(model, "_device", None)
     limit = device_limit_bytes(dev)
@@ -852,16 +859,17 @@ def estimate_fit(model=None, batch=None, device=None) -> dict:
         "params_bytes": params_b,
         "opt_state_bytes": opt_b,
         "batch_bytes": batch_b,
-        "exec_arguments_bytes": None,
-        "exec_outputs_bytes": None,
-        "exec_temps_bytes": None,
-        "exec_generated_code_bytes": None,
+        "exec_arguments_bytes": mem.get("arguments"),
+        "exec_outputs_bytes": mem.get("outputs"),
+        "exec_temps_bytes": mem.get("temps"),
+        "exec_generated_code_bytes": mem.get("generated_code"),
         "estimated_peak_bytes": int(estimated),
         "limit_bytes": limit,
         "fits": (estimated <= limit) if limit else None,
         "headroom_frac": round(1.0 - estimated / limit, 4)
         if limit else None,
-        "source": "ledger",
+        "source": "executable" if exec_total >= floor and exec_total
+        else "ledger",
     }
 
 
@@ -873,10 +881,9 @@ def _mb(b) -> str:
 
 def memz_json(timeline_tail: int = 64, include_top: bool = True) -> dict:
     """The JSON memory report: latest breakdown, timeline, leak state and
-    the fit estimate. `static_hbm` (introspect's per-executable view) is
-    empty until the port's `introspect`. The text view passes
-    include_top=False: top_arrays costs a fresh enumeration it never
-    renders."""
+    the fit estimate, and `static_hbm`, the step build's memory record
+    (introspect's static view). The text view passes include_top=False:
+    top_arrays costs a fresh enumeration it never renders."""
     led = _ledger
     out: dict = {"installed": led is not None}
     if led is None:
@@ -904,7 +911,8 @@ def memz_json(timeline_tail: int = 64, include_top: bool = True) -> dict:
             "min_slope_bytes": led.leak.min_slope_bytes,
             "verdicts": list(led.leak.verdicts),
         }
-    out["static_hbm"] = {}
+    step = introspect.last_build("step")
+    out["static_hbm"] = dict((step or {}).get("memory") or {})
     try:
         out["fit"] = estimate_fit()
     except Exception:
@@ -932,8 +940,21 @@ def memz_report() -> str:
     ok = "OK" if region_sum == rep["total_bytes"] else "BROKEN"
     lines.append(f"reconciliation: region sum {region_sum} == live "
                  f"total {rep['total_bytes']} ({ok})")
-    lines.append("static estimate: none (the step executable's memory "
-                 "record comes with the port's introspect)")
+    static = rep.get("static_hbm") or {}
+    if static:
+        lines.append("static estimate (introspect, step build): "
+                     + " | ".join(f"{k} {v / 1e6:.2f} MB"
+                                  for k, v in sorted(static.items())))
+        live_po = (rep["regions"].get(REGION_PARAMS, 0)
+                   + rep["regions"].get(REGION_OPT_STATE, 0))
+        est_args = static.get("arguments")
+        if est_args:
+            drift = (live_po - est_args) / est_args * 100.0
+            lines.append(f"estimate-vs-actual: live params+opt "
+                         f"{live_po / 1e6:.2f} MB vs build arguments "
+                         f"{est_args / 1e6:.2f} MB ({drift:+.1f}% drift)")
+    else:
+        lines.append("static estimate: none (no step build)")
     leak = rep.get("leak")
     if leak is not None:
         lines.append(f"leak: slope {leak['slope_bytes_per_step']} B/step "

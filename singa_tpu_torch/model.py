@@ -70,11 +70,18 @@ health monitor skipped is booked as `health_skip` (`goodput`); the
 first call of a training signature registers the model's parameters and
 retained inputs with the memory ledger, and an out-of-memory error in a
 training step, eager or graph-mode, writes the OOM bundle (`memory`).
+
+Builds (`introspect`): a graph-mode step or eval signature registers a
+build at its first call, the warm-up, which runs under introspect's
+counting mode (the trace phase: its flops, bytes and op listing), with
+the JAX package's signature (state, opt, rng, arg; the step tag, the
+static-argument repr and the true batch size), so a new batch bucket
+blames as it does there; the capture at the second call is the build's
+compile phase. `Device.cost_analysis` is the last step build's cost.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import io
 import json
@@ -87,8 +94,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import (_ckpt, autograd, goodput, health, layer, memory, observe,
-               overlap, resilience, watchdog)
+from . import (autograd, goodput, health, introspect, layer, memory,
+               observe, overlap, resilience, watchdog)
 from . import device as device_module
 from .ops import attention as _attention
 from .tensor import Tensor, _raw
@@ -144,17 +151,23 @@ def _fresh(out):
 
 
 class _Buffered:
-    """One buffered signature: calls so far, and once captured its CUDA
-    graph, static input buffers, static outputs and launch counts."""
+    """One buffered signature: calls so far, its build (introspect key,
+    signature and, once the warm-up ran, the build record), and once
+    captured its CUDA graph, static input buffers, static outputs and
+    launch counts."""
 
-    __slots__ = ("calls", "graph", "inputs", "out", "launches")
+    __slots__ = ("calls", "graph", "inputs", "out", "launches", "key",
+                 "sig", "rec")
 
-    def __init__(self):
+    def __init__(self, key, sig):
         self.calls = 0
         self.graph = None
         self.inputs = None
         self.out = None
         self.launches = None
+        self.key = key
+        self.sig = sig
+        self.rec = None
 
 
 def _buffer_operation(func):
@@ -228,6 +241,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._side_stream = None
         self._health_monitor = None
         self._last_input_arrs = None  # the last graph-mode step's inputs
+        self._step_entry = None       # the last dispatched step signature
         self._health_steps = 0
         self._health_layout = None   # the packed stats' entries
         # pre-update values of a skip_step step: one for the optimizer's
@@ -409,8 +423,24 @@ class Model(layer.Layer, metaclass=ModelMeta):
         entry = self._train_steps.get(key)
         raws = [_raw(v) for v in vals if _is_tensor(v)]
         bs = raws[0].shape[0] if raws and raws[0].dim() > 0 else None
+        tag = self._optimizer.step_tag() \
+            if self._optimizer is not None else 0
+        dev = device_module.of(self._device)
         if entry is None:
-            entry = self._train_steps[key] = _Buffered()
+            # the JAX package's step signature: its parts, step tag,
+            # static-argument repr and true batch size, so a rebuild
+            # blames as it does there
+            sig = introspect.signature(
+                (list(self._raw_states().values()),
+                 self._optimizer.state_arrays()
+                 if self._optimizer is not None else [],
+                 dev.rng_state, raws),
+                names=("state", "opt", "rng", "arg"), tag=tag,
+                static=repr(sorted(
+                    ((i, repr(v)) for i, v in self._static_args.items()),
+                    key=lambda t: (isinstance(t[0], str), str(t[0])))),
+                donated=(0, 1), batch_hint=bs)
+            entry = self._train_steps[key] = _Buffered("step", sig)
             self._build_count += 1
             # the memory ledger's birth site: parameters, and the
             # retained inputs while a health monitor is attached
@@ -418,9 +448,6 @@ class Model(layer.Layer, metaclass=ModelMeta):
             observe.record_compile(
                 bs, recompile=len(self._train_steps) > 1,
                 donated_bytes=self._step_state_bytes())
-        tag = self._optimizer.step_tag() \
-            if self._optimizer is not None else 0
-        dev = device_module.of(self._device)
         profiling = dev.verbosity > 0 \
             and self._graph_steps >= dev.skip_iteration
         first = entry.calls == 0
@@ -452,6 +479,11 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 observe.record_step_fenced(fenced)
         seconds = time.perf_counter() - t0
         self._graph_steps += 1
+        if entry is not self._step_entry:
+            # MFU follows the dispatched signature's flops
+            self._step_entry = entry
+            introspect.note_step_flops(entry.rec["cost"].get("flops")
+                                       if entry.rec is not None else 0)
         if first:
             observe.record_step_build(seconds)
         observe.record_step(seconds, batch=bs, tag=tag, device=dev)
@@ -544,11 +576,17 @@ class Model(layer.Layer, metaclass=ModelMeta):
         finally:
             autograd.training = prev
 
-    def _eval_run(self, vals):
+    def _eval_run(self, vals, nb=None):
+        """The buffered eval forward of `vals`; `nb` is the batch before
+        padding to its bucket (the build signature's batch hint)."""
         key = ("eval",) + self._signature(vals)
         entry = self._eval_steps.get(key)
         if entry is None:
-            entry = self._eval_steps[key] = _Buffered()
+            sig = introspect.signature(
+                (list(self._raw_states().values()),
+                 [_raw(v) for v in vals if _is_tensor(v)]),
+                names=("state", "arg"), batch_hint=nb)
+            entry = self._eval_steps[key] = _Buffered("eval", sig)
             self._eval_trace_count += 1
         return self._run_buffered(entry, self._eval_forward, vals)
 
@@ -572,7 +610,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
                     for a in args]
             else:
                 bucket = None
-        out = self._eval_run(vals)
+        out = self._eval_run(vals, nb)
         if bucket is not None:
             for o in _leaves(out):
                 if o.dim() == 0 or o.shape[0] != bucket:
@@ -591,7 +629,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
             if shaped and nb > 1:
                 h = nb // 2
                 half = _leaves(self._eval_run(
-                    [_map_out(a, lambda t: t[:h]) for a in args]))
+                    [_map_out(a, lambda t: t[:h]) for a in args], h))
                 # an output whose half-batch run is shaped otherwise (a
                 # time-major input, batch on axis 1) is not per-sample:
                 # shapes first, then values
@@ -607,14 +645,16 @@ class Model(layer.Layer, metaclass=ModelMeta):
     def _run_buffered(self, entry, fn, vals):
         """fn(vals) as a buffered step: on CUDA (not sequential) eager on
         a side stream at the first call, captured at the second, replayed
-        after; on the CPU, or sequential, eagerly every time."""
+        after; on the CPU, or sequential, eagerly every time. The first
+        call is the signature's build (`_warm_up`)."""
         dev = torch.device(self._device)
         entry.calls += 1
         if dev.type != "cuda" or self.sequential:
             self.graph_backend = "eager"
-            with observe.span("model.build") if entry.calls == 1 \
-                    else contextlib.nullcontext():
-                return _detached(fn(vals))
+            if entry.calls == 1:
+                with observe.span("model.build"):
+                    return self._warm_up(entry, fn, vals, dev, False)
+            return _detached(fn(vals))
         self.graph_backend = "cuda_graph"
         cur = torch.cuda.current_stream(dev)
         if entry.calls == 1:
@@ -623,7 +663,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
             side = self._side_stream
             side.wait_stream(cur)
             with observe.span("model.build"), torch.cuda.stream(side):
-                out = _detached(fn(vals))
+                out = self._warm_up(entry, fn, vals, dev, True)
             cur.wait_stream(side)
             return out
         if entry.graph is None:
@@ -634,11 +674,50 @@ class Model(layer.Layer, metaclass=ModelMeta):
         _attention.add_launches(entry.launches)
         return _fresh(entry.out)
 
+    def _held_bytes(self, key) -> int:
+        """Bytes of the states a build of `key` takes besides its inputs:
+        the step's parameters, buffers and optimizer states (what it
+        updates in place), eval's parameters and buffers."""
+        if key == "step":
+            return self._step_state_bytes()
+        return sum(t.numel() * t.element_size()
+                   for t in self._raw_states().values())
+
+    def _warm_up(self, entry, fn, vals, dev, capture_next):
+        """A signature's first call, its build's trace phase: fn(vals)
+        under introspect's counting mode, then the build registers with
+        its memory (arguments: the inputs and held states; outputs; on
+        CUDA temps, the call's peak rise less the outputs and the states
+        it created). With `capture_next` the capture at the second call
+        completes the record's compile phase."""
+        cuda = dev.type == "cuda"
+        held0 = self._held_bytes(entry.key)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            start = torch.cuda.memory_allocated(dev)
+        out, counter, seconds = introspect.trace(
+            lambda: _detached(fn(vals)))
+        held = self._held_bytes(entry.key)
+        outputs = sum(t.numel() * t.element_size() for t in _leaves(out))
+        mem = {"arguments": held + sum(
+            _raw(v).numel() * _raw(v).element_size()
+            for v in vals if _is_tensor(v)), "outputs": outputs}
+        if cuda:
+            mem["temps"] = max(0, torch.cuda.max_memory_allocated(dev)
+                               - start - outputs - (held - held0))
+        entry.rec = introspect.record_build(
+            entry.key, entry.sig, {"trace": seconds}, counter.cost(), mem,
+            counter.lines, device=device_module.of(dev),
+            capture_pending=capture_next)
+        return out
+
     def _capture(self, entry, fn, vals, dev):
         """Capture fn on static copies of the inputs (on the model's
         device) into a CUDA graph in the model's pool, with the device's
         generator registered; the kernels' launch counts of the capture
-        are kept for the replays."""
+        are kept for the replays. The capture is the build's compile
+        phase (`introspect.complete_build`; with `capture_hlo` on, the
+        graph is dumped beside the op listing)."""
         statics, bufs = [], []
         for v in vals:
             if not _is_tensor(v):
@@ -653,15 +732,28 @@ class Model(layer.Layer, metaclass=ModelMeta):
                            if isinstance(v, Tensor) else buf)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        # with capture_hlo on, the graph is kept past the capture for its
+        # dump, then instantiated
+        dot = introspect.graph_dump_path(entry.rec)
+        graph = torch.cuda.CUDAGraph(keep_graph=dot is not None)
         graph.register_generator_state(device_module.of(dev).generator)
         before = _attention.launch_counts()
+        t0 = time.perf_counter()
+        dump_s = 0.0
         with observe.span("model.build"):
             with torch.cuda.graph(graph, pool=self._graph_pool,
                                   capture_error_mode="thread_local"):
                 out = fn(statics)
+            if dot is not None:
+                t1 = time.perf_counter()
+                graph.debug_dump(dot)
+                dump_s = time.perf_counter() - t1
+                graph.instantiate()
+        compile_s = time.perf_counter() - t0 - dump_s
         entry.launches = _attention.launches_since(before)
         entry.graph, entry.inputs, entry.out = graph, bufs, _detached(out)
+        if entry.rec is not None:
+            introspect.complete_build(entry.rec, compile_s, graph_path=dot)
 
     def _reset_steps(self):
         """Drop the training graphs and the recorded static arguments (a
@@ -743,8 +835,10 @@ class Model(layer.Layer, metaclass=ModelMeta):
     # ---- checkpoints --------------------------------------------------------
     def _host_states(self, aux_states=None) -> dict:
         """numpy copies of the states (device to host), `aux.<key>` for
-        the aux states."""
-        states = {k: t.detach().cpu().numpy()
+        the aux states. Copies on the CPU too (`.cpu()` returns a CPU
+        tensor itself): an async checkpoint writes them while the next
+        steps update the states in place."""
+        states = {k: t.detach().to("cpu", copy=True).numpy()
                   for k, t in self._raw_states().items()}
         for k, v in (aux_states or {}).items():
             v = _raw(v)
@@ -800,14 +894,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
         if os.path.isdir(path):
             if overwrite:
                 try:
-                    os.remove(_ckpt.manifest_path(path))
+                    os.remove(resilience.manifest_path(path))
                 except OSError:
                     pass
-            elif _ckpt.is_complete_checkpoint(path):
+            elif resilience.is_complete_checkpoint(path):
                 raise ValueError(f"checkpoint {path} exists and is complete "
                                  "(pass overwrite=True to replace it)")
             else:
-                _ckpt.set_aside_checkpoint(path, ".reclaimed")
+                resilience.set_aside_checkpoint(path, ".reclaimed")
         t0 = time.perf_counter()
         # the blocking device-to-host part, under the ckpt_save deadline
         with observe.span("checkpoint.save"), watchdog.guard("ckpt_save"):
@@ -845,14 +939,36 @@ class Model(layer.Layer, metaclass=ModelMeta):
         observe.record_checkpoint_bytes(nbytes)
         return path
 
-    def load_checkpoint(self, path: str):
+    def load_checkpoint(self, path: str, validate: bool = True):
         """Restore a `save_checkpoint` directory (a .../step_N path) into
         this compiled model, its optimizer and the device generator, in
-        place; waits for pending async saves first."""
+        place; waits for pending async saves first.
+
+        With `validate` (default) and a `step_N.manifest.json` beside
+        `path` (the resilience layer writes one per durable save), the
+        manifest's parameter signature is checked first: a mismatch
+        raises ValueError naming the parameters before anything is
+        restored; a different device count is allowed and emits the
+        `reshard_restore` event. The training graphs are dropped, so the
+        next step warms up and captures again (a new build of the same
+        signature: `introspect` blames it `new_function`)."""
         overlap.wait_for_checkpoints()
         if not os.path.isfile(os.path.join(path, "meta.json")):
             raise FileNotFoundError(f"no checkpoint at {path} (meta.json "
                                     "missing)")
+        manifest = resilience.read_manifest(path)
+        if validate and manifest is not None:
+            problems = resilience.validate_manifest(manifest, self)
+            if problems:
+                raise ValueError(f"checkpoint {path} does not fit this "
+                                 "model: " + "; ".join(problems))
+            saved = (manifest.get("mesh") or {}).get("n_devices")
+            live = resilience._topology(self)["n_devices"]
+            if saved and saved != live:
+                observe.get_registry().emit(
+                    {"kind": "resilience", "event": "reshard_restore",
+                     "path": path, "saved_devices": saved,
+                     "live_devices": live})
         with observe.span("checkpoint.load"):
             self.set_states(_read_states_zip(os.path.join(path,
                                                           "model.zip")))

@@ -476,8 +476,8 @@ def start_diag_server(port=None, **kwargs):
 def set_step_callback(cb):
     """Register (or clear with None) a hook fed each record_step's
     wall seconds. The introspect module uses it to derive the
-    `singa_mfu_pct` gauge from the AOT-harvested flops without adding
-    any work to the step path when no executable has been introspected."""
+    `singa_mfu_pct` gauge from the step build's counted flops without
+    adding any work to the step path when no step has been built."""
     global _step_cb
     _step_cb = cb
 

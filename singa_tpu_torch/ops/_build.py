@@ -10,8 +10,10 @@ Each build and load runs inside the span `introspect.build` (attribute
 `kernel`: the source, or the sources of a parallel build), on the
 calling thread: the watchdog taints a guard it opens in (a first build
 takes tens of seconds inside the first step or decode call), and
-goodput books it as `compile`. The span's name is the JAX package's
-build span, whose own module (`introspect`) the port has not yet.
+goodput books it as `compile`. Each nvcc build registers an `introspect`
+build under the key `kernel.<source>`: its wall time is the compile
+phase, its fingerprint the source hash that names the library. A
+library loaded from `.kernel_build/` without a build registers nothing.
 
 Nothing here runs at import: the CPU tests import every module on a
 machine with no `nvcc`.
@@ -28,7 +30,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-from .. import observe
+from .. import introspect, observe
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -110,6 +112,8 @@ def build_all() -> None:
             # one waiting thread per nvcc, so each source's time is its own
             with ThreadPoolExecutor(len(started)) as ex:
                 built = list(ex.map(lambda a: _finish(*a), started))
+            for n, path, _tmp, proc, _t0 in started:
+                _register(n, path, proc)
         for (n, *_), so in zip(started, built):
             _libs[n] = so
 
@@ -119,8 +123,17 @@ def lib(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             with observe.span("introspect.build", kernel=name):
-                _libs[name] = _finish(name, *_start(name))
+                started = _start(name)
+                _libs[name] = _finish(name, *started)
+                _register(name, started[0], started[2])
         return _libs[name]
+
+
+def _register(name, path, proc):
+    """Register an nvcc build (`proc` is its process; None: the library
+    was on disk) with introspect."""
+    if proc is not None:
+        introspect.register_kernel_build(name, BUILD_SECONDS[name], path)
 
 
 def check(err: int, what: str) -> None:

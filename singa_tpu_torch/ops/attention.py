@@ -25,6 +25,15 @@ differentiable through `FlashAttention`, a torch.autograd.Function (the
 JAX package's custom_vjp), whose backward picks K2a or K2b + K2c by the
 JAX package's rule (`_FUSED_DQ_BYTES_CAP`).
 
+While `introspect` counts a build's first call, each wrapper books its
+kernel's flops and bytes by the formulas of chip_smoke.py's bounds
+(`introspect.kernel_cost`), on either route, so the CPU and the card
+count alike: K1 4 D flops per (query, key) pair it computes (S(S+1)/2
+per head when causal), K2a 5 score-sized products (2 D flops a pair
+each), K2b 3 and K2c 4; the decode pair 4 D flops per query row and live
+cache position. Bytes: each input read once and each output written
+once.
+
 Layouts are the JAX package's: (B, H, S, D) for flash attention;
 head-packed block-diagonal queries (N, Hp, Q, P*D), dense caches
 (N, Hp, T, P*D), page pools (n_pages, Hp, page_size, P*D) and an (N, M)
@@ -40,6 +49,7 @@ import math
 
 import torch
 
+from .. import introspect
 from . import _build
 
 #: kernel launches since the last reset_launches(), by kernel
@@ -184,9 +194,47 @@ def attention_reference(q, k, v, causal=False, scale=None):
     return _attention_plain(q, k, v, causal, scale)[0]
 
 
+def _pairs(B, H, Sq, Sk, causal) -> float:
+    """(query, key) pairs a flash kernel computes: a causal row r sees
+    min(r + 1, Sk) keys."""
+    if not causal:
+        return float(B * H * Sq * Sk)
+    n = min(Sq, Sk)
+    return float(B * H * (n * (n + 1) // 2 + (Sq - n) * Sk))
+
+
+def _fwd_cost(q, k, causal):
+    B, H, Sq, D = q.shape
+    Sk, el = k.shape[2], q.element_size()
+    return [("flash_fwd", 4 * D * _pairs(B, H, Sq, Sk, causal),
+             2 * B * H * (Sq + Sk) * D * el + 4 * B * H * Sq,
+             f"{list(q.shape)}/{list(k.shape)} "
+             f"{introspect._dtype_name(q.dtype)}"
+             f"{' causal' if causal else ''}")]
+
+
+def _bwd_cost(q, k, causal, fused):
+    B, H, Sq, D = q.shape
+    Sk, el = k.shape[2], q.element_size()
+    pairs = _pairs(B, H, Sq, Sk, causal)
+    ins = 2 * B * H * (Sq + Sk) * D * el + 2 * B * H * Sq * 4
+    dq, dkv = B * H * Sq * D * el, 2 * B * H * Sk * D * el
+    desc = (f"{list(q.shape)}/{list(k.shape)} "
+            f"{introspect._dtype_name(q.dtype)}{' causal' if causal else ''}")
+    if fused:
+        return [("flash_bwd_fused", 5 * 2 * D * pairs, ins + dq + dkv, desc)]
+    return [("flash_bwd_dq", 3 * 2 * D * pairs, ins + dq, desc),
+            ("flash_bwd_dkv", 4 * 2 * D * pairs, ins + dkv, desc)]
+
+
 def _flash_fwd(q, k, v, causal, scale, use_kernel=None):
     """(out, lse (B, H, Sq) fp32): the kernel on CUDA tensors, the plain
     version on CPU tensors or with `use_kernel=False`."""
+    with introspect.kernel_cost(lambda: _fwd_cost(q, k, causal)):
+        return _flash_fwd_call(q, k, v, causal, scale, use_kernel)
+
+
+def _flash_fwd_call(q, k, v, causal, scale, use_kernel):
     if not _use_kernel(q, use_kernel, "flash_attention"):
         return _attention_plain(q, k, v, causal, scale)
     B, H, Sq, D = q.shape
@@ -351,12 +399,13 @@ def _flash_bwd(q, k, v, o, lse, do, causal, scale, use_kernel=None):
     (or with `use_kernel=False`); on CUDA the fused kernel K2a while
     Sq * D * 4 <= _FUSED_DQ_BYTES_CAP, else the split pair K2b + K2c
     (the JAX package's rule, `_flash_bwd_pallas`)."""
-    if not _use_kernel(q, use_kernel, "flash_attention backward"):
-        return flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
-    qf, delta = _bwd_prepare(q, k, v, o, lse, do, scale)
-    fn = _flash_bwd_fused if q.shape[2] * q.shape[3] * 4 \
-        <= _FUSED_DQ_BYTES_CAP else _flash_bwd_split
-    return fn(qf, k, v, do, lse, delta, causal, scale)
+    fused = q.shape[2] * q.shape[3] * 4 <= _FUSED_DQ_BYTES_CAP
+    with introspect.kernel_cost(lambda: _bwd_cost(q, k, causal, fused)):
+        if not _use_kernel(q, use_kernel, "flash_attention backward"):
+            return flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+        qf, delta = _bwd_prepare(q, k, v, o, lse, do, scale)
+        fn = _flash_bwd_fused if fused else _flash_bwd_split
+        return fn(qf, k, v, do, lse, delta, causal, scale)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -558,6 +607,26 @@ def _scale_args(k_scales, v_scales, groups):
             int(groups))
 
 
+def _decode_cost(name, q, K, k_scales, lengths, page_size=None):
+    """K3/K4's booking: 4 PD flops per query row and live position; bytes
+    of q, out and lengths, the live cache rows (K and V, with their
+    scales) and, paged, one page-table entry per live page. The live
+    positions (and pages) are sums on the device, read at the count's
+    end (`introspect.on_device`), not a synchronize a call."""
+    N, Hp, Q, PD = q.shape
+    live = lengths.sum()
+    row = K.shape[-1] * K.element_size() + (
+        k_scales.shape[-1] * 4 if k_scales is not None else 0)
+    terms = [(2 * Hp * row, live)]
+    if page_size is not None:
+        terms.append((4, ((lengths + (page_size - 1)) // page_size).sum()))
+    nbytes = introspect.on_device(
+        2 * N * Hp * Q * PD * q.element_size() + 4 * N, *terms)
+    return [(name, introspect.on_device(0, (4 * Hp * Q * PD, live)), nbytes,
+             f"{list(q.shape)} cache {list(K.shape)} "
+             f"{introspect._dtype_name(K.dtype)}")]
+
+
 def flash_decode(q, K, V, lengths, scale=1.0, k_scales=None, v_scales=None,
                  groups=1, use_kernel=None, q_tokens=1):
     """Dense decode attention (see flash_decode_reference for shapes):
@@ -565,6 +634,14 @@ def flash_decode(q, K, V, lengths, scale=1.0, k_scales=None, v_scales=None,
     `use_kernel=False` selects the plain version explicitly. Quantized
     caches dequantize in the kernel; q_tokens > 1 runs the verify
     ladder."""
+    with introspect.kernel_cost(lambda: _decode_cost(
+            "flash_decode", q, K, k_scales, lengths)):
+        return _flash_decode_call(q, K, V, lengths, scale, k_scales,
+                                  v_scales, groups, use_kernel, q_tokens)
+
+
+def _flash_decode_call(q, K, V, lengths, scale, k_scales, v_scales, groups,
+                       use_kernel, q_tokens):
     if not _use_kernel(q, use_kernel, "flash_decode"):
         return flash_decode_reference(q, K, V, lengths, scale, k_scales,
                                       v_scales, groups, q_tokens)
@@ -623,6 +700,15 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, page_size,
     pools dequantize in the kernel; q_tokens > 1 runs the verify
     ladder."""
     ps = int(page_size)
+    with introspect.kernel_cost(lambda: _decode_cost(
+            "paged_attention", q, k_pool, k_scales, lengths, ps)):
+        return _paged_call(q, k_pool, v_pool, page_table, lengths, ps,
+                           scale, k_scales, v_scales, groups, use_kernel,
+                           q_tokens)
+
+
+def _paged_call(q, k_pool, v_pool, page_table, lengths, ps, scale, k_scales,
+                v_scales, groups, use_kernel, q_tokens):
     if not _use_kernel(q, use_kernel, "paged_attention"):
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          lengths, ps, scale, k_scales,

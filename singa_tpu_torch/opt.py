@@ -107,10 +107,14 @@ class Optimizer:
     def get_states(self) -> dict:
         """numpy copies under the JAX package's keys: `step_counter` and
         `p{j}.{k}` for state k of the j-th parameter."""
-        out = {"step_counter": self.step_counter.cpu().numpy()}
+        # copies on the CPU too (`.cpu()` returns a CPU tensor itself): an
+        # async checkpoint writes them while the next steps update the
+        # states in place
+        out = {"step_counter": self.step_counter.to("cpu", copy=True)
+               .numpy()}
         for j, pid in enumerate(self._state_order):
             for k, v in self._states[pid].items():
-                out[f"p{j}.{k}"] = v.detach().cpu().numpy()
+                out[f"p{j}.{k}"] = v.detach().to("cpu", copy=True).numpy()
         return out
 
     @torch.no_grad()

@@ -326,7 +326,13 @@ def wait_for_checkpoints():
     with observe.span("checkpoint.wait"), watchdog.guard("ckpt_wait"):
         for e in entries:
             try:
-                resilience.fault_point("ckpt.wait", path=e.path)
+                try:
+                    resilience.fault_point("ckpt.wait", path=e.path)
+                finally:
+                    # a fault injected here fails the entry, but its
+                    # writer still ends before the barrier returns: a
+                    # later save of the path must not race it
+                    e.thread.join()
                 e.wait()
             except BaseException as err:  # noqa: BLE001  re-raised below
                 errors.append((e, err))

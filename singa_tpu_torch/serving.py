@@ -34,6 +34,15 @@ here before it is made. Attention goes through the kernels of
 ops.attention on CUDA tensors and their plain versions on CPU tensors;
 `use_kernel=False` selects the plain versions on the card for
 comparisons.
+
+Builds (`introspect.AotExecutor`, the JAX package's keys): `generate`'s
+prefill ("serving.prefill") and its whole decode loop
+("serving.decode_scan"), the speculative prefill and rounds
+("serving.spec_prefill", "serving.spec_verify") and the beam search
+("serving.beam"). Each distinct argument signature registers one build
+at its first call, which runs under introspect's counting mode; a
+decode function is built once per shape and cached by `GPT.generate`,
+so a repeated call registers nothing.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ import weakref
 import numpy as np
 import torch
 
-from . import autograd, health, memory, observe, resilience, slo, watchdog
+from . import (autograd, health, introspect, memory, observe, resilience,
+               slo, watchdog)
 from .autograd import _top_k
 from .layer import layernorm
 from .parallel.moe import moe_ffn
@@ -649,6 +659,24 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
 
     kind = "greedy" if temperature == 0.0 else "sampled"
 
+    def scan_stage(p, tok, caches, gen, nf):
+        """The decode loop after the first token: (new tokens, nf)."""
+        out = []
+        for i in range(max_new - 1):
+            logits, caches = core.token_step(p, tok, caches, i, B)
+            if nf is not None:
+                nf = nf + _nonfinite(logits)
+            tok = sample(logits, gen)
+            out.append(tok)
+        return out, nf
+
+    prefill_x = introspect.AotExecutor(
+        lambda p, prompt: core.prefill(p, prompt, B), "serving.prefill",
+        names=("params", "prompt"))
+    scan_x = introspect.AotExecutor(
+        scan_stage, "serving.decode_scan",
+        names=("params", "tok0", "caches", "gen", "nf"))
+
     @torch.no_grad()
     def decode(p, prompt, seed=0):
         obs = observe.is_enabled()
@@ -665,7 +693,7 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
             with observe.span("serving.prefill", batch=B,
                               prompt_tokens=S0), \
                     memory.on_oom("serving.prefill"):
-                logits, caches = core.prefill(p, prompt, B)
+                logits, caches = prefill_x(p, prompt)
                 if obs:
                     nf = _nonfinite(logits)
                 tok = sample(logits, gen)
@@ -683,13 +711,8 @@ def build_decode(m, B, S0, max_new, temperature, top_k, dtype=None,
                 with observe.span("serving.decode_scan", batch=B,
                                   new_tokens=max_new), \
                         memory.on_oom("serving.decode_scan"):
-                    for i in range(max_new - 1):
-                        logits, caches = core.token_step(p, tok, caches, i,
-                                                         B)
-                        if obs:
-                            nf = nf + _nonfinite(logits)
-                        tok = sample(logits, gen)
-                        out.append(tok)
+                    toks, nf = scan_x(p, tok, caches, gen, nf)
+                    out.extend(toks)
             ids = torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
             decode.nan_logits = nf
             if timed:
@@ -833,6 +856,56 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
     core = _decode_core(m, S0, max_new, moe_capacity_factor, kv_dtype)
     core_d = _decode_core(draft, S0, max_new, moe_capacity_factor)
 
+    def prefill_stage(pt, pd, prompt):
+        logits0, caches = core.prefill(pt, prompt, B, use_kernel)
+        # the draft only fills its own cache over the prompt: the first
+        # token is the target's
+        _, dcaches = core_d.prefill(pd, prompt, B, use_kernel)
+        return logits0, caches, dcaches
+
+    def spec_stage(pt, pd, tok, caches, dcaches, nf):
+        """The rounds: (tokens (B, max_new), nf, counts, rounds)."""
+        dev = tok.device
+        buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
+        buf[:, 0] = tok
+        cnt = torch.ones(B, dtype=torch.long, device=dev)
+        rows = torch.arange(B, device=dev)[:, None].expand(B, K + 1)
+        jj = torch.arange(K + 1, device=dev)[None, :]
+        counts = torch.zeros(3, dtype=torch.long, device=dev)
+        rounds = 0
+        while max_new > 1:
+            active = cnt < max_new
+            if not bool(active.any()):
+                break
+            pos = S0 + cnt - 1          # the pending token's position
+
+            def draft_step(t, j):
+                return core_d.verify_step(pd, t[:, None], dcaches,
+                                          pos + j, active, B, 1,
+                                          use_kernel)[0][:, 0]
+
+            def verify(feed):
+                return core.verify_step(pt, feed, caches, pos, active,
+                                        B, K + 1, use_kernel)[0]
+
+            g, take, tok, c, _, n = _spec_round(
+                draft_step, verify, tok, active, max_new - cnt, K)
+            keep = jj < take[:, None]
+            buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
+            cnt = cnt + take
+            counts += c
+            nf = nf + n
+            rounds += 1
+        return buf, nf, counts, rounds
+
+    prefill_x = introspect.AotExecutor(
+        prefill_stage, "serving.spec_prefill",
+        names=("params", "draft_params", "prompt"))
+    spec_x = introspect.AotExecutor(
+        spec_stage, "serving.spec_verify",
+        names=("params", "draft_params", "tok0", "caches", "draft_caches",
+               "nf"))
+
     @torch.no_grad()
     def decode(pt, pd, prompt):
         with watchdog.guard("decode", batch=B), \
@@ -849,10 +922,7 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
         ttft = None
         with observe.span("serving.prefill", batch=B, prompt_tokens=S0), \
                 memory.on_oom("serving.spec_prefill"):
-            logits0, caches = core.prefill(pt, prompt, B, use_kernel)
-            # the draft only fills its own cache over the prompt: the
-            # first token is the target's
-            _, dcaches = core_d.prefill(pd, prompt, B, use_kernel)
+            logits0, caches, dcaches = prefill_x(pt, pd, prompt)
             tok = torch.argmax(logits0.float(), dim=-1)
             nf = _nonfinite(logits0)
             if timed:
@@ -861,39 +931,11 @@ def build_spec_decode(m, draft, B, S0, max_new, spec_k, dtype=None,
         if memory.get_ledger() is not None and \
                 not memory.region_has_provider(memory.REGION_KV_CACHE):
             memory.note_arrays(memory.REGION_KV_CACHE, (caches, dcaches))
-        buf = torch.zeros((B, max_new), dtype=torch.long, device=dev)
-        buf[:, 0] = tok
-        cnt = torch.ones(B, dtype=torch.long, device=dev)
-        rows = torch.arange(B, device=dev)[:, None].expand(B, K + 1)
-        jj = torch.arange(K + 1, device=dev)[None, :]
-        counts = torch.zeros(3, dtype=torch.long, device=dev)
-        rounds = 0
         with observe.span("serving.spec_verify", batch=B,
                           new_tokens=max_new), \
                 memory.on_oom("serving.spec_verify"):
-            while max_new > 1:
-                active = cnt < max_new
-                if not bool(active.any()):
-                    break
-                pos = S0 + cnt - 1          # the pending token's position
-
-                def draft_step(t, j):
-                    return core_d.verify_step(pd, t[:, None], dcaches,
-                                              pos + j, active, B, 1,
-                                              use_kernel)[0][:, 0]
-
-                def verify(feed):
-                    return core.verify_step(pt, feed, caches, pos, active,
-                                            B, K + 1, use_kernel)[0]
-
-                g, take, tok, c, _, n = _spec_round(
-                    draft_step, verify, tok, active, max_new - cnt, K)
-                keep = jj < take[:, None]
-                buf[rows[keep], (cnt[:, None] + jj)[keep]] = g[keep]
-                cnt = cnt + take
-                counts += c
-                nf = nf + n
-                rounds += 1
+            buf, nf, counts, rounds = spec_x(pt, pd, tok, caches, dcaches,
+                                             nf)
         ids = torch.cat([prompt, buf], dim=1)
         # the call's one read of its counts, the non-finite logits with
         # them
@@ -1026,16 +1068,19 @@ def build_beam_decode(m, B, S0, max_new, num_beams, length_penalty,
         return (torch.cat([prompt, all_tok[nb, best]], dim=1),
                 all_raw[nb, best])
 
+    beam_x = introspect.AotExecutor(decode, "serving.beam",
+                                    names=("params", "prompt", "count_nf"))
+
     def run(p, prompt):
         obs = observe.is_enabled()
         if not obs and slo.get_tracker() is None:
             with memory.on_oom("serving.beam"):
-                return decode(p, prompt, False)
+                return beam_x(p, prompt, False)
         t0 = time.perf_counter()
         with watchdog.guard("decode", batch=B), \
                 observe.span("serving.beam_decode", batch=B, beams=K), \
                 memory.on_oom("serving.beam"):
-            out = decode(p, prompt, obs)
+            out = beam_x(p, prompt, obs)
             _fence(prompt.device)
         # one call: no prefill seam is timed, so no TTFT sample
         total = time.perf_counter() - t0

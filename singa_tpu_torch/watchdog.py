@@ -50,11 +50,12 @@ tainted entries before it looks at their deadline.
 
 Every breach path is driven deterministically by `resilience.FaultPlan`
 delays at the existing fault points ("serving.engine_step",
-"serving.decode", "data.next", "ckpt.wait"). The hang bundle's
-`executables` field is None until the port's `introspect` (ROADMAP.md
-Queue 1 item 3); the fleet rollup line comes with the port's `fleet`
-(item 6), and so do the `collective` and `fleet_publish` guards (items 4
-and 6) and the multi-process hang A/B (`main`).
+"serving.decode", "data.next", "ckpt.wait", and the controller's "step"
+and "ckpt.save"). The hang bundle's `executables` are the last eight
+builds of `introspect`'s manifest; the fleet rollup line comes with the
+port's `fleet` (ROADMAP.md Queue 1 item 6), and so do the `collective`
+and `fleet_publish` guards (items 4 and 6) and the multi-process hang
+A/B (`main`).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ import time
 import traceback
 from collections import deque
 
-from . import goodput, health, memory, observe
+from . import goodput, health, introspect, memory, observe
 
 #: every blocking operation class that can carry a deadline. The `op=`
 #: label on every singa_watchdog_* metric is proven against this tuple
@@ -495,9 +496,9 @@ class Watchdog:
         installed) and the recent EventLog tail; plus a `faulthandler`
         sidecar (`<bundle>.stacks.txt`) written by the C-level dumper,
         which survives interpreter states the Python capture cannot. The
-        header's `executables` is None and no fleet line is written
-        until the port's `introspect` and `fleet`. Returns the bundle
-        path."""
+        header's `executables` are introspect's last eight builds (or
+        None); no fleet line is written until the port's `fleet`.
+        Returns the bundle path."""
         op = _check_op(op)
         d = self._bundle_dir()
         os.makedirs(d, exist_ok=True)
@@ -515,7 +516,8 @@ class Watchdog:
                   if entry is not None and entry.deadline else None,
                   "thread": entry.tname if entry is not None else None,
                   "tid": wedged_tid, "n_threads": len(stacks),
-                  "executables": None}
+                  "executables": introspect.executable_manifest()[-8:]
+                  or None}
         led = memory.get_ledger()
         mem = led.region_bytes() if led is not None else None
         tracker = goodput.get_tracker()

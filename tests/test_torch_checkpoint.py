@@ -28,12 +28,12 @@ from singa_tpu import device as jdevice
 from singa_tpu import models as jmodels
 from singa_tpu import opt as jopt
 from singa_tpu import tensor as jt
-from singa_tpu_torch import _ckpt
 from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import layer as tl
 from singa_tpu_torch import model as tmodel
 from singa_tpu_torch import opt as topt
 from singa_tpu_torch import overlap
+from singa_tpu_torch import resilience
 from singa_tpu_torch import tensor as tt
 from singa_tpu_torch.models import transformer as ttr
 
@@ -120,6 +120,28 @@ def test_resume_is_bitwise_uninterrupted(tmp_path, async_save):
         assert json.load(f)["step"] == 3
 
 
+def test_async_save_writes_the_states_of_its_step(tmp_path, monkeypatch):
+    """An async save's host snapshot is a copy on the CPU too: steps run
+    before the writer thread writes must not reach the checkpoint (the
+    write is held back here until two more steps have updated the
+    parameters and Adam's slots in place)."""
+    x, y = _data()
+    a = _build(7)
+    a(x, y)
+    want = _snapshot(a)
+    held = []
+    monkeypatch.setattr(overlap, "start_async_save",
+                        lambda path, write, blocking_s=None:
+                        held.append(write))
+    path = a.save_checkpoint(str(tmp_path / "ck"), step=1, async_save=True)
+    a(x, y)
+    a(x, y)
+    held[0]()
+    b = _build(99)
+    b.load_checkpoint(path)
+    assert _equal(_snapshot(b), want)
+
+
 def test_gpt_resume_through_fit(tmp_path):
     rng = np.random.RandomState(3)
     batches = []
@@ -149,15 +171,15 @@ def test_complete_step_raises_and_overwrite_drops_manifest(tmp_path):
     m(x, y)
     path = m.save_checkpoint(str(tmp_path / "ck"), step=0)
     overlap.wait_for_checkpoints()
-    with open(_ckpt.manifest_path(path), "w") as f:
+    with open(resilience.manifest_path(path), "w") as f:
         json.dump({"kind": "singa_ckpt_manifest", "step": 0}, f)
-    assert _ckpt.is_complete_checkpoint(path)
+    assert resilience.is_complete_checkpoint(path)
     with pytest.raises(ValueError, match="complete"):
         m.save_checkpoint(str(tmp_path / "ck"), step=0)
     m(x, y)
     m.save_checkpoint(str(tmp_path / "ck"), step=0, overwrite=True)
     overlap.wait_for_checkpoints()
-    assert not _ckpt.is_complete_checkpoint(path)
+    assert not resilience.is_complete_checkpoint(path)
     fresh = _build(5)
     fresh.load_checkpoint(path)
     assert _equal(_snapshot(fresh), _snapshot(m))
@@ -183,7 +205,7 @@ def test_half_written_step_is_set_aside(tmp_path):
         with open(os.path.join(base, "x"), "w") as f:
             f.write(str(i))
         os.utime(base, (1000 + i, 1000 + i))
-        _ckpt.set_aside_checkpoint(base, ".reclaimed")
+        resilience.set_aside_checkpoint(base, ".reclaimed")
     aside = sorted(n for n in os.listdir(tmp_path)
                    if n.startswith("step_9.reclaimed"))
     assert len(aside) == 3

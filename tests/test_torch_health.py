@@ -38,7 +38,8 @@ from singa_tpu import opt as jopt
 from singa_tpu import resilience as jres
 from singa_tpu import tensor as jtensor
 from singa_tpu_torch import device as tdevice
-from singa_tpu_torch import health, layer, model, observe, opt, resilience
+from singa_tpu_torch import (health, introspect, layer, model, observe, opt,
+                             resilience)
 from singa_tpu_torch import tensor as ttensor
 from singa_tpu_torch.models import transformer as tt
 
@@ -50,6 +51,7 @@ RTOL = 1e-5
 def _port_state():
     observe.get_registry().reset()
     observe.enable(True)
+    introspect.reset()
     health.set_active_monitor(None)
     resilience.clear_fault_plan()
     yield
@@ -310,7 +312,9 @@ def test_halt_bundles_load_across_packages(data, tmp_path):
              "port->jax": jhealth.load_flight_bundle(tb),
              "jax": jhealth.load_flight_bundle(jb),
              "port": health.load_flight_bundle(tb)}
-    assert loads["port"]["header"]["executables"] is None
+    # the bundle pins the builds made so far (none: eager steps)
+    assert loads["port"]["header"]["executables"] == (
+        introspect.executable_manifest()[-8:] or None)
     ref_h, ref_s = _bundle_core(loads["jax"])
     for name, b in loads.items():
         h, steps = _bundle_core(b)

@@ -49,6 +49,7 @@ def test_device_reference_calls():
 def test_device_graph_and_profiling_switches(capsys):
     saved = [(d, d.verbosity, d.skip_iteration, list(d.step_times),
               d.graph_enabled) for d in (JDEV, TDEV)]
+    cost = TDEV.cost_analysis
     try:
         for d in (JDEV, TDEV):
             d.EnableGraph(False)
@@ -68,13 +69,21 @@ def test_device_graph_and_profiling_switches(capsys):
             outs.append(capsys.readouterr().out)
         assert outs[1] == outs[0]
         assert "3 steps, mean 11.000 ms" in outs[1]
+        # verbosity 2: the step build's counted cost (introspect), none
+        # before a step build
         TDEV.SetVerbosity(2)
+        TDEV.cost_analysis = None
         TDEV.PrintTimeProfiling()
-        assert "introspect" in capsys.readouterr().out
+        assert capsys.readouterr().out == outs[1].splitlines(True)[-1]
+        TDEV.cost_analysis = {"flops": 2.2e10, "bytes accessed": 3.0e6}
+        TDEV.PrintTimeProfiling()
+        assert "counted cost: 22.00 GFLOP/step, 3.0 MB accessed/step, " \
+            "2.00 TFLOP/s achieved" in capsys.readouterr().out
     finally:
         for d, v, k, times, g in saved:
             d.verbosity, d.skip_iteration, d.graph_enabled = v, k, g
             d.step_times[:] = times
+        TDEV.cost_analysis = cost
 
 
 def test_device_rand_key_draws_from_the_stream():

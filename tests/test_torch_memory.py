@@ -41,7 +41,8 @@ from singa_tpu import overlap as joverlap
 from singa_tpu import tensor as jtensor
 from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import engine as tengine
-from singa_tpu_torch import goodput, health, layer, memory, model, observe
+from singa_tpu_torch import (goodput, health, introspect, layer, memory,
+                             model, observe)
 from singa_tpu_torch import opt, overlap, resilience, watchdog
 from singa_tpu_torch import tensor as ttensor
 from singa_tpu_torch.models import transformer as tt
@@ -67,6 +68,7 @@ def _port_state():
         resilience.clear_fault_plan()
         observe.get_registry().reset()
         observe.enable(True)
+        introspect.reset()
     clean()
     yield
     clean()
@@ -387,7 +389,9 @@ def test_oom_in_the_step_writes_a_bundle_both_packages_load(tmp_path,
         assert top and top[0]["nbytes"] >= top[-1]["nbytes"]
         assert {"shape", "dtype", "region"} <= set(top[0])
         assert len(b["steps"]) == b["header"]["n_steps"] == 3
-        assert b["header"]["executables"] is None
+        # the bundle pins the builds made so far
+        assert b["header"]["executables"] == (
+            introspect.executable_manifest()[-8:] or None)
     assert observe.get_registry().get(
         "singa_mem_oom_dumps_total").value() == 1
     # every live storage is ranked (the bundle keeps the largest 16 of
@@ -528,7 +532,11 @@ def test_memz_report_and_json():
         assert region in rep
     j = memory.memz_json()
     assert j["installed"] and sum(j["regions"].values()) == j["total_bytes"]
-    assert j["timeline"] and j["top_arrays"] and j["static_hbm"] == {}
+    # the static view is the step build's memory record
+    assert j["timeline"] and j["top_arrays"]
+    assert j["static_hbm"] == introspect.last_build("step")["memory"]
+    assert j["static_hbm"]["arguments"] > 0
+    assert "static estimate (introspect, step build)" in rep
 
 
 def test_ledger_defaults_to_the_card():

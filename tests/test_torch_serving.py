@@ -211,7 +211,7 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.models.xceptionnet, singa_tpu_torch.data, "
         "singa_tpu_torch.io, singa_tpu_torch.snapshot, "
         "singa_tpu_torch.overlap, singa_tpu_torch.native, "
-        "singa_tpu_torch._ckpt, singa_tpu_torch.parallel, "
+        "singa_tpu_torch.introspect, singa_tpu_torch.parallel, "
         "singa_tpu_torch.parallel.moe, singa_tpu_torch.ops.rnn, "
         "singa_tpu_torch.utils, singa_tpu_torch.sonnx, "
         "singa_tpu_torch.sonnx.onnx_pb, singa_tpu_torch.sonnx.frontend, "

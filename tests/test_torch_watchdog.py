@@ -37,7 +37,8 @@ from singa_tpu import tensor as jtensor
 from singa_tpu import watchdog as jwatchdog
 from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import engine as tengine
-from singa_tpu_torch import goodput, health, layer, memory, model, observe
+from singa_tpu_torch import (goodput, health, introspect, layer, memory,
+                             model, observe)
 from singa_tpu_torch import opt, resilience, watchdog
 from singa_tpu_torch import tensor as ttensor
 from singa_tpu_torch.models import transformer as tt
@@ -64,6 +65,7 @@ def _port_state():
         jres.clear_fault_plan()
         observe.get_registry().reset()
         observe.enable(True)
+        introspect.reset()
     clean()
     yield
     clean()
@@ -461,7 +463,9 @@ def test_hang_bundles_load_across_packages(tmp_path):
     assert {r["kind"] for r in j["threads"]} \
         == {r["kind"] for r in t["threads"]} == {"hang_thread"}
     assert j["threads"][0].keys() == t["threads"][0].keys()
-    assert t["header"]["executables"] is None
+    # the bundle pins the builds made so far
+    assert t["header"]["executables"] == (
+        introspect.executable_manifest()[-8:] or None)
     assert t["header"]["op"] == j["header"]["op"] == "step"
     assert sum(1 for r in t["threads"] if r["wedged"]) == 1
     assert t["memory"]["regions"].keys() == set(memory.MEM_REGIONS)

@@ -196,8 +196,9 @@ Phases, each of which exits non-zero on failure:
    exactly 8 + 8 K1/K2a a step, 5 fenced step times, the singa_hbm_*
    gauges from the caching allocator, PrintTimeProfiling; then the
    replayed step with observe on and off in turns. 12c mlp/native.py,
-   hfl/fedavg.py (two client processes) and qabot/qabot_train.py,
-   unmodified, through tests/test_torch_examples.py's alias runner on
+   hfl/fedavg.py (two client processes), qabot/qabot_train.py and
+   cnn/train_cnn.py --dist --dist-option sparseTopK (mnist's synthetic
+   set), unmodified, through tests/test_torch_examples.py's alias runner on
    the card, each within its own time limit and printing its last line
    of work (model_selection/ms_mlp.py needs scikit-learn, which the
    card's host lacks).
@@ -294,21 +295,52 @@ Phases, each of which exits non-zero on failure:
    "preempt"), resumed by a fresh model at step 5, its losses within
    1e-5 of an uninterrupted run's. Every checkpoint lies in a temporary
    directory, deleted at the end of its part.
-16. The `kernels` JSON line (the decode kernels with a `modes` entry per
+16. Data parallelism on the card, NCCL at world size 1 (the host has one
+   card, and NCCL takes one rank a device). 16a `distributed.init()`
+   from SINGA_COORDINATOR (a free localhost port), SINGA_NPROCS=1,
+   SINGA_PROC_ID=0: every verb of `parallel.Communicator` on random CUDA
+   tensors in fp32 and bf16 against its plain math, exact at one rank
+   (half: x.bfloat16(); top-K and threshold: out + residual == x
+   bitwise), each verb's device time at a 64 MB payload. 16b the bench
+   GPT (b8 x 1024, bf16 amp) as a CUDA graph under DistOpt with each
+   strategy (plain, half, partial over 4 partitions, top-K 0.05,
+   threshold): 8 + 8 K1/K2a exactly a replay; each build's op listing
+   (capture_hlo) holds one all-reduce per parameter and the loss's mean
+   (plain, half), one per parameter of the tag's partition in each of 4
+   builds (partial), two all-gathers per parameter and no dense
+   all-reduce (sparse); plain's losses within 2e-2 of the model without
+   DistOpt, the NCCL kernels of a replay counted (printed only); each
+   strategy's replayed step beside the plain graph step's; then 8's
+   fp32 GPT, plain DistOpt against none, within 1e-5. 16c ResNet-50
+   b32 bf16 as a graph through Classifier.train_one_batch with plain and
+   sparseTopK on cuDNN's deterministic algorithms: finite losses,
+   plain's states and sparseTopK's first running statistics within 1e-5
+   of the run without DistOpt. 16d skip_step under DistOpt plain on 16b's
+   step: a poisoned weight keeps every parameter, slot and the counter
+   bitwise. 16e fit_resilient of 15c's fp32 GPT under DistOpt top-K with
+   sparse_residuals=True: the manifest's mesh {"data": 1}, 1-row
+   residual stacks in res.npz, a fresh model resumed within 1e-5. 16f
+   the per-rank random stream (a multi-rank step's, forced at one rank)
+   under a CUDA graph: a dropout layer's masks over 4 steps equal, bitwise,
+   those of the same model stepped eagerly, differ from step to step and
+   from the shared stream's. `distributed.shutdown()` ends the phase.
+17. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
    `health_train`, `wd_clean`, `wd_aborted`, `wd_fresh`, `wd_train`,
    `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
-   `fit_resilient`, `hang_restart` and `preempt_resume`), then the card
-   line, then the result line.
+   `fit_resilient`, `hang_restart`, `preempt_resume` and `dp_train`),
+   then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import gc
 import json
 import os
 import re
@@ -318,6 +350,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -3233,7 +3266,13 @@ OBS_EXAMPLES = (("mlp/native.py", ["-m", "20"], 300, "epoch 19:"),
                                    "--port", "{port}"], 300,
                  "[client0] round 0 local loss="),
                 ("qabot/qabot_train.py", ["--epochs", "1"], 300,
-                 "top-1 retrieval acc"))
+                 "top-1 retrieval acc"),
+                # the data-parallel example at one rank (no process
+                # group: DistOpt is the identity); mnist is its synthetic
+                # set there, digits needs scikit-learn
+                ("cnn/train_cnn.py", ["cnn", "mnist", "-m", "1", "--dist",
+                                      "--dist-option", "sparseTopK"], 300,
+                 "epoch 0: eval acc="))
 _PROM_SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? [^ ]+$")
 
 
@@ -3426,15 +3465,22 @@ def phase_observe_train(torch, models, opt, device, observe, A):
 def phase_observe_examples(root):
     """12c: the examples the API faults broke, unmodified, through the
     test suite's alias runner on the card (`best_device` left as the
-    card); each must exit 0 within its own time limit and print its
-    line."""
+    card), all at once (a process each); each must exit 0 within its
+    own time limit and print its line."""
     print("== phase 12c: the repaired examples on the card")
     sys.path.insert(0, os.path.join(root, "tests"))
     from test_torch_examples import run_case
-    for example, args, limit, line in OBS_EXAMPLES:
+
+    def run(case):
+        example, args, limit, _line = case
         t0 = time.perf_counter()
         rc, out = run_case(example, args, limit, device="cuda")
-        secs = time.perf_counter() - t0
+        return rc, out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(OBS_EXAMPLES)) as pool:
+        runs = list(pool.map(run, OBS_EXAMPLES))
+    for (example, args, _limit, line), (rc, out, secs) in zip(OBS_EXAMPLES,
+                                                              runs):
         tail = out.strip().splitlines()[-2:]
         print(f"  {example}: exit {rc} in {secs:.1f} s; {' | '.join(tail)}")
         if rc != 0 or line not in out:
@@ -4066,7 +4112,11 @@ def phase_watchdog_train(torch, models, opt, health, watchdog, goodput,
     HangError from the step with the bundle's wedged thread this one,
     inside the stats read; the next step clean, 8 + 8 K1/K2a a replay;
     the replayed step with the watchdog off and on in same-call turns
-    (median of 15 each)."""
+    (median of 15 each). Returns the launch counts and a weak reference
+    to the model, which the stall's HangError keeps alive in a dead
+    reference cycle (its traceback holds the step's frames) until the
+    cyclic collector frees it: 14c checks that this happens outside its
+    capture."""
     print("== phase 14b: the watchdog on the graph-mode training step")
     L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
     tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
@@ -4173,12 +4223,13 @@ def phase_watchdog_train(torch, models, opt, health, watchdog, goodput,
         print(f"  watchdog overhead: {med['on'] / med['off'] - 1:+.2%} of "
               f"the step (median of {len(ms['on'])} each); step deadline "
               f"samples {len(wd.op_state('step').samples)} (static)")
+        ref = weakref.ref(m)
         del m
     finally:
         watchdog.uninstall_watchdog()
         goodput.uninstall()
     torch.cuda.empty_cache()
-    return {k: sum(c[k] for c in counts.values()) for k in A.LAUNCHES}
+    return {k: sum(c[k] for c in counts.values()) for k in A.LAUNCHES}, ref
 
 
 def _reconciles(s):
@@ -4188,7 +4239,7 @@ def _reconciles(s):
 
 
 def phase_memory(torch, models, opt, health, memory, engine, serving, slo,
-                 resilience, observe, A, gpt2, root):
+                 resilience, observe, A, gpt2, prev, root):
     """14c: the memory ledger on the card (total: the caching allocator's
     memory_allocated) with its LeakDetector: 13c's graph step (health
     skip_step) for MEM_STEPS steps, every snapshot reconciled, one taken
@@ -4204,7 +4255,11 @@ def phase_memory(torch, models, opt, health, memory, engine, serving, slo,
     OutOfMemoryError propagating, a flight_oom_step bundle that
     load_flight_bundle reads with the model's parameters among its
     top_arrays, singa_mem_oom_dumps_total + 1, and after
-    torch.cuda.empty_cache() a normal step."""
+    torch.cuda.empty_cache() a normal step. First of all, the capture
+    of the first graph step: the cyclic collector off inside it, and
+    `prev` (14b's model, in a dead reference cycle, with its CUDA graph)
+    freed by then, as Model's capture collects before it (a graph
+    destroyed inside another's capture invalidates that capture)."""
     print("== phase 14c: the memory ledger on the card")
     L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
     tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
@@ -4215,12 +4270,31 @@ def phase_memory(torch, models, opt, health, memory, engine, serving, slo,
         m = _bench_graph(torch, models, opt, health, tx, root,
                          policy="skip_step")
         n0 = len(led.timeline)
+        collector = []
+
+        def probe(path, _seconds, _attrs):
+            if path.endswith("opt.apply_updates") \
+                    and torch.cuda.is_current_stream_capturing():
+                collector.append(gc.isenabled())
+
+        alive = prev() is not None
+        observe.add_span_listener(probe)
         A.reset_launches()
         t0 = time.perf_counter()
-        for _ in range(MEM_STEPS):
-            m(tx, ty)
-        torch.cuda.synchronize()
+        try:
+            for _ in range(MEM_STEPS):
+                m(tx, ty)
+            torch.cuda.synchronize()
+        finally:
+            observe.remove_span_listener(probe)
         wall = time.perf_counter() - t0
+        print(f"  14b's model (a dead reference cycle with its CUDA graph) "
+              f"alive before the capture {alive}, after it "
+              f"{prev() is not None}; the cyclic collector on inside the "
+              f"capture: {collector}")
+        if prev() is not None or collector != [False]:
+            fail("14c: the capture ran with the cyclic collector on, or "
+                 "14b's dead model outlived it")
         counts["train"] = dict(A.LAUNCHES)
         snaps = list(led.timeline)[n0:]
         s = led.snapshot()
@@ -5058,6 +5132,481 @@ def phase_preempt_resume(torch, models, opt, resilience, A, root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallel on the card (NCCL at world size 1: the host has
+# one card, and NCCL refuses two ranks on one device)
+DP_PAYLOAD = 16 * 2**20      # 16a: fp32 elements of the timed 64 MB payload
+DP_STEPS = 5                 # 16b: replayed steps of each strategy
+DP_TOL = 2e-2                # 16b: bf16 amp losses, DistOpt against none
+#: 16b: each strategy as the DistOpt call the GPT's step makes
+DP_STRATEGIES = {
+    "plain": lambda o, loss: o.backward_and_update(loss),
+    "half": lambda o, loss: o.backward_and_update_half(loss),
+    "partial": lambda o, loss: o.backward_and_partial_update(
+        loss, num_partitions=4),
+    "topk": lambda o, loss: o.backward_and_sparse_update(
+        loss, spars=0.05, topK=True),
+    "threshold": lambda o, loss: o.backward_and_sparse_update(
+        loss, spars=1e-3, topK=False),
+}
+#: 16b: calls before the timed replays (partial: a warm-up and a capture
+#: for each of its 4 tags)
+DP_WARM = {"partial": 8}
+
+
+def _dist_opt(opt, mesh, strategy, **kw):
+    """A DistOpt(SGD(0.1, 0.9, wd 1e-5)) over `mesh` whose call (the
+    GPT's `self.optimizer(loss)`) runs `strategy`."""
+    run = DP_STRATEGIES[strategy]
+
+    class Strategy(opt.DistOpt):
+        def __call__(self, loss):
+            return run(self, loss)
+
+    return Strategy(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5),
+                    mesh=mesh, **kw)
+
+
+def phase_dp_comm(torch, distributed, parallel):
+    """16a: distributed.init() over NCCL from SINGA_COORDINATOR (a free
+    localhost port), SINGA_NPROCS=1, SINGA_PROC_ID=0; every verb of the
+    communicator on random CUDA tensors (fp32 and bf16) against its plain
+    math, exact at one rank (the half path is x.bfloat16(), topk's and
+    threshold's out + residual is x bitwise); each verb's device time at a
+    64 MB fp32 payload. Returns the data mesh."""
+    import socket
+    print("== phase 16a: the communicator over NCCL (world size 1)")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(SINGA_COORDINATOR=f"127.0.0.1:{port}",
+                      SINGA_NPROCS="1", SINGA_PROC_ID="0")
+    t0 = time.perf_counter()
+    distributed.init()
+    mesh = parallel.data_parallel_mesh()
+    comm = parallel.Communicator(mesh=mesh)
+    print(f"  init: backend {torch.distributed.get_backend()}, rank "
+          f"{distributed.process_index()} of {distributed.process_count()}, "
+          f"mesh {dict(mesh.shape)}, {time.perf_counter() - t0:.2f} s")
+    if torch.distributed.get_backend() != "nccl" or comm.group is None \
+            or comm.world_size != 1:
+        fail("16a: distributed.init() did not form a one-rank NCCL group")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(4096, 64, generator=g, device="cuda").to(dtype)
+        got = {"all_reduce": (comm.all_reduce(x), x),
+               "all_reduce_half": (comm.all_reduce_half(x),
+                                   x.bfloat16().to(dtype)),
+               "all_gather": (comm.all_gather(x), x),
+               "broadcast": (comm.broadcast(x), x),
+               "reduce_scatter": (comm.reduce_scatter(x), x),
+               "all_reduce_max": (comm.all_reduce_max(x), x)}
+        out, res = comm.sparse_all_reduce_topk(x, 0.05)
+        got["topk out+res"] = (out + res, x)
+        if int((out != 0).sum()) != int(x.numel() * 0.05):
+            bad.append(f"{dtype} topk sent {int((out != 0).sum())}")
+        out, res = comm.sparse_all_reduce_threshold(x, 1.0)
+        got["threshold out+res"] = (out + res, x)
+        flags = (bool(comm.agree_any(torch.tensor(True, device="cuda"))),
+                 bool(comm.agree_any(torch.tensor(False, device="cuda"))))
+        if flags != (True, False):
+            bad.append(f"agree_any {flags}")
+        for name, (a, b) in got.items():
+            if a.shape != b.shape or not torch.equal(a, b):
+                bad.append(f"{dtype} {name}")
+    print(f"  every verb on (4096, 64) fp32 and bf16 against its plain "
+          f"math at one rank: {'exact' if not bad else bad}")
+    if bad:
+        fail(f"16a: {bad}")
+    x = torch.randn(DP_PAYLOAD, generator=g, device="cuda")
+    timed = {"all_reduce": lambda: comm.all_reduce(x),
+             "all_reduce_half": lambda: comm.all_reduce_half(x),
+             "all_gather": lambda: comm.all_gather(x),
+             "broadcast": lambda: comm.broadcast(x),
+             "reduce_scatter": lambda: comm.reduce_scatter(x),
+             "all_reduce_max": lambda: comm.all_reduce_max(x),
+             "sparse_all_reduce_topk 0.05":
+                 lambda: comm.sparse_all_reduce_topk(x, 0.05),
+             "sparse_all_reduce_threshold 1.0":
+                 lambda: comm.sparse_all_reduce_threshold(x, 1.0)}
+    for name, fn in timed.items():
+        print(f"  {name} of 64 MB fp32 at one rank: "
+              f"{time_ms(torch, fn, n=10):.4f} ms device time")
+    return mesh
+
+
+def _dp_listing(path):
+    """{build file: [op listing lines]} of the builds under `path`."""
+    out = {}
+    for f in sorted(os.listdir(path)):
+        if f.endswith(".ops.txt"):
+            with open(os.path.join(path, f)) as fh:
+                out[f] = fh.read()
+    return out
+
+
+def _dp_check_listing(utils, strategy, texts, n_params):
+    """The c10d ops of each build: plain and half one all-reduce per
+    parameter (plus the loss's mean), partial one per parameter of the
+    tag's partition in each of its 4 builds, sparse two all-gathers per
+    parameter (plus the logits') and no dense all-reduce."""
+    dense = [utils.dense_allreduce_types(t) for t in texts.values()]
+    lines = [t.splitlines() for t in texts.values()]
+    scalars = [sum(ln.startswith("c10d.allreduce_") for ln in ls) - len(d)
+               for ls, d in zip(lines, dense)]
+    gathers = [sum(ln.startswith("c10d.allgather_") for ln in ls)
+               for ls in lines]
+    print(f"  {strategy}: {len(texts)} build(s); dense all-reduces "
+          f"{[len(d) for d in dense]}, scalar all-reduces {scalars}, "
+          f"all-gathers {gathers} ({n_params} parameters)")
+    if strategy == "partial":
+        want = sorted(len(range(t, n_params, 4)) for t in range(4))
+        ok = len(texts) == 4 and sorted(len(d) for d in dense) == want
+    elif strategy in ("topk", "threshold"):
+        ok = len(texts) == 1 and not dense[0] \
+            and gathers[0] == 2 * n_params + 1
+    else:
+        ok = len(texts) == 1 and len(dense[0]) == n_params \
+            and scalars[0] == 1
+    if not ok:
+        fail(f"16b: {strategy}'s builds hold other collectives")
+
+
+def _nccl_kernels(torch, fn):
+    """Launches of kernels named nccl* in one call of `fn` under the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "nccl" in e.key.lower())
+
+
+def phase_dp_train(torch, models, opt, introspect, utils, mesh, A, root):
+    """16b: the bench GPT (b8 x 1024, bf16 amp) as a CUDA graph under
+    DistOpt with each strategy (plain, half, partial over 4 partitions,
+    top-K 0.05, threshold): 2 calls (partial 8) then DP_STEPS replays,
+    exactly 8 + 8 K1/K2a a replay, each build's op listing checked
+    (`_dp_check_listing`); plain's losses within DP_TOL of the same model
+    without DistOpt; the replayed step's median beside the plain graph
+    step's (before and after); NCCL kernels of one replay counted from
+    the profiler (printed, not required). Then phase 8's fp32 GPT, plain
+    DistOpt against none, as graphs: within GRAPH_TOL. Returns the
+    replays' launch counts."""
+    print("== phase 16b: the bench GPT under DistOpt (NCCL, world size 1)")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+
+    def build(strategy, cfg=BENCH_GPT, amp="bfloat16", seed=SEED, x=tx):
+        m = models.create_model("gpt", device="cuda", seed=seed, **cfg)
+        m.set_optimizer(
+            _dist_opt(opt, mesh, strategy) if strategy else
+            opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+        m.compile([x], is_train=True, use_graph=True, amp=amp)
+        return m
+
+    base = build(None)
+    bl = _steps(torch, base, tx, ty, 2)[0]
+    bl2, bms = _steps(torch, base, tx, ty, DP_STEPS)
+    base_losses = bl + bl2
+    n_params = len(base._raw_params())
+    med, total = {}, {}
+    for strategy in DP_STRATEGIES:
+        d = os.path.join(root, f"dp_{strategy}")
+        m = build(strategy)
+        introspect.capture_hlo(d)
+        try:
+            warm = _steps(torch, m, tx, ty, DP_WARM.get(strategy, 2))[0]
+        finally:
+            introspect.capture_hlo(None)
+        if m.graph_backend != "cuda_graph":
+            fail(f"16b {strategy} ran {m.graph_backend!r}")
+        torch.cuda.synchronize()
+        A.reset_launches()
+        losses, ms = _steps(torch, m, tx, ty, DP_STEPS)
+        counts = dict(A.LAUNCHES)
+        check_launches(f"16b {strategy} replays", counts,
+                       {"flash_fwd": L * DP_STEPS,
+                        "flash_bwd_fused": L * DP_STEPS})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        _dp_check_listing(utils, strategy, _dp_listing(d), n_params)
+        med[strategy] = statistics.median(ms)
+        print(f"  {strategy}: builds {m._build_count}, losses "
+              f"{[round(v, 4) for v in warm + losses]}; replayed step ms "
+              f"{', '.join(f'{x:.2f}' for x in ms)}, median "
+              f"{med[strategy]:.2f}")
+        if strategy == "plain":
+            rel = max(abs(a - b) / abs(a)
+                      for a, b in zip(base_losses, warm + losses))
+            print(f"  plain DistOpt against no DistOpt, {len(losses) + 2} "
+                  f"steps: largest relative loss difference {rel:.3e} "
+                  f"(tol {DP_TOL}); NCCL kernels in one replay: "
+                  f"{_nccl_kernels(torch, lambda: m(tx, ty))}")
+            if not rel <= DP_TOL:
+                fail("16b: plain DistOpt's losses part from the model's "
+                     "without DistOpt")
+        del m
+        torch.cuda.empty_cache()
+    bms += _steps(torch, base, tx, ty, DP_STEPS)[1]
+    med["none"] = statistics.median(bms)
+    print("  replayed step median ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f" (no DistOpt, two turns of {DP_STEPS}, before and after)")
+    del base
+    torch.cuda.empty_cache()
+
+    cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2)
+    fx, fy = (t.cuda() for t in _train_batch(torch, cfg["vocab_size"], 2,
+                                             256, SEED + 4))
+    runs = {}
+    for strategy in (None, "plain"):
+        m = build(strategy, cfg, None, SEED + 5, fx)
+        runs[strategy] = (m, torch.stack([m(fx, fy)[1]
+                                          for _ in range(EXACT_STEPS)])
+                          .tolist())
+    (m0, l0), (m1, l1) = runs[None], runs["plain"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    serr, same = _compare_states(torch, m0._raw_states(), m1._raw_states())
+    print(f"  fp32 GPT (dim 512, 2 layers, S 256), graphs, plain DistOpt "
+          f"against none, {EXACT_STEPS} steps: relative loss difference "
+          f"{rel:.3e}, parameters {serr:.3e} (tol {GRAPH_TOL}); bitwise: "
+          f"{same and l0 == l1}")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL):
+        fail("16b: fp32 plain DistOpt differs from the step without it")
+    del runs, m0, m1
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dp_resnet(torch, models, opt, tensor, device, mesh):
+    """16c: ResNet-50 b32 bf16 as a CUDA graph through
+    Classifier.train_one_batch(x, y, dist_option) with plain and
+    sparseTopK under DistOpt, and without DistOpt, on cuDNN's
+    deterministic algorithms: 3 steps each, finite losses; plain's
+    losses, parameters and running statistics within GRAPH_TOL of the
+    run without DistOpt; sparseTopK's running statistics after its first
+    step (computed before any update) within GRAPH_TOL of it; the
+    replayed step times."""
+    print(f"== phase 16c: ResNet-50 b{RESNET_B} bf16 through "
+          "Classifier's dist_option")
+    dev = device.best_device()
+    rng = np.random.RandomState(SEED + 11)
+    x = rng.randn(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, RESNET_B).astype(np.int32)
+    tx = tensor.Tensor(data=x, device=dev)
+    ty = tensor.from_numpy(y, device=dev)
+
+    def stats(m):
+        return {k: v.detach().clone() for k, v in m._raw_states().items()
+                if "running" in k}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for option in (None, "plain", "sparseTopK"):
+            dev.SetRandSeed(SEED)
+            m = models.create_model("resnet50", num_channels=3,
+                                    num_classes=RESNET_CLASSES)
+            sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)
+            m.set_optimizer(opt.DistOpt(sgd, mesh=mesh) if option else sgd)
+            m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+            args = (tx, ty) if option is None else (tx, ty, option, None)
+            first = m(*args)[1].item()
+            s1 = stats(m)
+            losses, ms = [first], []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                losses.append(m(*args)[1].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[option] = (m, losses, s1)
+            print(f"  {option or 'no DistOpt'}: losses "
+                  f"{[round(v, 4) for v in losses]}; steps 2-5 ms "
+                  f"{', '.join(f'{v:.1f}' for v in ms)} (2: the capture)")
+            if not all(np.isfinite(losses)):
+                fail(f"16c: {option} losses {losses}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m0, l0, s0), (mp, lp, _), (ms_, _, ss) = (runs[None], runs["plain"],
+                                               runs["sparseTopK"])
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, lp))
+    serr, same = _compare_states(torch, m0._raw_states(), mp._raw_states())
+    first_err = max(float((s0[k].float() - ss[k].float()).abs().max())
+                    for k in s0)
+    print(f"  plain against no DistOpt: relative loss difference {rel:.3e}, "
+          f"states {serr:.3e} (tol {GRAPH_TOL}), bitwise {same}; "
+          f"sparseTopK's running statistics after its first step "
+          f"{first_err:.3e} from no DistOpt's")
+    if not (rel <= GRAPH_TOL and serr <= GRAPH_TOL
+            and first_err <= GRAPH_TOL):
+        fail("16c: the Classifier's DistOpt runs part from the plain run")
+    del runs, m0, mp, ms_
+    torch.cuda.empty_cache()
+
+
+def phase_dp_health(torch, models, opt, health, mesh, root):
+    """16d: health skip_step under DistOpt plain on 16b's graph step: an
+    inf written into a block weight between replays; the agreed flag
+    skips the step, every parameter, optimizer slot and the step counter
+    bitwise as they were; restored, the next step is ok."""
+    print("== phase 16d: skip_step under DistOpt (graph step)")
+    V = BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    mon = health.HealthMonitor(policy="skip_step", out_dir=root)
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(_dist_opt(opt, mesh, "plain"))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16",
+              health=mon)
+    _steps(torch, m, tx, ty, 3)
+    W = m.blocks[0].attn.Wq
+    with torch.no_grad():
+        old = W[0, 0].clone()
+        W[0, 0] = float("inf")
+    snap = _opt_snapshot(torch, m)
+    counter = float(m.optimizer.step_counter)
+    m(tx, ty)
+    kept = _opt_equal(torch, m, snap)
+    last = mon.recorder.ring[-1]
+    print(f"  +inf in TransformerBlock_0.attn.Wq[0, 0]: action "
+          f"{mon.last_action}, anomaly {last['anomaly_kinds']}, non-finite "
+          f"grads {last['nonfinite_grads']}; parameters, slots and counter "
+          f"bitwise kept: {kept}")
+    if mon.last_action != "skip" or not kept or \
+            float(m.optimizer.step_counter) != counter:
+        fail("16d: the skip_step replay under DistOpt changed the state")
+    with torch.no_grad():
+        W[0, 0] = old
+    _, loss = m(tx, ty)
+    if mon.last_action != "ok" or not np.isfinite(loss.item()):
+        fail(f"16d: after the restore: {mon.last_action}, {loss.item()}")
+    m.set_health_monitor(None)
+    del m
+    torch.cuda.empty_cache()
+
+
+def phase_dp_resilience(torch, models, opt, resilience, mesh, root):
+    """16e: fit_resilient of 15c's fp32 GPT under DistOpt top-K 0.05 with
+    sparse_residuals=True (a CUDA graph): three steps, a final save; the
+    manifest's mesh {"data": 1} over one process, res.npz's 1-row
+    residual stacks; a fresh model resumes at step 3 and its losses are
+    within GRAPH_TOL of an uninterrupted run's."""
+    print("== phase 16e: fit_resilient under DistOpt (sparse residuals)")
+    cfg = PREEMPT_CFG
+    batches = [tuple(t.cuda() for t in _train_batch(
+        torch, cfg["vocab_size"], 2, cfg["max_seq"], SEED + 80 + i))
+        for i in range(6)]
+
+    def build():
+        g = models.create_model("gpt", device="cuda", seed=SEED + 5, **cfg)
+        g.set_optimizer(_dist_opt(opt, mesh, "topk",
+                                  sparse_residuals=True))
+        g.compile([batches[0][0]], is_train=True, use_graph=True)
+        return g
+
+    ref = _plain_losses(torch, build(), batches)
+    ck = os.path.join(root, "dp_resume")
+    r1 = resilience.fit_resilient(build(), batches[:3], ck,
+                                  save_every_steps=3, handle_signals=False)
+    path, man = resilience.latest_checkpoint(ck)
+    with np.load(os.path.join(path, "res.npz")) as z:
+        rows = sorted({z[k].shape[0] for k in z.files})
+        n_res = len(z.files)
+    r2 = resilience.fit_resilient(build(), batches, ck, save_every_steps=3,
+                                  handle_signals=False)
+    hist = dict(r2["history"])
+    rel = max(abs(hist[k] - ref[k]) / abs(ref[k]) for k in hist)
+    print(f"  first run {r1['status']} at step {r1['final_step']}; manifest "
+          f"mesh {man['mesh']}; res.npz: {n_res} stacks of rows {rows}; "
+          f"resumed at {r2['resumed_step']}, {r2['status']}, losses "
+          f"{[round(hist[k], 6) for k in sorted(hist)]} against "
+          f"uninterrupted {[round(v, 6) for v in ref[3:]]}: relative "
+          f"difference {rel:.3e} (tol {GRAPH_TOL})")
+    if man["mesh"].get("axes") != {"data": 1} \
+            or man["mesh"].get("n_processes") != 1 or rows != [1] \
+            or not n_res or r2["resumed_step"] != 3 \
+            or r2["status"] != "completed" \
+            or sorted(hist) != [3, 4, 5] or not rel <= GRAPH_TOL:
+        fail(f"16e: first run {r1}, manifest {man['mesh']}, resumed {r2}")
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_dp_streams(torch, model_mod, layer, opt, tensor, device, mesh):
+    """16f: the data-parallel step's per-rank random stream on the card.
+    One rank folds nothing (as the JAX package's mesh of one device), so
+    a model whose step folds its rank at any size (`_folds_rank`) runs
+    the multi-rank path: its graph registers the rank's generator and
+    each replay draws from the seed the host gave it before the replay.
+    Over 4 steps (a warm-up, a capture, two replays) the dropout masks
+    equal, bitwise, those of the same model stepped eagerly
+    (`graph(sequential=True)`) from the same seed; they differ from step
+    to step, and from a model that draws from the shared stream."""
+    print("== phase 16f: per-rank random streams in a CUDA graph")
+    dev = device.best_device()
+    rng = np.random.RandomState(SEED + 90)
+    tx = tensor.from_numpy(rng.randn(64, 256).astype(np.float32), dev)
+    ty = tensor.from_numpy(rng.randint(0, 8, 64).astype(np.int32), dev)
+
+    class Drop(model_mod.Model):
+        folds = True
+
+        def __init__(self):
+            super().__init__()
+            self.l1 = layer.Linear(512)
+            self.drop = layer.Dropout(0.5)
+            self.l2 = layer.Linear(8)
+            self.sce = layer.SoftMaxCrossEntropy()
+
+        def _folds_rank(self, comm):
+            return self.folds
+
+        def forward(self, x):
+            return self.l2(self.drop(self.l1(x)))
+
+        def train_one_batch(self, x, y):
+            h = self.drop(self.l1(x))
+            loss = self.sce(self.l2(h), y)
+            self._optimizer(loss)
+            return h, loss
+
+    def masks(folds, sequential):
+        dev.SetRandSeed(SEED)
+        m = Drop()
+        m.folds = folds
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.1), mesh=mesh))
+        m.compile([tx], is_train=True, use_graph=True)
+        m.graph(True, sequential=sequential)
+        out = [(m(tx, ty)[0].data != 0).cpu() for _ in range(4)]
+        return out, m.graph_backend
+
+    graph, backend = masks(True, False)
+    eager, eager_backend = masks(True, True)
+    shared, _ = masks(False, False)
+    same = all(torch.equal(a, b) for a, b in zip(graph, eager))
+    moves = all(not torch.equal(a, b) for a, b in zip(graph, graph[1:]))
+    folded = all(not torch.equal(a, b) for a, b in zip(graph, shared))
+    kept = float(torch.stack(graph).float().mean())
+    print(f"  {backend} against {eager_backend}: masks equal {same}; "
+          f"differ step to step {moves}; differ from the shared stream's "
+          f"{folded}; kept {kept:.4f}")
+    if backend != "cuda_graph" or not (same and moves and folded) \
+            or not 0.45 < kept < 0.55:
+        fail("16f: the per-rank stream does not replay in the graph")
+    torch.cuda.empty_cache()
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -5378,14 +5927,14 @@ def main():
             observe, A, root))
     clock.lap("phase 14a")
     with tempfile.TemporaryDirectory() as root:
-        by_path["wd_train"] = phase_watchdog_train(
+        by_path["wd_train"], wd_model = phase_watchdog_train(
             torch, models, opt, health, watchdog, goodput, observe, A,
             _build, root)
     clock.lap("phase 14b")
     with tempfile.TemporaryDirectory() as root:
         by_path["mem_train"], by_path["mem_engine"] = phase_memory(
             torch, models, opt, health, memory, engine, serving, slo,
-            resilience, observe, A, model, root)
+            resilience, observe, A, model, wd_model, root)
     clock.lap("phase 14c")
     del model
     torch.cuda.empty_cache()
@@ -5407,6 +5956,25 @@ def main():
         by_path["preempt_resume"] = phase_preempt_resume(
             torch, models, opt, resilience, A, root)
     clock.lap("phase 15c")
+    from singa_tpu_torch import distributed, parallel, utils
+    mesh = phase_dp_comm(torch, distributed, parallel)
+    clock.lap("phase 16a")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["dp_train"] = phase_dp_train(torch, models, opt, introspect,
+                                             utils, mesh, A, root)
+    clock.lap("phase 16b")
+    phase_dp_resnet(torch, models, opt, tensor, device, mesh)
+    clock.lap("phase 16c")
+    with tempfile.TemporaryDirectory() as root:
+        phase_dp_health(torch, models, opt, health, mesh, root)
+    clock.lap("phase 16d")
+    with tempfile.TemporaryDirectory() as root:
+        phase_dp_resilience(torch, models, opt, resilience, mesh, root)
+    clock.lap("phase 16e")
+    phase_dp_streams(torch, model_mod, layer, opt, tensor, device, mesh)
+    clock.lap("phase 16f")
+    del mesh
+    distributed.shutdown()
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

@@ -41,6 +41,10 @@ What is ported so far:
         tail attribution, the request trace); health (step stats on the
         device, warn / skip_step / halt, the flight recorder, the
         non-finite logit watch); resilience's fault injection (FaultPlan)
+    data parallelism: distributed (one process per rank over
+        torch.distributed: NCCL on the card, gloo on the CPU),
+        parallel.make_mesh / data_parallel_mesh / Communicator, and
+        opt.DistOpt's four strategies in Model's graph-mode step
 
 The attention paths run on six hand-written CUDA kernels in `csrc/`
 (flash-attention forward, its fused and split backward, flash-decode and
@@ -51,9 +55,10 @@ CUDA unless the caller passes `device="cpu"` (or a CPU `Device`), where
 every kernel wrapper runs its plain PyTorch version instead.
 """
 
-from . import (autograd, data, device, io, layer, model, models,  # noqa: F401
-               native, opt, overlap, snapshot, sonnx, tensor, utils)
+from . import (autograd, data, device, distributed, io, layer,  # noqa: F401
+               model, models, native, opt, overlap, parallel, snapshot,
+               sonnx, tensor, utils)
 
-__all__ = ["autograd", "data", "device", "io", "layer", "model", "models",
-           "native", "opt", "overlap", "snapshot", "sonnx", "tensor",
-           "utils"]
+__all__ = ["autograd", "data", "device", "distributed", "io", "layer",
+           "model", "models", "native", "opt", "overlap", "parallel",
+           "snapshot", "sonnx", "tensor", "utils"]

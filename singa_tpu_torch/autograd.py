@@ -1313,10 +1313,10 @@ def gelu(x):
 def attention(q, k, v, causal=False, seq_axis=None, use_kernel=None):
     """Fused attention (B, H, S, D) through the flash kernels: K1 forward,
     its backward K2a or K2b + K2c. `seq_axis` (ring attention over a
-    mesh axis) comes with the distribution slice."""
+    mesh axis) comes with model-parallel distribution."""
     if seq_axis is not None:
         raise NotImplementedError(
-            "ring attention (seq_axis) comes with the distribution slice")
+            "ring attention (seq_axis) comes with model-parallel distribution")
     return _FlashAttention(causal, use_kernel)(q, k, v)
 
 
@@ -1538,13 +1538,13 @@ class ScatterElements(Operator):
 class Rope(Operator):
     """Rotary position embedding on (B, H, S, D) q or k (NeoX halves),
     positions 0..S-1. `seq_axis` (positions offset under sequence
-    parallelism) comes with the distribution slice."""
+    parallelism) comes with model-parallel distribution."""
 
     def __init__(self, theta=10000.0, seq_axis=None):
         super().__init__("Rope")
         if seq_axis is not None:
             raise NotImplementedError(
-                "Rope's seq_axis comes with the distribution slice")
+                "Rope's seq_axis comes with model-parallel distribution")
         self.theta = float(theta)
         self.seq_axis = seq_axis
 

@@ -9,8 +9,9 @@ today, and where the value comes from:
 - `USE_CUDA` is True: the port runs on CUDA (`device`), its kernels are
   CUDA C++ for sm_90a (`ops/attention.py`, `csrc/`).
 - `USE_OPENCL` and `USE_DNNL` are False: neither backend exists here.
-- `USE_DIST` is False until the port's data-parallel slice (NCCL, with
-  gloo for CPU tests; ROADMAP.md Queue 1 item 4) sets it.
+- `USE_DIST` is True: data parallelism over `torch.distributed`
+  (`distributed`, `parallel`, `opt.DistOpt`), NCCL on the card and gloo
+  for the CPU.
 - `USE_ONNX` is True: `sonnx` carries its own protobuf codec.
 - `CUDNN_VERSION` is `torch.backends.cudnn.version()` (0 where this
   torch has no cuDNN, as a CPU build), read when first asked for: on a
@@ -30,7 +31,7 @@ import torch
 USE_CUDA = True
 USE_OPENCL = False
 USE_DNNL = False
-USE_DIST = False
+USE_DIST = True
 USE_ONNX = True
 PEAK_TFLOPS = (float(os.environ["SINGA_TPU_PEAK_TFLOPS"])
                if os.environ.get("SINGA_TPU_PEAK_TFLOPS") else None)

@@ -22,6 +22,8 @@ off for its fp32 checks). The library sets neither flag.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -77,6 +79,21 @@ class Device:
         it."""
         return int(torch.randint(0, 2 ** 62, (), generator=self.generator,
                                  device=self.torch_device))
+
+    @contextlib.contextmanager
+    def drawing_from(self, generator: "torch.Generator | None"):
+        """Inside the block the device's random stream is `generator` (a
+        data-parallel step's per-rank stream; None keeps the device's
+        own), which comes back after it."""
+        if generator is None:
+            yield
+            return
+        own = self.generator
+        self._generator = generator
+        try:
+            yield
+        finally:
+            self._generator = own
 
     def Sync(self):
         """Fence: wait for all queued work on this device."""

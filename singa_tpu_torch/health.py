@@ -30,8 +30,14 @@ anomaly: "warn" (count, event, flight-recorder dump), "skip_step" (the
 update was discarded on the device; a loss spike downgrades to warn),
 "halt" (dump, then raise HealthError).
 
-The mesh side (`finalize(comm=...)`, the agreed flag across shards) comes
-with distribution, ROADMAP.md Queue 1 item 4. The bundle header's
+Under data parallelism (`opt.DistOpt` with a process group) the model
+gives the collector the optimizer's communicator: the collector then sees
+the reduced gradients, its anomaly flag is the cross-rank OR
+(`Communicator.agree_any`) before the first update, so skip_step fires on
+every rank in the same step, and `finalize` takes the largest
+non-finite counts across the ranks (`all_reduce_max`: a sum would count
+a replicated gradient world_size times) and the mean of the loss and the
+squared norms, so every rank records the same stats. The bundle header's
 `executables` are the last eight builds of `introspect`'s manifest (None
 before any build), which pin the step a dump came from. The
 memory ledger attributes the step inputs a graph-mode step retains for
@@ -169,12 +175,14 @@ class StepStatsCollector:
     under "l1"); unknown parameters land in "other". With `skip=True` the
     optimizer rolls a flagged step back (`Optimizer.backward_and_update`);
     `scratch` (a `Scratch`) holds the pre-update values, else each is a
-    fresh copy."""
+    fresh copy. With `comm` (a `parallel.Communicator`) the anomaly flag
+    is agreed across its ranks."""
 
-    def __init__(self, group_of=None, skip=False, scratch=None):
+    def __init__(self, group_of=None, skip=False, scratch=None, comm=None):
         self.group_of = group_of or {}
         self.skip = bool(skip)
         self.scratch = scratch
+        self.comm = comm
         self.loss = None
         self._gsq = []          # per-grad sum of squares (fp32, 0-d)
         self._nonfinite = []    # per-grad non-finite entry count (int64)
@@ -230,11 +238,14 @@ class StepStatsCollector:
     def anomaly(self):
         """The step's anomaly flag, a 0-d bool tensor: a non-finite grad
         entry or loss among what was fed so far (fixed at the first
-        call)."""
+        call), OR-ed across the ranks of `comm`."""
         if self._bad is None:
             loss = self._loss()
             nf_l = (~torch.isfinite(loss)).long()
-            self._bad = (self._nf_grads(loss.device) + nf_l) > 0
+            bad = (self._nf_grads(loss.device) + nf_l) > 0
+            if self.comm is not None:
+                bad = self.comm.agree_any(bad)
+            self._bad = bad
         return self._bad
 
     # -- finalize -------------------------------------------------------------
@@ -245,11 +256,21 @@ class StepStatsCollector:
         {"param_norm", "update_norm", "update_ratio"}}, "anomaly"}, and
         every scalar packed in order into `self.packed` (one flat fp32
         tensor; `self.layout` names its entries, `unpack` reads it on the
-        host)."""
-        if comm is not None:
-            raise NotImplementedError(
-                "health stats across a mesh come with distribution "
-                "(ROADMAP.md Queue 1 item 4)")
+        host).
+
+        With a communicator (the collector's, or `comm` for one made
+        without, the JAX package's `finalize(comm)`) that has a process
+        group, the counts are the largest over its ranks and the loss and
+        squared norms their mean, and the flag is agreed across them."""
+        if comm is not None and comm is not self.comm:
+            if self.comm is not None:
+                raise ValueError("finalize(comm=...) names another "
+                                 "communicator than the collector's")
+            self.comm = comm
+            if self._bad is not None:
+                self._bad = comm.agree_any(self._bad)
+        comm = self.comm
+        dist = comm is not None and comm.group is not None
         loss = self._loss()
         dev = loss.device
         gsq = torch.stack(self._gsq).sum() if self._gsq \
@@ -257,6 +278,12 @@ class StepStatsCollector:
         nf_g = self._nf_grads(dev)
         nf_l = (~torch.isfinite(loss)).long()
         bad = self.anomaly()
+        if dist:
+            ws = comm.world_size
+            nf_g = comm.all_reduce_max(nf_g)
+            nf_l = comm.all_reduce_max(nf_l)
+            gsq = comm.all_reduce(gsq) / ws
+            loss = comm.all_reduce(loss) / ws
         stats = {"loss": loss, "grad_norm": torch.sqrt(gsq),
                  "nonfinite_grads": nf_g, "nonfinite_loss": nf_l}
         scalars = [loss, stats["grad_norm"],
@@ -267,8 +294,11 @@ class StepStatsCollector:
                   "nonfinite_grads_lo", "nonfinite_loss", "anomaly"]
         groups = {}
         for grp, (psq, usq) in sorted(self._groups.items()):
-            pn = torch.sqrt(torch.stack(psq).sum())
-            un = torch.sqrt(torch.stack(usq).sum())
+            psq, usq = torch.stack(psq).sum(), torch.stack(usq).sum()
+            if dist:
+                psq = comm.all_reduce(psq) / ws
+                usq = comm.all_reduce(usq) / ws
+            pn, un = torch.sqrt(psq), torch.sqrt(usq)
             groups[grp] = {"param_norm": pn, "update_norm": un,
                            # the classic LR sanity signal (healthy ~1e-3)
                            "update_ratio": un / torch.clamp(pn, min=1e-12)}

@@ -504,7 +504,10 @@ class _Counter(TorchDispatchMode):
     """The trace phase's counting mode: flops by flop_counter's formulas,
     bytes as each op's input plus output bytes, and (with `listing`) one
     line per op; the booked kernel calls add their own figures and mute
-    the ops inside them."""
+    the ops inside them. A collective of the data-parallel step
+    (`c10d.allreduce_`, `c10d.allgather_`, ...) passes through and is
+    listed with its tensors' types (its process group and work handle
+    hold none), as `utils.dense_allreduce_types` reads it."""
 
     @classmethod
     def _should_skip_dynamo(cls) -> bool:

@@ -763,7 +763,8 @@ def _no_mesh(seq_axis, tp_axis):
     if seq_axis is not None or tp_axis is not None:
         raise NotImplementedError(
             "seq_axis and tp_axis (ring attention, tensor parallelism) "
-            "come with the distribution slice")
+            "come with model-parallel distribution (ROADMAP.md Queue 1 "
+            "item 5)")
 
 
 class LayerNorm(Layer):

@@ -71,6 +71,27 @@ first call of a training signature registers the model's parameters and
 retained inputs with the memory ledger, and an out-of-memory error in a
 training step, eager or graph-mode, writes the OOM bundle (`memory`).
 
+Data parallelism (`opt.DistOpt` whose mesh carries a process group, at
+any size; one process per rank): the graph-mode step takes the rank's
+rows of every batched input (the JAX package's `P(axis)`), returns the
+0-d outputs averaged over the ranks and the batched ones gathered along
+axis 0, averages the buffers (batch norm's running statistics) over the
+ranks after the step, and, at the model's first such build, broadcasts
+rank 0's parameters, buffers and optimizer slots (the ranks then start
+equal, as DistributedDataParallel makes them). The collectives are
+`torch.distributed` calls on the step's stream: the warm-up issues them
+eagerly first (NCCL makes its communicator there, never inside a
+capture) and a CUDA graph records and replays them. DistOpt's partial
+strategy builds one step per tag (the tag is part of the key). A
+multi-rank DistOpt in eager mode raises: its step exists only in graph
+mode, as in the JAX package, where `psum` has no bound axis outside the
+shard_mapped step. Over more than one rank each step draws from the
+rank's own random stream, made from the shared one and the rank (the JAX
+package's `fold_in(rng, rank)`; `_dp_stream`), so dropout masks differ
+across the ranks. Checkpoints: every rank calls `save_checkpoint` and
+`load_checkpoint`; rank 0 writes, the others wait for it and raise where
+it raises.
+
 Builds (`introspect`): a graph-mode step or eval signature registers a
 build at its first call, the warm-up, which runs under introspect's
 counting mode (the trace phase: its flops, bytes and op listing), with
@@ -83,6 +104,8 @@ compile phase. `Device.cost_analysis` is the last step build's cost.
 from __future__ import annotations
 
 import functools
+import gc
+import hashlib
 import io
 import json
 import os
@@ -94,9 +117,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import (autograd, goodput, health, introspect, layer, memory,
-               observe, overlap, resilience, watchdog)
+from . import (autograd, distributed, goodput, health, introspect, layer,
+               memory, observe, overlap, resilience, watchdog)
 from . import device as device_module
+from . import opt as opt_module
 from .ops import attention as _attention
 from .tensor import Tensor, _raw
 
@@ -183,6 +207,13 @@ def _buffer_operation(func):
         autograd.compute_dtype = self.amp
         try:
             if not (self.graph_mode and self.training):
+                comm = self._dp_comm() if self.training else None
+                if comm is not None and comm.world_size > 1:
+                    raise ValueError(
+                        f"DistOpt over {comm.world_size} ranks trains in "
+                        "graph mode only: compile(use_graph=True) (the "
+                        "data-parallel step slices the batch and reduces "
+                        "the outputs)")
                 # the eager step: an OOM writes the forensics bundle
                 # under the graph-mode step's key
                 with memory.on_oom("step"):
@@ -247,11 +278,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
         # pre-update values of a skip_step step: one for the optimizer's
         # per-parameter holds, one for the buffers held over the step
         self._health_scratch = (health.Scratch(), health.Scratch())
+        self._dp_synced = False   # rank 0's states broadcast (DistOpt)
+        self._dp_gen = None       # the rank's random stream (DistOpt)
         nn.Module.train(self, False)
 
     # ---- configuration ----------------------------------------------------
     def set_optimizer(self, opt):
         self._optimizer = opt
+        self._dp_synced = False
 
     def set_health_monitor(self, monitor):
         """Attach (or detach, with None) a health.HealthMonitor. The
@@ -395,10 +429,109 @@ class Model(layer.Layer, metaclass=ModelMeta):
             "calls (recompile by resetting the model, or run with "
             "use_graph=False)")
 
-    def _signature(self, vals) -> tuple:
+    def _signature(self, vals, tag=0) -> tuple:
+        """A buffered step's key: every tensor's shape, dtype and device,
+        the training flag, the compute dtype and the optimizer's step tag
+        (DistOpt's partial strategy builds one step per tag, as the JAX
+        package compiles one executable per tag)."""
         return (tuple((tuple(v.shape), v.dtype, v.device)
                       for v in map(_raw, vals) if torch.is_tensor(v)),
-                autograd.training, autograd.compute_dtype)
+                autograd.training, autograd.compute_dtype, tag)
+
+    # ---- data parallelism (DistOpt) ---------------------------------------
+    def _dp_comm(self):
+        """The DistOpt's communicator when the step is data parallel (its
+        mesh carries a process group, at any size), else None."""
+        opt = self._optimizer
+        if isinstance(opt, opt_module.DistOpt) \
+                and opt.communicator.group is not None:
+            return opt.communicator
+        return None
+
+    def _dp_sync(self, comm, dev):
+        """Broadcast rank 0's parameters, buffers, optimizer slots (step
+        counter included; not the per-rank sparse residuals) and device
+        random stream to every rank, once per model, at its first
+        data-parallel build: the ranks then start equal, as
+        DistributedDataParallel makes them at its construction."""
+        if self._dp_synced:
+            return
+        for t in (*self._raw_states().values(),
+                  *self._optimizer.opt.state_arrays()):
+            comm._broadcast_(t)
+        rng = dev.rng_state.to(comm.device)
+        comm._broadcast_(rng)
+        dev.rng_state = rng
+        self._dp_synced = True
+
+    def _folds_rank(self, comm) -> bool:
+        """Whether the data-parallel step draws from a per-rank stream:
+        over more than one rank, as the JAX package folds the rank in only
+        when its mesh has more than one device."""
+        return comm.world_size > 1
+
+    def _dp_stream(self, comm, dev):
+        """The rank's random stream for one data-parallel step (the JAX
+        package's `fold_in(rng, rank)`), or None to draw from the shared
+        one (`_folds_rank`). The shared stream is the device generator,
+        equal on every rank: the rank's generator, on the model's device,
+        is seeded from a hash of its state and the rank; the shared one
+        then moves on to a seed hashed from its state (JAX's `split`),
+        alike on every rank, so a checkpoint of it resumes every rank's
+        stream. Called on the host before every step: on the card the
+        step's graph registers the rank's generator and each replay
+        reads the seed it was given here."""
+        if not self._folds_rank(comm):
+            return None
+        shared = dev.generator
+        state = shared.get_state().numpy().tobytes()
+
+        def seed(tag: bytes) -> int:
+            return int.from_bytes(hashlib.blake2b(
+                state + tag, digest_size=8).digest(), "little") >> 1
+
+        if self._dp_gen is None:
+            self._dp_gen = torch.Generator(device=dev.torch_device)
+        self._dp_gen.manual_seed(seed(b"rank%d" % comm._rank_index()))
+        shared.manual_seed(seed(b"split"))
+        return self._dp_gen
+
+    def _dp_call(self, call, comm):
+        """`call` as the data-parallel step body: the rank's rows of
+        every batched input (JAX's P(axis) in-spec), then the outputs
+        as JAX's step returns them (0-d averaged over the ranks, batched
+        ones gathered along axis 0) and the buffers (batch norm's running
+        statistics) averaged over the ranks."""
+        n, r = comm.world_size, comm._rank_index()
+        param_ids = {id(t) for t in self._raw_params().values()}
+
+        def rows(v):
+            t = _raw(v)
+            if not torch.is_tensor(t) or t.dim() == 0:
+                return v
+            b = t.shape[0]
+            if b % n:
+                raise ValueError(
+                    f"axis '{comm.axis}' has {n} shards; they must divide "
+                    f"the global batch of {b}")
+            part = t[r * b // n:(r + 1) * b // n]
+            return Tensor._wrap(part, v.device, v.requires_grad) \
+                if isinstance(v, Tensor) else part
+
+        def gathered(t):
+            t = t.detach()
+            return comm._mean(t) if t.dim() == 0 \
+                else comm._gather(t, tiled=True)
+
+        def body(vs):
+            out = call([rows(v) for v in vs])
+            out = _map_out(out, gathered)
+            for t in self._raw_states().values():
+                if id(t) not in param_ids and t.is_floating_point():
+                    comm._mean_(t)
+            return out
+
+        return body
 
     def _train_step(self, func, args, kwargs):
         """One graph-mode training step (see the module's docstring)."""
@@ -414,18 +547,32 @@ class Model(layer.Layer, metaclass=ModelMeta):
                            for k, v in self._static_args.items()):
             self._static_mismatch(statics)
         n_pos = len(args)
+        opt = self._optimizer
+        # the tag first: it is part of the step's key
+        tag = opt.step_tag() if opt is not None else 0
+        partial = isinstance(opt, opt_module.DistOpt)
 
         def call(vs):
             kw = dict(zip(names[n_pos:], vs[n_pos:]))
-            return func(self, *vs[:n_pos], **kw)
+            if partial:
+                opt._partial_static_idx = tag
+            try:
+                return func(self, *vs[:n_pos], **kw)
+            finally:
+                if partial:
+                    opt._partial_static_idx = None
 
-        key = self._signature(vals)
+        comm = self._dp_comm()
+        if comm is not None:
+            call = self._dp_call(call, comm)
+        key = self._signature(vals, tag)
         entry = self._train_steps.get(key)
         raws = [_raw(v) for v in vals if _is_tensor(v)]
         bs = raws[0].shape[0] if raws and raws[0].dim() > 0 else None
-        tag = self._optimizer.step_tag() \
-            if self._optimizer is not None else 0
         dev = device_module.of(self._device)
+        if entry is None and comm is not None:
+            self._dp_sync(comm, dev)
+        stream = self._dp_stream(comm, dev) if comm is not None else None
         if entry is None:
             # the JAX package's step signature: its parts, step tag,
             # static-argument repr and true batch size, so a rebuild
@@ -459,13 +606,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
         # a health monitor the stats read is the step's fence, without
         # one only the dispatch is guarded (as in the JAX package)
         with watchdog.guard("step"), observe.span("model.step", tag=tag):
-            with memory.on_oom("step"):
+            with memory.on_oom("step"), dev.drawing_from(stream):
                 if mon is None:
                     out = self._run_buffered(entry, call, vals)
                 else:
                     out, packed = self._run_buffered(
                         entry,
-                        self._health_body(call, mon.policy == "skip_step"),
+                        self._health_body(call, mon.policy == "skip_step",
+                                          comm),
                         vals)
             if mon is not None:
                 # the step's one read of its stats (inside the span: on
@@ -501,18 +649,20 @@ class Model(layer.Layer, metaclass=ModelMeta):
         return {id(t): name.split(".", 1)[0]
                 for name, t in self._raw_params().items()}
 
-    def _health_body(self, call, skip):
+    def _health_body(self, call, skip, comm=None):
         """`call` as a graph-mode step with the health collector active:
         returns (outputs, the packed stats tensor). With `skip` the
         optimizer selects a flagged step's update back, and so does this
         body for the model's buffers (batch norm's running statistics),
         held over the whole step; both holds live in the model's
-        persistent scratch, sized at the warm-up call."""
+        persistent scratch, sized at the warm-up call. With `comm` (the
+        data-parallel step's) the flag is agreed and the stats reduced
+        across its ranks."""
         opt_scratch, buf_scratch = self._health_scratch
 
         def body(vs):
             col = health.StepStatsCollector(self._health_groups(), skip=skip,
-                                            scratch=opt_scratch)
+                                            scratch=opt_scratch, comm=comm)
             bufs = list(self.buffers()) if skip else []
             held = buf_scratch.hold(bufs) if bufs else []
             health._set_collector(col)
@@ -717,7 +867,13 @@ class Model(layer.Layer, metaclass=ModelMeta):
         generator registered; the kernels' launch counts of the capture
         are kept for the replays. The capture is the build's compile
         phase (`introspect.complete_build`; with `capture_hlo` on, the
-        graph is dumped beside the op listing)."""
+        graph is dumped beside the op listing).
+
+        Python's cyclic garbage is collected before the capture and the
+        collector is off during it: a dead model in a reference cycle
+        (one held by a caught exception's traceback, say) frees its own
+        CUDA graphs when it is collected, and a graph destroyed inside
+        another's capture invalidates that capture."""
         statics, bufs = [], []
         for v in vals:
             if not _is_tensor(v):
@@ -738,12 +894,19 @@ class Model(layer.Layer, metaclass=ModelMeta):
         graph = torch.cuda.CUDAGraph(keep_graph=dot is not None)
         graph.register_generator_state(device_module.of(dev).generator)
         before = _attention.launch_counts()
-        t0 = time.perf_counter()
         dump_s = 0.0
         with observe.span("model.build"):
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  capture_error_mode="thread_local"):
-                out = fn(statics)
+            gc.collect()   # build time: a step guard is tainted by now
+            t0 = time.perf_counter()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool,
+                                      capture_error_mode="thread_local"):
+                    out = fn(statics)
+            finally:
+                if collecting:
+                    gc.enable()
             if dot is not None:
                 t1 = time.perf_counter()
                 graph.debug_dump(dot)
@@ -888,9 +1051,26 @@ class Model(layer.Layer, metaclass=ModelMeta):
         async_save=True returns once the device-to-host snapshot is
         taken; a thread writes the files, durable after
         `overlap.wait_for_checkpoints()`, which the next save,
-        `load_checkpoint` and interpreter exit call. Returns the path."""
-        overlap.wait_for_checkpoints()
+        `load_checkpoint` and interpreter exit call. Returns the path.
+
+        Under a process group every rank calls it (the sparse residuals
+        of a DistOpt, one per rank, are gathered into `res.npz` as `r<i>`:
+        (world, ...) stacks, JAX's `res` tree) and only rank 0 writes; the
+        states are the same on every rank. The others wait for rank 0's
+        save, its write too when `async_save=False`, and raise where it
+        raises."""
+        # rank 0's pending writes first (a failed one raises everywhere)
+        distributed.on_rank0(overlap.wait_for_checkpoints)
         path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+        get_stacks = getattr(self._optimizer, "residual_device_stacks",
+                             None)
+        stacks = get_stacks() if get_stacks is not None else {}
+        distributed.on_rank0(lambda: self._write_checkpoint(
+            path, step, overwrite, async_save, stacks))
+        return path
+
+    def _write_checkpoint(self, path, step, overwrite, async_save, stacks):
+        """save_checkpoint's writing part (rank 0's alone in a job)."""
         if os.path.isdir(path):
             if overwrite:
                 try:
@@ -909,11 +1089,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
             opt_states = self._optimizer.get_states() \
                 if self._optimizer is not None else {}
             rng = self._rng_device().rng_state.numpy()
+        res = {f"r{i}": v for i, v in stacks.items()}
         nbytes = sum(int(v.nbytes) for v in (*states.values(),
-                                              *opt_states.values(), rng))
+                                              *opt_states.values(),
+                                              *res.values(), rng))
         meta = {"format": "singa_tpu_torch.checkpoint", "version": 1,
                 "step": int(step), "model": type(self).__name__,
-                "files": ["model.zip", "opt.npz", "rng.npy"]}
+                "files": ["model.zip", "opt.npz", "rng.npy"]
+                + (["res.npz"] if res else [])}
 
         def write():
             tmp = f"{path}.partial-{os.getpid()}"
@@ -921,6 +1104,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
             os.makedirs(tmp)
             _write_states_zip(os.path.join(tmp, "model.zip"), states)
             np.savez(os.path.join(tmp, "opt.npz"), **opt_states)
+            if res:
+                np.savez(os.path.join(tmp, "res.npz"), **res)
             np.save(os.path.join(tmp, "rng.npy"), rng)
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(meta, f, indent=1)
@@ -937,7 +1122,6 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 write()
             overlap.clear_write_failed(path)
         observe.record_checkpoint_bytes(nbytes)
-        return path
 
     def load_checkpoint(self, path: str, validate: bool = True):
         """Restore a `save_checkpoint` directory (a .../step_N path) into
@@ -951,8 +1135,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
         restored; a different device count is allowed and emits the
         `reshard_restore` event. The training graphs are dropped, so the
         next step warms up and captures again (a new build of the same
-        signature: `introspect` blames it `new_function`)."""
-        overlap.wait_for_checkpoints()
+        signature: `introspect` blames it `new_function`).
+
+        Every rank of a job restores the same files, once rank 0's
+        pending writes are durable (the others wait for its wait): the
+        replicated states on any world size, a DistOpt's sparse residual
+        stacks (`res.npz`) only on the world size that saved them (this
+        rank's row; another size raises)."""
+        distributed.on_rank0(overlap.wait_for_checkpoints)
         if not os.path.isfile(os.path.join(path, "meta.json")):
             raise FileNotFoundError(f"no checkpoint at {path} (meta.json "
                                     "missing)")
@@ -963,7 +1153,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 raise ValueError(f"checkpoint {path} does not fit this "
                                  "model: " + "; ".join(problems))
             saved = (manifest.get("mesh") or {}).get("n_devices")
-            live = resilience._topology(self)["n_devices"]
+            live = distributed.topology()["n_devices"]
             if saved and saved != live:
                 observe.get_registry().emit(
                     {"kind": "resilience", "event": "reshard_restore",
@@ -976,6 +1166,12 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 self._optimizer.setup(self._raw_params().values())
                 with np.load(os.path.join(path, "opt.npz")) as z:
                     self._optimizer.set_states({k: z[k] for k in z.files})
+                res = os.path.join(path, "res.npz")
+                load_stacks = getattr(self._optimizer,
+                                      "load_residual_device_stacks", None)
+                if load_stacks is not None and os.path.isfile(res):
+                    with np.load(res) as z:
+                        load_stacks({int(k[1:]): z[k] for k in z.files})
         self._rng_device().rng_state = torch.from_numpy(
             np.load(os.path.join(path, "rng.npy")))
         self._reset_steps()

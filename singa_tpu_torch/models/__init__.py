@@ -1,6 +1,6 @@
 """Model zoo of the port (counterpart of singa_tpu/models): every model
 is a `model.Model`; `create_model` takes the JAX package's names.
-`gpt_pipe` (the pipelined GPT) comes with the distribution slice."""
+`gpt_pipe` (the pipelined GPT) comes with model parallelism."""
 
 from .base import Classifier  # noqa: F401
 from . import alexnet, cnn, mlp, resnet, transformer, xceptionnet  # noqa: F401

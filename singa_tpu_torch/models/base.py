@@ -1,6 +1,7 @@
 """Shared classifier base (counterpart of singa_tpu/models/base.py):
 forward -> logits, the softmax cross-entropy loss, and the optimizer
-step named by `dist_option`."""
+step named by `dist_option` (the reference's example models repeat this
+dispatch, e.g. examples/cnn/model/cnn.py:53-71)."""
 
 from __future__ import annotations
 
@@ -16,18 +17,25 @@ class Classifier(model.Model):
         self.softmax_cross_entropy = layer.SoftMaxCrossEntropy()
 
     def train_one_batch(self, x, y, dist_option="plain", spars=None):
-        """One step: logits, the loss, backward and the update. Only
-        `dist_option="plain"` runs here: the distributed options
-        ("half", "partialUpdate", "sparseTopK", "sparseThreshold") come
-        with the distribution slice (DistOpt)."""
+        """One step: logits, the loss, backward and the update by
+        `dist_option`: "plain" (the optimizer's call), and with a DistOpt
+        "half", "partialUpdate", "sparseTopK" or "sparseThreshold"
+        (`spars` defaults to 0.05)."""
         out = self.forward(x)
         loss = self.softmax_cross_entropy(out, y)
-        if dist_option != "plain":
-            if dist_option in ("half", "partialUpdate", "sparseTopK",
-                               "sparseThreshold"):
-                raise NotImplementedError(
-                    f"dist_option={dist_option!r} needs DistOpt, which "
-                    "comes with the distribution slice")
+        opt = self.optimizer
+        if dist_option == "plain":
+            opt(loss)
+        elif dist_option == "half":
+            opt.backward_and_update_half(loss)
+        elif dist_option == "partialUpdate":
+            opt.backward_and_partial_update(loss)
+        elif dist_option == "sparseTopK":
+            opt.backward_and_sparse_update(loss, topK=True,
+                                           spars=spars if spars else 0.05)
+        elif dist_option == "sparseThreshold":
+            opt.backward_and_sparse_update(loss, topK=False,
+                                           spars=spars if spars else 0.05)
+        else:
             raise ValueError(f"unknown dist_option {dist_option!r}")
-        self.optimizer(loss)
         return out, loss

@@ -10,7 +10,7 @@ dicts (`load_gpt2_weights`).
 
 `moe_experts` > 0 makes every block's MLP a top-`moe_k` mixture of
 experts (MoE-GPT). Tensor, sequence, vocab and expert parallelism come
-with the distribution slice of the port.
+with model parallelism (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from ..tensor import Tensor, _raw
 class _PosSlice(autograd.Operator):
     """The first `length` rows of the position table (the JAX package's
     `_PosSlice` at offset 0: sequence parallelism, which offsets it,
-    comes with the distribution slice)."""
+    comes with model parallelism)."""
 
     def __init__(self, length):
         super().__init__("PosSlice")

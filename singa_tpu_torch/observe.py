@@ -847,9 +847,9 @@ def record_opt_update(n_params: int, seconds: float, strategy: str):
 
 
 def record_comm(op: str, nbytes: int, world_size: int = 1):
-    """One collective in the program, by op and payload bytes (the
-    port's communicator, which calls it, comes with the distribution
-    slice)."""
+    """One collective call, by op and payload bytes: every verb of
+    `parallel.Communicator` books one where it runs on the host (each
+    eager step; a CUDA-graph step's warm-up and capture)."""
     if not _enabled:
         return
     if op not in COMM_OPS:

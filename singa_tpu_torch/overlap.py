@@ -73,7 +73,13 @@ class DevicePrefetcher:
     Tensor, a torch tensor as a torch tensor, a numpy array as a Tensor
     (as the JAX package's prefetcher wraps it). Single use; `close()` is
     idempotent, joins the producer, and runs by itself at the source's
-    end, on a source error and on leaving a `with` block."""
+    end, on a source error and on leaving a `with` block.
+
+    Under data parallelism (a DistOpt over a process group) each rank's
+    prefetcher moves the FULL batch to the rank's device, and the step
+    takes the rank's rows; the JAX package's prefetcher puts the batch
+    sharded over the mesh (`_dist_shardings`), which has no counterpart
+    here."""
 
     def __init__(self, it, model=None, size=2, device=None):
         if model is None and device is None:

@@ -33,11 +33,20 @@ spans).
 
   - Deterministic **fault injection** (`FaultPlan`).
 
-Not yet here: the manifest's mesh `axes` is None until data parallelism
-(`DistOpt`, ROADMAP.md Queue 1 item 4), and so resharding onto another
-mesh and `--mesh-devices` > 1 in the CLI; `warm_store` is None and
-resume does not re-join a warm store until `warmstart` (item 7); the
-fleet straggler hook of the JAX loop comes with `fleet` (item 6).
+Data parallelism (`opt.DistOpt` over a process group, one process per
+rank): the manifest's mesh `axes` is the DistOpt's mesh shape (None for a
+local optimizer) and its topology `distributed.topology()`. Every rank
+runs the controller; rank 0 alone writes the checkpoint files, the
+manifests (after a barrier: every rank has finished the save), the
+retention and the dead timeline's clean-up, and every rank resumes from
+the same manifest, onto the same or another world size (the replicated
+states restore on any size; a DistOpt's per-rank sparse residuals only
+on the size that saved them). A preemption signal is agreed across the
+ranks at each step boundary, so all of them stop after the same step.
+
+Not yet here: `warm_store` is None and resume does not re-join a warm
+store until `warmstart` (ROADMAP.md Queue 1 item 7); the fleet straggler
+hook of the JAX loop comes with `fleet` (item 6).
 
 Fault points wired in the port (`FaultPlan`'s rules match by arrival
 count and/or context, e.g. step=K):
@@ -57,10 +66,12 @@ count and/or context, e.g. step=K):
   - "ckpt.wait"            `overlap.wait_for_checkpoints` (ctx: path),
                            before each pending async write is awaited
 
-CLI: `python -m singa_tpu_torch.resilience --ab --devices-a 1
---devices-b 1 --device cpu --out OUT.json` runs the kill-and-resume A/B
+CLI: `python -m singa_tpu_torch.resilience --ab --devices-a 4
+--devices-b 2 --device cpu --out OUT.json` runs the kill-and-resume A/B
 as real subprocesses (train, SIGTERM mid-run, resume, compare the loss
-curves) on one device.
+curves); a leg of N > 1 devices is N worker processes joined over gloo
+(`--device cpu`) or NCCL (the card, at most the cards the host has),
+training under DistOpt. The defaults are one device a leg.
 """
 
 from __future__ import annotations
@@ -76,7 +87,7 @@ import time
 
 import torch
 
-from . import health, introspect, observe, watchdog
+from . import distributed, health, introspect, observe, watchdog
 
 MANIFEST_VERSION = 1
 MANIFEST_SUFFIX = ".manifest.json"
@@ -232,34 +243,21 @@ def param_signature(model) -> dict:
             for k, t in model._raw_params().items()}
 
 
-def _topology(model=None) -> dict:
-    """The live topology (the port's copy of singa_tpu/distributed.py's
-    `topology`): the visible devices of the model's device type (1 on
-    the CPU), and the process count and rank from `torch.distributed`
-    when it is initialized."""
-    td = getattr(model, "_device", None)
-    cuda = torch.device(td).type == "cuda" if td is not None \
-        else torch.cuda.is_available()
-    dist = torch.distributed
-    up = dist.is_available() and dist.is_initialized()
-    return {"n_devices": torch.cuda.device_count() if cuda else 1,
-            "n_processes": dist.get_world_size() if up else 1,
-            "process_index": dist.get_rank() if up else 0}
-
-
 def build_manifest(model, step: int, status: str = "ok",
                    extra: "dict | None" = None) -> dict:
     """Assemble the manifest dict for a checkpoint of `model` at `step`."""
     assert status in RUN_STATUSES, status
     opt = getattr(model, "_optimizer", None)
+    mesh = getattr(getattr(opt, "communicator", None), "mesh", None)
+    axes = {str(k): int(v) for k, v in mesh.shape.items()} \
+        if mesh is not None else None
     man = {
         "kind": "singa_ckpt_manifest",
         "version": MANIFEST_VERSION,
         "step": int(step),
         "ts": round(time.time(), 6),
         "status": status,
-        # mesh axes come with DistOpt (ROADMAP.md Queue 1 item 4)
-        "mesh": {"axes": None, **_topology(model)},
+        "mesh": {"axes": axes, **distributed.topology()},
         "params": param_signature(model),
         "n_opt_slots": len(opt.state_arrays()) if opt is not None else 0,
         "hlo_fingerprints": [
@@ -542,12 +540,16 @@ class TrainController:
     # -- checkpointing ------------------------------------------------------
     def _flush_pending_manifest(self):
         """Write the previous save's manifest; called only once a barrier
-        proved its bytes durable (`_settle_pending`, the final `_save`)."""
+        proved its bytes durable (`_settle_pending`, the final `_save`).
+        In a data-parallel job every rank waits here for the others, and
+        rank 0 writes it."""
         if self._pending_manifest is None:
             return
         path, man = self._pending_manifest
         self._pending_manifest = None
-        write_manifest(path, man)
+        distributed.barrier()
+        if distributed.process_index() == 0:
+            write_manifest(path, man)
 
     def _save(self, status: str = "ok", final: bool = False):
         if self._step <= self._last_saved_step and not final:
@@ -606,7 +608,8 @@ class TrainController:
                     f"final checkpoint write to {bad} failed (deferred "
                     f"error was drained by another barrier)")
             self._flush_pending_manifest()
-        keep_last_k(self.ckpt_dir, self.keep)
+        if distributed.process_index() == 0:
+            keep_last_k(self.ckpt_dir, self.keep)
 
     def _maybe_save(self):
         due = (self.save_every_steps > 0
@@ -696,7 +699,7 @@ class TrainController:
             self._last_ckpt_path = path
             m["resumed_step"].set(float(self._step))
             saved = (man.get("mesh") or {}).get("n_devices")
-            live = _topology(self.model)["n_devices"]
+            live = distributed.topology()["n_devices"]
             self._emit("resume", path=path, resumed_step=self._step,
                        skipped=skipped, saved_devices=saved,
                        live_devices=live,
@@ -704,7 +707,11 @@ class TrainController:
             self._log(f"resumed from {path} at step {self._step}")
             # checkpoints newer than the resume point belong to a dead
             # timeline: unmanifested debris is deleted, manifested ones
-            # (skipped, perhaps transiently) are set aside, never destroyed
+            # (skipped, perhaps transiently) are set aside, never
+            # destroyed; by rank 0, once every rank has restored
+            distributed.barrier()
+            if distributed.process_index() != 0:
+                return
             for s2, p2, m2 in cands:
                 if s2 <= self._step:
                     continue
@@ -773,10 +780,11 @@ class TrainController:
     def _fit_once(self, data, epochs):
         _end = object()
         self._cursor = 0
+        multi = distributed.process_count() > 1
         for _epoch in range(epochs):
             it = iter(data)
             while True:
-                if self._preempt is not None:
+                if self._preempt_agreed(multi):
                     return self._preempt_exit()
                 if self._cursor < self._step:
                     # replay: consumed before the resumed checkpoint
@@ -796,7 +804,8 @@ class TrainController:
                 # call (the model's own guard nests, counting once here)
                 with watchdog.guard("step", step=self._step):
                     fault_point("step", step=self._step)
-                    preempted = self._preempt is not None
+                    # a data-parallel job stops only where the ranks agreed
+                    preempted = self._preempt is not None and not multi
                     out = None if preempted else self.model(*batch)
                 if preempted:
                     return self._preempt_exit()
@@ -807,6 +816,20 @@ class TrainController:
         self._save(final=True)
         self._status = "completed"
         return self._report()
+
+    def _preempt_agreed(self, multi: bool) -> bool:
+        """Whether to stop before the next step: this process's signal,
+        or in a job of several ranks any rank's (a MAX all-reduce at
+        every step boundary), so all of them stop after the same step."""
+        if not multi:
+            return self._preempt is not None
+        import torch.distributed as dist
+        flag = torch.tensor([0 if self._preempt is None else 1],
+                            device=distributed.rank_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item() and self._preempt is None:
+            self._preempt = _signal.SIGTERM
+        return bool(flag.item())
 
     def _preempt_exit(self):
         signum = self._preempt
@@ -975,8 +998,9 @@ def resilience_report() -> str:
 # `--worker` trains a small deterministic MLP under a TrainController (the
 # subprocess leg); `--ab` runs three legs (an uninterrupted baseline, a
 # SIGTERM'd run, and its resume) and writes a JSON record comparing the
-# loss curves. One device per leg: meshes come with DistOpt (ROADMAP.md
-# Queue 1 item 4).
+# loss curves. A leg of N > 1 devices is N worker processes (ranks) that
+# join one process group (SINGA_COORDINATOR, SINGA_NPROCS, SINGA_PROC_ID)
+# and train under DistOpt over a data mesh of N.
 
 def _worker_build(n_devices: int, batch: int, seed: int, device: str):
     import numpy as np
@@ -984,10 +1008,7 @@ def _worker_build(n_devices: int, batch: int, seed: int, device: str):
     from . import device as device_mod
     from . import layer, opt, tensor
     from . import model as model_mod
-    if n_devices != 1:
-        raise NotImplementedError(
-            "--mesh-devices > 1 comes with DistOpt (ROADMAP.md Queue 1 "
-            "item 4)")
+    from .parallel import data_parallel_mesh
 
     class Net(model_mod.Model):
         def __init__(self):
@@ -1011,7 +1032,10 @@ def _worker_build(n_devices: int, batch: int, seed: int, device: str):
     X = rng.randn(batch, 8).astype(np.float32)
     Y = rng.randint(0, 4, batch).astype(np.int32)
     m = Net()
-    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    sgd = opt.SGD(lr=0.1, momentum=0.9)
+    if n_devices > 1:
+        sgd = opt.DistOpt(sgd, mesh=data_parallel_mesh(n_devices))
+    m.set_optimizer(sgd)
     tx = tensor.from_numpy(X, dev)
     ty = tensor.from_numpy(Y, dev)
     m.compile([tx], is_train=True, use_graph=True)
@@ -1034,6 +1058,8 @@ class _SleepySrc:
 
 
 def _worker_main(args) -> int:
+    if args.mesh_devices > 1:
+        distributed.init(device=args.device)
     m, tx, ty = _worker_build(args.mesh_devices, args.batch, args.seed,
                               args.device)
     ctrl = TrainController(
@@ -1046,16 +1072,20 @@ def _worker_main(args) -> int:
         report = getattr(e, "resilience", {"status": "halted"})
     from . import overlap
     overlap.wait_for_checkpoints()
-    if args.report_out:
+    if args.report_out and distributed.process_index() == 0:
         with open(args.report_out, "w", encoding="utf-8") as f:
             json.dump(report, f)
     print(json.dumps(report))
+    distributed.shutdown()
     # preemption is a clean exit: the scheduler asked, we checkpointed
     return 0 if report["status"] in ("completed", "preempted") else 1
 
 
 def _spawn_worker(py, root, ckpt_dir, n_devices, steps, save_every,
                   report_out, step_sleep, seed, batch, device):
+    """The leg's worker processes: one, or one per rank of a process
+    group over a free localhost port."""
+    import socket
     import subprocess
     import sys
     cmd = [py, "-m", "singa_tpu_torch.resilience", "--worker",
@@ -1063,8 +1093,19 @@ def _spawn_worker(py, root, ckpt_dir, n_devices, steps, save_every,
            "--steps", str(steps), "--save-every", str(save_every),
            "--report-out", report_out, "--step-sleep", str(step_sleep),
            "--seed", str(seed), "--batch", str(batch), "--device", device]
-    return subprocess.Popen(cmd, cwd=root, stdout=sys.stderr,
-                            stderr=sys.stderr)
+    env = dict(os.environ)
+    if n_devices > 1:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        env.update(SINGA_COORDINATOR=f"127.0.0.1:{port}",
+                   SINGA_NPROCS=str(n_devices))
+    procs = []
+    for rank in range(n_devices):
+        env["SINGA_PROC_ID"] = str(rank)
+        procs.append(subprocess.Popen(cmd, cwd=root, env=dict(env),
+                                      stdout=sys.stderr, stderr=sys.stderr))
+    return procs
 
 
 def _ab_main(args) -> int:
@@ -1081,27 +1122,36 @@ def _ab_main(args) -> int:
     def leg(name, ckpt_dir, n_devices, step_sleep=0.0, kill_after=None):
         import subprocess
         rep_path = os.path.join(work, f"{name}.json")
-        proc = _spawn_worker(py, root, ckpt_dir, n_devices, args.steps,
-                             args.save_every, rep_path, step_sleep,
-                             args.seed, args.batch, args.device)
+        procs = _spawn_worker(py, root, ckpt_dir, n_devices, args.steps,
+                              args.save_every, rep_path, step_sleep,
+                              args.seed, args.batch, args.device)
         if kill_after is not None:
-            # wait for the first complete checkpoint, then preempt
+            # wait for the first complete checkpoint, then preempt every
+            # rank
             deadline = time.monotonic() + args.timeout
             while time.monotonic() < deadline:
                 if latest_checkpoint(ckpt_dir) is not None:
                     break
-                if proc.poll() is not None:
+                if any(p.poll() is not None for p in procs):
                     break
                 time.sleep(0.05)
-            if proc.poll() is None:
-                time.sleep(kill_after)
-                proc.send_signal(_signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=args.timeout)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = None
+            time.sleep(kill_after)
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(_signal.SIGTERM)
+        deadline = time.monotonic() + args.timeout
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=max(0.0,
+                                              deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        rc = None if None in rcs else max(rcs, key=abs)
         report = {}
         try:
             with open(rep_path, encoding="utf-8") as f:
@@ -1155,8 +1205,8 @@ def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(
         prog="python -m singa_tpu_torch.resilience",
-        description="kill-and-resume harness (worker + A/B orchestrator), "
-                    "one device per leg")
+        description="kill-and-resume harness (worker + A/B orchestrator); "
+                    "a leg of N > 1 devices runs N ranks under DistOpt")
     p.add_argument("--worker", action="store_true",
                    help="run one training leg under a TrainController")
     p.add_argument("--ab", action="store_true",
@@ -1178,14 +1228,18 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=600.0)
     p.add_argument("--out", default="RESILIENCE_torch.json")
     args = p.parse_args(argv)
+    most = max(args.devices_a, args.devices_b, args.mesh_devices)
+    if min(args.devices_a, args.devices_b, args.mesh_devices) < 1:
+        p.error("a leg needs at least one device")
+    if args.device == "cuda" and most > 1 \
+            and most > torch.cuda.device_count():
+        p.error(f"{most} ranks over NCCL need {most} cards; this host has "
+                f"{torch.cuda.device_count()} (one rank a card)")
     if args.worker:
         if not args.ckpt_dir:
             p.error("--worker requires --ckpt-dir")
         return _worker_main(args)
     if args.ab:
-        if args.devices_a != 1 or args.devices_b != 1:
-            p.error("the port's A/B runs one device per leg (meshes come "
-                    "with DistOpt, ROADMAP.md Queue 1 item 4)")
         return _ab_main(args)
     p.error("pass --worker or --ab")
     return 2

@@ -1,7 +1,8 @@
 """Misc helpers (counterpart of singa_tpu/utils.py, numpy only): the
 progress bar, the SAME-padding arithmetic the ONNX backend uses, the odd
-padding helpers and the tape's postorder walk. `dense_allreduce_types`,
-which reads XLA's lowered programs, has no counterpart here."""
+padding helpers, the tape's postorder walk, and `dense_allreduce_types`,
+which reads a step's op listing where the JAX package's reads XLA's
+lowered program."""
 
 from __future__ import annotations
 
@@ -148,3 +149,22 @@ def post_order_recursive(root, root_t):
         for src_op, _, x, _ in reversed(op.src):
             stack.append((src_op, x, False))
     return out
+
+
+def dense_allreduce_types(listing: str):
+    """Operand types of every NON-SCALAR all-reduce in a step's op listing
+    (`introspect.capture_hlo`'s `<key>_<sha>.ops.txt`, where a collective
+    is a `c10d.allreduce_` line with its operands' types), the wire-level
+    check behind the sparse strategy: its step may all-reduce scalars
+    only (the loss's mean, the health counts), the dense one every
+    parameter. The JAX package's finds them in HLO text
+    (singa_tpu/utils.py)."""
+    import re
+    dense = []
+    for mt in re.finditer(r"^c10d\.allreduce_\.\w+\((.*)\) -> ", listing,
+                          re.M):
+        for shape in re.findall(r"\w+\[[^\]]*\]", mt.group(1)):
+            if not shape.endswith("[]"):
+                dense.append(shape)
+    return dense
+

@@ -52,10 +52,11 @@ Every breach path is driven deterministically by `resilience.FaultPlan`
 delays at the existing fault points ("serving.engine_step",
 "serving.decode", "data.next", "ckpt.wait", and the controller's "step"
 and "ckpt.save"). The hang bundle's `executables` are the last eight
-builds of `introspect`'s manifest; the fleet rollup line comes with the
-port's `fleet` (ROADMAP.md Queue 1 item 6), and so do the `collective`
-and `fleet_publish` guards (items 4 and 6) and the multi-process hang
-A/B (`main`).
+builds of `introspect`'s manifest. The `collective` guard arms around
+every verb of `parallel.Communicator` (its `_comm_stamp`, with the fault
+point "comm.collective"). The fleet rollup line comes with the port's
+`fleet` (ROADMAP.md Queue 1 item 6), and so do the `fleet_publish`
+guard and the multi-process hang A/B (`main`).
 """
 
 from __future__ import annotations

@@ -33,12 +33,14 @@ PENDING = {
     "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
     "introspect": {"export_executable": 7, "load_executable": 7},
     "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
-    "opt": {"DistOpt": 4, "SGD.state_specs": 5, "Adam.state_specs": 5,
-            "Optimizer.state_specs": 5},
+    "opt": {"SGD.state_specs": 5, "Adam.state_specs": 5,
+            "Optimizer.state_specs": 5, "DistOpt.state_specs": 5},
     "overlap": {"async_available": 7, "overlap_report": 7},
     "slo": {"main": 6},
     "watchdog": {"main": 6},
-    "utils": {"dense_allreduce_types": 4},
+    "parallel.__init__": {n: 5 for n in (
+        "column_parallel", "row_parallel", "shard_columns", "shard_rows",
+        "tp_mlp", "gpipe", "last_stage_value")},
     "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
     "parallel.moe": {"moe_ffn_ep": 5},
     "models.transformer": {"PipelinedGPT": 5, "create_pipelined": 5},
@@ -47,7 +49,8 @@ PENDING = {
 #: (module, class) whose public methods must resolve
 CLASSES = {
     "tensor": ("Tensor",), "layer": ("Layer",), "model": ("Model",),
-    "device": ("Device",), "opt": ("Optimizer", "SGD", "Adam"),
+    "device": ("Device",), "opt": ("Optimizer", "SGD", "Adam", "DistOpt"),
+    "parallel.communicator": ("Communicator",),
     "engine": ("ServingEngine", "EngineRequest"),
     "health": ("HealthMonitor", "StepStatsCollector", "FlightRecorder"),
     "resilience": ("FaultPlan", "TrainController"),
@@ -74,7 +77,10 @@ def _modules():
     return sorted(out)
 
 
-def _public_names(tree):
+def _public_names(tree, package=False):
+    """Public top-level functions, classes and their aliases; in a
+    package's `__init__`, also the public names it re-exports from its
+    own modules (`from .mesh import make_mesh`)."""
     defs = {n.name: n for n in tree.body
             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
                               ast.ClassDef))}
@@ -84,6 +90,10 @@ def _public_names(tree):
                 and node.value.id in defs:
             names += [t.id for t in node.targets if isinstance(t, ast.Name)
                       and not t.id.startswith("_")]
+        elif package and isinstance(node, ast.ImportFrom) \
+                and node.level == 1 and node.module:
+            names += [a.asname or a.name for a in node.names
+                      if not (a.asname or a.name).startswith("_")]
     return names, defs
 
 
@@ -115,7 +125,8 @@ def test_the_sweep_covers_the_ported_modules():
             "serving", "engine", "observe", "config", "channel",
             "image_tool", "ops.attention", "models.transformer", "slo",
             "health", "resilience", "watchdog", "memory", "goodput",
-            "introspect",
+            "introspect", "distributed", "parallel.mesh",
+            "parallel.communicator", "parallel.__init__",
             "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)
@@ -130,7 +141,7 @@ def test_public_names_resolve_on_the_port(name):
     port = importlib.import_module(
         "singa_tpu_torch." + name.removesuffix("__init__").rstrip(".")
         if name != "__init__" else "singa_tpu_torch")
-    names, defs = _public_names(tree)
+    names, defs = _public_names(tree, name.endswith("__init__"))
     pending = PENDING.get(name, {})
     missing, early = [], []
     wanted = [(n, getattr(port, n, None)) for n in names]

@@ -2,7 +2,13 @@
 the ones that ran before the port's API faults were repaired, and must go
 on running. The runner, and the examples left out, are in
 `test_torch_examples.py` (two files, so that xdist's loadfile spreads
-them)."""
+them).
+
+The data-parallel examples run at world size 1: `--dist` builds
+`data_parallel_mesh()`, which without a process group is one rank and
+carries no group, so DistOpt is the identity (as the JAX package's at
+one device). `cnn/dp_worker.py`, `cnn/autograd/sparsification_mnist.py` and
+`multihost/*.py` call `jax` themselves, so they stay out."""
 
 import pytest
 
@@ -21,10 +27,25 @@ CASES = [
     # summarised by PrintTimeProfiling
     ("cnn/train_cnn.py", ["cnn", "digits", "-m", "1", "-v", "1"], 240,
      "time profiling: 18 steps"),
+    ("cnn/train_cnn.py", ["cnn", "digits", "-m", "1", "--dist",
+                          "--dist-option", "sparseTopK"], 240,
+     "epoch 0: eval acc="),
+    ("cifar_distributed_cnn/train.py", ["cnn", "digits", "-m", "1"], 240,
+     "epoch 0: eval acc="),
 ]
 
 
+def _ids(cases):
+    """Each case's example, and its arguments too where that example
+    came before."""
+    seen, out = set(), []
+    for c in cases:
+        out.append(c[0] if c[0] not in seen else f"{c[0]} {' '.join(c[1])}")
+        seen.add(c[0])
+    return out
+
+
 @pytest.mark.parametrize("example,args,timeout,expect", CASES,
-                         ids=[c[0] for c in CASES])
+                         ids=_ids(CASES))
 def test_example_runs_on_the_port(example, args, timeout, expect):
     check_case(example, args, timeout, expect)

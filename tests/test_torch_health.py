@@ -18,8 +18,9 @@ same weights (copied from the JAX model) and the same numpy batches.
   element, observe enabled, against JAX's.
 
 The mesh cases of tests/test_health.py (the policy on every shard, the
-count not inflated across shards, `Communicator.agree_any`) wait for
-distribution, ROADMAP.md Queue 1 item 4.
+count not inflated across shards) run across gloo ranks in
+test_torch_dist_dryrun.py, and `Communicator.agree_any` in
+test_torch_dist.py.
 """
 
 import math
@@ -493,8 +494,20 @@ def test_collector_packs_one_tensor_and_splits_large_counts():
     assert int(stats["nonfinite_grads"]) == (1 << 24) + 8
     assert host["groups"]["other"]["update_norm"] == pytest.approx(
         math.sqrt(3.0))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        health.StepStatsCollector().finalize(comm=object())
+    # a communicator without a process group (world size 1) reduces
+    # nothing: the same packed stats
+    from singa_tpu_torch.parallel import Communicator
+    comm = Communicator()
+    again = health.StepStatsCollector({}, comm=comm)
+    again.observe_loss(torch.tensor(1.5))
+    again.observe(p, g, p, p + 1.0)
+    again._nonfinite.append(torch.tensor((1 << 24) + 5))
+    again.finalize(comm=comm)
+    torch.testing.assert_close(again.packed, col.packed, rtol=0, atol=0,
+                               equal_nan=True)
+    # the collector has one communicator: finalize may not name another
+    with pytest.raises(ValueError, match="another communicator"):
+        again.finalize(comm=Communicator())
 
 
 def test_fit_halt_attaches_partial_progress(data, tmp_path):

@@ -105,7 +105,7 @@ def test_device_copies_are_the_process_device():
 
 def test_config_flags_state_what_the_port_does():
     assert tconfig.USE_CUDA is True
-    assert tconfig.USE_DIST is False
+    assert tconfig.USE_DIST is True    # data parallel: NCCL / gloo
     assert tconfig.USE_OPENCL is False and tconfig.USE_DNNL is False
     assert tconfig.USE_ONNX is True
     assert tconfig.CUDNN_VERSION == (torch.backends.cudnn.version() or 0)

@@ -1,7 +1,7 @@
 """Port parity, the supervised training loop: singa_tpu_torch.resilience
 against singa_tpu.resilience on the CPU (tests/test_resilience.py's
-cases; resharding onto a smaller mesh waits for DistOpt, ROADMAP.md
-Queue 1 item 4).
+cases; the kill-and-resume onto a smaller mesh, across gloo ranks, is in
+test_torch_dist_dryrun.py).
 
 - Manifests: build, atomic write, read, validation, discovery, retention
   and set-aside, held against the JAX package on the same directories; a

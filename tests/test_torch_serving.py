@@ -220,7 +220,9 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.channel, singa_tpu_torch.image_tool, "
         "singa_tpu_torch.slo, singa_tpu_torch.health, "
         "singa_tpu_torch.resilience, singa_tpu_torch.watchdog, "
-        "singa_tpu_torch.memory, singa_tpu_torch.goodput\n"
+        "singa_tpu_torch.memory, singa_tpu_torch.goodput, "
+        "singa_tpu_torch.distributed, singa_tpu_torch.parallel.mesh, "
+        "singa_tpu_torch.parallel.communicator\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
         "m.startswith('singa_tpu.') or m == 'PIL']\n"

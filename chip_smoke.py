@@ -324,15 +324,30 @@ Phases, each of which exits non-zero on failure:
    under a CUDA graph: a dropout layer's masks over 4 steps equal, bitwise,
    those of the same model stepped eagerly, differ from step to step and
    from the shared stream's. `distributed.shutdown()` ends the phase.
-17. The `kernels` JSON line (the decode kernels with a `modes` entry per
+17. Tensor and vocab parallelism, NCCL at world size 1 on a {data 1,
+   tp 1} mesh (the collectives run through the groups). 17a the bench
+   GPT (b8 x 1024, bf16 amp, graph mode) built with tp_axis="tp" under
+   DistOpt(SGD) on "data": 8 + 8 K1/K2a exactly a replay, the build's op
+   listing holds 4 tp all-reduces a layer beside DistOpt's one a
+   parameter and the loss's mean, the capture issues all 4 a layer (the
+   backward's 2 too) on its capturing stream, losses within 2e-2 of the
+   same weights without TP, the replayed step beside the no-TP step's in
+   turns. 17b
+   the fp32 vocab-parallel GPT (dim 512, 2 layers, S 256, vocab 8000
+   padded to 8064, the head tied) on the mesh against the same model off
+   it (the serial path): losses and gathered parameters within 1e-5;
+   with vocab_tp_return_logits=False the (B, S) int32 argmax equals the
+   serial argmax. 17c `parallel.tp_mlp` through NCCL against the dense
+   MLP in fp32 within 1e-5.
+18. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
    `health_train`, `wd_clean`, `wd_aborted`, `wd_fresh`, `wd_train`,
    `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
-   `fit_resilient`, `hang_restart`, `preempt_resume` and `dp_train`),
-   then the card line, then the result line.
+   `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train` and
+   `tp_train`), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -5607,6 +5622,198 @@ def phase_dp_streams(torch, model_mod, layer, opt, tensor, device, mesh):
     torch.cuda.empty_cache()
 
 
+# ---- phase 17: tensor and vocab parallelism (NCCL at world size 1) --------
+TP_TOL = 2e-2                # 17a: bf16 amp losses, TP against no TP
+TP_MESH = {"data": 1, "tp": 1}
+#: 17b's fp32 vocab-parallel GPT (phase 8's fp32 GPT, the vocab padded)
+TP_VOCAB = dict(vocab_size=8000, max_seq=256, dim=512, num_heads=8,
+                num_layers=2, tp_axis="tp", vocab_tp=True,
+                vocab_pad_multiple=128)
+
+
+def phase_tp_train(torch, models, opt, introspect, utils, mesh, A, root):
+    """17a: the bench GPT (b8 x 1024, bf16 amp, graph mode) built with
+    tp_axis="tp" under DistOpt(SGD) on "data" over a {data 1, tp 1} mesh
+    of NCCL groups, against the same weights in the GPT with no TP and no
+    DistOpt: turns of DP_STEPS replays (none, TP, none, TP); 8 + 8 K1/K2a
+    exactly a TP replay; the build's op listing holds 4 dense tp
+    all-reduces a layer (the forward's two `g`s, the backward's two
+    `f`s) beside DistOpt's one a parameter and the loss's mean; every tp
+    collective of the capture, the backward's included, is issued on the
+    capturing stream (`parallel.tp._psum` wrapped over the build); losses
+    within TP_TOL of the model without TP. Returns the TP replays'
+    launch counts."""
+    print("== phase 17a: the bench GPT with tp_axis under DistOpt "
+          "(NCCL, {data 1, tp 1})")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+
+    def build(tp):
+        m = models.create_model(
+            "gpt", device="cuda", seed=SEED,
+            **dict(BENCH_GPT, tp_axis="tp" if tp else None))
+        sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)
+        m.set_optimizer(opt.DistOpt(sgd, axis="data", mesh=mesh) if tp
+                        else sgd)
+        m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+        return m
+
+    base, tpm = build(False), build(True)
+    d = os.path.join(root, "tp_bench")
+    losses = {"none": _steps(torch, base, tx, ty, 2)[0]}
+    # every tp collective of the build (its warm-up and its capture), as
+    # issued: capturing or not, on which stream, and from a backward node
+    from singa_tpu_torch.parallel import tp as tp_mod
+    psum, issued = tp_mod._psum, []
+
+    def recorded(x, ax, op=None):
+        issued.append((torch.cuda.is_current_stream_capturing(),
+                       torch.cuda.current_stream().cuda_stream,
+                       torch._C._current_autograd_node() is not None))
+        return psum(x, ax, op)
+
+    introspect.capture_hlo(d)
+    tp_mod._psum = recorded
+    try:
+        losses["tp"] = _steps(torch, tpm, tx, ty, 2)[0]
+    finally:
+        tp_mod._psum = psum
+        introspect.capture_hlo(None)
+    if tpm.graph_backend != "cuda_graph" or not tpm._placements:
+        fail(f"17a: the TP step ran {tpm.graph_backend!r}, sharded "
+             f"{len(tpm._placements)} parameters")
+    ms = {"none": [], "tp": []}
+    counts = {}
+    for turn in ("none", "tp", "none", "tp"):
+        m = base if turn == "none" else tpm
+        torch.cuda.synchronize()
+        A.reset_launches()
+        got, t = _steps(torch, m, tx, ty, DP_STEPS)
+        if turn == "tp":
+            for k, v in A.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v
+        losses[turn] += got
+        ms[turn] += t
+    check_launches("17a TP replays", counts,
+                   {"flash_fwd": 2 * L * DP_STEPS,
+                    "flash_bwd_fused": 2 * L * DP_STEPS})
+    text = "".join(_dp_listing(d).values())
+    dense = utils.dense_allreduce_types(text)
+    n_params = len(tpm._raw_params())
+    scalars = sum(ln.startswith("c10d.allreduce_")
+                  for ln in text.splitlines()) - len(dense)
+    print(f"  build listing: {len(dense)} dense all-reduces (want "
+          f"{4 * L} tp + {n_params} DistOpt), {scalars} scalar (want 1); "
+          f"{len(tpm._placements)} sharded parameters")
+    if len(dense) != 4 * L + n_params or scalars != 1:
+        fail("17a: the TP step's build holds other collectives")
+    # the capture's collectives: one stream, the capture's, for the
+    # forward's gs and the backward's fs alike
+    held = [r for r in issued if r[0]]
+    streams = {r[1] for r in held}
+    bwd = sum(r[2] for r in held)
+    print(f"  tp collectives issued: {len(issued)} (want {8 * L}, warm-up "
+          f"and capture); in the capture {len(held)} (want {4 * L}), "
+          f"{bwd} from the backward (want {2 * L}), on {len(streams)} "
+          "capturing stream(s) (want 1)")
+    if len(issued) != 8 * L or len(held) != 4 * L or bwd != 2 * L \
+            or len(streams) != 1:
+        fail("17a: a tp collective of the captured step left the capture "
+             "stream")
+    rel = max(abs(a - b) / abs(a)
+              for a, b in zip(losses["none"], losses["tp"]))
+    print(f"  TP against no TP, {len(losses['tp'])} steps: largest "
+          f"relative loss difference {rel:.3e} (tol {TP_TOL})")
+    print("  replayed step median ms in turns (none, tp, none, tp): none "
+          f"{statistics.median(ms['none']):.2f}, tp "
+          f"{statistics.median(ms['tp']):.2f}")
+    if not rel <= TP_TOL:
+        fail("17a: the TP GPT's losses part from the model without TP")
+    del base, tpm
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tp_vocab(torch, models, opt, mesh):
+    """17b: the fp32 vocab-parallel GPT (TP_VOCAB, b2 x 256, graph mode)
+    on the {data 1, tp 1} mesh under DistOpt(SGD) against the same model
+    off the mesh (SGD: the serial path, the table whole and the head tied),
+    EXACT_STEPS steps: losses and the gathered parameters within
+    GRAPH_TOL; the mesh model with vocab_tp_return_logits=False returns
+    (B, S) int32 argmax predictions equal to the serial model's argmax at
+    the first step."""
+    print("== phase 17b: the fp32 vocab-parallel GPT on the mesh against "
+          "the serial path")
+    fx, fy = (t.cuda() for t in _train_batch(torch, TP_VOCAB["vocab_size"],
+                                             2, 256, SEED + 4))
+
+    def build(on_mesh, logits=True):
+        m = models.create_model("gpt", device="cuda", seed=SEED + 5,
+                                vocab_tp_return_logits=logits, **TP_VOCAB)
+        sgd = opt.SGD(lr=0.1, momentum=0.9)
+        m.set_optimizer(opt.DistOpt(sgd, axis="data", mesh=mesh)
+                        if on_mesh else sgd)
+        m.compile([fx], is_train=True, use_graph=True)
+        return m
+
+    runs = {}
+    for on_mesh in (False, True):
+        m = build(on_mesh)
+        outs = [m(fx, fy) for _ in range(EXACT_STEPS)]
+        runs[on_mesh] = (m, [loss.item() for _, loss in outs],
+                         outs[0][0].argmax(-1))
+    (m0, l0, a0), (m1, l1, _) = runs[False], runs[True]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    p0, p1 = m0.get_params(), m1.get_params()
+    perr = max(float((p0[k].data - p1[k].data).detach().abs().max())
+               for k in p0)
+    table = tuple(p1["tok_embed.W"].shape)
+    m = TP_VOCAB["vocab_pad_multiple"]
+    padded = -(-TP_VOCAB["vocab_size"] // m) * m
+    print(f"  {EXACT_STEPS} graph steps, mesh against serial: relative "
+          f"loss difference {rel:.3e}, gathered parameters {perr:.3e} "
+          f"(tol {GRAPH_TOL}); table {table}, sharded "
+          f"{len(m1._placements)} parameters, head {m1.head}")
+    if not (rel <= GRAPH_TOL and perr <= GRAPH_TOL) or m1.head is not None \
+            or table != (padded, TP_VOCAB["dim"]) or not m1._placements:
+        fail("17b: the vocab-parallel GPT on the mesh parts from the "
+             "serial path")
+    del runs, m0, m1, p0, p1
+    mp = build(True, logits=False)
+    preds = mp(fx, fy)[0]
+    same = preds.dtype == torch.int32 and tuple(preds.shape) == (2, 256) \
+        and torch.equal(preds, a0.to(torch.int32))
+    print(f"  argmax predictions {tuple(preds.shape)} {preds.dtype}: equal "
+          f"to the serial logits' argmax {same}")
+    if not same:
+        fail("17b: the vocab-parallel argmax differs from the serial one")
+    del mp
+    torch.cuda.empty_cache()
+
+
+def phase_tp_mlp(torch, parallel):
+    """17c: parallel.tp_mlp through NCCL on a {tp 1} mesh (x (1024,
+    2048), H 8192, fp32) against the dense MLP: within GRAPH_TOL of
+    max|ref|."""
+    print("== phase 17c: tp_mlp over NCCL against the dense MLP")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 80)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    x, W1, b1 = r(1024, 2048), r(2048, 8192, scale=0.02), r(8192)
+    W2, b2 = r(8192, 2048, scale=0.02), r(2048)
+    with parallel.make_mesh({"tp": 1}).bind():
+        y = parallel.tp_mlp(x, W1, b1, W2, b2, "tp")
+    ref = torch.nn.functional.gelu(x @ W1 + b1, approximate="tanh") @ W2 + b2
+    err = float((y - ref).abs().max() / ref.abs().max())
+    print(f"  (1024, 2048) x H 8192: max |tp - dense| / max |dense| "
+          f"{err:.3e} (tol {GRAPH_TOL}); bitwise {torch.equal(y, ref)}")
+    if not err <= GRAPH_TOL:
+        fail("17c: tp_mlp parts from the dense MLP")
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -5973,7 +6180,16 @@ def main():
     clock.lap("phase 16e")
     phase_dp_streams(torch, model_mod, layer, opt, tensor, device, mesh)
     clock.lap("phase 16f")
-    del mesh
+    tp_mesh = parallel.make_mesh(TP_MESH)
+    with tempfile.TemporaryDirectory() as root:
+        by_path["tp_train"] = phase_tp_train(torch, models, opt, introspect,
+                                             utils, tp_mesh, A, root)
+    clock.lap("phase 17a")
+    phase_tp_vocab(torch, models, opt, tp_mesh)
+    clock.lap("phase 17b")
+    phase_tp_mlp(torch, parallel)
+    clock.lap("phase 17c")
+    del mesh, tp_mesh
     distributed.shutdown()
 
     # the JSON line reports each kernel at its main path's shape and

@@ -1037,6 +1037,197 @@ class Gelu(Operator):
         return _gelu(x)
 
 
+# ---- tensor and vocab parallelism (JAX autograd.py:1046-1226) --------------
+# Each operator finds its bound axis at the forward (`parallel.mesh`: the
+# graph-mode step binds its DistOpt's mesh, `Mesh.bind()` binds one
+# explicitly) and runs its collectives over that axis's process group,
+# as torch.autograd.Functions whose backwards are the JAX package's hand
+# rules.
+
+
+def axis_bound(name: str) -> bool:
+    """True iff a mesh with axis `name` is bound (`Mesh.bind()`; the JAX
+    package's: inside a shard_map over it)."""
+    from .parallel.mesh import bound_mesh
+    return bound_mesh(name) is not None
+
+
+class _TPCopy(Operator):
+    """Megatron's `f`: identity forward, all-reduce backward over the TP
+    axis, on the replicated input of a column-parallel matmul."""
+
+    def __init__(self, axis):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        from .parallel.tp import megatron_f
+        return megatron_f(x, self.axis)
+
+
+class _TPReduce(Operator):
+    """Megatron's `g`: all-reduce forward over the TP axis, identity
+    backward, on the partial output of a row-parallel matmul."""
+
+    def __init__(self, axis):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        from .parallel.tp import megatron_g
+        return megatron_g(x, self.axis)
+
+
+def tp_copy(x, axis):
+    return _TPCopy(axis)(x)
+
+
+def tp_reduce(x, axis):
+    return _TPReduce(axis)(x)
+
+
+class _VPEmbedding(torch.autograd.Function):
+    """The masked gather of this rank's rows and the all-reduce that
+    assembles the activations; backward: the hand rule, a local
+    scatter-add of the masked rows into this rank's table shard (the
+    cotangent is replicated already, so no second reduction)."""
+
+    @staticmethod
+    def forward(ctx, ids, table, ax):
+        from .parallel.tp import _psum
+        vp = table.shape[0]
+        local = ids.long() - ax.index * vp
+        ok = (local >= 0) & (local < vp)
+        safe = local.clamp(0, vp - 1)
+        out = table[safe]
+        out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                          device=out.device))
+        ctx.save_for_backward(safe, ok)
+        ctx.table_shape, ctx.table_dtype = tuple(table.shape), table.dtype
+        return _psum(out, ax)
+
+    @staticmethod
+    def backward(ctx, dy):
+        safe, ok = ctx.saved_tensors
+        dyv = torch.where(ok[..., None], dy,
+                          torch.zeros((), dtype=dy.dtype, device=dy.device))
+        dtable = torch.zeros(ctx.table_shape, dtype=dy.dtype,
+                             device=dy.device).index_add_(
+            0, safe.reshape(-1), dyv.reshape(-1, dy.shape[-1]))
+        return None, dtable.to(ctx.table_dtype), None
+
+
+class _VocabParallelEmbedding(Operator):
+    """Megatron vocab-parallel embedding: the (V, E) table is row-sharded
+    over the TP axis (spec (tp_axis, None)); each rank gathers only the
+    ids that land in its rows and one all-reduce assembles the
+    activations. Embedding gradients never cross the axis."""
+
+    def __init__(self, axis):
+        super().__init__("VocabParallelEmbedding")
+        self.axis = axis
+
+    def forward(self, ids, table):
+        from .parallel.tp import _axis
+        return _VPEmbedding.apply(ids, table, _axis(self.axis))
+
+
+class _VocabParallelSCE(Operator):
+    """Fused softmax cross-entropy over vocab-sharded logits: x is this
+    rank's (N, V/tp) slice, t the global target ids; one all-reduce of a
+    value a row each for the max, the sum of exponentials and the
+    target's logit, so the full (N, V) logits never exist on any rank.
+    Columns at global index >= valid_vocab (padding) are masked out. The
+    math is `parallel.tp.vp_ce_forward`/`vp_ce_backward`, fp32 residuals
+    and gradient in x's dtype."""
+
+    def __init__(self, axis, valid_vocab=None):
+        super().__init__("VocabParallelSCE")
+        self.axis = axis
+        self.valid_vocab = valid_vocab
+
+    def forward(self, x, t):
+        from .parallel.tp import vocab_parallel_ce
+        if x.dim() != 2:
+            raise ValueError("flatten logits to (N, V/tp) first")
+        return vocab_parallel_ce(x, t, self.axis, self.valid_vocab)
+
+
+class _GatherLast(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        from .parallel.tp import _gather_dim
+        ctx.ax, ctx.local = ax, x.shape[-1]
+        return _gather_dim(x, ax, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the cotangent is replicated: each rank keeps its own slice
+        return dy.narrow(dy.dim() - 1, ctx.ax.index * ctx.local,
+                         ctx.local), None
+
+
+class _GatherLastDim(Operator):
+    """All-gather of the shards over `axis` onto the last dim (tiled): the
+    full logits from a vocab-parallel head, for the caller. Backward: the
+    rank's slice of the replicated cotangent."""
+
+    def __init__(self, axis):
+        super().__init__("GatherLastDim")
+        self.axis = axis
+
+    def forward(self, x):
+        from .parallel.tp import _axis
+        return _GatherLast.apply(x, _axis(self.axis))
+
+
+class _VocabParallelArgmax(Operator):
+    """Global argmax over vocab-sharded logits: each rank reduces its
+    (..., V/tp) slice, a (tp, ...) all-gather of the per-shard winners
+    picks the global one (int32). Ties go to the lowest global index, as
+    in the JAX package: argmax keeps the first maximum in a slice and
+    across the slices."""
+
+    never_requires_grad = True
+
+    def __init__(self, axis, valid_vocab=None):
+        super().__init__("VocabParallelArgmax")
+        self.axis = axis
+        self.valid_vocab = valid_vocab
+
+    def forward(self, x):
+        from .parallel.tp import _axis, _stack
+        ax = _axis(self.axis)
+        vp = x.shape[-1]
+        off = ax.index * vp
+        if self.valid_vocab is not None:
+            gcol = off + torch.arange(vp, device=x.device)
+            x = torch.where(gcol < self.valid_vocab, x,
+                            torch.full_like(x, -float("inf")))
+        v = torch.max(x, dim=-1).values
+        a = torch.argmax(x, dim=-1).to(torch.int32) + off
+        vs, gs = _stack(v, ax), _stack(a, ax)         # (tp, ...)
+        w = torch.argmax(vs, dim=0)
+        return torch.gather(gs, 0, w[None].long())[0]
+
+
+def vocab_parallel_embedding(ids, table, axis):
+    return _VocabParallelEmbedding(axis)(ids, table)
+
+
+def vocab_parallel_argmax(x, axis, valid_vocab=None):
+    return _VocabParallelArgmax(axis, valid_vocab)(x)
+
+
+def vocab_parallel_sce(x, t, axis, valid_vocab=None):
+    return _VocabParallelSCE(axis, valid_vocab)(x, t)
+
+
+def gather_last(x, axis):
+    return _GatherLastDim(axis)(x)
+
+
 class _FlashAttention(Operator):
     """Fused attention (B, H, S, D): forward K1, backward K2a or K2b + K2c
     (ops.attention.FlashAttention); the plain versions on CPU tensors or
@@ -1313,10 +1504,12 @@ def gelu(x):
 def attention(q, k, v, causal=False, seq_axis=None, use_kernel=None):
     """Fused attention (B, H, S, D) through the flash kernels: K1 forward,
     its backward K2a or K2b + K2c. `seq_axis` (ring attention over a
-    mesh axis) comes with model-parallel distribution."""
+    mesh axis) comes with sequence parallelism (ROADMAP.md Queue 1 item
+    5b)."""
     if seq_axis is not None:
         raise NotImplementedError(
-            "ring attention (seq_axis) comes with model-parallel distribution")
+            "ring attention (seq_axis) comes with model-parallel "
+            "distribution: sequence parallelism, ROADMAP.md Queue 1 item 5b")
     return _FlashAttention(causal, use_kernel)(q, k, v)
 
 
@@ -1538,13 +1731,14 @@ class ScatterElements(Operator):
 class Rope(Operator):
     """Rotary position embedding on (B, H, S, D) q or k (NeoX halves),
     positions 0..S-1. `seq_axis` (positions offset under sequence
-    parallelism) comes with model-parallel distribution."""
+    parallelism) comes with ROADMAP.md Queue 1 item 5b."""
 
     def __init__(self, theta=10000.0, seq_axis=None):
         super().__init__("Rope")
         if seq_axis is not None:
             raise NotImplementedError(
-                "Rope's seq_axis comes with model-parallel distribution")
+                "Rope's seq_axis comes with model-parallel distribution: "
+                "sequence parallelism, ROADMAP.md Queue 1 item 5b")
         self.theta = float(theta)
         self.seq_axis = seq_axis
 

@@ -104,7 +104,13 @@ class ImageBatchIter:
                 self.queue.get_nowait()
             self.p.join(timeout=1.0)
             if self.p.is_alive():
+                # joined, so start() never runs a second worker beside a
+                # dying one (the JAX package returns after terminate())
                 self.p.terminate()
+                self.p.join(timeout=5.0)
+                if self.p.is_alive():
+                    self.p.kill()
+                    self.p.join()
 
     def run(self):
         samples = []

@@ -88,9 +88,14 @@ def init(coordinator_address: str | None = None,
 
 
 def shutdown():
-    """Leave the process group (a no-op when none is initialized)."""
+    """Leave the process group (a no-op when none is initialized), after
+    a barrier: a gloo rank whose peers tore their connections down while
+    it still worked (rank 0 writing a report) can abort on "Connection
+    closed by peer" at its own teardown."""
     global _initialized
     if dist.is_initialized():
+        if dist.get_world_size() > 1:
+            dist.barrier()
         dist.destroy_process_group()
     _initialized = False
 

@@ -219,16 +219,31 @@ class Linear(Layer):
     (he_uniform); `Linear(in, out, generator=g)`, the GPT's style, at
     construction. `out_dtype="float32"` returns the product accumulated
     in fp32 whatever the input dtype (the GPT head under the bf16
-    policy)."""
+    policy).
+
+    Tensor parallelism: `tp_axis` names the mesh axis W is split over.
+    `tp_mode="column"` splits the output features (W and b carry the spec
+    (None, tp_axis) and (tp_axis,); the input goes through Megatron's
+    `f`); `tp_mode="row"` splits the input features (W (tp_axis, None);
+    one all-reduce of the output, Megatron's `g`, then the whole bias).
+    The spec rides on the parameter as `.spec`; a model trained on a
+    mesh with that axis holds this rank's shard (`Model`). While the
+    axis is not bound (`autograd.axis_bound`) the layer runs the dense
+    math on the full weight."""
 
     def __init__(self, out_features, *args, bias=True, name=None,
-                 out_dtype=None, generator=None, **kwargs):
+                 tp_axis=None, tp_mode="column", out_dtype=None,
+                 generator=None, **kwargs):
         super().__init__(name)
         self.in_features = None
         if args and isinstance(args[0], int):
             self.in_features, out_features = out_features, args[0]
         self.out_features = out_features
         self.bias = bias
+        if tp_mode not in ("column", "row"):
+            raise ValueError(f"tp_mode {tp_mode!r}: 'column' or 'row'")
+        self.tp_axis = tp_axis
+        self.tp_mode = tp_mode
         self.out_dtype = out_dtype
         if generator is not None:
             if self.in_features is None:
@@ -238,7 +253,16 @@ class Linear(Layer):
                                              generator))
             self.b = nn.Parameter(torch.zeros(out_features)) \
                 if bias else None
+            self._set_specs()
             self._initialized = True
+
+    def _set_specs(self):
+        if self.tp_axis is None:
+            return
+        column = self.tp_mode == "column"
+        self.W.spec = (None, self.tp_axis) if column else (self.tp_axis, None)
+        if self.bias and column:
+            self.b.spec = (self.tp_axis,)
 
     def initialize(self, x):
         fan_in = x.shape[-1]
@@ -249,11 +273,17 @@ class Linear(Layer):
                         initializer.he_uniform)
         if self.bias:
             self._new_param("b", (self.out_features,), x)
+        self._set_specs()
 
     def forward(self, x):
+        tp = self.tp_axis is not None and autograd.axis_bound(self.tp_axis)
+        if tp and self.tp_mode == "column":
+            x = autograd.tp_copy(x, self.tp_axis)
         b = self.b if self.bias else None
         x, W, b = autograd.compute_cast(x, self.W, b)
         y = autograd.matmul(x, W, out_dtype=self.out_dtype)
+        if tp and self.tp_mode == "row":
+            y = autograd.tp_reduce(y, self.tp_axis)
         return autograd.add_bias(y, b) if b is not None else y
 
 
@@ -289,25 +319,41 @@ class Embedding(Layer):
     """Token id -> row of a (V, E) table; under the bf16 policy the
     looked-up rows are cast, not the table. With a `generator` the table
     is drawn at construction (glorot_uniform, the GPT's style), else at
-    the first call with `initializer_fn` (default glorot_uniform)."""
+    the first call with `initializer_fn` (default glorot_uniform).
+
+    `tp_axis` row-shards the table over that mesh axis (Megatron's
+    vocab-parallel embedding, spec (tp_axis, None)): while the axis is
+    bound each rank gathers only the ids in its rows and one all-reduce
+    assembles the activations. V must divide by the axis size (the GPT's
+    `vocab_tp` pads it)."""
 
     def __init__(self, input_dim, output_dim, initializer_fn=None, name=None,
-                 generator=None):
+                 tp_axis=None, generator=None):
         super().__init__(name)
         self.input_dim = input_dim
         self.output_dim = output_dim
         self.initializer_fn = initializer_fn
+        self.tp_axis = tp_axis
         if generator is not None:
             self.W = nn.Parameter(glorot_uniform(input_dim, output_dim,
                                                  generator))
+            self._set_specs()
             self._initialized = True
+
+    def _set_specs(self):
+        if self.tp_axis is not None:
+            self.W.spec = (self.tp_axis, None)
 
     def initialize(self, x):
         # the ids are integers: the table is fp32
         self._new_param("W", (self.input_dim, self.output_dim), x,
                         self.initializer_fn or initializer.glorot_uniform)
+        self._set_specs()
 
     def forward(self, x):
+        if self.tp_axis is not None and autograd.axis_bound(self.tp_axis):
+            return autograd.compute_cast(autograd.vocab_parallel_embedding(
+                x, self.W, self.tp_axis))
         return autograd.compute_cast(autograd.embedding(x, self.W))
 
 
@@ -759,12 +805,11 @@ FusedRNN = CudnnRNN
 # ---- the transformer stack (JAX layer.py:611-783) ---------------------------
 
 
-def _no_mesh(seq_axis, tp_axis):
-    if seq_axis is not None or tp_axis is not None:
+def _no_seq_axis(seq_axis):
+    if seq_axis is not None:
         raise NotImplementedError(
-            "seq_axis and tp_axis (ring attention, tensor parallelism) "
-            "come with model-parallel distribution (ROADMAP.md Queue 1 "
-            "item 5)")
+            "seq_axis (ring attention) comes with model-parallel "
+            "distribution: sequence parallelism, ROADMAP.md Queue 1 item 5b")
 
 
 class LayerNorm(Layer):
@@ -797,19 +842,26 @@ class MultiHeadAttention(Layer):
     consecutive query heads), `rope` rotates q and k. Wq, Wk, Wv, Wo
     (and with `bias` bq, bk, bv, bo) are glorot-uniform, made at the
     first call from the input's width, or at construction with `dim`
-    (drawn from `generator`)."""
+    (drawn from `generator`).
+
+    `tp_axis` shards the heads Megatron-style: Wq, Wk, Wv (and bq, bk,
+    bv) column-parallel, so each rank computes num_heads / tp query heads
+    and num_kv_heads / tp kv heads with no collective, Wo row-parallel
+    (one all-reduce), bo whole and added after it. Both head counts must
+    divide by tp."""
 
     def __init__(self, num_heads, causal=False, seq_axis=None, tp_axis=None,
                  bias=False, num_kv_heads=None, rope=False,
                  rope_theta=10000.0, name=None, dim=None, generator=None):
         super().__init__(name)
-        _no_mesh(seq_axis, tp_axis)
+        _no_seq_axis(seq_axis)
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         if num_heads % self.num_kv_heads:
             raise ValueError(f"{num_heads} heads, {self.num_kv_heads} kv "
                              "heads do not divide")
         self.causal = causal
+        self.tp_axis = tp_axis
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
         self.use_bias = bias
@@ -824,16 +876,23 @@ class MultiHeadAttention(Layer):
     def _make_params(self, e, make):
         """Wq, bq, Wk, bk, Wv, bv, Wo, bo for width `e`, in that order:
         `make(attr, shape, glorot)` makes one (glorot-uniform, else
-        zeros)."""
+        zeros); then their tensor-parallel specs."""
         if e % self.num_heads:
             raise ValueError(f"width {e} does not divide into "
                              f"{self.num_heads} heads")
         kv_e = self.num_kv_heads * (e // self.num_heads)
+        ax = self.tp_axis
         for attr in ("Wq", "Wk", "Wv", "Wo"):
             out_e = kv_e if attr in ("Wk", "Wv") else e
             make(attr, (e, out_e), True)
+            if ax is not None:
+                getattr(self, attr).spec = (ax, None) if attr == "Wo" \
+                    else (None, ax)
             if self.use_bias:
-                make("b" + attr[1].lower(), (out_e,), False)
+                b = "b" + attr[1].lower()
+                make(b, (out_e,), False)
+                if ax is not None and attr != "Wo":
+                    getattr(self, b).spec = (ax,)
 
     def initialize(self, x):
         self._make_params(x.shape[-1], lambda attr, shape, glorot: (
@@ -842,6 +901,18 @@ class MultiHeadAttention(Layer):
 
     def forward(self, x):
         B, S, E = x.shape
+        heads, kv_heads = self.num_heads, self.num_kv_heads
+        tp = self.tp_axis is not None and autograd.axis_bound(self.tp_axis)
+        if tp:
+            from .parallel.mesh import axis_size
+            n = axis_size(self.tp_axis)
+            if heads % n:
+                raise ValueError(f"{heads} heads not divisible by tp={n}")
+            if kv_heads % n:
+                raise ValueError(f"{kv_heads} kv heads not divisible by "
+                                 f"tp={n}")
+            heads, kv_heads = heads // n, kv_heads // n
+            x = autograd.tp_copy(x, self.tp_axis)
         x, Wq, Wk, Wv, Wo = autograd.compute_cast(
             x, self.Wq, self.Wk, self.Wv, self.Wo)
         bq, bk, bv, bo = (self.bq, self.bk, self.bv, self.bo) \
@@ -854,9 +925,9 @@ class MultiHeadAttention(Layer):
             y = autograd.reshape(y, (B, S, heads, -1))
             return autograd.transpose(y, (0, 2, 1, 3))    # (B, H, S, D)
 
-        q = proj(Wq, bq, self.num_heads)
-        k = proj(Wk, bk, self.num_kv_heads)
-        v = proj(Wv, bv, self.num_kv_heads)
+        q = proj(Wq, bq, heads)
+        k = proj(Wk, bk, kv_heads)
+        v = proj(Wv, bv, kv_heads)
         if self.rope:
             # rotate before the kv-head repeat, as the JAX layer does
             q = autograd.Rope(self.rope_theta)(q)
@@ -871,6 +942,8 @@ class MultiHeadAttention(Layer):
         o = autograd.reshape(autograd.transpose(o, (0, 2, 1, 3)),
                              (B, S, -1))
         y = autograd.matmul(o, Wo)
+        if tp:
+            y = autograd.tp_reduce(y, self.tp_axis)
         if bo is not None:
             y = autograd.add_bias(y, autograd.compute_cast(bo), axis=0)
         return y
@@ -883,7 +956,10 @@ class TransformerBlock(Layer):
     `self.moe` after each forward. fc1/fc2 (or the experts' width) follow
     the first input's width, or `dim` at construction, drawn from
     `generator`. `ep_axis` is accepted and runs on one device, as the
-    JAX layer does outside a mesh."""
+    JAX layer does outside a mesh. `tp_axis` makes the attention
+    head-parallel and the MLP column (fc1) then row (fc2) parallel: two
+    all-reduces a block, the Megatron layout (an MoE block's experts stay
+    whole, as in the JAX layer)."""
 
     def __init__(self, num_heads, mlp_ratio=4, causal=True, seq_axis=None,
                  tp_axis=None, attn_bias=False, moe_experts=0, moe_k=1,
@@ -891,14 +967,15 @@ class TransformerBlock(Layer):
                  rope=False, rope_theta=10000.0, name=None, dim=None,
                  generator=None):
         super().__init__(name)
-        _no_mesh(seq_axis, tp_axis)
+        _no_seq_axis(seq_axis)
         self.ln1 = LayerNorm(dim=dim)
         self.attn = MultiHeadAttention(
-            num_heads, causal=causal, bias=attn_bias,
+            num_heads, causal=causal, tp_axis=tp_axis, bias=attn_bias,
             num_kv_heads=num_kv_heads, rope=rope, rope_theta=rope_theta,
             dim=dim, generator=generator)
         self.ln2 = LayerNorm(dim=dim)
         self.mlp_ratio = mlp_ratio
+        self.tp_axis = tp_axis
         self.moe_experts = moe_experts
         if moe_experts:
             self.moe = MoE(moe_experts, hidden=dim * mlp_ratio if dim
@@ -914,8 +991,10 @@ class TransformerBlock(Layer):
         """fc1 (e -> mlp_ratio * e) and fc2 back, drawn now from
         `generator`, else at their first call."""
         h = e * self.mlp_ratio
-        self.fc1 = Linear(e, h, generator=generator)
-        self.fc2 = Linear(h, e, generator=generator)
+        self.fc1 = Linear(e, h, tp_axis=self.tp_axis, tp_mode="column",
+                          generator=generator)
+        self.fc2 = Linear(h, e, tp_axis=self.tp_axis, tp_mode="row",
+                          generator=generator)
 
     def initialize(self, x):
         e = x.shape[-1]

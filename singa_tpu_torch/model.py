@@ -92,6 +92,19 @@ across the ranks. Checkpoints: every rank calls `save_checkpoint` and
 `load_checkpoint`; rank 0 writes, the others wait for it and raise where
 it raises.
 
+Tensor parallelism (a parameter with a `spec` from a `tp_axis` layer, on
+a DistOpt mesh that has the spec's axis): the step body binds the mesh,
+so the layers run their tp collectives (inside the CUDA graph on the
+card); at the first data-parallel build, after the broadcast, each such
+parameter and its optimizer slots are cut to the rank's block
+(`_shard`), and the model keeps their placements. `get_params`,
+`get_states`, `save_states` and checkpoints gather the global arrays (a
+collective every rank joins); `set_params`, `set_states` and loads cut
+global arrays to the block; eval and the eager step bind the mesh too.
+The batch splits over the DistOpt's axis only. Once sharded, the
+parameters train only under a DistOpt on that mesh: any other optimizer
+raises, where it would run the serial math on the shards.
+
 Builds (`introspect`): a graph-mode step or eval signature registers a
 build at its first call, the warm-up, which runs under introspect's
 counting mode (the trace phase: its flops, bytes and op listing), with
@@ -103,6 +116,7 @@ compile phase. `Device.cost_analysis` is the last step build's cost.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import hashlib
@@ -112,6 +126,7 @@ import os
 import shutil
 import time
 import zipfile
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -122,7 +137,7 @@ from . import (autograd, distributed, goodput, health, introspect, layer,
 from . import device as device_module
 from . import opt as opt_module
 from .ops import attention as _attention
-from .tensor import Tensor, _raw
+from .tensor import Tensor, _param_view, _raw
 
 def _is_tensor(x) -> bool:
     return isinstance(x, Tensor) or torch.is_tensor(x)
@@ -206,6 +221,8 @@ def _buffer_operation(func):
         prev = autograd.compute_dtype
         autograd.compute_dtype = self.amp
         try:
+            if self.training:
+                self._check_sharded_step()
             if not (self.graph_mode and self.training):
                 comm = self._dp_comm() if self.training else None
                 if comm is not None and comm.world_size > 1:
@@ -215,8 +232,9 @@ def _buffer_operation(func):
                         "data-parallel step slices the batch and reduces "
                         "the outputs)")
                 # the eager step: an OOM writes the forensics bundle
-                # under the graph-mode step's key
-                with memory.on_oom("step"):
+                # under the graph-mode step's key; sharded parameters
+                # run with their mesh bound
+                with memory.on_oom("step"), self._tp_bound():
                     if self._health_monitor is not None and self.training:
                         return self._eager_health_step(func, args, kwargs)
                     return func(self, *args, **kwargs)
@@ -280,6 +298,10 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._health_scratch = (health.Scratch(), health.Scratch())
         self._dp_synced = False   # rank 0's states broadcast (DistOpt)
         self._dp_gen = None       # the rank's random stream (DistOpt)
+        # tensor parallelism: the mesh the parameters are sharded over,
+        # and {id(raw parameter): (Placement, global shape)}
+        self._tp_mesh = None
+        self._placements = {}
         nn.Module.train(self, False)
 
     # ---- configuration ----------------------------------------------------
@@ -318,7 +340,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self._release_pool()
 
     def compile(self, inputs, is_train=True, use_graph=False,
-                sequential=False, amp=None, eval_buckets="auto",
+                sequential=False, pipeline_axis=None, n_micro=1,
+                pipeline_schedule="gpipe", amp=None, eval_buckets="auto",
                 health=None):
         """Set the device, the graph flags and the amp dtype ("bfloat16":
         fp32 master weights, bf16 compute at the layers' cast points);
@@ -342,7 +365,19 @@ class Model(layer.Layer, metaclass=ModelMeta):
 
         health: a health.HealthMonitor to attach, True for a default
         (warn) one, False to detach, None to leave it as it is; attaching
-        or detaching drops the training graphs built so far."""
+        or detaching drops the training graphs built so far.
+
+        pipeline_axis, n_micro, pipeline_schedule: the JAX package's
+        pipeline execution, in its positions; a pipeline axis raises
+        until pipeline parallelism is ported (ROADMAP.md Queue 1 item
+        5c)."""
+        if pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pipeline_schedule {pipeline_schedule!r}; "
+                             "the JAX package takes 'gpipe' or '1f1b'")
+        if pipeline_axis is not None:
+            raise NotImplementedError(
+                "compile(pipeline_axis=...) comes with pipeline "
+                "parallelism (ROADMAP.md Queue 1 item 5c)")
         if health is not None:
             from . import health as _health
             if health is False:
@@ -411,7 +446,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
                         "call set_optimizer(...) and compile([inputs], "
                         "is_train=True) before training")
                 return self.train_one_batch(*args, **kwargs)
-            with torch.no_grad():
+            with torch.no_grad(), self._tp_bound():
                 if self.graph_mode and self._device is not None \
                         and args and not kwargs \
                         and all(_is_tensor(a) for a in args):
@@ -449,20 +484,132 @@ class Model(layer.Layer, metaclass=ModelMeta):
         return None
 
     def _dp_sync(self, comm, dev):
-        """Broadcast rank 0's parameters, buffers, optimizer slots (step
-        counter included; not the per-rank sparse residuals) and device
-        random stream to every rank, once per model, at its first
-        data-parallel build: the ranks then start equal, as
-        DistributedDataParallel makes them at its construction."""
+        """Once per model, at its first data-parallel build: a collective
+        on every axis group of the mesh (NCCL makes its communicators
+        there, eagerly, never inside a capture); rank 0's parameters,
+        buffers, optimizer slots (step counter included; not the
+        per-rank sparse residuals) and device random stream broadcast to
+        every rank of the mesh, so the ranks start equal, as
+        DistributedDataParallel makes them at its construction; then the
+        parameters with a tensor-parallel spec on the mesh, and their
+        slots, cut to this rank's shard (`_shard`). A tensor already
+        sharded is broadcast only among the ranks that hold its block."""
         if self._dp_synced:
             return
-        for t in (*self._raw_states().values(),
-                  *self._optimizer.opt.state_arrays()):
-            comm._broadcast_(t)
+        from .parallel.tp import sanitize
+        mesh = comm.mesh
+        if self._tp_mesh is not None and mesh is not self._tp_mesh:
+            raise ValueError("the parameters are sharded over another mesh "
+                             f"({self._tp_mesh!r}); build the model anew")
+        for a in mesh.axis_names:
+            _group_all_reduce(mesh.group(a), comm.device)
+        inner = self._optimizer.opt
+
+        def spec(raw_spec):
+            return sanitize(raw_spec, mesh) if self._tp_mesh else None
+
+        held = [(t, spec(getattr(t, "spec", None)))
+                for t in self._raw_states().values()]
+        held += zip(inner.state_arrays(),
+                    (spec(s) for s in inner.state_specs()))
+        for t, s in held:
+            _broadcast_(t, _group_over(mesh, [a for a in mesh.axis_names
+                                              if a not in (s or ())]))
         rng = dev.rng_state.to(comm.device)
-        comm._broadcast_(rng)
+        _broadcast_(rng, _group_over(mesh, list(mesh.axis_names)))
         dev.rng_state = rng
+        self._shard(mesh, inner)
         self._dp_synced = True
+
+    @torch.no_grad()
+    def _shard(self, mesh, inner):
+        """Cut every parameter whose spec names an axis of `mesh` to this
+        rank's block, in place (the same nn.Parameter, so the optimizer's
+        states stay keyed on it), with its slots in the optimizer
+        `inner`, which gets the placements (its checkpoints stay
+        global)."""
+        from .parallel.tp import Placement, sanitize
+        for p in self._raw_params().values():
+            spec = sanitize(getattr(p, "spec", None), mesh)
+            if spec is None or id(p) in self._placements:
+                continue
+            pl = Placement(mesh, spec)
+            self._placements[id(p)] = (pl, tuple(p.shape))
+            p.data = _block(pl, p.data)
+            slots = inner._states.get(id(p), {})
+            for k, v in slots.items():
+                slots[k] = _block(pl, v)
+        if self._placements:
+            self._tp_mesh = mesh
+            inner._placements = {pid: pl for pid, (pl, _)
+                                 in self._placements.items()}
+
+    def _check_sharded_step(self):
+        """Sharded parameters train only under a DistOpt on the mesh they
+        are sharded over: its step binds that mesh, so the layers run
+        their collectives. Any other optimizer would run the serial math
+        on this rank's shards (JAX's global arrays stay whole there)."""
+        if not self._placements:
+            return
+        comm = self._dp_comm()
+        if comm is None or comm.mesh is not self._tp_mesh:
+            raise ValueError(
+                "the parameters are sharded over "
+                f"{self._tp_mesh!r}: train them with a DistOpt on that "
+                "mesh, or build the model anew")
+
+    def _tp_bound(self):
+        """The mesh the parameters are sharded over, bound (a context
+        manager), or a null context."""
+        return self._tp_mesh.bind() if self._tp_mesh is not None \
+            else contextlib.nullcontext()
+
+    def _global(self, t):
+        """`t`, or for a sharded parameter the global array gathered from
+        every rank's block (a collective)."""
+        entry = self._placements.get(id(t))
+        return t if entry is None else entry[0].gather(t.detach())
+
+    def _global_shape(self, t) -> tuple:
+        entry = self._placements.get(id(t))
+        return tuple(t.shape) if entry is None else entry[1]
+
+    def _to_local(self, p, value):
+        """`value` for parameter `p`: cut to this rank's block when `p` is
+        sharded and `value` has the global shape."""
+        entry = self._placements.get(id(p))
+        if entry is None:
+            return value
+        src = _raw(value).detach() if _is_tensor(value) \
+            else torch.as_tensor(np.array(value))
+        return entry[0].shard(src) if tuple(src.shape) == entry[1] else src
+
+    def get_params(self):
+        """As `Layer.get_params`; a sharded parameter's entry is its
+        global array, gathered (every rank calls it), not a view."""
+        if not self._placements:
+            return super().get_params()
+        return OrderedDict((k, self._global_view(v))
+                           for k, v in self._raw_params().items())
+
+    def get_states(self):
+        if not self._placements:
+            return super().get_states()
+        return OrderedDict((k, self._global_view(v))
+                           for k, v in self._raw_states().items())
+
+    def _global_view(self, t):
+        if id(t) not in self._placements:
+            return _param_view(t)
+        return Tensor._wrap(self._global(t), device_module.of(t.device))
+
+    def _copy_into(self, own, states, strict):
+        """`Layer._copy_into`, with global arrays for sharded parameters
+        cut to this rank's block."""
+        if self._placements:
+            states = {n: self._to_local(own[n], v) if n in own else v
+                      for n, v in states.items()}
+        super()._copy_into(own, states, strict)
 
     def _folds_rank(self, comm) -> bool:
         """Whether the data-parallel step draws from a per-rank stream:
@@ -497,11 +644,13 @@ class Model(layer.Layer, metaclass=ModelMeta):
         return self._dp_gen
 
     def _dp_call(self, call, comm):
-        """`call` as the data-parallel step body: the rank's rows of
-        every batched input (JAX's P(axis) in-spec), then the outputs
-        as JAX's step returns them (0-d averaged over the ranks, batched
-        ones gathered along axis 0) and the buffers (batch norm's running
-        statistics) averaged over the ranks."""
+        """`call` as the data-parallel step body, with the mesh's axes
+        bound (the JAX shard_map body's): the rank's rows of every
+        batched input over the DistOpt's axis only (JAX's P(axis)
+        in-spec), then the outputs as JAX's step returns them (0-d
+        averaged over the ranks, batched ones gathered along axis 0) and
+        the buffers (batch norm's running statistics) averaged over the
+        ranks."""
         n, r = comm.world_size, comm._rank_index()
         param_ids = {id(t) for t in self._raw_params().values()}
 
@@ -524,7 +673,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 else comm._gather(t, tiled=True)
 
         def body(vs):
-            out = call([rows(v) for v in vs])
+            with comm.mesh.bind():
+                out = call([rows(v) for v in vs])
             out = _map_out(out, gathered)
             for t in self._raw_states().values():
                 if id(t) not in param_ids and t.is_floating_point():
@@ -1001,7 +1151,7 @@ class Model(layer.Layer, metaclass=ModelMeta):
         the aux states. Copies on the CPU too (`.cpu()` returns a CPU
         tensor itself): an async checkpoint writes them while the next
         steps update the states in place."""
-        states = {k: t.detach().to("cpu", copy=True).numpy()
+        states = {k: self._global(t).detach().to("cpu", copy=True).numpy()
                   for k, t in self._raw_states().items()}
         for k, v in (aux_states or {}).items():
             v = _raw(v)
@@ -1056,7 +1206,9 @@ class Model(layer.Layer, metaclass=ModelMeta):
         Under a process group every rank calls it (the sparse residuals
         of a DistOpt, one per rank, are gathered into `res.npz` as `r<i>`:
         (world, ...) stacks, JAX's `res` tree) and only rank 0 writes; the
-        states are the same on every rank. The others wait for rank 0's
+        states are the same on every rank. Tensor-parallel shards are
+        gathered first, so the files hold the global arrays, and a load
+        cuts them to each rank's block. The others wait for rank 0's
         save, its write too when `async_save=False`, and raise where it
         raises."""
         # rank 0's pending writes first (a failed one raises everywhere)
@@ -1065,12 +1217,22 @@ class Model(layer.Layer, metaclass=ModelMeta):
         get_stacks = getattr(self._optimizer, "residual_device_stacks",
                              None)
         stacks = get_stacks() if get_stacks is not None else {}
+        # sharded parameters and slots are gathered to the global arrays
+        # on every rank (a collective), before rank 0 writes them
+        held = (self._host_states(), self._opt_states()) \
+            if self._placements else None
         distributed.on_rank0(lambda: self._write_checkpoint(
-            path, step, overwrite, async_save, stacks))
+            path, step, overwrite, async_save, stacks, held))
         return path
 
-    def _write_checkpoint(self, path, step, overwrite, async_save, stacks):
-        """save_checkpoint's writing part (rank 0's alone in a job)."""
+    def _opt_states(self) -> dict:
+        return self._optimizer.get_states() \
+            if self._optimizer is not None else {}
+
+    def _write_checkpoint(self, path, step, overwrite, async_save, stacks,
+                          held=None):
+        """save_checkpoint's writing part (rank 0's alone in a job);
+        `held` the (states, optimizer states) already on the host."""
         if os.path.isdir(path):
             if overwrite:
                 try:
@@ -1085,9 +1247,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
         t0 = time.perf_counter()
         # the blocking device-to-host part, under the ckpt_save deadline
         with observe.span("checkpoint.save"), watchdog.guard("ckpt_save"):
-            states = self._host_states()
-            opt_states = self._optimizer.get_states() \
-                if self._optimizer is not None else {}
+            states, opt_states = held if held is not None \
+                else (self._host_states(), self._opt_states())
             rng = self._rng_device().rng_state.numpy()
         res = {f"r{i}": v for i, v in stacks.items()}
         nbytes = sum(int(v.nbytes) for v in (*states.values(),
@@ -1176,6 +1337,34 @@ class Model(layer.Layer, metaclass=ModelMeta):
             np.load(os.path.join(path, "rng.npy")))
         self._reset_steps()
         return self
+
+
+def _group_over(mesh, axes):
+    """The process group over `axes` of `mesh` (one name or their
+    product), or None when there are none."""
+    if not axes:
+        return None
+    return mesh.group(axes[0] if len(axes) == 1 else tuple(axes))
+
+
+def _broadcast_(t, group):
+    """The group's first rank's t written into every member's t, in
+    place; nothing without a group."""
+    from .parallel.communicator import _bcast_
+    if group is not None:
+        _bcast_(t, group)
+
+
+def _group_all_reduce(group, device):
+    """One small all-reduce on `group`, eagerly."""
+    from .parallel.communicator import _reduce_
+    if group is not None:
+        _reduce_(torch.zeros(1, device=device), group)
+
+
+def _block(placement, t):
+    """This rank's block of `t` as a contiguous tensor of its own."""
+    return placement.shard(t).clone(memory_format=torch.contiguous_format)
 
 
 def _host_losses(losses) -> list:

@@ -9,8 +9,10 @@ bridge from the JAX package (`load_singa_params`, `load_singa_states`;
 dicts (`load_gpt2_weights`).
 
 `moe_experts` > 0 makes every block's MLP a top-`moe_k` mixture of
-experts (MoE-GPT). Tensor, sequence, vocab and expert parallelism come
-with model parallelism (ROADMAP.md Queue 1 item 5).
+experts (MoE-GPT). `tp_axis` makes every block tensor-parallel and
+`vocab_tp` the embedding vocab-parallel with the head tied to it
+(`_VocabTPMixin`); sequence and expert parallelism come with ROADMAP.md
+Queue 1 items 5b and 5c.
 """
 
 from __future__ import annotations
@@ -42,7 +44,54 @@ class _PosSlice(autograd.Operator):
         return table[:self.length]
 
 
-class GPT(model.Model):
+class _VocabTPMixin:
+    """Megatron's vocab-parallel head: one (V_pad, E) table row-sharded
+    over tp_axis serves as the embedding and, transposed, as the tied
+    head; the loss consumes the sharded logits."""
+
+    def _vp_active(self):
+        return self.vocab_tp and autograd.axis_bound(self.tp_axis)
+
+    def _tied_logits(self, h):
+        """Logits through the embedding-tied head, h @ W_emb^T, fp32.
+        While the axis is bound the table is this rank's vocab shard, so
+        each rank makes its (B, S, V/tp) slice (Megatron's `f` on h)."""
+        if self._vp_active():
+            h = autograd.tp_copy(h, self.tp_axis)
+        hc, Wc = autograd.compute_cast(h, self.tok_embed.W)
+        return autograd.matmul(hc, autograd.transpose(Wc),
+                               out_dtype="float32")
+
+    def _slice_valid(self, logits):
+        if self.padded_vocab == self.vocab_size:
+            return logits
+        return autograd.slice(logits, [0], [self.vocab_size],
+                              [len(logits.shape) - 1])
+
+    def _vp_loss_and_logits(self, local, targets):
+        """(loss, caller-facing logits) from the tied head's logits: the
+        vocab-parallel loss over the shards and the gathered logits (or
+        the argmax predictions) while the axis is bound, else the plain
+        loss over the valid columns."""
+        tflat = autograd.reshape(targets, (-1,))
+        if self._vp_active():
+            flat = autograd.reshape(local, (-1, local.shape[-1]))
+            loss = autograd.vocab_parallel_sce(
+                flat, tflat, self.tp_axis, valid_vocab=self.vocab_size)
+            if self.vocab_tp_return_logits:
+                logits = self._slice_valid(
+                    autograd.gather_last(local, self.tp_axis))
+            else:
+                logits = autograd.vocab_parallel_argmax(
+                    local, self.tp_axis, valid_vocab=self.vocab_size)
+        else:
+            logits = self._slice_valid(local)
+            flat = autograd.reshape(logits, (-1, self.vocab_size))
+            loss = self.sce(flat, tflat)
+        return loss, logits
+
+
+class GPT(_VocabTPMixin, model.Model):
     """Decoder-only transformer: token embedding (+ learned positions,
     or RoPE in every block), pre-LN blocks, final LayerNorm, an untied
     fp32-output head.
@@ -58,10 +107,21 @@ class GPT(model.Model):
     (layer.MoE) with capacity factor `moe_capacity_factor`; the training
     loss adds each block's load-balance loss times `moe_aux_weight` and
     its router z-loss times `moe_z_weight`. `ep_axis` is accepted and
-    runs on one device. The positional order is the JAX GPT's;
-    `seq_axis`, `tp_axis` and `vocab_tp` raise until model parallelism
-    is ported (`vocab_pad_multiple` and `vocab_tp_return_logits` only
-    shape a vocab-parallel head), and `device` and `seed` come last."""
+    runs on one device. The positional order is the JAX GPT's, and
+    `device` and `seed` come last.
+
+    Tensor parallelism: `tp_axis` shards every block's heads and MLP over
+    that mesh axis (layer.TransformerBlock). `vocab_tp=True` (which needs
+    `tp_axis`) pads the vocab to a multiple of `vocab_pad_multiple`
+    (`padded_vocab`), row-shards one (V_pad, E) table over the axis and
+    ties the head to it (`head` is None); the padded columns are masked
+    out of the loss and cut from the logits. Training on a mesh with the
+    axis, each rank holds its shards and the loss never gathers the
+    full logits; `train_one_batch` returns the gathered (B, S, V) logits,
+    or with `vocab_tp_return_logits=False` the (B, S) int32 argmax
+    predictions. Off the mesh the same model runs the serial math on the
+    full weights. `seq_axis` raises until sequence parallelism is ported
+    (ROADMAP.md Queue 1 item 5b)."""
 
     def __init__(self, vocab_size, max_seq=1024, dim=256, num_heads=8,
                  num_layers=4, mlp_ratio=4, seq_axis=None, tp_axis=None,
@@ -72,12 +132,16 @@ class GPT(model.Model):
                  pos_encoding="learned", rope_theta=10000.0, name=None,
                  device=None, seed=0):
         super().__init__(name)
-        for arg, val in (("seq_axis", seq_axis), ("tp_axis", tp_axis),
-                         ("vocab_tp", vocab_tp)):
-            if val:
-                raise NotImplementedError(
-                    f"GPT({arg}=...) comes with model parallelism "
-                    "(ROADMAP.md Queue 1 item 5)")
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "GPT(seq_axis=...) comes with model-parallel distribution: "
+                "sequence parallelism, ROADMAP.md Queue 1 item 5b")
+        if vocab_tp and tp_axis is None:
+            raise ValueError(
+                "vocab_tp=True needs tp_axis: vocab parallelism shards the "
+                "embedding/head over a tensor-parallel mesh axis. Without "
+                "one the model would silently build a different parameter "
+                "set (untied head, unpadded vocab)")
         if pos_encoding not in ("learned", "rope"):
             raise ValueError(f"pos_encoding {pos_encoding!r}")
         dev = device_mod.resolve(device)
@@ -92,16 +156,28 @@ class GPT(model.Model):
         self.moe_experts = moe_experts
         self.moe_aux_weight = moe_aux_weight
         self.moe_z_weight = moe_z_weight
-        self.tok_embed = layer.Embedding(vocab_size, dim, generator=gen)
-        self.head = layer.Linear(dim, vocab_size, bias=False,
-                                 out_dtype="float32", generator=gen)
+        self.tp_axis = tp_axis
+        self.vocab_tp = bool(vocab_tp)
+        self.vocab_tp_return_logits = vocab_tp_return_logits
+        if self.vocab_tp:
+            m = vocab_pad_multiple
+            self.padded_vocab = ((vocab_size + m - 1) // m) * m
+            self.tok_embed = layer.Embedding(self.padded_vocab, dim,
+                                             tp_axis=tp_axis, generator=gen)
+            self.head = None           # tied to tok_embed.W
+        else:
+            self.padded_vocab = vocab_size
+            self.tok_embed = layer.Embedding(vocab_size, dim, generator=gen)
+            self.head = layer.Linear(dim, vocab_size, bias=False,
+                                     out_dtype="float32", generator=gen)
         self.blocks = nn.ModuleList(
             layer.TransformerBlock(
-                num_heads, mlp_ratio, causal=True, attn_bias=attn_bias,
-                num_kv_heads=num_kv_heads, rope=pos_encoding == "rope",
-                rope_theta=rope_theta, moe_experts=moe_experts, moe_k=moe_k,
-                ep_axis=ep_axis, moe_capacity_factor=moe_capacity_factor,
-                dim=dim, generator=gen)
+                num_heads, mlp_ratio, causal=True, tp_axis=tp_axis,
+                attn_bias=attn_bias, num_kv_heads=num_kv_heads,
+                rope=pos_encoding == "rope", rope_theta=rope_theta,
+                moe_experts=moe_experts, moe_k=moe_k, ep_axis=ep_axis,
+                moe_capacity_factor=moe_capacity_factor, dim=dim,
+                generator=gen)
             for _ in range(num_layers))
         self.ln_f = layer.LayerNorm(dim=dim)
         self.sce = layer.SoftMaxCrossEntropy()
@@ -126,7 +202,18 @@ class GPT(model.Model):
         creators (what `sonnx.export` traces); anything else runs the
         same operators on raw tensors and records nothing. The position
         rows go through `_PosSlice` and Expand on both paths (on raw
-        tensors the same values as the broadcast add)."""
+        tensors the same values as the broadcast add). Under vocab_tp on
+        a bound axis the logits are gathered from the shards."""
+        h = self._backbone(ids)
+        if not self.vocab_tp:
+            return self.head(h)
+        local = self._tied_logits(h)
+        if self._vp_active():
+            local = autograd.gather_last(local, self.tp_axis)
+        return self._slice_valid(local)
+
+    def _backbone(self, ids):
+        """(B, S) ids -> (B, S, E) hidden states after the final norm."""
         on_tape = isinstance(ids, Tensor) and autograd.training
         if not on_tape:
             ids = torch.as_tensor(_raw(ids), device=self.device).long()
@@ -138,7 +225,7 @@ class GPT(model.Model):
             h = autograd.add(h, autograd.expand(pos, h.shape))
         for b in self.blocks:
             h = b(h)
-        return self.head(self.ln_f(h))
+        return self.ln_f(h)
 
     def _moe_losses(self, loss):
         """Fold every block's router losses into the training loss, in
@@ -155,12 +242,20 @@ class GPT(model.Model):
         position (plus the MoE router losses), backward and the
         optimizer's update. Returns (logits (B, S, V) fp32, loss),
         detached from the spent graph. Tensor ids train on the raw path
-        too (the tape would give torch's same gradients)."""
-        logits = nn.Module.__call__(self, _raw(ids))
-        flat = logits.reshape(-1, self.vocab_size)
+        too (the tape would give torch's same gradients). Under vocab_tp
+        the loss consumes the sharded logits and the gathered logits (or
+        the argmax predictions) exist only on the output."""
         tflat = torch.as_tensor(_raw(targets),
-                                device=self.device).reshape(-1)
-        loss = self._moe_losses(self.sce(flat, tflat.long()))
+                                device=self.device).reshape(-1).long()
+        if not self.vocab_tp:
+            logits = nn.Module.__call__(self, _raw(ids))
+            flat = logits.reshape(-1, self.vocab_size)
+            loss = self.sce(flat, tflat)
+        else:
+            h = self._backbone(_raw(ids))
+            loss, logits = self._vp_loss_and_logits(self._tied_logits(h),
+                                                    tflat)
+        loss = self._moe_losses(loss)
         self.optimizer(loss)
         for b in self.blocks:
             if b.moe_experts:
@@ -344,8 +439,9 @@ def load_singa_params(model: GPT, params: dict) -> None:
     the JAX model's `get_params()` names to numpy arrays
     (`{k: tensor.to_numpy(v) for k, v in m.get_params().items()}`).
     Shapes stay in the JAX layout ((in, out) weights), so no transpose.
-    Every parameter of `model` must be given; an unknown name or a shape
-    mismatch raises."""
+    The arrays are global: a model that holds tensor-parallel shards
+    keeps this rank's block of each. Every parameter of `model` must be
+    given; an unknown name or a shape mismatch raises."""
     own = dict(model.named_parameters())
     seen = set()
     for k, v in params.items():
@@ -353,8 +449,8 @@ def load_singa_params(model: GPT, params: dict) -> None:
         if name not in own:
             raise KeyError(f"unknown param {k!r} (as {name!r}); have "
                            f"{sorted(own)}")
-        arr = torch.from_numpy(np.array(v))
         t = own[name]
+        arr = model._to_local(t, torch.from_numpy(np.array(v)))
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{k}: shape {tuple(arr.shape)}, model has "
                              f"{tuple(t.shape)}")
@@ -391,6 +487,9 @@ def load_gpt2_weights(m: GPT, state: dict) -> GPT:
     (`max_seq` <= wpe rows), and `attn_bias=True`; a shape mismatch
     raises, as in the JAX package."""
     E = m.dim
+    if m.head is None:
+        raise ValueError("GPT-2 weights fill an untied head; build the GPT "
+                         "without vocab_tp")
 
     def put(t, arr):
         arr = np.asarray(arr, np.float32)

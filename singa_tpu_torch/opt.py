@@ -79,16 +79,26 @@ class Optimizer:
     tensors shaped like the parameter; `step_counter` counts applied
     steps (a 0-d fp32 tensor, as in the JAX package), on the CPU until
     the first parameter's state is made, then on that parameter's
-    device."""
+    device.
+
+    A parameter with a tensor-parallel spec (`param.spec`, set by the
+    `tp_axis` layers) has slots sharded like it (`state_specs`). Once a
+    model holds this rank's shards it gives the optimizer their
+    placements (`_placements`): `get_states` then gathers those slots to
+    the global arrays (a collective: every rank calls it) and
+    `set_states` cuts global arrays to this rank's block."""
 
     def __init__(self, lr):
         self.lr = _sched(lr)
         self.step_counter = torch.zeros((), dtype=torch.float32)
         self._states = {}       # id(param) -> {name: tensor}
         self._state_order = []  # ids in creation order (checkpoint order)
+        self._params_by_id = {}  # id(param) -> param
+        self._placements = {}   # id(param) -> its Placement, once sharded
 
     def _state(self, param) -> dict:
         pid = id(param)
+        self._params_by_id[pid] = param
         if pid not in self._states:
             if self.step_counter.device != param.device:
                 self.step_counter = self.step_counter.to(param.device)
@@ -117,8 +127,10 @@ class Optimizer:
         out = {"step_counter": self.step_counter.to("cpu", copy=True)
                .numpy()}
         for j, pid in enumerate(self._state_order):
+            pl = self._placements.get(pid)
             for k, v in self._states[pid].items():
-                out[f"p{j}.{k}"] = v.detach().to("cpu", copy=True).numpy()
+                v = v.detach() if pl is None else pl.gather(v.detach())
+                out[f"p{j}.{k}"] = v.to("cpu", copy=True).numpy()
         return out
 
     @torch.no_grad()
@@ -127,10 +139,14 @@ class Optimizer:
             self.step_counter.copy_(torch.as_tensor(
                 np.asarray(states["step_counter"], np.float32)))
         for j, pid in enumerate(self._state_order):
+            pl = self._placements.get(pid)
             for k, v in self._states[pid].items():
                 key = f"p{j}.{k}"
                 if key in states:
-                    v.copy_(torch.as_tensor(np.asarray(states[key])))
+                    val = torch.as_tensor(np.asarray(states[key]))
+                    if pl is not None and val.shape != v.shape:
+                        val = pl.shard(val)
+                    v.copy_(val)
 
     # -- API ---------------------------------------------------------------
     def __call__(self, loss):
@@ -225,6 +241,18 @@ class Optimizer:
             st = self._states[pid]
             arrs.extend(st[k] for k in sorted(st))
         return arrs
+
+    def state_specs(self) -> list:
+        """The spec of each `state_arrays()` entry: () for the step
+        counter and a replicated parameter's slots, a sharded
+        parameter's spec for its slots (the momentum of a column shard
+        is a column shard)."""
+        specs = [()]
+        for pid in self._state_order:
+            spec = tuple(getattr(self._params_by_id.get(pid), "spec", None)
+                         or ())
+            specs.extend(spec for _ in self._states[pid])
+        return specs
 
     @torch.no_grad()
     def load_state_arrays(self, arrs):
@@ -427,13 +455,19 @@ class DistOpt(Optimizer):
             return
         for p in params:
             raw = _raw(p)
-            if id(raw) not in self._spars_residual:
+            if getattr(raw, "spec", None) is None \
+                    and id(raw) not in self._spars_residual:
                 self._spars_residual[id(raw)] = torch.zeros_like(raw)
                 self._spars_order.append(id(raw))
 
     def state_arrays(self):
         return list(self.opt.state_arrays()) + [
             self._spars_residual[pid] for pid in self._spars_order]
+
+    def state_specs(self):
+        """The wrapped optimizer's, then () for each sparse residual (only
+        replicated parameters have one)."""
+        return list(self.opt.state_specs()) + [()] * len(self._spars_order)
 
     @torch.no_grad()
     def load_state_arrays(self, arrs):
@@ -703,10 +737,28 @@ class DistOpt(Optimizer):
 
     def backward_and_sparse_update(self, loss, spars: float = 0.05,
                                    topK: bool = True, corr: bool = True):
+        """Strategy 4 (ref opt.py:994). On a model with tensor-parallel
+        parameters those take the dense reduction (their gradients are
+        shards already) and the replicated ones the packed sparse one;
+        their residuals must exist from setup
+        (`DistOpt(..., sparse_residuals=True)`), as in the JAX package."""
+        by_id = self.opt._params_by_id
+        sharded = {pid for pid, p in by_id.items()
+                   if getattr(p, "spec", None) is not None}
+        if corr and sharded and any(pid not in self._spars_residual
+                                    for pid in by_id if pid not in sharded):
+            raise RuntimeError(
+                "error-feedback residuals on a model with sharded params "
+                "must be pre-created: construct "
+                "DistOpt(..., sparse_residuals=True)")
         t0 = time.perf_counter()
         pairs, residuals = [], []
         for p, g in autograd.backward(loss):
             raw, x = _raw(p), _raw(g)
+            if id(raw) in sharded:
+                pairs.append((p, self.communicator.all_reduce(x)
+                              / self.world_size))
+                continue
             if corr:
                 r = self._residual(raw)
                 x = x + r

@@ -59,6 +59,47 @@ def _comm_stamp(op: str):
             observe.record_comm_host(op, t0, time.perf_counter() - t0)
 
 
+# ---- the collective primitives ------------------------------------------
+# Every torch.distributed collective of the data- and tensor-parallel
+# steps goes through these (the communicator's verbs, `parallel.tp`'s
+# operators, the model's first-build sync), so a rule of the backend is
+# kept in one place: NCCL takes contiguous tensors only (a tied head's
+# gradient is a transposed view). None of them books anything.
+
+def _reduce_(x, group, op=None):
+    """x summed (or reduced by `op`, a `dist.ReduceOp`) over `group`'s
+    ranks, in place; x must be contiguous."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    return x
+
+
+def _reduced(x, group, op=None):
+    """x summed (or reduced by `op`) over `group`'s ranks, in a new
+    contiguous tensor."""
+    return _reduce_(x.detach().clone(memory_format=torch.contiguous_format),
+                    group, op)
+
+
+def _stacked(x, group, size: int):
+    """Every rank's x stacked on a new leading axis of `size`, in group
+    order."""
+    x = x.detach().contiguous()
+    out = torch.empty((size,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather(list(out.unbind(0)), x, group=group)
+    return out
+
+
+@torch.no_grad()
+def _bcast_(x, group, root: int = 0):
+    """The x of `group`'s rank `root` written into every member's x, in
+    place; x must be contiguous."""
+    dist.broadcast(x, src=dist.get_global_rank(group, int(root)),
+                   group=group)
+    return x
+
+
 def _payload_bytes(x) -> int:
     return int(x.numel()) * x.element_size()
 
@@ -111,9 +152,7 @@ class Communicator:
     # pmean / all_gather / device_put there are not communicator calls)
     def _sum(self, x):
         """The sum of x over the ranks, in a new tensor."""
-        y = x.detach().clone()
-        dist.all_reduce(y, group=self.group)
-        return y
+        return _reduced(x, self.group)
 
     def _mean(self, x):
         """The mean of x over the ranks (JAX's pmean)."""
@@ -122,17 +161,12 @@ class Communicator:
     @torch.no_grad()
     def _mean_(self, x):
         """x averaged over the ranks, in place."""
-        dist.all_reduce(x, group=self.group)
+        _reduce_(x, self.group)
         x.div_(self.world_size)
 
-    @torch.no_grad()
     def _broadcast_(self, x, root=0):
         """The root's x written into every rank's x, in place."""
-        dist.broadcast(x, src=self._root_rank(root), group=self.group)
-        return x
-
-    def _root_rank(self, root: int) -> int:
-        return dist.get_global_rank(self.group, int(root))
+        return _bcast_(x, self.group, root)
 
     # -- synch / fusedSynch (communicator.cc:212-327) ----------------------
     def all_reduce(self, x):
@@ -153,9 +187,9 @@ class Communicator:
         with _comm_stamp("all_reduce_half"):
             if self.group is None:
                 return x
-            y = x.detach().to(torch.bfloat16, copy=True)
-            dist.all_reduce(y, group=self.group)
-            return y.to(x.dtype)
+            y = x.detach().to(torch.bfloat16, copy=True,
+                              memory_format=torch.contiguous_format)
+            return _reduce_(y, self.group).to(x.dtype)
 
     def all_gather(self, x, tiled=True):
         """Every rank's x stacked on a new leading axis, or (tiled)
@@ -168,10 +202,7 @@ class Communicator:
             return self._gather(x, tiled)
 
     def _gather(self, x, tiled=False):
-        x = x.detach().contiguous()
-        out = torch.empty((self.world_size,) + tuple(x.shape),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        out = _stacked(x, self.group, self.world_size)
         if tiled and x.dim() > 0:
             return out.reshape((-1,) + tuple(x.shape[1:]))
         return out
@@ -187,7 +218,8 @@ class Communicator:
             if isinstance(self.axis, tuple):
                 raise ValueError("broadcast over a tuple axis is "
                                  "ambiguous; pick one axis")
-            return self._broadcast_(x.detach().clone(), root)
+            return self._broadcast_(
+                x.detach().clone(memory_format=torch.contiguous_format), root)
 
     def reduce_scatter(self, x):
         """The sum over the axis, scattered along axis 0 (tiled): rank r
@@ -215,9 +247,7 @@ class Communicator:
         with _comm_stamp("all_reduce_max"):
             if self.group is None:
                 return x
-            y = x.detach().clone()
-            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
-            return y
+            return _reduced(x, self.group, dist.ReduceOp.MAX)
 
     def agree_any(self, flag):
         """Cross-rank OR of a predicate (a sum of its 0/1 int32 value), a
@@ -228,7 +258,7 @@ class Communicator:
             dev = flag.device if torch.is_tensor(flag) else self.device
             f = torch.as_tensor(flag, device=dev).to(torch.int32, copy=True)
             if self.group is not None:
-                dist.all_reduce(f, group=self.group)
+                _reduce_(f, self.group)
             return f > 0
 
     def wait(self):

@@ -11,12 +11,25 @@ order, the last axis innermost (adjacent ranks).
 A mesh of one rank without an initialized process group is allowed and
 carries no group: its collectives are the identity (`Communicator`), as
 the JAX package's are at world size 1.
+
+Bound axes. A JAX axis name is bound inside the shard_map body over its
+mesh, and the tensor-parallel layers gate their collectives on it
+(`autograd.axis_bound`). Here `Mesh.bind()` binds every axis of a mesh
+while its block runs: the data-parallel graph-mode step binds its
+DistOpt's mesh around the step body (`Model._dp_call`), a functional
+caller binds one explicitly. `bound_mesh(name)` is the innermost bound
+mesh with that axis; `axis_size` reads it, and raises NameError for an
+unbound name, as `lax.axis_size` does. The binding is
+process-wide, not per thread: a backward that autograd runs on its own
+thread still sees it (the operators keep the group they found at their
+forward anyway).
 """
 
 from __future__ import annotations
 
 import math
 from collections import OrderedDict
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -55,6 +68,16 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({dict(self.shape)}, ranks={self.devices.tolist()})"
+
+    @contextmanager
+    def bind(self):
+        """Bind every axis of this mesh while the block runs (the JAX
+        package's shard_map body; see the module's docstring)."""
+        _BOUND.append(self)
+        try:
+            yield self
+        finally:
+            _BOUND.pop()
 
     @property
     def member(self) -> bool:
@@ -111,6 +134,30 @@ class Mesh:
                              f"{self!r}")
 
 
+#: the meshes bound by `Mesh.bind()`, the innermost last
+_BOUND = []
+
+
+def bound_mesh(name: str):
+    """The innermost bound mesh that has an axis `name`, or None."""
+    for mesh in reversed(_BOUND):
+        if name in mesh.shape:
+            return mesh
+    return None
+
+
+def _bound(name: str) -> Mesh:
+    mesh = bound_mesh(name)
+    if mesh is None:
+        raise NameError(f"unbound axis name: {name}")
+    return mesh
+
+
+def axis_size(name: str) -> int:
+    """The size of the bound axis `name` (`lax.axis_size`)."""
+    return int(_bound(name).shape[name])
+
+
 def local_device_count() -> int:
     """The devices a mesh can span: the ranks of the process group (one
     device each), 1 without one."""
@@ -150,5 +197,6 @@ def factor_mesh(n_devices: int, axes=("dp", "sp", "tp")) -> Mesh:
     return make_mesh(dict(zip(axes, sizes)))
 
 
-__all__ = ["Mesh", "local_device_count", "make_mesh", "data_parallel_mesh",
+__all__ = ["Mesh", "axis_size", "bound_mesh",
+           "local_device_count", "make_mesh", "data_parallel_mesh",
            "factor_mesh"]

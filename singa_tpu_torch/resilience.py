@@ -237,8 +237,10 @@ def manifest_path(step_dir: str) -> str:
 def param_signature(model) -> dict:
     """{param name: {"shape": [...], "dtype": "..."}} (numpy's dtype
     names): the structural identity a checkpoint must match to be
-    restorable into `model`."""
-    return {k: {"shape": [int(s) for s in t.shape],
+    restorable into `model`. Shapes are global: a tensor-parallel shard
+    counts at its whole array's shape, as the checkpoint holds it."""
+    shape = getattr(model, "_global_shape", lambda t: t.shape)
+    return {k: {"shape": [int(s) for s in shape(t)],
                 "dtype": introspect._dtype_name(t.dtype)}
             for k, t in model._raw_params().items()}
 
@@ -1000,7 +1002,10 @@ def resilience_report() -> str:
 # SIGTERM'd run, and its resume) and writes a JSON record comparing the
 # loss curves. A leg of N > 1 devices is N worker processes (ranks) that
 # join one process group (SINGA_COORDINATOR, SINGA_NPROCS, SINGA_PROC_ID)
-# and train under DistOpt over a data mesh of N.
+# and train under DistOpt over a data mesh of N. The killed leg's ranks
+# each write a marker and hold after their first checkpoint; the parent
+# sends SIGTERM once every marker is there, so the kill never races the
+# run to its end.
 
 def _worker_build(n_devices: int, batch: int, seed: int, device: str):
     import numpy as np
@@ -1043,17 +1048,33 @@ def _worker_build(n_devices: int, batch: int, seed: int, device: str):
 
 
 class _SleepySrc:
-    """`steps` copies of one batch with a host-side pause before each:
-    wall time for the A/B parent to land its SIGTERM between steps."""
+    """`steps` copies of one batch with a host-side pause before each.
+    With `hold_at` > 0 the source writes the marker file `hold_path`
+    before its batch `hold_at` (the controller has started its first
+    checkpoint by then) and holds there until `released()` (the A/B
+    parent's SIGTERM has landed) or `hold_s` pass: the kill then lands at
+    a step the run reports, whatever the load on the host."""
 
-    def __init__(self, tx, ty, steps, sleep_s):
+    def __init__(self, tx, ty, steps, sleep_s, hold_at=0, hold_path=None,
+                 released=None, hold_s=0.0):
         self.tx, self.ty = tx, ty
         self.steps, self.sleep_s = steps, sleep_s
+        self.hold_at, self.hold_path = hold_at, hold_path
+        self.released, self.hold_s = released, hold_s
+
+    def _hold(self):
+        with open(self.hold_path, "w", encoding="utf-8") as f:
+            f.write(str(self.hold_at))
+        deadline = time.monotonic() + self.hold_s
+        while not self.released() and time.monotonic() < deadline:
+            time.sleep(0.01)
 
     def __iter__(self):
-        for _ in range(self.steps):
+        for i in range(self.steps):
             if self.sleep_s:
                 time.sleep(self.sleep_s)
+            if self.hold_at and i == self.hold_at:
+                self._hold()
             yield (self.tx, self.ty)
 
 
@@ -1065,9 +1086,15 @@ def _worker_main(args) -> int:
     ctrl = TrainController(
         m, args.ckpt_dir, save_every_steps=args.save_every,
         keep=args.keep, handle_signals=True, verbose=1)
+    hold_path = None
+    if args.hold_dir:
+        hold_path = os.path.join(args.hold_dir,
+                                 f"held.{distributed.process_index()}")
+    src = _SleepySrc(tx, ty, args.steps, args.step_sleep,
+                     args.save_every if hold_path else 0, hold_path,
+                     lambda: ctrl._preempt is not None, args.timeout)
     try:
-        report = ctrl.fit(_SleepySrc(tx, ty, args.steps, args.step_sleep),
-                          epochs=1)
+        report = ctrl.fit(src, epochs=1)
     except health.HealthError as e:
         report = getattr(e, "resilience", {"status": "halted"})
     from . import overlap
@@ -1082,7 +1109,8 @@ def _worker_main(args) -> int:
 
 
 def _spawn_worker(py, root, ckpt_dir, n_devices, steps, save_every,
-                  report_out, step_sleep, seed, batch, device):
+                  report_out, step_sleep, seed, batch, device,
+                  hold_dir=None, timeout=600.0):
     """The leg's worker processes: one, or one per rank of a process
     group over a free localhost port."""
     import socket
@@ -1093,6 +1121,8 @@ def _spawn_worker(py, root, ckpt_dir, n_devices, steps, save_every,
            "--steps", str(steps), "--save-every", str(save_every),
            "--report-out", report_out, "--step-sleep", str(step_sleep),
            "--seed", str(seed), "--batch", str(batch), "--device", device]
+    if hold_dir is not None:
+        cmd += ["--hold-dir", hold_dir, "--timeout", str(timeout)]
     env = dict(os.environ)
     if n_devices > 1:
         with socket.socket() as sk:
@@ -1119,23 +1149,27 @@ def _ab_main(args) -> int:
            "batch": args.batch, "seed": args.seed, "device": args.device,
            "ok": False}
 
-    def leg(name, ckpt_dir, n_devices, step_sleep=0.0, kill_after=None):
+    def leg(name, ckpt_dir, n_devices, step_sleep=0.0, kill=False):
         import subprocess
         rep_path = os.path.join(work, f"{name}.json")
+        hold_dir = os.path.join(work, f"{name}.held") if kill else None
+        if kill:
+            os.makedirs(hold_dir)
         procs = _spawn_worker(py, root, ckpt_dir, n_devices, args.steps,
                               args.save_every, rep_path, step_sleep,
-                              args.seed, args.batch, args.device)
-        if kill_after is not None:
-            # wait for the first complete checkpoint, then preempt every
-            # rank
+                              args.seed, args.batch, args.device, hold_dir,
+                              args.timeout)
+        if kill:
+            # every rank holds after its first checkpoint, marked by a
+            # file, until its SIGTERM lands: wait for all the markers,
+            # then preempt every rank
             deadline = time.monotonic() + args.timeout
             while time.monotonic() < deadline:
-                if latest_checkpoint(ckpt_dir) is not None:
+                if len(os.listdir(hold_dir)) == n_devices:
                     break
                 if any(p.poll() is not None for p in procs):
                     break
                 time.sleep(0.05)
-            time.sleep(kill_after)
             for p in procs:
                 if p.poll() is None:
                     p.send_signal(_signal.SIGTERM)
@@ -1167,11 +1201,10 @@ def _ab_main(args) -> int:
                           args.devices_a)
         rec["baseline_rc"] = rc_a
         rec["baseline_status"] = rep_a.get("status")
-        # a per-step pause lets the SIGTERM land mid-run
+        # the ranks hold after their first checkpoint until the SIGTERM
         ck_b = os.path.join(work, "ck_b")
         rc_k, rep_k = leg("killed", ck_b, args.devices_a,
-                          step_sleep=args.step_sleep or 0.05,
-                          kill_after=0.05)
+                          step_sleep=args.step_sleep, kill=True)
         rec["killed_rc"] = rc_k
         rec["killed_status"] = rep_k.get("status")
         rec["killed_final_step"] = rep_k.get("final_step")
@@ -1220,6 +1253,10 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--step-sleep", type=float, default=0.0)
     p.add_argument("--report-out", default=None)
+    p.add_argument("--hold-dir", default=None,
+                   help="(worker) write held.<rank> there before the step "
+                        "after the first checkpoint and hold until a "
+                        "SIGTERM lands (at most --timeout seconds)")
     p.add_argument("--devices-a", type=int, default=1)
     p.add_argument("--devices-b", type=int, default=1)
     p.add_argument("--device", default="cuda",

@@ -543,7 +543,14 @@ def _decode_core(m, S0, max_new, moe_capacity_factor=None, kv_dtype=None):
 def decode_params(m):
     """The decode-param tree of model `m` (fp32, unused biases
     zero-filled, QKV fused; an MoE block's expert weights in place of
-    the MLP's)."""
+    the MLP's; under vocab_tp the head is the embedding table's
+    transpose, cut to the true vocab so a padded row never wins an
+    argmax). A model whose parameters hold per-rank shards (trained on a
+    tensor-parallel mesh) raises: the decode runs the full weights."""
+    if getattr(m, "_placements", None):
+        raise ValueError("this model's parameters are sharded over a mesh "
+                         "(tensor parallelism); decode a model loaded "
+                         "with its get_params()")
     blocks = []
     for b in m.blocks:
         a = b.attn
@@ -566,12 +573,13 @@ def decode_params(m):
                        "bb2": b.fc2.b})
         blocks.append({k: v.detach() for k, v in bp.items()})
     emb = m.tok_embed.W.detach()
+    head = emb[:m.vocab_size].t() if m.head is None else m.head.W.detach()
     return {
         "emb": emb,
         "pos": (emb.new_zeros((m.max_seq, 0)) if m.pos_encoding == "rope"
                 else m.pos_embed.detach()),
         "gf": m.ln_f.gamma.detach(), "bf": m.ln_f.beta.detach(),
-        "head": m.head.W.detach(), "blocks": blocks,
+        "head": head, "blocks": blocks,
     }
 
 
@@ -581,7 +589,8 @@ def decode_raw(m) -> list:
     arrs = [m.tok_embed.W, m.ln_f.gamma, m.ln_f.beta]
     if m.pos_encoding != "rope":
         arrs.append(m.pos_embed)
-    arrs.append(m.head.W)
+    if m.head is not None:
+        arrs.append(m.head.W)
     for b in m.blocks:
         a = b.attn
         arrs += [b.ln1.gamma, b.ln1.beta, b.ln2.gamma, b.ln2.beta,

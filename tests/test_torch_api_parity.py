@@ -9,7 +9,8 @@ in CLASSES every public method (the class's own and those of its bases in
 the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
-by module, with the ROADMAP.md Queue 1 item that brings it. A listed
+by module, with the ROADMAP.md Queue 1 item that brings it (5: the
+sequence, pipeline and expert parallelism of items 5b and 5c). A listed
 name that resolves fails the test: the list only shrinks, except when a
 module is ported in part (`introspect` without the warm store), which
 adds that module's unported names.
@@ -27,20 +28,13 @@ PORT_PKG = os.path.join(ROOT, "singa_tpu_torch")
 
 #: {module: {name or "Class.method": Queue 1 item that ports it}}
 PENDING = {
-    "autograd": {n: 5 for n in (
-        "axis_bound", "tp_copy", "tp_reduce", "vocab_parallel_embedding",
-        "vocab_parallel_argmax", "vocab_parallel_sce", "gather_last")},
     "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
     "introspect": {"export_executable": 7, "load_executable": 7},
     "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
-    "opt": {"SGD.state_specs": 5, "Adam.state_specs": 5,
-            "Optimizer.state_specs": 5, "DistOpt.state_specs": 5},
     "overlap": {"async_available": 7, "overlap_report": 7},
     "slo": {"main": 6},
     "watchdog": {"main": 6},
-    "parallel.__init__": {n: 5 for n in (
-        "column_parallel", "row_parallel", "shard_columns", "shard_rows",
-        "tp_mlp", "gpipe", "last_stage_value")},
+    "parallel.__init__": {"gpipe": 5, "last_stage_value": 5},
     "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
     "parallel.moe": {"moe_ffn_ep": 5},
     "models.transformer": {"PipelinedGPT": 5, "create_pipelined": 5},
@@ -126,7 +120,7 @@ def test_the_sweep_covers_the_ported_modules():
             "image_tool", "ops.attention", "models.transformer", "slo",
             "health", "resilience", "watchdog", "memory", "goodput",
             "introspect", "distributed", "parallel.mesh",
-            "parallel.communicator", "parallel.__init__",
+            "parallel.communicator", "parallel.__init__", "parallel.tp",
             "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)
@@ -161,3 +155,41 @@ def test_public_names_resolve_on_the_port(name):
     assert not early, (f"{name}: {early} resolve on the port now; take "
                        "them out of PENDING")
     assert not stale, f"{name}: PENDING names JAX does not have: {stale}"
+
+
+#: (module, "Class.method") whose positional parameters must be the JAX
+#: package's, in its order (the port may append its own after them, as
+#: the GPT's `device` and `seed`), with every JAX keyword-only parameter
+SIGNATURES = [("layer", "Embedding.__init__"), ("layer", "Linear.__init__"),
+              ("models.transformer", "GPT.__init__"),
+              ("model", "Model.compile")]
+
+
+def _jax_params(module, path):
+    with open(os.path.join(JAX_PKG, module.replace(".", os.sep) + ".py")) \
+            as f:
+        tree = ast.parse(f.read())
+    cls, meth = path.split(".")
+    node = next(n for n in tree.body
+                if isinstance(n, ast.ClassDef) and n.name == cls)
+    fn = next(n for n in node.body
+              if isinstance(n, ast.FunctionDef) and n.name == meth)
+    a = fn.args
+    return ([x.arg for x in a.posonlyargs + a.args], a.vararg is not None,
+            [x.arg for x in a.kwonlyargs])
+
+
+@pytest.mark.parametrize("module,path", SIGNATURES)
+def test_positional_parameters_match_jax(module, path):
+    import inspect
+    pos, vararg, kwonly = _jax_params(module, path)
+    cls, meth = path.split(".")
+    fn = getattr(getattr(importlib.import_module(
+        "singa_tpu_torch." + module), cls), meth)
+    params = list(inspect.signature(fn).parameters.values())
+    got = [p.name for p in params if p.kind in (
+        p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    assert got[:len(pos)] == pos, (path, got, pos)
+    assert vararg == any(p.kind == p.VAR_POSITIONAL for p in params)
+    assert set(kwonly) <= {p.name for p in params
+                           if p.kind == p.KEYWORD_ONLY}, path

@@ -17,7 +17,27 @@
 5. `autograd.relu`'s gradient at a NaN input is 0, as jax.nn.relu's
    (torch's own relu passes the gradient through there): a tape with a
    NaN entry gives equal gradients, NaN at the same entries.
+
+Faults 11-13:
+
+11. The resilience CLI's kill lands at a step the run reports: an A/B
+    with little left after the first checkpoint (2 ranks, 6 steps, a
+    save every 3) is preempted at step 4 and resumed there, every time
+    (a kill timed on the wall clock let that run complete first).
+12. `data.ImageBatchIter.end` joins its worker: a worker that ignores
+    the stop flag past the 1 s join, and takes 1 s to die on SIGTERM,
+    is gone when `end()` returns.
+13. `Model.compile` binds JAX's positional call: the fifth to seventh
+    positions are the pipeline parameters, the eighth the amp dtype, in
+    both packages; a pipeline axis raises, naming item 5c.
 """
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
 
 import jax
 import numpy as np
@@ -33,6 +53,7 @@ from singa_tpu import opt as jopt
 from singa_tpu import serving as jserving
 from singa_tpu import tensor as jt
 from singa_tpu_torch import autograd as tag
+from singa_tpu_torch import data as tdata
 from singa_tpu_torch import device as tdevice
 from singa_tpu_torch import layer as tl
 from singa_tpu_torch import model as tmodel
@@ -246,14 +267,18 @@ def test_build_decode_takes_kv_dtype_last(monkeypatch):
 
 
 def test_gpt_takes_the_jax_positional_order():
-    """GPT's parameters in JAX's order, with `name=`; the parallel axes
-    raise until model parallelism is ported."""
+    """GPT's parameters in JAX's order, with `name=`; `tp_axis` and
+    `vocab_tp` (positions 8 and 10) build the tensor-parallel model, and
+    `seq_axis` raises until sequence parallelism is ported (item 5b)."""
     m = ttr.GPT(61, 32, 32, 4, 2, 4, None, None, True, device="cpu",
                 name="lm")
     assert m.name == "lm" and m.blocks[0].attn.use_bias
-    for kw in ({"seq_axis": "sp"}, {"tp_axis": "tp"}, {"vocab_tp": True}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ttr.GPT(61, device="cpu", **kw)
+    m = ttr.GPT(61, 32, 32, 4, 2, 4, None, "tp", False, True, 8,
+                device="cpu")
+    assert m.tp_axis == "tp" and m.vocab_tp and m.head is None
+    assert tuple(m.tok_embed.W.shape) == (64, 32)
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        ttr.GPT(61, device="cpu", seq_axis="sp")
 
 
 # ---- fault 5: relu's gradient at NaN ----------------------------------------
@@ -279,3 +304,83 @@ def test_relu_gradient_at_nan_matches_jax():
     for got, want in zip(grads["port"], grads["jax"]):
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ---- fault 11: the resilience CLI's kill waits for a state ------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_resilience_kill_lands_at_a_reported_step(tmp_path):
+    out = tmp_path / "ab.json"
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "singa_tpu_torch.resilience", "--ab",
+         "--device", "cpu", "--devices-a", "2", "--devices-b", "1",
+         "--steps", "6", "--save-every", "3", "--timeout", "100",
+         "--out", str(out)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=240)
+    rec = json.loads(out.read_text())
+    assert rec["killed_status"] == "preempted", \
+        proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert rec["killed_final_step"] == 4 and rec["resumed_step"] == 4
+    assert rec["ok"] and proc.returncode == 0 and rec["compared_steps"] == 2
+
+
+# ---- fault 12: ImageBatchIter.end joins its worker --------------------------
+
+def _die_slowly(*_):
+    time.sleep(1.0)
+    os._exit(0)
+
+
+class _StubbornIter(tdata.ImageBatchIter):
+    """A worker that ignores the stop flag and takes 1 s to die on
+    SIGTERM."""
+
+    def run(self):
+        signal.signal(signal.SIGTERM, _die_slowly)
+        time.sleep(60)
+
+
+def test_image_batch_iter_end_joins_a_stubborn_worker(tmp_path):
+    lst = tmp_path / "list.txt"
+    lst.write_text("a.png 0\nb.png 1\n")
+    it = _StubbornIter(str(lst), 2, None)
+    it.start()
+    first = it.p
+    time.sleep(0.2)               # the worker has installed its handler
+    it.end()
+    assert not first.is_alive()
+    it.start()                    # a restart runs one worker, not two
+    second = it.p
+    it.end()
+    assert second is not first and not second.is_alive()
+
+
+# ---- fault 13: Model.compile's positional order -----------------------------
+
+def test_compile_binds_the_jax_positional_call():
+    import inspect
+    names = [list(inspect.signature(m.compile).parameters)
+             for m in (jmodel.Model, tmodel.Model)]
+    assert names[0] == names[1], names
+    x = np.random.RandomState(0).randn(4, 3).astype(np.float32)
+    args = (True, False, False, None, 1, "gpipe", "bfloat16", False)
+    got = []
+    for t, layer_mod, model_mod, dev in ((jt, jl, jmodel, JDEV),
+                                         (tt, tl, tmodel, TDEV)):
+        class Net(model_mod.Model):
+            def __init__(self):
+                super().__init__()
+                self.fc = layer_mod.Linear(2)
+
+            def forward(self, x):
+                return self.fc(x)
+
+        m = Net()
+        m.compile([t.from_numpy(x, dev)], *args)
+        got.append((m.amp, m.eval_buckets, m.graph_mode, m.training))
+    assert got[0] == got[1] == ("bfloat16", False, False, True)
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        Net().compile([tt.from_numpy(x, TDEV)], True, False, False, "pp")

@@ -40,11 +40,10 @@ torch.set_num_threads(2)
 RTOL, ATOL = 1e-4, 1e-5
 JDEV = jdevice.best_device()
 CPU = tdevice.create_cpu_device()
-#: JAX operators that come with the port's distribution slice
-DISTRIBUTED = {"_TPCopy", "_TPReduce", "_GatherLastDim",
-               "_VocabParallelEmbedding", "_VocabParallelSCE",
-               "_VocabParallelArgmax", "_RingAttention", "_PipelineBlocks",
-               "_Pipeline1F1B"}
+#: JAX operators that come with the port's sequence and pipeline slices
+#: (ROADMAP.md Queue 1 items 5b and 5c; the tensor-parallel ones came
+#: with 5a)
+DISTRIBUTED = {"_RingAttention", "_PipelineBlocks", "_Pipeline1F1B"}
 
 
 def _operator_classes():

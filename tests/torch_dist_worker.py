@@ -739,10 +739,299 @@ def job_resume_small(inp, rank, world, out):
                  or {}).get("mesh")))}
 
 
+# ---- tensor and vocab parallelism (the test_torch_tp*.py files) ------------
+
+def tp_mesh_shape(world):
+    """The {data, tp} mesh of the Model-API cases: tp 2, the rest data."""
+    return {"data": world // 2, "tp": 2} if world > 2 else {"data": 1,
+                                                            "tp": 2}
+
+
+def dryrun_mesh_shape(world):
+    """Dryrun step 2b's mesh (`__graft_entry__.py:250-252`)."""
+    tp = 4 if world % 4 == 0 else 2
+    return {"data": world // tp, "tp": tp}
+
+
+def port_ops(inp, mesh):
+    """The TP operators' forwards and gradients on this rank's blocks of
+    the inputs, with `mesh` ({"tp": n}) bound: {name: array}; sharded
+    results are this rank's blocks."""
+    import torch
+
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.parallel import (megatron_f, megatron_g,
+                                          shard_columns, shard_rows,
+                                          tp_mlp)
+    from singa_tpu_torch.parallel.tp import Placement
+    T = torch.as_tensor
+    res = {}
+    cols, rows = shard_columns(mesh, "tp"), shard_rows(mesh, "tp")
+    vocab = Placement(mesh, ("tp", None))
+    last = Placement(mesh, (None, None, "tp"))
+    with mesh.bind():
+        x = T(inp["x"]).requires_grad_(True)
+        Wc = cols.shard(T(inp["Wc"])).clone().requires_grad_(True)
+        Wr = rows.shard(T(inp["Wr"])).clone().requires_grad_(True)
+        y = megatron_g(megatron_f(x, "tp") @ Wc @ Wr, "tp")
+        res["fg/y"] = y
+        res["fg/dx"], res["fg/dWc"], res["fg/dWr"] = torch.autograd.grad(
+            y, (x, Wc, Wr), T(inp["fg_dy"]))
+        for op in ("copy", "reduce"):
+            x = T(inp["x"]).requires_grad_(True)
+            f = autograd.tp_copy if op == "copy" else autograd.tp_reduce
+            y = f(x * (1.0 + mesh.coordinate("tp")), "tp")
+            res[f"{op}/y"] = y
+            res[f"{op}/dx"], = torch.autograd.grad(y, x, T(inp["x"]))
+        table = vocab.shard(T(inp["table"])).clone().requires_grad_(True)
+        out = autograd.vocab_parallel_embedding(T(inp["ids"]), table, "tp")
+        res["emb/out"] = out
+        res["emb/dtable"], = torch.autograd.grad(out, table,
+                                                 T(inp["emb_dy"]))
+        logits = Placement(mesh, (None, "tp")).shard(T(inp["logits"])) \
+            .clone().requires_grad_(True)
+        loss = autograd.vocab_parallel_sce(logits, T(inp["tgt"]), "tp",
+                                           valid_vocab=13)
+        res["sce/loss"] = loss
+        res["sce/dx"], = torch.autograd.grad(loss, logits)
+        g = last.shard(T(inp["g"])).clone().requires_grad_(True)
+        full = autograd.gather_last(g, "tp")
+        res["gather/y"] = full
+        res["gather/dx"], = torch.autograd.grad(full, g, T(inp["g_dy"]))
+        res["argmax"] = autograd.vocab_parallel_argmax(
+            last.shard(T(inp["am"])), "tp", valid_vocab=13)
+        for case in ("mlp", "dry"):
+            res[f"{case}/y"] = tp_mlp(
+                T(inp[f"{case}_x"]), cols.shard(T(inp[f"{case}_W1"])),
+                Placement(mesh, ("tp",)).shard(T(inp[f"{case}_b1"])),
+                rows.shard(T(inp[f"{case}_W2"])), T(inp[f"{case}_b2"]),
+                "tp")
+    return {k: v.detach().numpy() for k, v in res.items()}
+
+
+def job_tp_ops(inp, rank, world, out):
+    import torch
+
+    from singa_tpu_torch import distributed
+    from singa_tpu_torch.parallel import Communicator, make_mesh
+    distributed.init(device="cpu")
+    mesh = make_mesh({"tp": world})
+    res = port_ops(inp, mesh)
+    # a transposed view (the tied head's gradient) all-reduced by the
+    # communicator comes back contiguous: NCCL takes no other layout
+    comm = Communicator(axis="tp", mesh=mesh)
+    t = torch.as_tensor(inp["Wc"]).t()
+    for verb in ("all_reduce", "all_reduce_half", "all_reduce_max",
+                 "broadcast"):
+        y = getattr(comm, verb)(t)
+        res[f"comm/{verb}"] = y.numpy()
+        res[f"comm/{verb}/contiguous"] = y.is_contiguous()
+    return res
+
+
+def _tp_mlp_model(model, layer, sparse):
+    """tests/test_parallel_extra.py's TPMLP (10 -> 32 -> 4, fc1 column,
+    fc2 row), or with `sparse` tests/test_dist.py's TPMLPSparse (10 ->
+    16 -> 4, top-K 0.25)."""
+
+    class TPMLP(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = layer.Linear(16 if sparse else 32, tp_axis="tp",
+                                    tp_mode="column")
+            self.relu = layer.ReLU()
+            self.fc2 = layer.Linear(4, tp_axis="tp", tp_mode="row")
+            self.loss_fn = layer.SoftMaxCrossEntropy()
+
+        def forward(self, x):
+            return self.fc2(self.relu(self.fc1(x)))
+
+        def train_one_batch(self, x, y):
+            out = self.forward(x)
+            loss = self.loss_fn(out, y)
+            if sparse:
+                self._optimizer.backward_and_sparse_update(
+                    loss, spars=0.25, topK=True)
+                return loss
+            self._optimizer(loss)
+            return out, loss
+
+    return TPMLP()
+
+
+def _global_params(m):
+    return {k: v.numpy().copy() for k, v in m.get_params().items()}
+
+
+def job_tp_model(inp, rank, world, out):
+    """The TP MLP through the Model API and the sparse strategy over its
+    TP parameters, from JAX's initial weights."""
+    from singa_tpu_torch import (device, distributed, introspect, layer,
+                                 memory, model, opt)
+    from singa_tpu_torch import tensor
+    from singa_tpu_torch.parallel import make_mesh
+    distributed.init(device="cpu")
+    dev = device.create_cpu_device()
+    mesh = make_mesh(tp_mesh_shape(world))
+    res = {}
+    for case, sparse, steps in (("mlp", False, 5), ("sparse", True, 25)):
+        m = _tp_mlp_model(model, layer, sparse)
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.2 if sparse else 0.1,
+                                            momentum=0.9),
+                                    axis="data", mesh=mesh,
+                                    sparse_residuals=sparse))
+        tx = tensor.from_numpy(inp[f"{case}_X"], dev)
+        ty = tensor.from_numpy(inp[f"{case}_Y"], dev)
+        m.compile([tx], is_train=True, use_graph=True)
+        m.set_params({k[len(case) + 4:]: inp[k] for k in inp.files
+                      if k.startswith(f"{case}_w0/")})
+        losses = []
+        for _ in range(steps):
+            o = m(tx, ty)
+            losses.append((o if sparse else o[1]).item())
+        res[f"{case}/losses"] = losses
+        for k, v in _global_params(m).items():
+            res[f"{case}/p/{k}"] = v
+        res[f"{case}/local_W"] = list(m.fc1.W.shape) + list(m.fc2.W.shape)
+        if not sparse:
+            # the ledger's and the counted step's sizes are the rank's
+            fit = memory.estimate_fit(m)
+            res["mlp/params_bytes"] = fit["params_bytes"]
+            res["mlp/opt_bytes"] = fit["opt_state_bytes"]
+            res["mlp/flops"] = introspect.last_build("step")["cost"]["flops"]
+            # sharded parameters under any other optimizer raise, where
+            # the layers would run the serial math on the shards
+            for name, other in (("sgd", opt.SGD(lr=0.1)),
+                                ("nogroup", opt.DistOpt(opt.SGD(lr=0.1)))):
+                m.set_optimizer(other)
+                for graph in (True, False):
+                    m.graph_mode = graph
+                    try:
+                        m(tx, ty)
+                        msg = "trained"
+                    except ValueError as e:
+                        msg = str(e)
+                    res[f"mlp/other_opt/{name}/{graph}"] = msg
+        if sparse:
+            d = m.optimizer
+            res["sparse/residual_specs"] = np.array([
+                repr(getattr(d.opt._params_by_id[pid], "spec", None))
+                for pid in d._spars_order])
+            res["sparse/state_specs"] = np.array(
+                [repr(s) for s in d.state_specs()])
+    return res
+
+
+#: the GPT cases of test_torch_tp_gpt.py: (config, mesh, optimizer lr,
+#: steps); "preds" runs the config twice (gathered logits, argmax)
+TP_GPT = {
+    "gpt": (dict(vocab_size=50, max_seq=16, dim=32, num_heads=4,
+                 num_layers=2, tp_axis="tp"), "tp", 0.05, 3),
+    "gqa": (dict(vocab_size=50, max_seq=16, dim=32, num_heads=8,
+                 num_kv_heads=4, num_layers=2, tp_axis="tp"), "tp", 0.05, 3),
+    "vocab": (dict(vocab_size=50, max_seq=16, dim=32, num_heads=4,
+                   num_layers=2, tp_axis="tp", vocab_tp=True,
+                   vocab_pad_multiple=8), "tp", 0.05, 3),
+    "preds": (dict(vocab_size=48, max_seq=8, dim=32, num_heads=4,
+                   num_layers=1, tp_axis="tp", vocab_tp=True,
+                   vocab_pad_multiple=8), "tp", 0.0, 1),
+    "ckpt": (dict(vocab_size=48, max_seq=8, dim=16, num_heads=4,
+                  num_layers=1, tp_axis="tp", vocab_tp=True,
+                  vocab_pad_multiple=8), "tp", 0.05, 4),
+    "dry2b": (dict(vocab_size=50, max_seq=8, dim=16, num_heads=4,
+                   num_layers=1, tp_axis="tp", vocab_tp=True,
+                   vocab_pad_multiple=8), "dryrun", 0.05, 1),
+    "moe": (dict(vocab_size=50, max_seq=16, dim=32, num_heads=4,
+                 num_layers=1, tp_axis="tp", moe_experts=2, moe_k=1),
+            "tp", 0.05, 2),
+}
+
+
+def tp_gpt_mesh_shape(case, world):
+    return dryrun_mesh_shape(world) if TP_GPT[case][1] == "dryrun" \
+        else tp_mesh_shape(world)
+
+
+def job_tp_gpt(inp, rank, world, out):
+    """The TP GPT cases (`TP_GPT`) named in the input `cases`, from JAX's
+    initial weights: losses,
+    the last step's output, the global parameters, the local table's
+    rows; the vocab-parallel checkpoint saved mid-run and resumed in a
+    fresh mesh-compiled model."""
+    import torch
+
+    from singa_tpu_torch import distributed, models, opt
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.parallel import make_mesh
+    distributed.init(device="cpu")
+    res = {}
+
+    def build(case, **over):
+        cfg, _, lr, _ = TP_GPT[case]
+        m = models.create_model("gpt", device="cpu", **dict(cfg, **over))
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=lr), axis="data",
+                                    mesh=make_mesh(tp_gpt_mesh_shape(
+                                        case, world))))
+        ids = torch.as_tensor(inp[f"{case}_ids"])
+        m.compile([ids], is_train=True, use_graph=True)
+        m.set_params({k[len(case) + 4:]: inp[k] for k in inp.files
+                      if k.startswith(f"{case}_w0/")})
+        return m, ids, torch.as_tensor(inp[f"{case}_tgt"])
+
+    def steps(m, ids, tgt, n):
+        outs = [m(ids, tgt) for _ in range(n)]
+        return outs[-1][0], [loss.item() for _, loss in outs]
+
+    cases = [str(c) for c in inp["cases"]]
+    for case in [c for c in ("gpt", "gqa", "vocab", "dry2b", "moe")
+                 if c in cases]:
+        m, ids, tgt = build(case)
+        n = TP_GPT[case][3]
+        o, res[f"{case}/losses"] = steps(m, ids, tgt, n)
+        res[f"{case}/out"] = o
+        for k, v in _global_params(m).items():
+            res[f"{case}/p/{k}"] = v
+        res[f"{case}/local_rows"] = m.tok_embed.W.shape[0]
+        res[f"{case}/wq_cols"] = m.blocks[0].attn.Wq.shape[1]
+        # the JAX package's initial weights into the sharded model again
+        # (its get_params() dict, its save_states zip): each rank keeps
+        # its blocks and the run repeats
+        if case == "gpt":
+            transformer.load_singa_params(m, {
+                k[len("gpt_w0/"):]: inp[k] for k in inp.files
+                if k.startswith("gpt_w0/")})
+        elif case == "vocab":
+            transformer.load_singa_states(m, inp["vocab_zip"].item())
+        else:
+            continue
+        res[f"{case}/bridge_losses"] = steps(m, ids, tgt, n)[1]
+    if "preds" in cases:
+        for name, logits in (("full", True), ("pred", False)):
+            m, ids, tgt = build("preds", vocab_tp_return_logits=logits)
+            o, res[f"preds/{name}/losses"] = steps(m, ids, tgt, 1)
+            res[f"preds/{name}/out"] = o
+    if "ckpt" in cases:
+        m, ids, tgt = build("ckpt")
+        _, res["ckpt/ref"] = steps(m, ids, tgt, 4)
+        m, ids, tgt = build("ckpt")
+        steps(m, ids, tgt, 2)
+        path = m.save_checkpoint(inp["ckpt"].item(), step=2)
+        m, ids, tgt = build("ckpt")
+        m.load_checkpoint(path)
+        _, res["ckpt/got"] = steps(m, ids, tgt, 2)
+        res["ckpt/local_rows"] = m.tok_embed.W.shape[0]
+        from singa_tpu_torch.model import _read_states_zip
+        res["ckpt/file_rows"] = _read_states_zip(
+            os.path.join(path, "model.zip"))["tok_embed.W"].shape[0]
+    return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in res.items()}
+
+
 JOBS = {"topo": job_topo, "env": job_env, "verbs": job_verbs,
         "train": job_train, "resume": job_resume, "dryrun": job_dryrun,
         "health": job_health, "kill": job_kill,
-        "resume_small": job_resume_small}
+        "resume_small": job_resume_small, "tp_ops": job_tp_ops,
+        "tp_model": job_tp_model, "tp_gpt": job_tp_gpt}
 
 
 def main(argv):

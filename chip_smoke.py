@@ -339,15 +339,39 @@ Phases, each of which exits non-zero on failure:
    with vocab_tp_return_logits=False the (B, S) int32 argmax equals the
    serial argmax. 17c `parallel.tp_mlp` through NCCL against the dense
    MLP in fp32 within 1e-5.
-18. The `kernels` JSON line (the decode kernels with a `modes` entry per
+18. Sequence and expert parallelism, NCCL at world size 1. 18a the
+   bench GPT (b8 x 1024, bf16 amp, graph mode) built with seq_axis="sp"
+   under DistOpt(SGD) on a {data 1, sp 1} mesh: exactly 8 + 8 K1/K2a a
+   replay (the one-hop ring: one causal K1 a layer), no P2P call, losses
+   within 2e-2 of the same weights without seq_axis (bitwise equality
+   printed), the replayed step beside the other's in turns. 18b the
+   loopback ring (every rank of an n-rank ring in one process) on the
+   kernels: causal (1, 16, 16384, 128) over n 4 (K2a a hop), causal
+   (1, 16, 32768, 128) over n 2 (K2b + K2c a hop), non-causal (1, 16,
+   16384, 128) over n 4, and fp32 (1, 16, 4096, 128) causal over n 4:
+   exactly n (n + 1) / 2 hops of each kernel causal, n^2 not; the
+   output and dq, dk, dv against the whole sequence's kernels within
+   phase 2's tolerances (the first case also against the ring on the
+   plain versions); the ring's device ms beside the whole sequence's.
+   18c phase 8's fp32 GPT with seq_axis on the mesh against its serial
+   path, learned positions and RoPE, within 1e-5. 18d the MoE-GPT
+   (phase 9's) with ep_axis="ep" under DistOpt(SGD, axis=("data",
+   "ep")) on {data 1, ep 1}: exactly 12 + 12 K1/K2a a replay, the
+   build's listing two all-to-alls a MoE layer forward and two backward,
+   losses within 2e-2 of the same weights without ep_axis, each step
+   from the other model's parameters (free-running, K2a's atomics and
+   the routes they flip part the two: printed); then phase 9b's fp32
+   MoE-GPT at ep 1 against its serial path within 1e-5.
+19. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
    `health_train`, `wd_clean`, `wd_aborted`, `wd_fresh`, `wd_train`,
    `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
-   `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train` and
-   `tp_train`), then the card line, then the result line.
+   `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
+   `tp_train`, `sp_train`, `ring_loopback` and `ep_train`), then the
+   card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -355,6 +379,7 @@ Needs one CUDA card; with none it prints no result and exits 1.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import json
 import os
@@ -5814,6 +5839,341 @@ def phase_tp_mlp(torch, parallel):
         fail("17c: tp_mlp parts from the dense MLP")
 
 
+# ---- phase 18: sequence and expert parallelism (NCCL at world size 1) -----
+SP_TOL = 2e-2                # 18a, 18d: bf16 amp losses, sp/ep against none
+SP_MESH = {"data": 1, "sp": 1}
+EP_MESH = {"data": 1, "ep": 1}
+#: 18b: the loopback ring's cases: (label, (B, H, S, D), ranks, causal,
+#: dtype, compared with the ring on the plain versions)
+RING_CASES = (
+    ("causal, n 4 (S_local 4096: K2a a hop)", (1, 16, 16384, 128), 4,
+     True, "bfloat16", True),
+    ("causal, n 2 (S_local 16384: K2b + K2c a hop)", (1, 16, 32768, 128),
+     2, True, "bfloat16", False),
+    ("non-causal, n 4", (1, 16, 16384, 128), 4, False, "bfloat16", False),
+    ("causal, n 4, fp32", (1, 16, 4096, 128), 4, True, "float32", False),
+)
+#: 18c: phase 8's fp32 GPT
+SP_FP32 = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2)
+#: 18d: phase 9b's fp32 MoE-GPT
+EP_FP32 = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
+               num_layers=2, moe_experts=4, moe_k=2,
+               moe_capacity_factor=1.25)
+
+
+@contextlib.contextmanager
+def _counting_p2p(torch):
+    """The calls of torch.distributed.batch_isend_irecv (the ring's one
+    P2P entry, `parallel.communicator._shifted`) while the block runs,
+    as a list that grows."""
+    dist = torch.distributed
+    orig, calls = dist.batch_isend_irecv, []
+
+    def counted(ops):
+        calls.append(len(ops))
+        return orig(ops)
+
+    dist.batch_isend_irecv = counted
+    try:
+        yield calls
+    finally:
+        dist.batch_isend_irecv = orig
+
+
+def _in_turns(torch, built, tx, ty, A, counted):
+    """Replayed steps of each model of `built` in turns (first, second,
+    first, second), DP_STEPS a turn: (losses, ms) by label, and the
+    launches of the `counted` label's turns."""
+    losses = {k: [] for k in built}
+    ms = {k: [] for k in built}
+    counts = {}
+    for label in list(built) * 2:
+        torch.cuda.synchronize()
+        A.reset_launches()
+        got, t = _steps(torch, built[label], tx, ty, DP_STEPS)
+        if label == counted:
+            for k, v in A.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v
+        losses[label] += got
+        ms[label] += t
+    return losses, ms, counts
+
+
+def phase_sp_train(torch, models, opt, A, mesh):
+    """18a: the bench GPT (b8 x 1024, bf16 amp, graph mode) built with
+    seq_axis="sp" under DistOpt(SGD) on a {data 1, sp 1} mesh, against
+    the same weights and DistOpt without seq_axis: turns of DP_STEPS
+    replays (none, sp, none, sp); exactly 8 + 8 K1/K2a a sp replay (the
+    one-hop ring is one causal K1 and one K2a a layer); no P2P call over
+    the build and the replays; losses within SP_TOL, bitwise equality
+    printed. Returns the sp replays' launch counts."""
+    print("== phase 18a: the bench GPT with seq_axis under DistOpt "
+          "(NCCL, {data 1, sp 1})")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+
+    def build(sp):
+        m = models.create_model(
+            "gpt", device="cuda", seed=SEED,
+            **dict(BENCH_GPT, seq_axis="sp" if sp else None))
+        m.set_optimizer(opt.DistOpt(
+            opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5), axis="data",
+            mesh=mesh))
+        m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+        return m
+
+    built = {"none": build(False), "sp": build(True)}
+    with _counting_p2p(torch) as p2p:
+        first = {k: _steps(torch, m, tx, ty, 2)[0] for k, m in built.items()}
+        losses, ms, counts = _in_turns(torch, built, tx, ty, A, "sp")
+    if built["sp"].graph_backend != "cuda_graph":
+        fail(f"18a: the sp step ran {built['sp'].graph_backend!r}")
+    check_launches("18a sp replays", counts,
+                   {"flash_fwd": 2 * L * DP_STEPS,
+                    "flash_bwd_fused": 2 * L * DP_STEPS})
+    ln, ls = first["none"] + losses["none"], first["sp"] + losses["sp"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(ln, ls))
+    print(f"  P2P calls over the build and {4 * DP_STEPS} replays: "
+          f"{len(p2p)} (want 0 at sp 1)")
+    print(f"  sp against no sp, {len(ls)} steps: largest relative loss "
+          f"difference {rel:.3e} (tol {SP_TOL}); bitwise equal {ln == ls}")
+    print("  replayed step median ms in turns (none, sp, none, sp): none "
+          f"{statistics.median(ms['none']):.2f}, sp "
+          f"{statistics.median(ms['sp']):.2f}")
+    if p2p or not rel <= SP_TOL:
+        fail("18a: the sequence-parallel GPT parts from the model without "
+             "seq_axis, or its one-hop ring made a P2P call")
+    del built
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ring_case(torch, A, g, shape, n, causal, dtype, with_plain):
+    """One 18b case: the loopback ring's forward and backward on the
+    kernels (exact launch counts) against the whole sequence's K1 and
+    backward kernels (and, `with_plain`, against the ring on the plain
+    versions); device ms of both. Returns the ring's launches."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(*shape, generator=g, device="cuda")
+                   .to(dt) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    ring = A._Loopback(n)
+    qs, ks, vs, dos = ([b.contiguous() for b in t.chunk(n, dim=2)]
+                       for t in (q, k, v, do))
+
+    def ring_fwd(use_kernel=None):
+        return A._ring_fwd(qs, ks, vs, ring, causal, scale, use_kernel)
+
+    def ring_bwd(outs, lses, use_kernel=None):
+        return A._ring_bwd(qs, ks, vs, outs, lses, dos, ring, causal, scale,
+                           use_kernel)
+
+    torch.cuda.synchronize()
+    A.reset_launches()
+    outs, lses = ring_fwd()
+    grads = ring_bwd(outs, lses)
+    torch.cuda.synchronize()
+    counts = dict(A.LAUNCHES)
+    hops = n * (n + 1) // 2 if causal else n * n
+    fused = shape[2] // n * shape[3] * 4 <= A._FUSED_DQ_BYTES_CAP
+    want = {"flash_fwd": hops}
+    want.update({"flash_bwd_fused": hops} if fused
+                else {"flash_bwd_dq": hops, "flash_bwd_dkv": hops})
+    check_launches(f"18b ring {tuple(shape)} n {n}", counts, want)
+    o_ref, lse_ref = A._flash_fwd(q, k, v, causal, scale)
+    g_ref = A._flash_bwd(q, k, v, o_ref, lse_ref, do, causal, scale)
+    got = [torch.cat(outs, 2)] + [torch.cat(t, 2) for t in grads]
+    errs = [_max_rel(a, b) for a, b in zip(got, [o_ref, *g_ref])]
+    ftol, btol = TOL[dtype], BWD_TOL[dtype]
+    bad = errs[0] > ftol or max(errs[1:]) > btol
+    text = (f"out {errs[0]:.3e} (tol {ftol}), dq {errs[1]:.3e}, dk "
+            f"{errs[2]:.3e}, dv {errs[3]:.3e} (tol {btol})")
+    if with_plain:
+        p_outs, p_lses = ring_fwd(False)
+        p_grads = ring_bwd(p_outs, p_lses, False)
+        perr = [_max_rel(a, torch.cat(b, 2)) for a, b in
+                zip(got, [p_outs, *p_grads])]
+        bad = bad or perr[0] > ftol or max(perr[1:]) > btol
+        text += (f"; against the ring on the plain versions out "
+                 f"{perr[0]:.3e}, dq {perr[1]:.3e}, dk {perr[2]:.3e}, dv "
+                 f"{perr[3]:.3e}")
+        del p_outs, p_lses, p_grads
+    print(f"  ring against the whole sequence's kernels: {text}")
+    ms = {"ring fwd": time_ms(torch, ring_fwd, n=5, warm=1),
+          "whole K1": time_ms(torch, lambda: A._flash_fwd(
+              q, k, v, causal, scale), n=5, warm=1),
+          "ring bwd": time_ms(torch, lambda: ring_bwd(outs, lses), n=5,
+                              warm=1),
+          "whole bwd": time_ms(torch, lambda: A._flash_bwd(
+              q, k, v, o_ref, lse_ref, do, causal, scale), n=5, warm=1)}
+    print("  device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; ring / whole: forward {ms['ring fwd'] / ms['whole K1']:.3f}"
+          f", backward {ms['ring bwd'] / ms['whole bwd']:.3f}")
+    if bad:
+        fail(f"18b: the ring {tuple(shape)} n {n} parts from the whole "
+             "sequence")
+    return counts
+
+
+def phase_ring_loopback(torch, A):
+    """18b: the loopback ring (`ops.attention._Loopback`: every rank of an
+    n-rank ring in this process, in lock step) on the kernels at
+    long-context widths, RING_CASES: a causal ring runs n (n + 1) / 2
+    forward and as many backward hops, a non-causal one n^2, exactly;
+    the output within TOL and dq, dk, dv within BWD_TOL of the whole
+    sequence's K1 and backward kernels (bf16 2e-2 and 3e-2, fp32 2e-4
+    and 2e-3 of max|ref|); the first case also against the ring on the
+    plain versions (use_kernel=False); device ms of the ring beside the
+    whole sequence's kernels. Returns the rings' launch counts."""
+    print("== phase 18b: the loopback ring on K1/K2 at long context")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    total = {k: 0 for k in A.LAUNCHES}
+    for label, shape, n, causal, dtype, with_plain in RING_CASES:
+        print(f"  {label}: {tuple(shape)} {dtype}")
+        for k, v in _ring_case(torch, A, g, shape, n, causal, dtype,
+                               with_plain).items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    return total
+
+
+def _exact_pair(torch, models, opt, cfg, mesh, tx, ty, axis, **par):
+    """Phase 8's check for a parallel config: the fp32 model `cfg` with
+    `par` under DistOpt on `mesh` against the same weights with plain
+    SGD (the serial path), EXACT_STEPS graph steps each: (loss relative
+    difference, parameter difference, bitwise)."""
+    runs = []
+    for on_mesh in (False, True):
+        m = models.create_model("gpt", device="cuda", seed=SEED + 5,
+                                **dict(cfg, **(par if on_mesh else {})))
+        sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)
+        m.set_optimizer(opt.DistOpt(sgd, axis=axis, mesh=mesh)
+                        if on_mesh else sgd)
+        m.compile([tx], is_train=True, use_graph=True)
+        runs.append((m, [m(tx, ty)[1].item() for _ in range(EXACT_STEPS)]))
+    (m0, l0), (m1, l1) = runs
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    err, same = _compare_states(torch, m0._raw_states(), m1._raw_states())
+    if m1.graph_backend != "cuda_graph":
+        fail(f"the {par} model ran {m1.graph_backend!r}")
+    return rel, err, same and l0 == l1
+
+
+def phase_sp_fp32(torch, models, opt, mesh):
+    """18c: phase 8's fp32 GPT (dim 512, 2 layers, S 256, b2) with
+    seq_axis="sp" under DistOpt on the {data 1, sp 1} mesh against the
+    serial path (no seq_axis, SGD), learned positions and RoPE, as
+    graphs: losses and parameters within GRAPH_TOL."""
+    print("== phase 18c: the fp32 sequence-parallel GPT against its "
+          "serial path")
+    tx, ty = (t.cuda() for t in _train_batch(torch, SP_FP32["vocab_size"],
+                                             2, 256, SEED + 4))
+    for pe in ("learned", "rope"):
+        rel, err, same = _exact_pair(
+            torch, models, opt, dict(SP_FP32, pos_encoding=pe), mesh, tx,
+            ty, "data", seq_axis="sp")
+        print(f"  {pe}: {EXACT_STEPS} graph steps, sp against serial: "
+              f"relative loss difference {rel:.3e}, parameters {err:.3e} "
+              f"(tol {GRAPH_TOL}); bitwise {same}")
+        if not (rel <= GRAPH_TOL and err <= GRAPH_TOL):
+            fail(f"18c: the fp32 sp GPT ({pe}) parts from its serial path")
+        torch.cuda.empty_cache()
+
+
+def phase_ep_train(torch, models, opt, introspect, utils, A, mesh, root):
+    """18d: the MoE-GPT (MOE_GPT: GPT-2-small, 8 experts, top-2, cf 1.25;
+    b8 x 1024, bf16 amp, graph mode) built with ep_axis="ep" under
+    DistOpt(SGD, axis=("data", "ep")) on a {data 1, ep 1} mesh, against
+    the same weights and DistOpt without ep_axis, in turns: exactly
+    12 + 12 K1/K2a a replay; the build's op listing holds two all-to-alls
+    a MoE layer forward and two backward; EXACT_STEPS more steps, the ep
+    model set to the other's parameters before each: losses within
+    SP_TOL (the free-running turns' difference printed). Then
+    phase 9b's fp32 MoE-GPT at ep 1 against its serial path within
+    GRAPH_TOL. Returns the ep replays' launch counts."""
+    print("== phase 18d: the MoE-GPT with ep_axis under DistOpt "
+          "(NCCL, {data 1, ep 1})")
+    L, V = MOE_GPT["num_layers"], MOE_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 11))
+
+    def build(ep):
+        m = models.create_model(
+            "gpt", device="cuda", seed=SEED,
+            **dict(MOE_GPT, ep_axis="ep" if ep else None))
+        m.set_optimizer(opt.DistOpt(
+            opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5),
+            axis=("data", "ep"), mesh=mesh))
+        m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+        return m
+
+    built = {"none": build(False), "ep": build(True)}
+    d = os.path.join(root, "ep_moe")
+    first = {"none": _steps(torch, built["none"], tx, ty, 2)[0]}
+    introspect.capture_hlo(d)
+    try:
+        first["ep"] = _steps(torch, built["ep"], tx, ty, 2)[0]
+    finally:
+        introspect.capture_hlo(None)
+    if built["ep"].graph_backend != "cuda_graph":
+        fail(f"18d: the ep step ran {built['ep'].graph_backend!r}")
+    losses, ms, counts = _in_turns(torch, built, tx, ty, A, "ep")
+    check_launches("18d ep replays", counts,
+                   {"flash_fwd": 2 * L * DP_STEPS,
+                    "flash_bwd_fused": 2 * L * DP_STEPS})
+    # the check's losses, step by step from one state: before each step
+    # the ep model takes the other's parameters. Free-running, the two
+    # part through K2a's atomic dQ order and the routes it flips (by
+    # 2.8e-2 over 12 steps in one run; printed, not held)
+    synced = []
+    for _ in range(EXACT_STEPS):
+        with torch.no_grad():
+            for a, b in zip(built["none"]._raw_states().values(),
+                            built["ep"]._raw_states().values()):
+                b.copy_(a)
+        synced.append((built["none"](tx, ty)[1].item(),
+                       built["ep"](tx, ty)[1].item()))
+    text = "".join(_dp_listing(d).values())
+    lines = text.splitlines()
+    a2a = sum(ln.startswith("c10d.alltoall") for ln in lines)
+    dense = len(utils.dense_allreduce_types(text))
+    scalars = sum(ln.startswith("c10d.allreduce_") for ln in lines) - dense
+    print(f"  build listing: {a2a} all-to-alls (want {4 * L}: 2 a MoE "
+          f"layer forward, 2 backward); all-reduces: {dense} dense "
+          f"({len(built['ep']._raw_params())} parameters), {scalars} "
+          "scalar")
+    ln, le = first["none"] + losses["none"], first["ep"] + losses["ep"]
+    free = max(abs(a - b) / abs(a) for a, b in zip(ln, le))
+    rel = max(abs(a - b) / abs(a) for a, b in synced)
+    print(f"  ep against no ep, {len(synced)} steps each from the other's "
+          f"parameters: largest relative loss difference {rel:.3e} (tol "
+          f"{SP_TOL}); bitwise equal {all(a == b for a, b in synced)}; "
+          f"free-running over {len(le)} steps {free:.3e} (bitwise "
+          f"{ln == le})")
+    print("  replayed step median ms in turns (none, ep, none, ep): none "
+          f"{statistics.median(ms['none']):.2f}, ep "
+          f"{statistics.median(ms['ep']):.2f}")
+    if a2a != 4 * L or not rel <= SP_TOL:
+        fail("18d: the expert-parallel MoE-GPT's build or losses part from "
+             "the model without ep_axis")
+    del built
+    torch.cuda.empty_cache()
+    tx, ty = (t.cuda() for t in _train_batch(torch, EP_FP32["vocab_size"],
+                                             4, 256, SEED + 13))
+    rel, err, same = _exact_pair(torch, models, opt, EP_FP32, mesh, tx, ty,
+                                 ("data", "ep"), ep_axis="ep")
+    print(f"  fp32 MoE-GPT (dim 512, 2 layers, 4 experts), {EXACT_STEPS} "
+          f"graph steps, ep 1 against serial: relative loss difference "
+          f"{rel:.3e}, parameters {err:.3e} (tol {GRAPH_TOL}); bitwise "
+          f"{same}")
+    if not (rel <= GRAPH_TOL and err <= GRAPH_TOL):
+        fail("18d: the fp32 ep MoE-GPT parts from its serial path")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -6189,7 +6549,19 @@ def main():
     clock.lap("phase 17b")
     phase_tp_mlp(torch, parallel)
     clock.lap("phase 17c")
-    del mesh, tp_mesh
+    sp_mesh = parallel.make_mesh(SP_MESH)
+    by_path["sp_train"] = phase_sp_train(torch, models, opt, A, sp_mesh)
+    clock.lap("phase 18a")
+    by_path["ring_loopback"] = phase_ring_loopback(torch, A)
+    clock.lap("phase 18b")
+    phase_sp_fp32(torch, models, opt, sp_mesh)
+    clock.lap("phase 18c")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["ep_train"] = phase_ep_train(
+            torch, models, opt, introspect, utils, A,
+            parallel.make_mesh(EP_MESH), root)
+    clock.lap("phase 18d")
+    del mesh, tp_mesh, sp_mesh
     distributed.shutdown()
 
     # the JSON line reports each kernel at its main path's shape and

@@ -1052,6 +1052,17 @@ def axis_bound(name: str) -> bool:
     return bound_mesh(name) is not None
 
 
+def _seq_offset(seq_axis, length: int) -> int:
+    """The global position of this rank's first of `length` positions:
+    axis_index * length while `seq_axis` is bound (a sequence-sharded
+    block), else 0 (the JAX package's `lax.axis_index` with its
+    NameError caught)."""
+    if seq_axis is None or not axis_bound(seq_axis):
+        return 0
+    from .parallel.mesh import axis_index
+    return axis_index(seq_axis) * length
+
+
 class _TPCopy(Operator):
     """Megatron's `f`: identity forward, all-reduce backward over the TP
     axis, on the replicated input of a column-parallel matmul."""
@@ -1242,6 +1253,28 @@ class _FlashAttention(Operator):
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), self.causal,
                                use_kernel=self.use_kernel)
+
+
+class _RingAttention(Operator):
+    """Sequence-parallel attention over the mesh axis `axis_name`
+    (ops.attention.ring_attention: K1 and K2 per hop) while the axis is
+    bound; unbound (parameter init, a serial run), full attention
+    through `_FlashAttention`'s path, which the ring equals there."""
+
+    def __init__(self, axis_name, causal=False, use_kernel=None):
+        super().__init__()
+        self.axis_name = axis_name
+        self.causal = causal
+        self.use_kernel = use_kernel
+
+    def forward(self, q, k, v):
+        if not axis_bound(self.axis_name):
+            return flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), self.causal,
+                                   use_kernel=self.use_kernel)
+        from .ops.attention import ring_attention
+        return ring_attention(q, k, v, self.axis_name, self.causal,
+                              use_kernel=self.use_kernel)
 
 
 class ComputeCast(Operator):
@@ -1503,13 +1536,11 @@ def gelu(x):
 
 def attention(q, k, v, causal=False, seq_axis=None, use_kernel=None):
     """Fused attention (B, H, S, D) through the flash kernels: K1 forward,
-    its backward K2a or K2b + K2c. `seq_axis` (ring attention over a
-    mesh axis) comes with sequence parallelism (ROADMAP.md Queue 1 item
-    5b)."""
+    its backward K2a or K2b + K2c. `seq_axis` names a mesh axis for ring
+    (sequence-parallel) execution: q, k, v are then this rank's sequence
+    shards while the axis is bound."""
     if seq_axis is not None:
-        raise NotImplementedError(
-            "ring attention (seq_axis) comes with model-parallel "
-            "distribution: sequence parallelism, ROADMAP.md Queue 1 item 5b")
+        return _RingAttention(seq_axis, causal, use_kernel)(q, k, v)
     return _FlashAttention(causal, use_kernel)(q, k, v)
 
 
@@ -1730,20 +1761,19 @@ class ScatterElements(Operator):
 
 class Rope(Operator):
     """Rotary position embedding on (B, H, S, D) q or k (NeoX halves),
-    positions 0..S-1. `seq_axis` (positions offset under sequence
-    parallelism) comes with ROADMAP.md Queue 1 item 5b."""
+    positions 0..S-1. `seq_axis`: while that mesh axis is bound, x is
+    this rank's sequence shard and its positions start at
+    axis_index * S (the learned table's `_PosSlice` pattern)."""
 
     def __init__(self, theta=10000.0, seq_axis=None):
         super().__init__("Rope")
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "Rope's seq_axis comes with model-parallel distribution: "
-                "sequence parallelism, ROADMAP.md Queue 1 item 5b")
         self.theta = float(theta)
         self.seq_axis = seq_axis
 
     def forward(self, x):
-        cos, sin = rope_tables(torch.arange(x.shape[-2], device=x.device),
+        S = x.shape[-2]
+        off = _seq_offset(self.seq_axis, S)
+        cos, sin = rope_tables(torch.arange(off, off + S, device=x.device),
                                x.shape[-1], self.theta)
         return apply_rope(x, cos, sin)
 

@@ -805,13 +805,6 @@ FusedRNN = CudnnRNN
 # ---- the transformer stack (JAX layer.py:611-783) ---------------------------
 
 
-def _no_seq_axis(seq_axis):
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "seq_axis (ring attention) comes with model-parallel "
-            "distribution: sequence parallelism, ROADMAP.md Queue 1 item 5b")
-
-
 class LayerNorm(Layer):
     """LayerNorm over the last axis as an fp32 island (biased variance),
     output in the input dtype: variance in bf16 is lossy. gamma and beta
@@ -848,19 +841,24 @@ class MultiHeadAttention(Layer):
     bv) column-parallel, so each rank computes num_heads / tp query heads
     and num_kv_heads / tp kv heads with no collective, Wo row-parallel
     (one all-reduce), bo whole and added after it. Both head counts must
-    divide by tp."""
+    divide by tp.
+
+    `seq_axis` makes the attention a ring over that mesh axis while it is
+    bound (autograd.attention): x is this rank's sequence shard, RoPE
+    offsets its positions by the shard's start, and GQA's kv-head repeat
+    runs before the ring, so the rotating K/V shards carry every head."""
 
     def __init__(self, num_heads, causal=False, seq_axis=None, tp_axis=None,
                  bias=False, num_kv_heads=None, rope=False,
                  rope_theta=10000.0, name=None, dim=None, generator=None):
         super().__init__(name)
-        _no_seq_axis(seq_axis)
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads or num_heads
         if num_heads % self.num_kv_heads:
             raise ValueError(f"{num_heads} heads, {self.num_kv_heads} kv "
                              "heads do not divide")
         self.causal = causal
+        self.seq_axis = seq_axis
         self.tp_axis = tp_axis
         self.rope = bool(rope)
         self.rope_theta = float(rope_theta)
@@ -930,15 +928,16 @@ class MultiHeadAttention(Layer):
         v = proj(Wv, bv, kv_heads)
         if self.rope:
             # rotate before the kv-head repeat, as the JAX layer does
-            q = autograd.Rope(self.rope_theta)(q)
-            k = autograd.Rope(self.rope_theta)(k)
+            q = autograd.Rope(self.rope_theta, self.seq_axis)(q)
+            k = autograd.Rope(self.rope_theta, self.seq_axis)(k)
         grp = self.num_heads // self.num_kv_heads
         if grp > 1:
             # GQA: each kv head serves `grp` consecutive query heads; the
             # repeat's gradient sums over the group
             k = autograd.UpSample([1, grp, 1, 1])(k)
             v = autograd.UpSample([1, grp, 1, 1])(v)
-        o = autograd.attention(q, k, v, causal=self.causal)
+        o = autograd.attention(q, k, v, causal=self.causal,
+                               seq_axis=self.seq_axis)
         o = autograd.reshape(autograd.transpose(o, (0, 2, 1, 3)),
                              (B, S, -1))
         y = autograd.matmul(o, Wo)
@@ -955,11 +954,12 @@ class TransformerBlock(Layer):
     (`self.moe`, no fc1/fc2): x + MoE(LN(x)), its router losses on
     `self.moe` after each forward. fc1/fc2 (or the experts' width) follow
     the first input's width, or `dim` at construction, drawn from
-    `generator`. `ep_axis` is accepted and runs on one device, as the
-    JAX layer does outside a mesh. `tp_axis` makes the attention
-    head-parallel and the MLP column (fc1) then row (fc2) parallel: two
-    all-reduces a block, the Megatron layout (an MoE block's experts stay
-    whole, as in the JAX layer)."""
+    `generator`. `ep_axis` makes the experts expert-parallel over that
+    mesh axis while it is bound (`MoE`). `seq_axis` makes the attention
+    a ring over that axis (`MultiHeadAttention`). `tp_axis` makes the
+    attention head-parallel and the MLP column (fc1) then row (fc2)
+    parallel: two all-reduces a block, the Megatron layout (an MoE
+    block's experts stay whole, as in the JAX layer)."""
 
     def __init__(self, num_heads, mlp_ratio=4, causal=True, seq_axis=None,
                  tp_axis=None, attn_bias=False, moe_experts=0, moe_k=1,
@@ -967,12 +967,11 @@ class TransformerBlock(Layer):
                  rope=False, rope_theta=10000.0, name=None, dim=None,
                  generator=None):
         super().__init__(name)
-        _no_seq_axis(seq_axis)
         self.ln1 = LayerNorm(dim=dim)
         self.attn = MultiHeadAttention(
-            num_heads, causal=causal, tp_axis=tp_axis, bias=attn_bias,
-            num_kv_heads=num_kv_heads, rope=rope, rope_theta=rope_theta,
-            dim=dim, generator=generator)
+            num_heads, causal=causal, seq_axis=seq_axis, tp_axis=tp_axis,
+            bias=attn_bias, num_kv_heads=num_kv_heads, rope=rope,
+            rope_theta=rope_theta, dim=dim, generator=generator)
         self.ln2 = LayerNorm(dim=dim)
         self.mlp_ratio = mlp_ratio
         self.tp_axis = tp_axis
@@ -1027,9 +1026,18 @@ class MoE(Layer):
     training step folds the losses into its loss (the GPT's
     `moe_aux_weight`, `moe_z_weight`). No compute cast: under the bf16
     policy the router and the experts run in the promoted dtype of the
-    input and the fp32 weights, as in the JAX package. `ep_axis` (expert
-    parallelism) is accepted and runs the single-device path, as the
-    JAX layer does outside a mesh."""
+    input and the fp32 weights, as in the JAX package.
+
+    `ep_axis` (expert parallelism): while that mesh axis is bound, the
+    parameters stay whole on every rank (replicated, as in the JAX
+    layer), each rank runs its group of E / n experts, sliced by its
+    index on the axis, and the tokens travel to their experts and back
+    by two all-to-alls (parallel.moe.moe_ffn_ep; the capacity is taken
+    over the rank's T rows); aux, z_loss and overflow are averaged over
+    the axis. Training so needs a DistOpt that reduces over the axis too
+    (`DistOpt(axis=("data", ep_axis))`): a mesh-compiled model whose
+    DistOpt does not raises at its first step. Unbound, the
+    single-device path runs."""
 
     def __init__(self, num_experts, hidden=None, capacity_factor=1.25,
                  ep_axis=None, k=1, name=None, dim=None, generator=None):
@@ -1071,25 +1079,40 @@ class MoE(Layer):
         self._new_param("b2", (E, d), x)
 
     def forward(self, x):
-        y, aux, z, ovf = _MoEOp(self.capacity_factor, self.k)(
+        y, aux, z, ovf = _MoEOp(self.capacity_factor, self.k, self.ep_axis)(
             x, self.Wg, self.W1, self.b1, self.W2, self.b2)
         self.aux_loss, self.z_loss, self.overflow = aux, z, ovf
         return y
 
 
 class _MoEOp(autograd.Operator):
-    """The MoE FFN as one tape node: (y, aux, z_loss, overflow)."""
+    """The MoE FFN as one tape node: (y, aux, z_loss, overflow); expert
+    parallel while `ep_axis` is bound (JAX layer.py:855-878)."""
 
-    def __init__(self, capacity_factor, k):
+    def __init__(self, capacity_factor, k, ep_axis=None):
         super().__init__("MoE")
         self.capacity_factor = capacity_factor
         self.k = k
+        self.ep_axis = ep_axis
 
     def forward(self, x, Wg, W1, b1, W2, b2):
-        from .parallel.moe import moe_ffn
+        from .parallel.moe import moe_ffn, moe_ffn_ep
         shape = x.shape
-        y, aux, (z, ovf) = moe_ffn(x.reshape(-1, shape[-1]), Wg, W1, b1,
-                                   W2, b2, self.capacity_factor, k=self.k)
+        flat = x.reshape(-1, shape[-1])
+        if self.ep_axis is not None and autograd.axis_bound(self.ep_axis):
+            # this rank's expert group of the replicated tables: the
+            # slices' gradients reach the whole tables with zeros
+            # elsewhere, and the DistOpt's mean over (data, ep) gives the
+            # serial token-mean gradient
+            from .parallel.mesh import axis_index, axis_size
+            el = W1.shape[0] // axis_size(self.ep_axis)
+            lo = axis_index(self.ep_axis) * el
+            y, aux, (z, ovf) = moe_ffn_ep(
+                flat, Wg, *(t.narrow(0, lo, el) for t in (W1, b1, W2, b2)),
+                self.ep_axis, self.capacity_factor, k=self.k)
+        else:
+            y, aux, (z, ovf) = moe_ffn(flat, Wg, W1, b1, W2, b2,
+                                       self.capacity_factor, k=self.k)
         return y.reshape(*shape[:-1], y.shape[-1]), aux, z, ovf
 
 

@@ -105,6 +105,14 @@ The batch splits over the DistOpt's axis only. Once sharded, the
 parameters train only under a DistOpt on that mesh: any other optimizer
 raises, where it would run the serial math on the shards.
 
+Sequence and expert parallelism ride the same binding: a `seq_axis`
+GPT's attention is a ring and an `ep_axis` MoE dispatches its tokens by
+all-to-all while the DistOpt's mesh carries the axis (the batch is not
+split over a sequence axis, as in the JAX package's step). A step's
+first build refuses an expert-parallel MoE on a mesh of more than one
+device whose DistOpt does not reduce over its axis
+(`_check_ep_reduction`).
+
 Builds (`introspect`): a graph-mode step or eval signature registers a
 build at its first call, the warm-up, which runs under introspect's
 counting mode (the trace phase: its flops, bytes and op listing), with
@@ -558,6 +566,31 @@ class Model(layer.Layer, metaclass=ModelMeta):
                 f"{self._tp_mesh!r}: train them with a DistOpt on that "
                 "mesh, or build the model anew")
 
+    def _check_ep_reduction(self):
+        """At a step's first build (JAX model.py:283-304): an
+        expert-parallel MoE layer whose axis is on a DistOpt mesh of more
+        than one device needs the DistOpt to reduce over that axis too;
+        over `data` alone each ep rank's replicated expert tables would
+        take only its own slices' gradients and diverge, so it raises."""
+        opt = self._optimizer
+        if not isinstance(opt, opt_module.DistOpt) \
+                or opt.communicator.mesh is None \
+                or opt.communicator.mesh.size <= 1:
+            return
+        mesh_axes = set(opt.communicator.mesh.shape)
+        red_axes = set(opt.axis if isinstance(opt.axis, tuple)
+                       else (opt.axis,))
+        for lyr in self.modules():
+            ep = getattr(lyr, "ep_axis", None)
+            if (ep is not None and hasattr(lyr, "num_experts")
+                    and ep in mesh_axes and ep not in red_axes):
+                raise ValueError(
+                    f"MoE layer routes experts over mesh axis '{ep}' "
+                    f"but DistOpt reduces only over {sorted(red_axes)}"
+                    f"; expert gradients would diverge across '{ep}'. "
+                    f"Use DistOpt(axis={tuple(sorted(red_axes) + [ep])}"
+                    f", mesh=mesh)")
+
     def _tp_bound(self):
         """The mesh the parameters are sharded over, bound (a context
         manager), or a null context."""
@@ -720,6 +753,8 @@ class Model(layer.Layer, metaclass=ModelMeta):
         raws = [_raw(v) for v in vals if _is_tensor(v)]
         bs = raws[0].shape[0] if raws and raws[0].dim() > 0 else None
         dev = device_module.of(self._device)
+        if entry is None:
+            self._check_ep_reduction()
         if entry is None and comm is not None:
             self._dp_sync(comm, dev)
         stream = self._dp_stream(comm, dev) if comm is not None else None

@@ -9,10 +9,11 @@ bridge from the JAX package (`load_singa_params`, `load_singa_states`;
 dicts (`load_gpt2_weights`).
 
 `moe_experts` > 0 makes every block's MLP a top-`moe_k` mixture of
-experts (MoE-GPT). `tp_axis` makes every block tensor-parallel and
-`vocab_tp` the embedding vocab-parallel with the head tied to it
-(`_VocabTPMixin`); sequence and expert parallelism come with ROADMAP.md
-Queue 1 items 5b and 5c.
+experts (MoE-GPT), expert-parallel over `ep_axis`. `tp_axis` makes every
+block tensor-parallel and `vocab_tp` the embedding vocab-parallel with
+the head tied to it (`_VocabTPMixin`); `seq_axis` makes every block's
+attention a ring over that axis (sequence parallelism). Pipeline
+parallelism comes with ROADMAP.md Queue 1 item 5c.
 """
 
 from __future__ import annotations
@@ -32,16 +33,18 @@ from ..tensor import Tensor, _raw
 
 
 class _PosSlice(autograd.Operator):
-    """The first `length` rows of the position table (the JAX package's
-    `_PosSlice` at offset 0: sequence parallelism, which offsets it,
-    comes with model parallelism)."""
+    """`length` rows of the position table from this rank's global
+    sequence offset: axis_index * length while `seq_axis` is bound (the
+    rank's shard of a sequence-sharded batch), else 0."""
 
-    def __init__(self, length):
+    def __init__(self, length, seq_axis=None):
         super().__init__("PosSlice")
         self.length = length
+        self.seq_axis = seq_axis
 
     def forward(self, table):
-        return table[:self.length]
+        off = autograd._seq_offset(self.seq_axis, self.length)
+        return table[off:off + self.length]
 
 
 class _VocabTPMixin:
@@ -106,9 +109,10 @@ class GPT(_VocabTPMixin, model.Model):
     `moe_experts` > 0 swaps every block's MLP for a top-`moe_k` MoE FFN
     (layer.MoE) with capacity factor `moe_capacity_factor`; the training
     loss adds each block's load-balance loss times `moe_aux_weight` and
-    its router z-loss times `moe_z_weight`. `ep_axis` is accepted and
-    runs on one device. The positional order is the JAX GPT's, and
-    `device` and `seed` come last.
+    its router z-loss times `moe_z_weight`. `ep_axis` makes the experts
+    expert-parallel over that mesh axis (layer.MoE): train such a model
+    under `DistOpt(axis=("data", ep_axis))`. The positional order is the
+    JAX GPT's, and `device` and `seed` come last.
 
     Tensor parallelism: `tp_axis` shards every block's heads and MLP over
     that mesh axis (layer.TransformerBlock). `vocab_tp=True` (which needs
@@ -120,8 +124,14 @@ class GPT(_VocabTPMixin, model.Model):
     full logits; `train_one_batch` returns the gathered (B, S, V) logits,
     or with `vocab_tp_return_logits=False` the (B, S) int32 argmax
     predictions. Off the mesh the same model runs the serial math on the
-    full weights. `seq_axis` raises until sequence parallelism is ported
-    (ROADMAP.md Queue 1 item 5b)."""
+    full weights.
+
+    Sequence parallelism: with `seq_axis`, while that mesh axis is bound
+    the ids are this rank's block of the sequence, every block's
+    attention is a ring over the axis and the positions (the learned
+    table's rows, or RoPE's) start at the block's global offset.
+    Unbound, the same model runs the serial forward. The parameters do
+    not change with it."""
 
     def __init__(self, vocab_size, max_seq=1024, dim=256, num_heads=8,
                  num_layers=4, mlp_ratio=4, seq_axis=None, tp_axis=None,
@@ -132,10 +142,6 @@ class GPT(_VocabTPMixin, model.Model):
                  pos_encoding="learned", rope_theta=10000.0, name=None,
                  device=None, seed=0):
         super().__init__(name)
-        if seq_axis is not None:
-            raise NotImplementedError(
-                "GPT(seq_axis=...) comes with model-parallel distribution: "
-                "sequence parallelism, ROADMAP.md Queue 1 item 5b")
         if vocab_tp and tp_axis is None:
             raise ValueError(
                 "vocab_tp=True needs tp_axis: vocab parallelism shards the "
@@ -156,6 +162,7 @@ class GPT(_VocabTPMixin, model.Model):
         self.moe_experts = moe_experts
         self.moe_aux_weight = moe_aux_weight
         self.moe_z_weight = moe_z_weight
+        self.seq_axis = seq_axis
         self.tp_axis = tp_axis
         self.vocab_tp = bool(vocab_tp)
         self.vocab_tp_return_logits = vocab_tp_return_logits
@@ -172,8 +179,9 @@ class GPT(_VocabTPMixin, model.Model):
                                      out_dtype="float32", generator=gen)
         self.blocks = nn.ModuleList(
             layer.TransformerBlock(
-                num_heads, mlp_ratio, causal=True, tp_axis=tp_axis,
-                attn_bias=attn_bias, num_kv_heads=num_kv_heads,
+                num_heads, mlp_ratio, causal=True, seq_axis=seq_axis,
+                tp_axis=tp_axis, attn_bias=attn_bias,
+                num_kv_heads=num_kv_heads,
                 rope=pos_encoding == "rope", rope_theta=rope_theta,
                 moe_experts=moe_experts, moe_k=moe_k, ep_axis=ep_axis,
                 moe_capacity_factor=moe_capacity_factor, dim=dim,
@@ -221,7 +229,7 @@ class GPT(_VocabTPMixin, model.Model):
         if self.pos_encoding == "learned":
             table = Tensor._wrap(self.pos_embed, h.device, True) \
                 if on_tape else self.pos_embed
-            pos = _PosSlice(ids.shape[1])(table)
+            pos = _PosSlice(ids.shape[1], self.seq_axis)(table)
             h = autograd.add(h, autograd.expand(pos, h.shape))
         for b in self.blocks:
             h = b(h)

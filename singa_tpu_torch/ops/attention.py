@@ -23,7 +23,9 @@ a workspace the wrapper allocates, which a second CUDA kernel of the same
 C entry point merges: one wrapper call, one count. `flash_attention` is
 differentiable through `FlashAttention`, a torch.autograd.Function (the
 JAX package's custom_vjp), whose backward picks K2a or K2b + K2c by the
-JAX package's rule (`_FUSED_DQ_BYTES_CAP`).
+JAX package's rule (`_FUSED_DQ_BYTES_CAP`). `ring_attention` (sequence
+parallelism) runs K1 and K2 per hop of a ring over a mesh axis, through
+`RingAttention`; it adds no kernel.
 
 While `introspect` counts a build's first call, each wrapper books its
 kernel's flops and bytes by the formulas of chip_smoke.py's bounds
@@ -428,6 +430,235 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+# ============ ring attention: K1 and K2 per hop ============================
+#
+# Sequence parallelism (the JAX package's `_ring_flash`, attention.py
+# :674-832). Each rank holds its shard of the sequence, (B, H, S_local, D).
+# The K/V shards move one rank along the ring at each of n hops, so at hop
+# i rank `my` holds the shard of rank src = (my - i) % n and runs K1 on it:
+# in full for src < my, causal for src == my and not at all for src > my
+# when causal, in full at every hop otherwise. The hops' (o, lse) merge by
+# the running max in fp32. The backward runs the flash backward per hop
+# from the merged O and lse, prepared once (q pre-scaled, delta): K2a, or
+# K2b + K2c when S_local * D * 4 > _FUSED_DQ_BYTES_CAP, `_flash_bwd`'s rule
+# on the shard. dQ adds up in fp32; dK and dV add onto a rotating fp32
+# shard, so after n shifts each is back with its owner.
+#
+# The hop loop runs the ranks of a ring in lock step: `_AxisRing`, one rank
+# a process, whose shift is the axis's ppermute, or `_Loopback`, every rank
+# of one ring in one process, whose shift rotates a list: a check of the
+# hop schedule on one device, not an API.
+
+class _AxisRing:
+    """The ring of a bound mesh axis (`parallel.tp._Axis`): this process
+    runs the one rank at its index."""
+
+    def __init__(self, ax):
+        self.ax = ax
+        self.n = ax.size
+        self.ranks = (ax.index,)
+
+    def shift(self, xs):
+        from ..parallel.tp import _shift
+        return [_shift(xs[0], self.ax)]
+
+
+class _Loopback:
+    """Every rank of an n-rank ring in this process: `shift` hands rank r
+    the tensor of rank r - 1, as the axis's ppermute does."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self.ranks = tuple(range(self.n))
+
+    def shift(self, xs):
+        return [xs[(r - 1) % self.n] for r in range(self.n)]
+
+
+def _hop_causal(src, my, causal):
+    """The causal flag of hop src -> my's kernel call, or None to skip it
+    (a causal hop from a later shard contributes nothing)."""
+    if not causal or src < my:
+        return False
+    return True if src == my else None
+
+
+def _ring_fwd(qs, ks, vs, ring, causal, scale, use_kernel=None):
+    """(outs, lses) of the ring's ranks (lists in `ring.ranks` order): K1
+    (or the plain forward) per hop, merged by the running max in fp32.
+    Hop 0 is the rank's own shard, never skipped, so the merge starts
+    from it: m = lse, z = 1, num = o, which is what the JAX package's
+    merge makes of it from (-inf, 0, 0)."""
+    n = ring.n
+    acc = [None] * len(qs)
+    k_cur, v_cur = list(ks), list(vs)
+    for i in range(n):
+        for r, my in enumerate(ring.ranks):
+            c = _hop_causal((my - i) % n, my, causal)
+            if c is None:
+                continue
+            o, lse = _flash_fwd(qs[r], k_cur[r], v_cur[r], c, scale,
+                                use_kernel)
+            o = o.float()
+            if acc[r] is None:
+                acc[r] = (lse, torch.ones_like(lse), o)
+                continue
+            m, z, num = acc[r]
+            m_new = torch.maximum(m, lse)
+            corr = torch.exp(m - m_new)
+            w = torch.exp(lse - m_new)
+            acc[r] = (m_new, z * corr + w,
+                      num * corr[..., None] + w[..., None] * o)
+        if i < n - 1:
+            k_cur, v_cur = ring.shift(k_cur), ring.shift(v_cur)
+    outs, lses = [], []
+    for q, (m, z, num) in zip(qs, acc):
+        z = torch.clamp_min(z, 1e-20)
+        outs.append((num / z[..., None]).to(q.dtype))
+        lses.append(m + torch.log(z))
+    return outs, lses
+
+
+def _ring_bwd_hop(q, k, v, o, lse, do, prep, causal, scale, fused):
+    """One backward hop: (dq, dk, dv) of q against this K/V shard, from
+    the merged O and lse; the kernels on `prep` (the prepared q and
+    delta), the plain backward when it is None."""
+    with introspect.kernel_cost(lambda: _bwd_cost(q, k, causal, fused)):
+        if prep is None:
+            return flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+        qf, delta = prep
+        fn = _flash_bwd_fused if fused else _flash_bwd_split
+        return fn(qf, k, v, do, lse, delta, causal, scale)
+
+
+def _ring_bwd(qs, ks, vs, outs, lses, dos, ring, causal, scale,
+              use_kernel=None):
+    """(dqs, dks, dvs) of the ring's ranks, in the inputs' dtypes: one
+    backward hop per forward hop, dQ added in fp32, dK and dV added onto
+    the rotating fp32 shard and shifted after every hop, the last shift
+    bringing them home (the K/V shift after the last hop is skipped)."""
+    n = ring.n
+    fused = qs[0].shape[2] * qs[0].shape[3] * 4 <= _FUSED_DQ_BYTES_CAP
+    prep = [_bwd_prepare(q, k, v, o, lse, do, scale)
+            if _use_kernel(q, use_kernel, "ring_attention backward")
+            else None
+            for q, k, v, o, lse, do in zip(qs, ks, vs, outs, lses, dos)]
+    dq, dk, dv = [None] * len(qs), [None] * len(qs), [None] * len(qs)
+    k_cur, v_cur = list(ks), list(vs)
+    for i in range(n):
+        for r, my in enumerate(ring.ranks):
+            c = _hop_causal((my - i) % n, my, causal)
+            if c is None:
+                continue
+            gq, gk, gv = (g.float() for g in _ring_bwd_hop(
+                qs[r], k_cur[r], v_cur[r], outs[r], lses[r], dos[r],
+                prep[r], c, scale, fused))
+            if dq[r] is None:
+                dq[r], dk[r], dv[r] = gq, gk, gv
+            else:
+                dq[r], dk[r], dv[r] = dq[r] + gq, dk[r] + gk, dv[r] + gv
+        if i < n - 1:
+            k_cur, v_cur = ring.shift(k_cur), ring.shift(v_cur)
+        dk, dv = ring.shift(dk), ring.shift(dv)
+    return ([g.to(q.dtype) for g, q in zip(dq, qs)],
+            [g.to(k.dtype) for g, k in zip(dk, ks)],
+            [g.to(v.dtype) for g, v in zip(dv, vs)])
+
+
+class RingAttention(torch.autograd.Function):
+    """Ring attention over one rank's shards (the JAX package's
+    `_ring_flash` custom_vjp): the forward saves the local q, k, v and
+    the merged O and lse; the backward runs the backward ring."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ring, causal, scale, use_kernel):
+        (out,), (lse,) = _ring_fwd([q], [k], [v], ring, causal, scale,
+                                   use_kernel)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.ring, ctx.causal = ring, causal
+        ctx.scale, ctx.use_kernel = scale, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        (dq,), (dk,), (dv,) = _ring_bwd(
+            [q], [k], [v], [out], [lse], [do.contiguous()], ctx.ring,
+            ctx.causal, ctx.scale, ctx.use_kernel)
+        return dq, dk, dv, None, None, None, None
+
+
+def ring_attention(q, k, v, axis_name, causal=False, scale=None,
+                   use_kernel=None):
+    """Sequence-parallel attention over the bound mesh axis `axis_name`
+    (raises NameError when it is unbound, as `lax.axis_size` does): q, k,
+    v are this rank's sequence shards (B, H, S_local, D); returns the
+    rank's (B, H, S_local, D) output. Each hop runs K1 forward and K2a or
+    K2b + K2c backward on CUDA tensors (the plain versions on CPU tensors
+    or with `use_kernel=False`); K/V shards move by P2P over the axis's
+    group, none at axis size 1. Any S_local: the kernels mask ragged
+    tiles, so there is no einsum fallback. Differentiable through
+    `RingAttention`."""
+    from ..parallel.tp import _axis
+    ring = _AxisRing(_axis(axis_name))
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return RingAttention.apply(q, k, v, ring, causal, scale, use_kernel)
+    return _ring_fwd([q], [k], [v], ring, causal, scale, use_kernel)[0][0]
+
+
+class _SeqShard(torch.autograd.Function):
+    """This rank's block of the sequence axis (dim 2); the backward
+    gathers every rank's block gradient into the full one."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        n = x.shape[2] // ax.size
+        if n * ax.size != x.shape[2]:
+            raise ValueError(f"sequence of {x.shape[2]} does not split over "
+                             f"{ax.size} ranks")
+        ctx.ax = ax
+        return x.narrow(2, ax.index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.tp import _gather_dim
+        return _gather_dim(g, ctx.ax, 2), None
+
+
+class _SeqGather(torch.autograd.Function):
+    """Every rank's block concatenated along the sequence axis; the
+    backward keeps this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        from ..parallel.tp import _gather_dim
+        ctx.ax = ax
+        return _gather_dim(x, ax, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[2] // ctx.ax.size
+        return g.narrow(2, ctx.ax.index * n, n).contiguous(), None
+
+
+def ring_attention_sharded(q, k, v, mesh, axis_name="sp", causal=False):
+    """Ring attention over global (B, H, S, D) arrays, replicated on every
+    rank of `mesh`: under `mesh.bind()` each rank takes its S block on
+    `axis_name` and runs `ring_attention`; returns the global output,
+    gathered along S (a collective every rank of the axis joins), as the
+    JAX package's shard_map returns a global array. Differentiable: the
+    gradient of a replicated input is gathered from the blocks'."""
+    from ..parallel.tp import _mesh_axis
+    ax = _mesh_axis(mesh, axis_name)
+    with mesh.bind():
+        out = ring_attention(*(_SeqShard.apply(t, ax) for t in (q, k, v)),
+                             axis_name, causal)
+        return _SeqGather.apply(out, ax)
+
+
 # ============ int4 nibble packing and the quantized-KV helpers ==============
 #
 # int4 KV packs two 4-bit values per byte along the lane dimension in the
@@ -739,8 +970,9 @@ def _paged_call(q, k_pool, v_pool, page_table, lengths, ps, scale, k_scales,
 
 
 __all__ = ["FlashAttention", "KV_MODES", "LAUNCHES", "LAUNCHES_BY_MODE",
-           "add_launches", "launch_counts", "launches_since",
-           "attention_reference", "flash_attention", "flash_bwd_reference",
-           "flash_decode", "flash_decode_reference", "nibble_pack",
-           "nibble_unpack", "paged_attention", "paged_attention_reference",
-           "reset_launches"]
+           "RingAttention", "add_launches", "launch_counts",
+           "launches_since", "attention_reference", "flash_attention",
+           "flash_bwd_reference", "flash_decode", "flash_decode_reference",
+           "nibble_pack", "nibble_unpack", "paged_attention",
+           "paged_attention_reference", "reset_launches", "ring_attention",
+           "ring_attention_sharded"]

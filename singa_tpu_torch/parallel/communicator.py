@@ -60,11 +60,12 @@ def _comm_stamp(op: str):
 
 
 # ---- the collective primitives ------------------------------------------
-# Every torch.distributed collective of the data- and tensor-parallel
-# steps goes through these (the communicator's verbs, `parallel.tp`'s
-# operators, the model's first-build sync), so a rule of the backend is
-# kept in one place: NCCL takes contiguous tensors only (a tied head's
-# gradient is a transposed view). None of them books anything.
+# Every torch.distributed collective of the data-, tensor-, sequence- and
+# expert-parallel steps goes through these (the communicator's verbs,
+# `parallel.tp`'s operators, the ring's shifts, the experts' all-to-all,
+# the model's first-build sync), so a rule of the backend is kept in one
+# place: NCCL takes contiguous tensors only (a tied head's gradient is a
+# transposed view). None of them books anything.
 
 def _reduce_(x, group, op=None):
     """x summed (or reduced by `op`, a `dist.ReduceOp`) over `group`'s
@@ -98,6 +99,35 @@ def _bcast_(x, group, root: int = 0):
     dist.broadcast(x, src=dist.get_global_rank(group, int(root)),
                    group=group)
     return x
+
+
+def _shifted(x, group, size: int, index: int):
+    """Every rank's x sent one step along `group`'s ring (`lax.ppermute`
+    with the pairs (i, i + 1 mod size)): the x of the rank before this
+    one, in a new contiguous tensor. Point to point, through
+    `batch_isend_irecv`; at size 1 it returns x and makes no call (torch
+    refuses a send to one's own rank)."""
+    if group is None or size == 1:
+        return x
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    nxt = dist.get_global_rank(group, (index + 1) % size)
+    prv = dist.get_global_rank(group, (index - 1) % size)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x, nxt, group),
+            dist.P2POp(dist.irecv, out, prv, group)]):
+        req.wait()
+    return out
+
+
+def _exchanged(x, group):
+    """`dist.all_to_all_single` of x over `group`: block i of x's first
+    dimension goes to the group's rank i, and block i of the result came
+    from it, in a new contiguous tensor."""
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 def _payload_bytes(x) -> int:

@@ -18,11 +18,11 @@ mesh, and the tensor-parallel layers gate their collectives on it
 while its block runs: the data-parallel graph-mode step binds its
 DistOpt's mesh around the step body (`Model._dp_call`), a functional
 caller binds one explicitly. `bound_mesh(name)` is the innermost bound
-mesh with that axis; `axis_size` reads it, and raises NameError for an
-unbound name, as `lax.axis_size` does. The binding is
-process-wide, not per thread: a backward that autograd runs on its own
-thread still sees it (the operators keep the group they found at their
-forward anyway).
+mesh with that axis; `axis_size` and `axis_index` read it, and raise
+NameError for an unbound name, as `lax.axis_size` and `lax.axis_index`
+do. The binding is process-wide, not per thread: a backward that
+autograd runs on its own thread still sees it (the operators keep the
+group they found at their forward anyway).
 """
 
 from __future__ import annotations
@@ -158,6 +158,13 @@ def axis_size(name: str) -> int:
     return int(_bound(name).shape[name])
 
 
+def axis_index(name: str) -> int:
+    """This rank's index along the bound axis `name` (`lax.axis_index`):
+    the bound mesh's `coordinate`, 0 for a mesh without a process
+    group."""
+    return _bound(name).coordinate(name)
+
+
 def local_device_count() -> int:
     """The devices a mesh can span: the ranks of the process group (one
     device each), 1 without one."""
@@ -197,6 +204,6 @@ def factor_mesh(n_devices: int, axes=("dp", "sp", "tp")) -> Mesh:
     return make_mesh(dict(zip(axes, sizes)))
 
 
-__all__ = ["Mesh", "axis_size", "bound_mesh",
+__all__ = ["Mesh", "axis_index", "axis_size", "bound_mesh",
            "local_device_count", "make_mesh", "data_parallel_mesh",
            "factor_mesh"]

@@ -1,6 +1,7 @@
-"""Mixture-of-experts FFN on one device (counterpart of
-singa_tpu/parallel/moe.py): top-k routing with capacity, a Switch
-load-balance loss and the ST-MoE router z-loss.
+"""Mixture-of-experts FFN (counterpart of singa_tpu/parallel/moe.py):
+top-k routing with capacity, a Switch load-balance loss and the ST-MoE
+router z-loss, on one device (`moe_ffn`) or expert-parallel over a mesh
+axis (`moe_ffn_ep`).
 
 Each token picks its k experts by gate probability (ties to the lower
 expert index, as `lax.top_k` orders them) and the k gates are
@@ -19,7 +20,12 @@ Slots are unique apart from the spare one, which nothing reads, so the
 backward is deterministic, and every shape is static: no host sync, so a
 CUDA graph captures the step. Queue positions are exact integers; the
 JAX package counts them in the activation dtype, where bf16 stops
-counting at 256 (ROADMAP.md, Queue 3)."""
+counting at 256 (ROADMAP.md, Queue 3).
+
+Expert parallelism: each rank of the axis owns E / n experts; the
+(E, C, D) blocks of its tokens go to their experts' ranks and come back
+by two all-to-alls (`_A2A`, over `parallel.communicator`'s primitive;
+its backward is the mirrored all-to-all, as the JAX package writes it)."""
 
 from __future__ import annotations
 
@@ -117,4 +123,93 @@ def moe_ffn(x, Wg, W1, b1, W2, b2, capacity_factor=1.25, act=None, k=1):
     return y, aux, (z_loss, overflow)
 
 
-__all__ = ["moe_ffn", "top1_gating", "topk_gating"]
+class _A2A(torch.autograd.Function):
+    """`lax.all_to_all(x, axis, split, concat)` over a bound axis: x's
+    dimension `split` (of the axis's size) is scattered over the ranks
+    and what arrives is stacked on a new dimension `concat`; the
+    backward is the mirrored all-to-all (JAX's `_a2a`)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, split, concat):
+        ctx.ax, ctx.split, ctx.concat = ax, split, concat
+        return _all_to_all(x, ax, split, concat)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (_all_to_all(dy, ctx.ax, ctx.concat, ctx.split), None, None,
+                None)
+
+
+def _all_to_all(x, ax, split, concat):
+    """The all-to-all itself: the split dimension moved first, exchanged
+    block by block (`_exchanged`; nothing without a process group), and
+    the arrivals' dimension moved to `concat`."""
+    from .communicator import _exchanged
+    if x.shape[split] != ax.size:
+        raise ValueError(f"all_to_all: dimension {split} of "
+                         f"{tuple(x.shape)} is not the axis size {ax.size}")
+    x = x.movedim(split, 0)
+    if ax.group is not None:
+        x = _exchanged(x, ax.group)
+    return x.movedim(0, concat)
+
+
+class _PMean(torch.autograd.Function):
+    """`lax.pmean` as the JAX package differentiates it inside its
+    shard_map (check_vma off, psum transposing to psum): the mean over
+    the axis forward, the mean of the cotangents backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        from .tp import _psum
+        ctx.ax = ax
+        return _psum(x, ax) / ax.size
+
+    @staticmethod
+    def backward(ctx, dy):
+        from .tp import _psum
+        return _psum(dy, ctx.ax) / ctx.ax.size, None
+
+
+def moe_ffn_ep(x, Wg, W1, b1, W2, b2, axis_name, capacity_factor=1.25,
+               act=None, k=1):
+    """Expert-parallel MoE over the bound mesh axis `axis_name`: x (T, D)
+    this rank's tokens, Wg (D, E) replicated, W1 (E / n, D, H), b1, W2,
+    b2 this rank's experts only. The capacity is `moe_ffn`'s formula on
+    the local T, max(1, int(T * k * capacity_factor / E)). Routing is by
+    index, as in `moe_ffn`; the (E, C, D) blocks, grouped (n, E / n, C,
+    D) by owner, are all-to-all'd, run through the local experts as
+    (E / n, n C, D) and all-to-all'd back. Returns (y (T, D), aux,
+    (z_loss, overflow)), the three averaged over the axis."""
+    from .tp import _axis
+    act = act or _gelu
+    ax = _axis(axis_name)
+    n = ax.size
+    T, D = x.shape
+    E = Wg.shape[1]
+    e_local = E // n
+    if e_local * n != E or W1.shape[0] != e_local:
+        raise ValueError(f"{E} experts over {n} ranks: each rank holds "
+                         f"E / n of them, got W1 {tuple(W1.shape)}")
+    capacity = max(1, int(T * k * capacity_factor / E))
+    slots, gates, aux, z_loss, overflow = topk_gating(x, Wg, capacity, k)
+    dt = torch.promote_types(x.dtype, W1.dtype)
+    flat = slots.reshape(-1)
+    src = x.to(dt).repeat_interleave(k, dim=0)
+    buf = x.new_zeros((E * capacity + 1, D), dtype=dt).index_copy(
+        0, flat, src)
+    grouped = buf[:-1].reshape(n, e_local, capacity, D)
+    received = _A2A.apply(grouped, ax, 0, 1)         # (e_local, n, C, D)
+    out = _expert_ffn(received.reshape(e_local, n * capacity, D),
+                      W1.to(dt), b1.to(dt), W2.to(dt), b2.to(dt), act)
+    returned = _A2A.apply(out.reshape(e_local, n, capacity, D), ax, 1, 0)
+    out = torch.cat([returned.reshape(E * capacity, D),
+                     out.new_zeros((1, D))])           # spare row: 0
+    rows = out.index_select(0, flat).reshape(T, k, D)
+    y = (gates[..., None] * rows).sum(dim=1)
+    aux, z_loss, overflow = (_PMean.apply(t, ax)
+                             for t in (aux, z_loss, overflow))
+    return y, aux, (z_loss, overflow)
+
+
+__all__ = ["moe_ffn", "moe_ffn_ep", "top1_gating", "topk_gating"]

@@ -10,7 +10,7 @@ the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
 by module, with the ROADMAP.md Queue 1 item that brings it (5: the
-sequence, pipeline and expert parallelism of items 5b and 5c). A listed
+pipeline parallelism of item 5c). A listed
 name that resolves fails the test: the list only shrinks, except when a
 module is ported in part (`introspect` without the warm store), which
 adds that module's unported names.
@@ -35,8 +35,6 @@ PENDING = {
     "slo": {"main": 6},
     "watchdog": {"main": 6},
     "parallel.__init__": {"gpipe": 5, "last_stage_value": 5},
-    "ops.attention": {"ring_attention": 5, "ring_attention_sharded": 5},
-    "parallel.moe": {"moe_ffn_ep": 5},
     "models.transformer": {"PipelinedGPT": 5, "create_pipelined": 5},
 }
 

@@ -269,7 +269,8 @@ def test_build_decode_takes_kv_dtype_last(monkeypatch):
 def test_gpt_takes_the_jax_positional_order():
     """GPT's parameters in JAX's order, with `name=`; `tp_axis` and
     `vocab_tp` (positions 8 and 10) build the tensor-parallel model, and
-    `seq_axis` raises until sequence parallelism is ported (item 5b)."""
+    `seq_axis` (position 7) builds the sequence-parallel one, whose
+    forward with the axis unbound equals the model's without it."""
     m = ttr.GPT(61, 32, 32, 4, 2, 4, None, None, True, device="cpu",
                 name="lm")
     assert m.name == "lm" and m.blocks[0].attn.use_bias
@@ -277,8 +278,11 @@ def test_gpt_takes_the_jax_positional_order():
                 device="cpu")
     assert m.tp_axis == "tp" and m.vocab_tp and m.head is None
     assert tuple(m.tok_embed.W.shape) == (64, 32)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        ttr.GPT(61, device="cpu", seq_axis="sp")
+    m = ttr.GPT(61, 32, 32, 4, 2, 4, "sp", device="cpu")
+    assert m.seq_axis == "sp" and m.blocks[0].attn.seq_axis == "sp"
+    ids = np.random.RandomState(2).randint(0, 61, (2, 32))
+    assert torch.equal(m(ids), ttr.GPT(61, 32, 32, 4, 2, 4,
+                                       device="cpu")(ids))
 
 
 # ---- fault 5: relu's gradient at NaN ----------------------------------------

@@ -319,8 +319,11 @@ def test_eval_mode_records_nothing_and_backward_pairs():
         and isinstance(got[id(w)], tt.Tensor)
     np.testing.assert_allclose(got[id(x)].numpy(), np.ones((2, 3)))
     np.testing.assert_allclose(got[id(w)].numpy(), np.full((3, 2), 2.0))
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tag.attention(x, x, x, seq_axis="sp")
+    # an unbound seq_axis runs the plain attention
+    q = torch.as_tensor(np.random.RandomState(4).randn(1, 2, 8, 16),
+                        dtype=torch.float32)
+    assert torch.equal(tag.attention(q, q, q, True, seq_axis="sp"),
+                       tag.attention(q, q, q, True))
 
 
 def test_compute_cast_under_the_bf16_policy():

@@ -1027,11 +1027,241 @@ def job_tp_gpt(inp, rank, world, out):
             for k, v in res.items()}
 
 
+# ---- sequence parallelism (test_torch_sp.py) -------------------------------
+
+#: the sequence-sharded GPT forwards (tests/test_attention.py:234-300):
+#: learned positions, RoPE and GQA, one layer over {sp: world}
+SP_GPT = {
+    "learned": dict(vocab_size=50, max_seq=32, dim=32, num_heads=4,
+                    num_layers=1, seq_axis="sp"),
+    "rope": dict(vocab_size=50, max_seq=32, dim=32, num_heads=4,
+                 num_layers=1, seq_axis="sp", pos_encoding="rope"),
+    "gqa": dict(vocab_size=50, max_seq=32, dim=32, num_heads=4,
+                num_kv_heads=2, num_layers=1, seq_axis="sp"),
+}
+
+
+def sp_dry_meshes(world):
+    """The {data, sp} meshes of dryrun step 2 (`__graft_entry__.py:
+    187-244`) on `world` ranks: {data 1, sp world}, and {data 2, sp 2}
+    at 4."""
+    out = [{"data": 1, "sp": world}]
+    if world == 4:
+        out.append({"data": 2, "sp": 2})
+    return out
+
+
+#: dryrun step 2's GPT (`__graft_entry__.py:200-201`), with max_seq 32,
+#: the longest S of the meshes, on every mesh: one set of weights
+SP_DRY_GPT = dict(vocab_size=50, max_seq=32, dim=32, num_heads=4,
+                  num_layers=1, seq_axis="sp")
+
+
+def sp_dry_data(shape):
+    """Dryrun step 2's batch and sequence on a {data, sp} mesh: B 2 a
+    data rank, S 8 an sp rank."""
+    return 2 * shape["data"], 8 * shape["sp"]
+
+
+def _block(t, dim, index, size):
+    n = t.shape[dim] // size
+    return t.narrow(dim, index * n, n).contiguous()
+
+
+def job_sp(inp, rank, world, out):
+    """Ring attention over {sp: world} on this rank's blocks (forward and
+    the gradients of sum(o^2)), `ring_attention_sharded` on the global
+    arrays (its output and gradients), the sequence-sharded GPT
+    forwards (`SP_GPT`) and dryrun step 2's functional step on each mesh
+    of `sp_dry_meshes`, all from the inputs' (JAX's) weights."""
+    import torch
+
+    from singa_tpu_torch import autograd, distributed, models, tensor
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.ops.attention import (ring_attention,
+                                               ring_attention_sharded)
+    from singa_tpu_torch.parallel import make_mesh
+    from singa_tpu_torch.parallel.tp import _psum, _mesh_axis
+    distributed.init(device="cpu")
+    T = torch.as_tensor
+    res = {}
+    mesh = make_mesh({"sp": world})
+    me = mesh.coordinate("sp")
+    for causal in (False, True):
+        q, k, v = (T(inp[f"ring_{c}"]) for c in "qkv")
+        local = [_block(t, 2, me, world).requires_grad_(True)
+                 for t in (q, k, v)]
+        with mesh.bind():
+            o = ring_attention(*local, "sp", causal)
+        res[f"ring/{causal}/out"] = o
+        for name, g in zip("qkv", torch.autograd.grad((o ** 2).sum(),
+                                                      local)):
+            res[f"ring/{causal}/d{name}"] = g
+        full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = ring_attention_sharded(*full, mesh, "sp", causal)
+        res[f"sharded/{causal}/out"] = o
+        for name, g in zip("qkv", torch.autograd.grad((o ** 2).sum(),
+                                                      full)):
+            res[f"sharded/{causal}/d{name}"] = g
+    for case, cfg in SP_GPT.items():
+        m = models.create_model("gpt", device="cpu", **cfg)
+        transformer.load_singa_params(m, {
+            k[len(case) + 4:]: inp[k] for k in inp.files
+            if k.startswith(f"{case}_w0/")})
+        with mesh.bind(), torch.no_grad():
+            res[f"gpt/{case}"] = m.forward(
+                _block(T(inp["gpt_ids"]), 1, me, world))
+    for shape in sp_dry_meshes(world):
+        key = "dry/{data}x{sp}".format(**shape)
+        dm = make_mesh(shape)
+        g = models.create_model("gpt", device="cpu", **SP_DRY_GPT)
+        transformer.load_singa_params(g, {
+            k[len("dry_w0/"):]: inp[k] for k in inp.files
+            if k.startswith("dry_w0/")})
+        d, sp = dm.coordinate("data"), dm.coordinate("sp")
+
+        def rows(name):
+            t = _block(T(inp[f"{key}_{name}"]), 0, d, shape["data"])
+            return tensor.Tensor(data=_block(t, 1, sp, shape["sp"]),
+                                 requires_grad=False)
+
+        views = g.get_params()
+        with dm.bind():
+            prev = autograd.training
+            autograd.training = True
+            try:
+                logits = g.forward(rows("ids"))
+                loss = autograd.softmax_cross_entropy(
+                    autograd.reshape(logits, (-1, SP_DRY_GPT["vocab_size"])),
+                    autograd.reshape(rows("tgt"), (-1,)))
+                grads = autograd.gradients(loss)
+            finally:
+                autograd.training = prev
+
+        def pmean(x):
+            for a in ("data", "sp"):
+                x = _psum(x, _mesh_axis(dm, a)) / shape[a]
+            return x
+
+        for name, p in views.items():
+            res[f"{key}/p/{name}"] = p.data - 0.05 * pmean(grads[p].data)
+        res[f"{key}/loss"] = pmean(loss.data)
+    return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in res.items()}
+
+
+# ---- expert parallelism (test_torch_ep.py) ---------------------------------
+
+#: moe_ffn_ep's cases at E = 4: (k, capacity factor); tests/test_moe.py:57
+#: (top-2 at a capacity factor of E), and :162's top-1 at 1.0, where
+#: routes drop
+EP_FFN = {"top2": (2, 4.0), "top1": (1, 1.0)}
+#: the MoE-GPTs through Model/DistOpt(axis=("data", "ep")): (config,
+#: steps); "model" is tests/test_moe.py:85's (router losses off),
+#: "dry2b" dryrun step 2b's (`__graft_entry__.py:378-395`)
+EP_GPT = {
+    "model": (dict(vocab_size=40, max_seq=8, dim=16, num_heads=2,
+                   num_layers=2, moe_experts=4, moe_k=2, ep_axis="ep",
+                   moe_capacity_factor=4.0, moe_aux_weight=0.0,
+                   moe_z_weight=0.0), 3),
+    "dry2b": (dict(vocab_size=50, max_seq=8, dim=16, num_heads=2,
+                   num_layers=1, moe_k=2, ep_axis="ep"), 1),
+}
+
+
+def ep_gpt_cases(world):
+    """The EP_GPT cases on `world` ranks: "model" on its {data 2, ep 2}
+    at 4, dryrun 2b's at 2 and 4."""
+    return ("model", "dry2b") if world == 4 else ("dry2b",)
+
+
+def ep_mesh_shape(case, world):
+    """{data world / 2, ep 2} for "model"; dryrun 2b's {data world / ep,
+    ep} (ep 4 when 4 divides world)."""
+    if case == "dry2b":
+        ep = 4 if world % 4 == 0 else 2
+        return {"data": world // ep, "ep": ep}
+    return {"data": world // 2, "ep": 2}
+
+
+def ep_gpt_config(case, world):
+    cfg, steps = EP_GPT[case]
+    if case == "dry2b":
+        cfg = dict(cfg, moe_experts=ep_mesh_shape(case, world)["ep"])
+    return cfg, steps
+
+
+#: the MoE-GPT refused under a data-only DistOpt (tests/test_moe.py:139's
+#: check): dryrun 2b's at 2 ranks, whose shapes JAX's side has run already
+EP_REFUSED = ep_gpt_config("dry2b", 2)[0]
+
+
+def job_ep(inp, rank, world, out):
+    """moe_ffn_ep over {ep: world} on this rank's tokens and experts (the
+    outputs and the gradients of sum(y^2) + aux / 2 + z / 10), the
+    MoE-GPTs of `EP_GPT` through the Model API from the inputs' (JAX's)
+    weights, and the refusal of a DistOpt that reduces over data only."""
+    import torch
+
+    from singa_tpu_torch import distributed, models, opt
+    from singa_tpu_torch.parallel import make_mesh, moe_ffn_ep
+    distributed.init(device="cpu")
+    T = torch.as_tensor
+    res = {}
+    mesh = make_mesh({"ep": world})
+    me = mesh.coordinate("ep")
+    for case, (k, cf) in EP_FFN.items():
+        args = [_block(T(inp["ffn_x"]), 0, me, world)]
+        args.append(T(inp["ffn_Wg"]).clone())
+        args += [_block(T(inp[f"ffn_{n}"]), 0, me, world)
+                 for n in ("W1", "b1", "W2", "b2")]
+        for a in args:
+            a.requires_grad_(True)
+        with mesh.bind():
+            y, aux, (z, ovf) = moe_ffn_ep(*args, "ep", capacity_factor=cf,
+                                          k=k)
+        res[f"ffn/{case}/y"] = y
+        res[f"ffn/{case}/stats"] = torch.stack([aux, z, ovf])
+        grads = torch.autograd.grad((y ** 2).sum() + 0.5 * aux + 0.1 * z,
+                                    args)
+        for n, g in zip(("x", "Wg", "W1", "b1", "W2", "b2"), grads):
+            res[f"ffn/{case}/d{n}"] = g
+    for case in ep_gpt_cases(world):
+        cfg, steps = ep_gpt_config(case, world)
+        m = models.create_model("gpt", device="cpu", **cfg)
+        m.set_optimizer(opt.DistOpt(
+            opt.SGD(lr=0.05), axis=("data", "ep"),
+            mesh=make_mesh(ep_mesh_shape(case, world))))
+        ids = T(inp[f"{case}_ids"])
+        m.compile([ids], is_train=True, use_graph=True)
+        m.set_params({k[len(case) + 4:]: inp[k] for k in inp.files
+                      if k.startswith(f"{case}_w0/")})
+        tgt = T(inp[f"{case}_tgt"])
+        res[f"{case}/losses"] = [m(ids, tgt)[1].item()
+                                 for _ in range(steps)]
+        for k, v in m.get_params().items():
+            res[f"{case}/p/{k}"] = v.data
+    m = models.create_model("gpt", device="cpu", **EP_REFUSED)
+    m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.05), axis="data",
+                                mesh=make_mesh(ep_mesh_shape("model",
+                                                             world))))
+    ids = T(inp["refused_ids"])
+    m.compile([ids], is_train=True, use_graph=True)
+    try:
+        m(ids, ids.roll(-1, 1))
+        res["refused"] = "trained"
+    except ValueError as e:
+        res["refused"] = str(e)
+    return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in res.items()}
+
+
 JOBS = {"topo": job_topo, "env": job_env, "verbs": job_verbs,
         "train": job_train, "resume": job_resume, "dryrun": job_dryrun,
         "health": job_health, "kill": job_kill,
         "resume_small": job_resume_small, "tp_ops": job_tp_ops,
-        "tp_model": job_tp_model, "tp_gpt": job_tp_gpt}
+        "tp_model": job_tp_model, "tp_gpt": job_tp_gpt, "sp": job_sp,
+        "ep": job_ep}
 
 
 def main(argv):

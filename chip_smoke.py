@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab OTHER_CHECKOUT
     python3 chip_smoke.py --ab-train OTHER_CHECKOUT
+    python3 chip_smoke.py --pp-drift
 
 The third form only times the train steps of the two checkouts in the
 same turns: phase 6's bench GPT (eager and as a graph), and phase 7's
@@ -23,6 +24,10 @@ fp cache single, int8 single and int4 on the 5-token ladder, and fp
 single at their main path's shape and lengths (MAIN_DECODE); each as
 device time, as CUDA events around the call and as the host's median
 issue time (the wrapper's call until it returns).
+
+The fourth form only follows phase 19a's models over PP_DRIFT_STEPS
+free-running steps under bf16 amp and in fp32, printing each step's
+loss difference from the serial model's (`pp_drift`).
 
 Phases, each of which exits non-zero on failure:
 
@@ -362,7 +367,25 @@ Phases, each of which exits non-zero on failure:
    from the other model's parameters (free-running, K2a's atomics and
    the routes they flip part the two: printed); then phase 9b's fp32
    MoE-GPT at ep 1 against its serial path within 1e-5.
-19. The `kernels` JSON line (the decode kernels with a `modes` entry per
+19. Pipeline parallelism, NCCL at world size 1. 19a the bench-width
+   PipelinedGPT (BENCH_GPT's widths, b8 x 1024, bf16 amp, graph mode)
+   under DistOpt(SGD) on a {data 1, pp 1} mesh at n_micro 4, on gpipe
+   and on 1f1b, against the same weights off the mesh (the serial layer
+   loop), in turns: both replay as CUDA graphs, exactly 32 K1 and 32 K2a
+   a gpipe replay and 64 K1 (the remat) and 32 K2a a 1f1b replay, no
+   P2P call, the replayed steps' median ms in turns; then two steps
+   from one state (the serial model's parameters, momentum zeroed), each
+   on a batch no model has seen: losses within 2e-5 of the serial
+   model's and the parameter change within 1e-4 (gpipe) and 1e-2 (1f1b)
+   of its, relative L2 (the free-running difference printed). 19b the
+   loopback pipeline (4
+   stages in one process, 8 microbatches) on the kernels: gpipe, 1f1b
+   and interleave 2 against the serial layer loop at the bench width in
+   bf16 (8 layers; outputs within 2e-2, the stacks' and input's
+   gradients within 3e-2 of max|ref|) and at SP_FP32's widths over 5
+   layers in fp32 (2e-4 and 2e-3); exact launch counts; the peak memory
+   of 1f1b against gpipe.
+20. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
@@ -370,8 +393,8 @@ Phases, each of which exits non-zero on failure:
    `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
    `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
-   `tp_train`, `sp_train`, `ring_loopback` and `ep_train`), then the
-   card line, then the result line.
+   `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train` and
+   `pp_loopback`), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -380,6 +403,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -5207,6 +5231,18 @@ def _dist_opt(opt, mesh, strategy, **kw):
                     mesh=mesh, **kw)
 
 
+def _init_world1(distributed):
+    """distributed.init() as one process: SINGA_COORDINATOR a free
+    localhost port, SINGA_NPROCS=1, SINGA_PROC_ID=0."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(SINGA_COORDINATOR=f"127.0.0.1:{port}",
+                      SINGA_NPROCS="1", SINGA_PROC_ID="0")
+    distributed.init()
+
+
 def phase_dp_comm(torch, distributed, parallel):
     """16a: distributed.init() over NCCL from SINGA_COORDINATOR (a free
     localhost port), SINGA_NPROCS=1, SINGA_PROC_ID=0; every verb of the
@@ -5214,15 +5250,9 @@ def phase_dp_comm(torch, distributed, parallel):
     math, exact at one rank (the half path is x.bfloat16(), topk's and
     threshold's out + residual is x bitwise); each verb's device time at a
     64 MB fp32 payload. Returns the data mesh."""
-    import socket
     print("== phase 16a: the communicator over NCCL (world size 1)")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    os.environ.update(SINGA_COORDINATOR=f"127.0.0.1:{port}",
-                      SINGA_NPROCS="1", SINGA_PROC_ID="0")
     t0 = time.perf_counter()
-    distributed.init()
+    _init_world1(distributed)
     mesh = parallel.data_parallel_mesh()
     comm = parallel.Communicator(mesh=mesh)
     print(f"  init: backend {torch.distributed.get_backend()}, rank "
@@ -5864,9 +5894,9 @@ EP_FP32 = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
 
 @contextlib.contextmanager
 def _counting_p2p(torch):
-    """The calls of torch.distributed.batch_isend_irecv (the ring's one
-    P2P entry, `parallel.communicator._shifted`) while the block runs,
-    as a list that grows."""
+    """The calls of torch.distributed.batch_isend_irecv (the one P2P entry
+    of the ring and the pipeline, `parallel.communicator._p2p`) while the
+    block runs, as a list that grows."""
     dist = torch.distributed
     orig, calls = dist.batch_isend_irecv, []
 
@@ -5881,20 +5911,19 @@ def _counting_p2p(torch):
         dist.batch_isend_irecv = orig
 
 
-def _in_turns(torch, built, tx, ty, A, counted):
-    """Replayed steps of each model of `built` in turns (first, second,
-    first, second), DP_STEPS a turn: (losses, ms) by label, and the
-    launches of the `counted` label's turns."""
+def _in_turns(torch, built, tx, ty, A, steps=DP_STEPS):
+    """Replayed steps of each model of `built` in turns (every model
+    once, then again), `steps` a turn: (losses, ms, launches) by label,
+    the launches counted from zero at each turn's start."""
     losses = {k: [] for k in built}
     ms = {k: [] for k in built}
-    counts = {}
+    counts = {k: {} for k in built}
     for label in list(built) * 2:
         torch.cuda.synchronize()
         A.reset_launches()
-        got, t = _steps(torch, built[label], tx, ty, DP_STEPS)
-        if label == counted:
-            for k, v in A.LAUNCHES.items():
-                counts[k] = counts.get(k, 0) + v
+        got, t = _steps(torch, built[label], tx, ty, steps)
+        for k, v in A.LAUNCHES.items():
+            counts[label][k] = counts[label].get(k, 0) + v
         losses[label] += got
         ms[label] += t
     return losses, ms, counts
@@ -5927,7 +5956,8 @@ def phase_sp_train(torch, models, opt, A, mesh):
     built = {"none": build(False), "sp": build(True)}
     with _counting_p2p(torch) as p2p:
         first = {k: _steps(torch, m, tx, ty, 2)[0] for k, m in built.items()}
-        losses, ms, counts = _in_turns(torch, built, tx, ty, A, "sp")
+        losses, ms, counts = _in_turns(torch, built, tx, ty, A)
+    counts = counts["sp"]
     if built["sp"].graph_backend != "cuda_graph":
         fail(f"18a: the sp step ran {built['sp'].graph_backend!r}")
     check_launches("18a sp replays", counts,
@@ -5959,7 +5989,8 @@ def _ring_case(torch, A, g, shape, n, causal, dtype, with_plain):
     q, k, v, do = (torch.randn(*shape, generator=g, device="cuda")
                    .to(dt) for _ in range(4))
     scale = shape[-1] ** -0.5
-    ring = A._Loopback(n)
+    from singa_tpu_torch.parallel.communicator import _Loopback
+    ring = _Loopback(n)
     qs, ks, vs, dos = ([b.contiguous() for b in t.chunk(n, dim=2)]
                        for t in (q, k, v, do))
 
@@ -6018,8 +6049,8 @@ def _ring_case(torch, A, g, shape, n, causal, dtype, with_plain):
 
 
 def phase_ring_loopback(torch, A):
-    """18b: the loopback ring (`ops.attention._Loopback`: every rank of an
-    n-rank ring in this process, in lock step) on the kernels at
+    """18b: the loopback ring (`parallel.communicator._Loopback`: every
+    rank of an n-rank ring in this process, in lock step) on the kernels at
     long-context widths, RING_CASES: a causal ring runs n (n + 1) / 2
     forward and as many backward hops, a non-causal one n^2, exactly;
     the output within TOL and dq, dk, dv within BWD_TOL of the whole
@@ -6119,7 +6150,8 @@ def phase_ep_train(torch, models, opt, introspect, utils, A, mesh, root):
         introspect.capture_hlo(None)
     if built["ep"].graph_backend != "cuda_graph":
         fail(f"18d: the ep step ran {built['ep'].graph_backend!r}")
-    losses, ms, counts = _in_turns(torch, built, tx, ty, A, "ep")
+    losses, ms, counts = _in_turns(torch, built, tx, ty, A)
+    counts = counts["ep"]
     check_launches("18d ep replays", counts,
                    {"flash_fwd": 2 * L * DP_STEPS,
                     "flash_bwd_fused": 2 * L * DP_STEPS})
@@ -6172,6 +6204,311 @@ def phase_ep_train(torch, models, opt, introspect, utils, A, mesh, root):
         fail("18d: the fp32 ep MoE-GPT parts from its serial path")
     torch.cuda.empty_cache()
     return counts
+
+
+# ---- phase 19: pipeline parallelism (NCCL at world size 1) ---------------
+PP_MESH = {"data": 1, "pp": 1}
+PP_MICRO = 4                 # 19a: n_micro
+PP_TURN_STEPS = 3            # 19a: replays a model a turn (2 turns)
+PP_HELD_STEPS = 2            # 19a: steps from one state, each on a new batch
+#: 19a's held steps, against the serial model's: losses (relative), and
+#: the parameter change (relative L2) by schedule; set from my chip call
+#: 5 of PR 18's readings (losses gpipe 0, 1f1b <= 4.315e-06 over calls
+#: 2-5; changes gpipe <= 1.683e-05, 1f1b <= 2.996e-03: its fp32 loss
+#: island against the serial model's bf16 head)
+PP_LOSS_TOL = 2e-5
+PP_UPDATE_TOL = {"gpipe": 1e-4, "1f1b": 1e-2}
+PP_DRIFT_STEPS = 12          # --pp-drift: free-running steps a model
+#: 19b: the loopback pipeline's cases: (label, dim, heads, layers, S,
+#: dtype); 4 stages, 8 microbatches of one sequence each, interleave 2
+PP_LOOP_STAGES, PP_LOOP_MICRO, PP_LOOP_CHUNKS = 4, 8, 2
+PP_LOOP_CASES = (
+    ("bench width, bf16", BENCH_GPT["dim"], BENCH_GPT["num_heads"],
+     BENCH_GPT["num_layers"], TRAIN_S, "bfloat16"),
+    ("SP_FP32's widths, 5 layers (non-uniform), fp32", SP_FP32["dim"],
+     SP_FP32["num_heads"], 5, SP_FP32["max_seq"], "float32"),
+)
+
+
+def _pp_built(torch, models, opt, mesh, tx, amp="bfloat16"):
+    """The bench-width PipelinedGPT as {"serial", "gpipe", "1f1b"}, graph
+    mode under `amp`: one model drawn (its stacks are ~400 M normals from
+    the host's RandomState, the JAX package's draw) and copied on the
+    card; SGD(0.1, momentum 0.9, weight decay 1e-5), under DistOpt on
+    `mesh` at n_micro PP_MICRO for the pipelined two, plain and off the
+    mesh (the serial layer loop) for "serial"."""
+    base = models.create_model("gpt_pipe", device="cuda", seed=SEED,
+                               **BENCH_GPT)
+
+    def build(sched):
+        m = copy.deepcopy(base)
+        sgd = opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5)
+        m.set_optimizer(opt.DistOpt(sgd, axis="data", mesh=mesh)
+                        if sched else sgd)
+        pipe = dict(pipeline_axis="pp", n_micro=PP_MICRO,
+                    pipeline_schedule=sched) if sched else {}
+        m.compile([tx], is_train=True, use_graph=True, amp=amp, **pipe)
+        return m
+
+    return {"serial": build(None), "gpipe": build("gpipe"),
+            "1f1b": build("1f1b")}
+
+
+def _opt_slots(m):
+    """The optimizer state tensors of model m (DistOpt's inner SGD's)."""
+    o = m._optimizer
+    o = getattr(o, "opt", o)
+    return [v for st in o._states.values() for v in st.values()]
+
+
+def _held_steps(torch, built, V):
+    """PP_HELD_STEPS steps from one common state: before each, the
+    pipelined models take the serial one's parameters and every model's
+    momentum is zeroed (so a step's change is -lr (g + wd p)), and the
+    step runs on a batch none of them has seen (a cotangent or a
+    gradient left from an earlier replay would show). Returns ({label:
+    losses}, {pipelined label: the relative L2 difference of its
+    parameter change from serial's, a step})."""
+    losses = {k: [] for k in built}
+    upd = {k: [] for k in built if k != "serial"}
+    params = {k: list(m._raw_params().values()) for k, m in built.items()}
+    for i in range(PP_HELD_STEPS):
+        hx, hy = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                                 SEED + 190 + i))
+        with torch.no_grad():
+            for k in upd:
+                for a, b in zip(params["serial"], params[k]):
+                    b.copy_(a)
+            for m in built.values():
+                for v in _opt_slots(m):
+                    v.zero_()
+            p0 = [a.detach().clone() for a in params["serial"]]
+        for k, m in built.items():
+            losses[k].append(m(hx, hy)[1].item())
+        with torch.no_grad():
+            ref = [a - b for a, b in zip(params["serial"], p0)]
+            den = sum(d.double().square().sum() for d in ref)
+            for k in upd:
+                num = sum(((a - b) - d).double().square().sum()
+                          for a, b, d in zip(params[k], p0, ref))
+                upd[k].append(float((num / den).sqrt()))
+        del p0, ref
+    return losses, upd
+
+
+def phase_pp_train(torch, models, opt, A, mesh):
+    """19a: the bench-width PipelinedGPT (`_pp_built`: BENCH_GPT's widths,
+    b8 x 1024, bf16 amp, graph mode) on a {data 1, pp 1} mesh at n_micro
+    PP_MICRO, on gpipe and on 1f1b, against the same weights off the
+    mesh, in turns of PP_TURN_STEPS replays (serial, gpipe, 1f1b, twice):
+    both pipelined steps replay as CUDA graphs, exactly L n_micro K1 and
+    K2a a gpipe replay and 2 L n_micro K1 (the 1F1B remat) and L n_micro
+    K2a a 1f1b replay, no P2P call over the builds and the replays (pp
+    1), the replayed step's median ms in turns. Then `_held_steps`: the
+    losses within PP_LOSS_TOL of the serial model's and each step's
+    parameter change within PP_UPDATE_TOL (relative L2) of the serial
+    model's; the free-running difference over the turns is printed
+    (`--pp-drift` follows it further: under bf16 amp it grows with
+    training's own instability, in fp32 it stays at fp32's rounding).
+    The stacks compute in fp32, as the JAX package's functional blocks
+    do; amp casts the embedding and the caller-facing head, and 1f1b's
+    loss island (final LN, head, CE) runs in fp32. Returns the pipelined
+    replays' launch counts."""
+    print("== phase 19a: the bench PipelinedGPT under DistOpt "
+          "(NCCL, {data 1, pp 1})")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 19))
+    built = _pp_built(torch, models, opt, mesh, tx)
+    with _counting_p2p(torch) as p2p:
+        first = {k: _steps(torch, m, tx, ty, 2)[0] for k, m in built.items()}
+        losses, ms, counts = _in_turns(torch, built, tx, ty, A,
+                                       PP_TURN_STEPS)
+        held, upd = _held_steps(torch, built, V)
+    for k in ("gpipe", "1f1b"):
+        if built[k].graph_backend != "cuda_graph":
+            fail(f"19a: the {k} step ran {built[k].graph_backend!r}")
+    replays = 2 * PP_TURN_STEPS
+    check_launches("19a gpipe replays", counts["gpipe"],
+                   {"flash_fwd": L * PP_MICRO * replays,
+                    "flash_bwd_fused": L * PP_MICRO * replays})
+    check_launches("19a 1f1b replays", counts["1f1b"],
+                   {"flash_fwd": 2 * L * PP_MICRO * replays,
+                    "flash_bwd_fused": L * PP_MICRO * replays})
+    print("  K1/K2a a replay: " + ", ".join(
+        f"{k} {counts[k]['flash_fwd'] // replays}/"
+        f"{counts[k]['flash_bwd_fused'] // replays}" for k in built))
+    print(f"  P2P calls over the builds and "
+          f"{3 * (replays + PP_HELD_STEPS)} replays: {len(p2p)} (want 0 "
+          "at pp 1)")
+    bad = bool(p2p)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+    free = {k: first[k] + losses[k] for k in built}
+    for k in ("gpipe", "1f1b"):
+        dl = [abs(a - b) / abs(a) for a, b in zip(held["serial"], held[k])]
+        print(f"  {k} against serial, {PP_HELD_STEPS} steps each from one "
+              f"state on a new batch: relative loss difference "
+              f"{', '.join(f'{d:.3e}' for d in dl)} (tol {PP_LOSS_TOL}), "
+              f"parameter change {', '.join(f'{u:.3e}' for u in upd[k])} "
+              f"(relative L2, tol {PP_UPDATE_TOL[k]}); free-running over "
+              f"{len(free[k])} steps {rel(free['serial'], free[k]):.3e}")
+        bad = bad or not (max(dl) <= PP_LOSS_TOL
+                          and max(upd[k]) <= PP_UPDATE_TOL[k])
+    print("  replayed step median ms in turns (serial, gpipe, 1f1b, "
+          "twice): " + ", ".join(f"{k} {statistics.median(v):.2f}"
+                                 for k, v in ms.items()))
+    if bad:
+        fail("19a: a pipelined GPT parts from its serial path, or pp 1 "
+             "made a P2P call")
+    del built
+    torch.cuda.empty_cache()
+    return {k: counts["gpipe"].get(k, 0) + counts["1f1b"].get(k, 0)
+            for k in A.LAUNCHES}
+
+
+def _pp_stacks(torch, g, E, heads, L, lp, dt):
+    """Block stacks of a (L, dim E) transformer in the PipelinedGPT's
+    order, padded with zero rows to `lp` rows, leaves that require
+    grad."""
+    H = 4 * E
+    shapes = (("g", (E,)), ("b", (E,)), ("w", (E, E)), ("w", (E, E)),
+              ("w", (E, E)), ("w", (E, E)), ("g", (E,)), ("b", (E,)),
+              ("w", (E, H)), ("b", (H,)), ("w", (H, E)), ("b", (E,)))
+    out = []
+    for kind, shape in shapes:
+        r = torch.randn((L,) + shape, generator=g, device="cuda")
+        v = {"g": 1 + 0.1 * r, "b": 0.1 * r,
+             "w": r * shape[0] ** -0.5}[kind]
+        full = torch.zeros((lp,) + shape, device="cuda")
+        full[:L] = v
+        out.append(full.to(dt).requires_grad_(True))
+    return out
+
+
+def _pp_loop_case(torch, A, transformer, pipeline, g, E, heads, L, S,
+                  dtype):
+    """One 19b case: gpipe, 1f1b and interleave 2 on the loopback group
+    against the serial layer loop: outputs within TOL and the stacks' and
+    the input's gradients within BWD_TOL of max|ref|, exact launch counts,
+    peak memory above the inputs. Returns the schedules' launches."""
+    n, M, V = PP_LOOP_STAGES, PP_LOOP_MICRO, PP_LOOP_CHUNKS
+    dt = getattr(torch, dtype)
+    per, pc = -(-L // n), -(-L // (n * V))
+    lp = n * per
+    assert lp == n * V * pc
+    stacks = _pp_stacks(torch, g, E, heads, L, lp, dt)
+    x = torch.randn((M, 1, S, E), generator=g, device="cuda").to(dt)
+    x.requires_grad_(True)
+    do = torch.randn(x.shape, generator=g, device="cuda").to(dt)
+    w = torch.randn((E,), generator=g, device="cuda") * E ** -0.5
+    tgt = torch.randn((M, 1, S), generator=g, device="cuda")
+
+    def last_fn(lpar, y, t):
+        return ((y.float() @ lpar[0]) - t).square().mean()
+
+    ser = transformer._PipelineBlocks(heads, total_layers=L)
+    y_ref = ser(x.reshape(M, S, E), *stacks).reshape(x.shape)
+    loss_ref = torch.stack([last_fn((w,), y_ref[m], tgt[m])
+                            for m in range(M)]).mean()
+    g_loss = torch.autograd.grad(loss_ref, stacks + [x], retain_graph=True)
+    g_ref = torch.autograd.grad(y_ref, stacks + [x], do)
+    y_ref, loss_ref = y_ref.detach(), loss_ref.detach()
+    grp = pipeline._Loopback(n)
+    stage_fn = transformer._make_stage_fn(heads, grp, L)
+    chunk_fn = transformer._make_chunk_fn(heads, grp, L, pc)
+    by_stage = [[st[s * per:(s + 1) * per] for st in stacks]
+                for s in range(n)]
+    by_chunk = [[st.reshape((V, n * pc) + tuple(st.shape[1:]))[
+        :, d * pc:(d + 1) * pc] for st in stacks] for d in range(n)]
+    ftol, btol = TOL[dtype], BWD_TOL[dtype]
+    total = {k: 0 for k in A.LAUNCHES}
+    bad = False
+
+    def run(label, fn, want):
+        nonlocal bad
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        y, grads, loss = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(A.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        check_launches(f"19b {label}", counts, want)
+        for k, v in counts.items():
+            total[k] += v
+        ref_g = g_loss if loss is not None else g_ref
+        errs = [_max_rel(y, y_ref)] + [_max_rel(a, b) for a, b in
+                                       zip(grads, ref_g)]
+        text = (f"out {errs[0]:.3e} (tol {ftol}), stacks and x "
+                f"{max(errs[1:]):.3e} (tol {btol})")
+        if loss is not None:
+            lerr = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+            text += f", loss {lerr:.3e}"
+            bad = bad or not lerr <= ftol
+        bad = bad or not (errs[0] <= ftol and max(errs[1:]) <= btol)
+        print(f"  {label}: {text}; peak memory above the inputs "
+              f"{peak:.3f} GiB; {wall:.1f} ms host clock")
+        return peak
+
+    def gpipe():
+        outs = pipeline.gpipe(stage_fn, by_stage, x, grp)
+        return outs[-1].detach(), torch.autograd.grad(
+            outs[-1], stacks + [x], do), None
+
+    def interleaved():
+        outs = pipeline.gpipe_interleaved(chunk_fn, by_chunk, x, grp, V)
+        return outs[-1].detach(), torch.autograd.grad(
+            outs[-1], stacks + [x], do), None
+
+    def one_f_one_b():
+        loss, outs, ds, _, dx = pipeline.one_f_one_b(
+            stage_fn, last_fn, [[s.detach() for s in p] for p in by_stage],
+            (w,), x.detach(), tgt, grp)
+        grads = [torch.cat([d[i] for d in ds]) for i in range(len(stacks))]
+        return outs[-1], grads + [dx[0]], loss
+
+    mem = {"gpipe": run("gpipe", gpipe, {"flash_fwd": L * M,
+                                         "flash_bwd_fused": L * M})}
+    mem["1f1b"] = run("1f1b", one_f_one_b, {"flash_fwd": 2 * L * M,
+                                            "flash_bwd_fused": L * M})
+    run(f"interleave {V}", interleaved, {"flash_fwd": L * M,
+                                         "flash_bwd_fused": L * M})
+    print(f"  peak activation memory, 1f1b / gpipe: "
+          f"{mem['1f1b'] / mem['gpipe']:.3f}")
+    if bad:
+        fail("19b: a loopback schedule parts from the serial layer loop")
+    return total
+
+
+def phase_pp_loopback(torch, A, transformer, pipeline):
+    """19b: the loopback pipeline (`parallel.communicator._Loopback`:
+    every stage of a PP_LOOP_STAGES-stage pipeline in this process) on
+    K1/K2a, PP_LOOP_MICRO microbatches of one sequence: gpipe, 1f1b (its
+    loss mean((y w - t)^2)) and interleave PP_LOOP_CHUNKS through the
+    PipelinedGPT's stage functions, against the serial layer loop on the
+    same stacks (`_PipelineBlocks` off the mesh), PP_LOOP_CASES: the
+    bench width in bf16 within 2e-2 and 3e-2 of max|ref| (outputs;
+    gradients of the stacks and the input), SP_FP32's widths over 5
+    layers (padded stages) in fp32 within 2e-4 and 2e-3; exact launch
+    counts (L n_micro K1 and K2a a schedule, twice the K1 under 1f1b);
+    the peak memory of gpipe against 1f1b. Returns the launches."""
+    print("== phase 19b: the loopback pipeline (4 stages in this process) "
+          "on K1/K2a")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 191)
+    total = {k: 0 for k in A.LAUNCHES}
+    for label, E, heads, L, S, dtype in PP_LOOP_CASES:
+        print(f"  {label}: dim {E}, {heads} heads, {L} layers, S {S}")
+        for k, v in _pp_loop_case(torch, A, transformer, pipeline, g, E,
+                                  heads, L, S, dtype).items():
+            total[k] += v
+        torch.cuda.empty_cache()
+    return total
 
 
 def decode_modes(A, rows, name, by_mode):
@@ -6351,6 +6688,41 @@ def ab_train_turn(torch, root, tag):
     line(f"ResNet-50 b{RESNET_B}", r, rx, ry)
 
 
+def pp_drift(torch):
+    """--pp-drift: how 19a's free-running losses part. 19a's models
+    (`_pp_built`) and batch, first under bf16 amp and then in fp32 (amp
+    off: the serial head and 1f1b's fp32 loss island then compute
+    alike), PP_DRIFT_STEPS replayed steps each from the same weights;
+    prints every step's loss and its relative difference from the serial
+    model's."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from singa_tpu_torch import distributed, models, opt, parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line(), flush=True)
+    _init_world1(distributed)
+    mesh = parallel.make_mesh(PP_MESH)
+    V = BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 19))
+    for amp in ("bfloat16", None):
+        built = _pp_built(torch, models, opt, mesh, tx, amp)
+        losses = {k: _steps(torch, m, tx, ty, PP_DRIFT_STEPS)[0]
+                  for k, m in built.items()}
+        print(f"amp {amp}: losses by step, serial: " + ", ".join(
+            f"{x:.6f}" for x in losses["serial"]))
+        for k in ("gpipe", "1f1b"):
+            print(f"amp {amp}: {k} relative difference from serial by "
+                  "step: " + ", ".join(
+                      f"{abs(a - b) / abs(a):.3e}"
+                      for a, b in zip(losses["serial"], losses[k])),
+                  flush=True)
+        del built
+        torch.cuda.empty_cache()
+    del mesh
+    distributed.shutdown()
+
+
 def run_ab(other, turn="--ab-turn"):
     """--ab (and --ab-train with turn="--ab-train-turn"): turns other,
     this, this, other, each in its own process."""
@@ -6380,6 +6752,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--ab-train"] and len(sys.argv) == 3:
         run_ab(sys.argv[2], "--ab-train-turn")
+        return 0
+    if sys.argv[1:] == ["--pp-drift"]:
+        pp_drift(torch)
         return 0
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -6561,6 +6936,13 @@ def main():
             torch, models, opt, introspect, utils, A,
             parallel.make_mesh(EP_MESH), root)
     clock.lap("phase 18d")
+    from singa_tpu_torch.parallel import pipeline
+    by_path["pp_train"] = phase_pp_train(torch, models, opt, A,
+                                         parallel.make_mesh(PP_MESH))
+    clock.lap("phase 19a")
+    by_path["pp_loopback"] = phase_pp_loopback(torch, A, transformer,
+                                               pipeline)
+    clock.lap("phase 19b")
     del mesh, tp_mesh, sp_mesh
     distributed.shutdown()
 

@@ -113,6 +113,14 @@ first build refuses an expert-parallel MoE on a mesh of more than one
 device whose DistOpt does not reduce over its axis
 (`_check_ep_reduction`).
 
+Pipeline parallelism rides it too: `compile(pipeline_axis, n_micro,
+pipeline_schedule)` stores the pipeline execution, in the JAX package's
+positions, and it is part of a graph-mode step's key; a pipelined model
+(models.transformer.PipelinedGPT) lays its block stacks out for the
+degree of that axis on its DistOpt's mesh, and its step runs the
+schedule over the bound axis (`parallel.pipeline`): the rank's rows of
+the batch split into n_micro microbatches that flow through its stage.
+
 Builds (`introspect`): a graph-mode step or eval signature registers a
 build at its first call, the warm-up, which runs under introspect's
 counting mode (the trace phase: its flops, bytes and op listing), with
@@ -310,6 +318,11 @@ class Model(layer.Layer, metaclass=ModelMeta):
         # and {id(raw parameter): (Placement, global shape)}
         self._tp_mesh = None
         self._placements = {}
+        # pipeline execution (compile's pipeline_axis, n_micro and
+        # schedule)
+        self.pipeline_axis = None
+        self.n_micro = 1
+        self.pipeline_schedule = "gpipe"
         nn.Module.train(self, False)
 
     # ---- configuration ----------------------------------------------------
@@ -375,17 +388,21 @@ class Model(layer.Layer, metaclass=ModelMeta):
         (warn) one, False to detach, None to leave it as it is; attaching
         or detaching drops the training graphs built so far.
 
-        pipeline_axis, n_micro, pipeline_schedule: the JAX package's
-        pipeline execution, in its positions; a pipeline axis raises
-        until pipeline parallelism is ported (ROADMAP.md Queue 1 item
-        5c)."""
+        pipeline_axis, n_micro, pipeline_schedule: the mesh axis and
+        microbatch count of pipeline execution, read by the models that
+        pipeline (models.transformer.PipelinedGPT) when they lay out
+        their parameters (`_layout_for_compile`); "gpipe" (autograd
+        through the schedule, every microbatch's activations held until
+        the backward) or "1f1b" (forward and backward interleaved, the
+        loss inside the schedule, in-flight activations bounded by about
+        twice the stages). They are part of a graph-mode step's key."""
         if pipeline_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"pipeline_schedule {pipeline_schedule!r}; "
                              "the JAX package takes 'gpipe' or '1f1b'")
-        if pipeline_axis is not None:
-            raise NotImplementedError(
-                "compile(pipeline_axis=...) comes with pipeline "
-                "parallelism (ROADMAP.md Queue 1 item 5c)")
+        self.pipeline_axis = pipeline_axis
+        self.n_micro = n_micro
+        self.pipeline_schedule = pipeline_schedule
+        self._layout_for_compile()
         if health is not None:
             from . import health as _health
             if health is False:
@@ -426,6 +443,11 @@ class Model(layer.Layer, metaclass=ModelMeta):
         self.train(is_train)
         if self._optimizer is not None:
             self._optimizer.setup(self._raw_params().values())
+
+    def _layout_for_compile(self):
+        """Called by `compile` once the pipeline execution is stored: a
+        model that lays its parameters out for it checks the combination
+        and lays them out here. Nothing by default."""
 
     def train(self, mode: bool = True):
         """nn.Module's recursive mode switch, which also sets the global
@@ -474,12 +496,14 @@ class Model(layer.Layer, metaclass=ModelMeta):
 
     def _signature(self, vals, tag=0) -> tuple:
         """A buffered step's key: every tensor's shape, dtype and device,
-        the training flag, the compute dtype and the optimizer's step tag
+        the training flag, the compute dtype, the optimizer's step tag
         (DistOpt's partial strategy builds one step per tag, as the JAX
-        package compiles one executable per tag)."""
+        package compiles one executable per tag) and the pipeline
+        execution (axis, n_micro, schedule)."""
         return (tuple((tuple(v.shape), v.dtype, v.device)
                       for v in map(_raw, vals) if torch.is_tensor(v)),
-                autograd.training, autograd.compute_dtype, tag)
+                autograd.training, autograd.compute_dtype, tag,
+                (self.pipeline_axis, self.n_micro, self.pipeline_schedule))
 
     # ---- data parallelism (DistOpt) ---------------------------------------
     def _dp_comm(self):

@@ -1,6 +1,6 @@
 """Model zoo of the port (counterpart of singa_tpu/models): every model
-is a `model.Model`; `create_model` takes the JAX package's names.
-`gpt_pipe` (the pipelined GPT) comes with model parallelism."""
+is a `model.Model`; `create_model` takes the JAX package's names, the
+pipelined GPT (`transformer.PipelinedGPT`) among them as "gpt_pipe"."""
 
 from .base import Classifier  # noqa: F401
 from . import alexnet, cnn, mlp, resnet, transformer, xceptionnet  # noqa: F401
@@ -18,6 +18,7 @@ _REGISTRY = {
     "resnet152": resnet.resnet152,
     "xceptionnet": xceptionnet.create_model,
     "gpt": transformer.create_model,
+    "gpt_pipe": transformer.create_pipelined,
 }
 
 

@@ -444,36 +444,11 @@ class FlashAttention(torch.autograd.Function):
 # on the shard. dQ adds up in fp32; dK and dV add onto a rotating fp32
 # shard, so after n shifts each is back with its owner.
 #
-# The hop loop runs the ranks of a ring in lock step: `_AxisRing`, one rank
-# a process, whose shift is the axis's ppermute, or `_Loopback`, every rank
-# of one ring in one process, whose shift rotates a list: a check of the
-# hop schedule on one device, not an API.
-
-class _AxisRing:
-    """The ring of a bound mesh axis (`parallel.tp._Axis`): this process
-    runs the one rank at its index."""
-
-    def __init__(self, ax):
-        self.ax = ax
-        self.n = ax.size
-        self.ranks = (ax.index,)
-
-    def shift(self, xs):
-        from ..parallel.tp import _shift
-        return [_shift(xs[0], self.ax)]
-
-
-class _Loopback:
-    """Every rank of an n-rank ring in this process: `shift` hands rank r
-    the tensor of rank r - 1, as the axis's ppermute does."""
-
-    def __init__(self, n: int):
-        self.n = int(n)
-        self.ranks = tuple(range(self.n))
-
-    def shift(self, xs):
-        return [xs[(r - 1) % self.n] for r in range(self.n)]
-
+# The hop loop runs the ranks of a ring in lock step over a rank group of
+# `parallel.communicator`: `_AxisRanks`, one rank a process, whose shift is
+# the axis's ppermute, or `_Loopback`, every rank of one ring in one
+# process, whose shift rotates a list: a check of the hop schedule on one
+# device, not an API.
 
 def _hop_causal(src, my, causal):
     """The causal flag of hop src -> my's kernel call, or None to skip it
@@ -484,7 +459,7 @@ def _hop_causal(src, my, causal):
 
 
 def _ring_fwd(qs, ks, vs, ring, causal, scale, use_kernel=None):
-    """(outs, lses) of the ring's ranks (lists in `ring.ranks` order): K1
+    """(outs, lses) of the ring's ranks (lists in `ring.local` order): K1
     (or the plain forward) per hop, merged by the running max in fp32.
     Hop 0 is the rank's own shard, never skipped, so the merge starts
     from it: m = lse, z = 1, num = o, which is what the JAX package's
@@ -493,7 +468,7 @@ def _ring_fwd(qs, ks, vs, ring, causal, scale, use_kernel=None):
     acc = [None] * len(qs)
     k_cur, v_cur = list(ks), list(vs)
     for i in range(n):
-        for r, my in enumerate(ring.ranks):
+        for r, my in enumerate(ring.local):
             c = _hop_causal((my - i) % n, my, causal)
             if c is None:
                 continue
@@ -546,7 +521,7 @@ def _ring_bwd(qs, ks, vs, outs, lses, dos, ring, causal, scale,
     dq, dk, dv = [None] * len(qs), [None] * len(qs), [None] * len(qs)
     k_cur, v_cur = list(ks), list(vs)
     for i in range(n):
-        for r, my in enumerate(ring.ranks):
+        for r, my in enumerate(ring.local):
             c = _hop_causal((my - i) % n, my, causal)
             if c is None:
                 continue
@@ -599,8 +574,9 @@ def ring_attention(q, k, v, axis_name, causal=False, scale=None,
     group, none at axis size 1. Any S_local: the kernels mask ragged
     tiles, so there is no einsum fallback. Differentiable through
     `RingAttention`."""
+    from ..parallel.communicator import _AxisRanks
     from ..parallel.tp import _axis
-    ring = _AxisRing(_axis(axis_name))
+    ring = _AxisRanks(_axis(axis_name))
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

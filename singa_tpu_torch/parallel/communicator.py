@@ -60,12 +60,13 @@ def _comm_stamp(op: str):
 
 
 # ---- the collective primitives ------------------------------------------
-# Every torch.distributed collective of the data-, tensor-, sequence- and
-# expert-parallel steps goes through these (the communicator's verbs,
-# `parallel.tp`'s operators, the ring's shifts, the experts' all-to-all,
-# the model's first-build sync), so a rule of the backend is kept in one
-# place: NCCL takes contiguous tensors only (a tied head's gradient is a
-# transposed view). None of them books anything.
+# Every torch.distributed collective of the data-, tensor-, sequence-,
+# expert- and pipeline-parallel steps goes through these (the
+# communicator's verbs, `parallel.tp`'s operators, the rank groups'
+# transfers below (the ring's shifts, the pipeline's slots), the experts'
+# all-to-all, the model's first-build sync), so a rule of the backend is
+# kept in one place: NCCL takes contiguous tensors only (a tied head's
+# gradient is a transposed view). None of them books anything.
 
 def _reduce_(x, group, op=None):
     """x summed (or reduced by `op`, a `dist.ReduceOp`) over `group`'s
@@ -101,23 +102,24 @@ def _bcast_(x, group, root: int = 0):
     return x
 
 
-def _shifted(x, group, size: int, index: int):
-    """Every rank's x sent one step along `group`'s ring (`lax.ppermute`
-    with the pairs (i, i + 1 mod size)): the x of the rank before this
-    one, in a new contiguous tensor. Point to point, through
-    `batch_isend_irecv`; at size 1 it returns x and makes no call (torch
-    refuses a send to one's own rank)."""
-    if group is None or size == 1:
-        return x
-    x = x.detach().contiguous()
-    out = torch.empty_like(x)
-    nxt = dist.get_global_rank(group, (index + 1) % size)
-    prv = dist.get_global_rank(group, (index - 1) % size)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, nxt, group),
-            dist.P2POp(dist.irecv, out, prv, group)]):
-        req.wait()
-    return out
+def _p2p(sends, recvs, group):
+    """One batch of point-to-point transfers over `group`: `sends` is a
+    list of (tensor, group rank) and `recvs` of (template, group rank);
+    returns the received tensors, in `recvs`' order, each new and shaped
+    like its template. Every op goes into one `batch_isend_irecv`, so a
+    rank that sends to and receives from both of its neighbours in one
+    step cannot deadlock against them; an empty batch makes no call."""
+    ops = [dist.P2POp(dist.isend, x.detach().contiguous(),
+                      dist.get_global_rank(group, int(r)), group)
+           for x, r in sends]
+    outs = [torch.empty(tuple(t.shape), dtype=t.dtype, device=t.device)
+            for t, _ in recvs]
+    ops += [dist.P2POp(dist.irecv, out, dist.get_global_rank(group, int(r)),
+                       group) for out, (_, r) in zip(outs, recvs)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return outs
 
 
 def _exchanged(x, group):
@@ -128,6 +130,77 @@ def _exchanged(x, group):
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
     return out
+
+
+# ---- rank groups ------------------------------------------------------------
+# The ring attention's hops and the pipeline's slots run the ranks of a
+# mesh axis in lock step over one of two groups: `_AxisRanks`, one rank a
+# process, whose transfers are P2P over the axis's process group, or
+# `_Loopback`, every rank of an n-rank group in this process, whose
+# transfers hand a rank its neighbour's tensor: a check of a schedule on
+# one device, not an API. `local` are the ranks this process runs and
+# `current` the one a stage function runs for (`pipeline.stage_index`).
+
+class _Ranks:
+    """What the two groups share: `shift` over their own `exchange`."""
+
+    def shift(self, xs):
+        """`lax.ppermute` with the pairs (i, i + 1 mod n) of the local
+        ranks' tensors (a list in `local` order): each rank gets the
+        tensor of the rank before it. At n == 1 xs itself, and no
+        call."""
+        if self.n == 1:
+            return list(xs)
+        got, _ = self.exchange(dict(zip(self.local, xs)), {}, self.local,
+                               (), xs[0])
+        return [got[r] for r in self.local]
+
+
+class _AxisRanks(_Ranks):
+    """The ranks of a bound mesh axis (`parallel.tp._Axis`), one a
+    process: this process runs the rank at its index."""
+
+    def __init__(self, ax):
+        self.ax = ax
+        self.n = ax.size
+        self.local = (ax.index,)
+        self.current = ax.index
+
+    def exchange(self, fwd, bwd, recv_fwd, recv_bwd, like):
+        """One step's transfers: `fwd` {rank: tensor} goes to rank + 1
+        and `bwd` to rank - 1 (mod n); the ranks in `recv_fwd` take rank
+        - 1's tensor and those in `recv_bwd` rank + 1's, each shaped like
+        `like`. Returns ({rank: from rank - 1}, {rank: from rank + 1});
+        the four directions in one `_p2p` batch (none at all when nothing
+        moves: torch refuses a send to one's own rank)."""
+        i, n = self.ax.index, self.n
+        sends = [(t, (i + 1) % n) for t in fwd.values()]
+        sends += [(t, (i - 1) % n) for t in bwd.values()]
+        recvs = [(like, (i - 1) % n) for _ in recv_fwd]
+        recvs += [(like, (i + 1) % n) for _ in recv_bwd]
+        got = _p2p(sends, recvs, self.ax.group)
+        k = len(recv_fwd)
+        return dict(zip(recv_fwd, got[:k])), dict(zip(recv_bwd, got[k:]))
+
+    def psum(self, x):
+        """x summed over the axis, in a new tensor (x itself at n == 1)."""
+        return x if self.n == 1 else _reduced(x, self.ax.group)
+
+
+class _Loopback(_Ranks):
+    """Every rank of an n-rank group in this process: a transfer hands
+    rank r the tensor of rank r - 1 (forward) or r + 1 (backward), as
+    the axis's P2P does."""
+
+    def __init__(self, n: int):
+        self.n = int(n)
+        self.local = tuple(range(self.n))
+        self.current = 0
+
+    def exchange(self, fwd, bwd, recv_fwd, recv_bwd, like):
+        n = self.n
+        return ({r: fwd[(r - 1) % n] for r in recv_fwd},
+                {r: bwd[(r + 1) % n] for r in recv_bwd})
 
 
 def _payload_bytes(x) -> int:

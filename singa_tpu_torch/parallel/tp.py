@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from .communicator import _reduced, _shifted, _stacked
+from .communicator import _reduced, _stacked
 from .mesh import bound_mesh
 
 
@@ -65,12 +65,6 @@ def _stack(x, ax: _Axis):
     """Every rank's x stacked on a new leading axis, in axis order."""
     return x.unsqueeze(0) if ax.group is None \
         else _stacked(x, ax.group, ax.size)
-
-
-def _shift(x, ax: _Axis):
-    """x one step along the axis's ring (`lax.ppermute` with the pairs
-    (i, i + 1 mod size)): the previous rank's x; x itself at size 1."""
-    return _shifted(x, ax.group, ax.size, ax.index)
 
 
 def _gather_dim(x, ax: _Axis, dim: int):

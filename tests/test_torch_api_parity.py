@@ -9,11 +9,11 @@ in CLASSES every public method (the class's own and those of its bases in
 the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
-by module, with the ROADMAP.md Queue 1 item that brings it (5: the
-pipeline parallelism of item 5c). A listed
-name that resolves fails the test: the list only shrinks, except when a
-module is ported in part (`introspect` without the warm store), which
-adds that module's unported names.
+by module, with the ROADMAP.md Queue 1 item that brings it (6: the
+multi-replica serving's command lines; 7: the remaining operations
+layers). A listed name that resolves fails the test: the list only
+shrinks, except when a module is ported in part (`introspect` without
+the warm store), which adds that module's unported names.
 """
 
 import ast
@@ -34,8 +34,6 @@ PENDING = {
     "overlap": {"async_available": 7, "overlap_report": 7},
     "slo": {"main": 6},
     "watchdog": {"main": 6},
-    "parallel.__init__": {"gpipe": 5, "last_stage_value": 5},
-    "models.transformer": {"PipelinedGPT": 5, "create_pipelined": 5},
 }
 
 #: (module, class) whose public methods must resolve
@@ -51,6 +49,7 @@ CLASSES = {
     "watchdog": ("Watchdog", "OpDeadline"),
     "memory": ("MemoryLedger", "LeakDetector"),
     "goodput": ("GoodputTracker",),
+    "models.transformer": ("PipelinedGPT",),
 }
 
 
@@ -119,7 +118,8 @@ def test_the_sweep_covers_the_ported_modules():
             "health", "resilience", "watchdog", "memory", "goodput",
             "introspect", "distributed", "parallel.mesh",
             "parallel.communicator", "parallel.__init__", "parallel.tp",
-            "sonnx.backend", "__init__", "models.__init__"} <= set(MODULES)
+            "parallel.pipeline", "sonnx.backend", "__init__",
+            "models.__init__"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)
                for names in PENDING.values() for item in names.values())
@@ -160,6 +160,7 @@ def test_public_names_resolve_on_the_port(name):
 #: the GPT's `device` and `seed`), with every JAX keyword-only parameter
 SIGNATURES = [("layer", "Embedding.__init__"), ("layer", "Linear.__init__"),
               ("models.transformer", "GPT.__init__"),
+              ("models.transformer", "PipelinedGPT.__init__"),
               ("model", "Model.compile")]
 
 

@@ -29,7 +29,7 @@ Faults 11-13:
     is gone when `end()` returns.
 13. `Model.compile` binds JAX's positional call: the fifth to seventh
     positions are the pipeline parameters, the eighth the amp dtype, in
-    both packages; a pipeline axis raises, naming item 5c.
+    both packages, which store a pipeline axis given there alike.
 """
 
 import json
@@ -371,7 +371,7 @@ def test_compile_binds_the_jax_positional_call():
     assert names[0] == names[1], names
     x = np.random.RandomState(0).randn(4, 3).astype(np.float32)
     args = (True, False, False, None, 1, "gpipe", "bfloat16", False)
-    got = []
+    got, stored = [], []
     for t, layer_mod, model_mod, dev in ((jt, jl, jmodel, JDEV),
                                          (tt, tl, tmodel, TDEV)):
         class Net(model_mod.Model):
@@ -385,6 +385,9 @@ def test_compile_binds_the_jax_positional_call():
         m = Net()
         m.compile([t.from_numpy(x, dev)], *args)
         got.append((m.amp, m.eval_buckets, m.graph_mode, m.training))
+        m = Net()
+        m.compile([t.from_numpy(x, dev)], True, False, False, "pp", 2,
+                  "1f1b")
+        stored.append((m.pipeline_axis, m.n_micro, m.pipeline_schedule))
     assert got[0] == got[1] == ("bfloat16", False, False, True)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        Net().compile([tt.from_numpy(x, TDEV)], True, False, False, "pp")
+    assert stored[0] == stored[1] == ("pp", 2, "1f1b")

@@ -1,8 +1,8 @@
 """Port parity, the ring attention's hop loop in this process: the
-loopback ring (`ops.attention._Loopback`, every rank of an n-rank ring
-in one process, lock step, the schedule `chip_smoke.py` drives on the
-card) and `ring_attention` on a bound mesh of one rank with no process
-group.
+loopback ring (`parallel.communicator._Loopback`, every rank of an
+n-rank ring in one process, lock step, the schedule `chip_smoke.py`
+drives on the card) and `ring_attention` on a bound mesh of one rank
+with no process group.
 
 - The loopback ring at n = 2 and 4, causal and not, fp32, on
   tests/test_attention.py:60-95's (1, 2, 64, 16) inputs: the blocks'
@@ -33,6 +33,7 @@ from singa_tpu.parallel import make_mesh as jmake_mesh
 from singa_tpu_torch import autograd as tag
 from singa_tpu_torch.ops import attention as A
 from singa_tpu_torch.parallel import make_mesh
+from singa_tpu_torch.parallel.communicator import _Loopback
 from test_torch_sp import jax_ring, ring_inputs
 
 torch.set_num_threads(2)
@@ -46,7 +47,7 @@ def loopback(qkv, n, causal, dos=None):
     """The loopback ring on the global arrays `qkv`: (out, lse) of the
     blocks concatenated, and with `dos` (global dO) the gradients."""
     qs, ks, vs = (_blocks(t, n) for t in qkv)
-    ring, scale = A._Loopback(n), qs[0].shape[-1] ** -0.5
+    ring, scale = _Loopback(n), qs[0].shape[-1] ** -0.5
     outs, lses = A._ring_fwd(qs, ks, vs, ring, causal, scale)
     res = [torch.cat(outs, 2), torch.cat(lses, 2)]
     if dos is not None:

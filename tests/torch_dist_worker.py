@@ -11,27 +11,40 @@ a hang kills the job's processes and fails one test.
 
 Run by the harness as `python torch_dist_worker.py JOB RANK WORLD STORE
 INPUTS OUT`; STORE "env" makes the job join through
-`distributed.init()`'s environment fallbacks instead.
+`distributed.init()`'s environment fallbacks instead. With `forked`,
+one launcher (`torch_dist_worker.py --forked JOB WORLD STORE INPUTS
+OUT`) imports torch and the port once and forks the ranks, before any
+thread exists: a rank then costs its job's work, not an interpreter's
+start (importing torch takes seconds of CPU).
 """
 
 import glob
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.abspath(__file__)
+#: the environment variable that carries run_job's `cpus` to the workers
+_CPUS = "TORCH_DIST_WORKER_CPUS"
 
 
 def run_job(job, world, tmp_path, inputs=None, timeout=120, env=None,
-            store=None):
+            store=None, cpus=None, forked=False):
     """Run `job` on `world` ranks; returns each rank's results, a dict of
     numpy arrays, in rank order. `env` adds environment variables (per
-    rank: a callable of the rank); `store` "env" skips the file store."""
+    rank: a callable of the rank); `store` "env" skips the file store;
+    `cpus` keeps the job's processes on that many of this process's CPU
+    cores (the last ones; their affinity, set before they import torch),
+    so a job of many ranks loads the host no more than that; `forked`
+    forks the ranks from one launcher that has imported torch and the
+    port (no per-rank `env`)."""
     work = os.path.join(str(tmp_path), job)
     os.makedirs(work, exist_ok=True)
     inp = os.path.join(work, "inputs.npz")
@@ -39,8 +52,21 @@ def run_job(job, world, tmp_path, inputs=None, timeout=120, env=None,
     store = store or os.path.join(work, "store")
     base = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
                 PYTHONUNBUFFERED="1")
+    base.pop(_CPUS, None)
+    if cpus is not None:
+        base[_CPUS] = ",".join(map(str, sorted(os.sched_getaffinity(0))[
+            -int(cpus):]))
     procs, logs = [], []
-    for r in range(world):
+    if forked:
+        if env:
+            raise ValueError("a forked job takes no per-rank env")
+        log = open(os.path.join(work, "launcher.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, WORKER, "--forked", job, str(world), store, inp,
+             work], cwd=ROOT, env=base, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True))
+    for r in range(0 if forked else world):
         e = dict(base)
         for k, v in (env or {}).items():
             e[k] = str(v(r) if callable(v) else v)
@@ -59,15 +85,30 @@ def run_job(job, world, tmp_path, inputs=None, timeout=120, env=None,
             rcs.append(None)
     for p in procs:
         if p.poll() is None:
-            p.kill()
+            if forked:      # the launcher's session: its ranks too
+                os.killpg(p.pid, signal.SIGKILL)
+            else:
+                p.kill()
             p.wait()
     for log in logs:
         log.close()
+    if forked:
+        path = os.path.join(work, "rcs.json")
+        rcs = [None] * world
+        if os.path.exists(path):
+            with open(path) as f:
+                rcs = json.load(f)
     if any(rc != 0 for rc in rcs):
         text = ""
+        if forked:
+            with open(os.path.join(work, "launcher.log")) as f:
+                text += f"--- launcher ---\n{f.read()[-3000:]}"
         for r in range(world):
-            with open(os.path.join(work, f"rank{r}.log")) as f:
-                text += f"--- rank {r} (rc {rcs[r]}) ---\n{f.read()[-3000:]}"
+            path = os.path.join(work, f"rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    text += (f"--- rank {r} (rc {rcs[r]}) ---\n"
+                             f"{f.read()[-3000:]}")
         raise AssertionError(f"job {job!r} on {world} ranks failed "
                              f"(timeout {timeout} s):\n{text}")
     out = []
@@ -1256,17 +1297,249 @@ def job_ep(inp, rank, world, out):
             for k, v in res.items()}
 
 
+# ---- pipeline parallelism (test_torch_pipeline.py, test_torch_pp_gpt.py) --
+
+def pp_tanh_stage(p, h):
+    """tests/test_parallel_extra.py:662's stage: tanh(h @ W + b)."""
+    import torch
+    return torch.tanh(h @ p[0] + p[1])
+
+
+def pp_tanh_chunk(p, h, c):
+    """The interleaved stage's chunk c: p holds the stage's (V, d, d)
+    weights and (V, d) biases."""
+    import torch
+    return torch.tanh(h @ p[0][c] + p[1][c])
+
+
+def pp_square_loss(lp, y, t):
+    """The 1F1B tests' last_fn: mean((y @ w - t)^2)."""
+    return ((y @ lp[0] - t) ** 2).mean()
+
+
+def job_pp_fn(inp, rank, world, out):
+    """gpipe, gpipe_interleaved and one_f_one_b over {pp: world} on this
+    rank's stage (tests/test_parallel_extra.py:666-718's inputs): the
+    outputs through bcast_from_last and the gradients of their sum of
+    squares, 1F1B's five results, and dryrun step 3's pp_run
+    (`__graft_entry__.py:407-427`: gpipe, then last_stage_value)."""
+    import torch
+
+    from singa_tpu_torch import distributed
+    from singa_tpu_torch.parallel import make_mesh
+    from singa_tpu_torch.parallel import pipeline as P
+    distributed.init(device="cpu")
+    T = torch.as_tensor
+    mesh = make_mesh({"pp": world})
+    me = mesh.coordinate("pp")
+    res = {}
+
+    def grads(y, xs):
+        return [torch.zeros_like(x) if g is None else g for x, g in zip(
+            xs, torch.autograd.grad((y ** 2).sum(), xs, allow_unused=True))]
+
+    with mesh.bind():
+        args = [T(inp["Ws"][me]), T(inp["bs"][me]), T(inp["x"])]
+        for a in args:
+            a.requires_grad_(True)
+        y = P.bcast_from_last("pp", P.gpipe(pp_tanh_stage, args[:2],
+                                            args[2], "pp"))
+        res["gpipe/out"] = y
+        for k, g in zip(("dW", "db", "dx"), grads(y, args)):
+            res[f"gpipe/{k}"] = g
+        args = [T(inp["Wi"][:, me]), T(inp["bi"][:, me]), T(inp["x"])]
+        for a in args:
+            a.requires_grad_(True)
+        y = P.bcast_from_last("pp", P.gpipe_interleaved(
+            pp_tanh_chunk, args[:2], args[2], "pp", inp["Wi"].shape[0]))
+        res["il/out"] = y
+        for k, g in zip(("dW", "db", "dx"), grads(y, args)):
+            res[f"il/{k}"] = g
+        loss, outs, ds, dl, dx = P.one_f_one_b(
+            pp_tanh_stage, pp_square_loss, (T(inp["Ws"][me]),
+                                            T(inp["bs"][me])),
+            (T(inp["wl"]),), T(inp["x"]), T(inp["tgt"]), "pp")
+        res.update({"1f1b/loss": loss, "1f1b/outs": outs, "1f1b/dW": ds[0],
+                    "1f1b/db": ds[1], "1f1b/dwl": dl[0], "1f1b/dx": dx})
+        res["dry3/out"] = P.last_stage_value(P.gpipe(
+            pp_tanh_stage, (T(inp["dry_Ws"][me]), T(inp["dry_bs"][me])),
+            T(inp["dry_x"]), "pp"), "pp")
+    return {k: v.detach().numpy() for k, v in res.items()}
+
+
+#: the PipelinedGPTs of test_torch_pp_gpt.py at `world` ranks: name ->
+#: (config, mesh, DistOpt axis, compile's pipeline arguments). From
+#: tests/test_parallel_extra.py: "gpipe"/"1f1b" (:244-335), "gqa"
+#: (:761), "rope" (:806); dryrun step 2b's (`__graft_entry__.py:272-317`,
+#: num_layers world + 1, non-uniform: gpipe at n_micro 2, 1f1b at 4;
+#: interleave 2 over 2 world - 1 layers at n_micro world); at 8 ranks its
+#: pp x ep (:319-341) and 3-D (:352-377) meshes, and :617's vocab-parallel
+#: model on a mesh without the tp axis
+PP_SMALL = dict(vocab_size=40, max_seq=8, dim=16, num_heads=2,
+                num_layers=4)
+PP_DRY = dict(vocab_size=50, max_seq=8, dim=16, num_heads=2)
+PP_VOCAB = dict(PP_DRY, tp_axis="tp", vocab_tp=True, vocab_pad_multiple=8)
+
+
+def pp_gpt_cases(world):
+    """The PP_GPT case names run at `world` ranks."""
+    if world == 8:
+        return ("ppxep", "3d", "notp")
+    dry = ("dry_gpipe", "dry_1f1b", "dry_il")
+    return ("gpipe", "1f1b", "gqa", "rope") + dry if world == 4 else dry
+
+
+def pp_gpt_case(case, world):
+    """(config, mesh, DistOpt axis, compile kwargs) of `case`."""
+    pp = {"data": 1, "pp": world}
+    table = {
+        "gpipe": (PP_SMALL, pp, "data", dict(n_micro=4)),
+        "1f1b": (PP_SMALL, pp, "data",
+                 dict(n_micro=4, pipeline_schedule="1f1b")),
+        "gqa": (dict(PP_SMALL, num_heads=4, num_kv_heads=2), pp, "data",
+                dict(n_micro=4)),
+        "rope": (dict(PP_SMALL, pos_encoding="rope"), pp, "data",
+                 dict(n_micro=4, pipeline_schedule="1f1b")),
+        "dry_gpipe": (dict(PP_DRY, num_layers=world + 1), pp, "data",
+                      dict(n_micro=2)),
+        "dry_1f1b": (dict(PP_DRY, num_layers=world + 1), pp, "data",
+                     dict(n_micro=4, pipeline_schedule="1f1b")),
+        "dry_il": (dict(PP_DRY, num_layers=2 * world - 1, interleave=2), pp,
+                   "data", dict(n_micro=world)),
+        "ppxep": (dict(PP_DRY, num_layers=3, moe_experts=4, moe_k=2,
+                       ep_axis="ep"), {"data": 2, "pp": 2, "ep": 2},
+                  ("data", "ep"), dict(n_micro=2)),
+        "3d": (dict(PP_VOCAB, num_layers=3), {"data": 2, "pp": 2, "tp": 2},
+               "data", dict(n_micro=2, pipeline_schedule="1f1b")),
+        "notp": (dict(PP_VOCAB, num_layers=2), {"data": 2, "pp": 4}, "data",
+                 dict(n_micro=2, pipeline_schedule="1f1b")),
+    }
+    return table[case]
+
+
+#: the steps of every case, SGD(0.05)
+PP_STEPS = 3
+
+
+def pp_gpt_data(case, world):
+    """(ids, targets) of `case`: B 8, S 8 (dryrun 2b's B is 2 world)."""
+    seed = sum(map(ord, case))
+    B = 2 * world if case.startswith("dry") else 8
+    V = pp_gpt_case(case, world)[0]["vocab_size"]
+    ids = np.random.RandomState(seed).randint(0, V, (B, 8))
+    return ids.astype(np.int32), np.roll(ids, -1, axis=1).astype(np.int32)
+
+
+def job_pp_gpt(inp, rank, world, out):
+    """The PipelinedGPTs of `pp_gpt_cases(world)` through the Model API
+    under DistOpt(SGD(0.05)), from the inputs' (JAX's) initial weights
+    (`load_singa_params` for half the cases, `set_params` for the
+    others): the losses of PP_STEPS steps, the global parameters, the
+    rank's stack rows; on rank 0 the same config's serial losses (plain
+    SGD, no pipeline axis) from the same weights; at 2 ranks, the
+    gathered `save_states` zip of the dryrun's gpipe model (a file a
+    rank)."""
+    import torch
+
+    from singa_tpu_torch import distributed, models, opt
+    from singa_tpu_torch.models import transformer
+    from singa_tpu_torch.parallel import make_mesh
+    distributed.init(device="cpu")
+    T = torch.as_tensor
+    res = {}
+    for i, case in enumerate(pp_gpt_cases(world)):
+        cfg, mesh, axis, comp = pp_gpt_case(case, world)
+        w0 = {k[len(case) + 4:]: inp[k] for k in inp.files
+              if k.startswith(f"{case}_w0/")}
+        ids, tgt = T(inp[f"{case}_ids"]), T(inp[f"{case}_tgt"])
+        m = models.create_model("gpt_pipe", device="cpu", **cfg)
+        m.set_optimizer(opt.DistOpt(opt.SGD(lr=0.05), axis=axis,
+                                    mesh=make_mesh(mesh)))
+        m.compile([ids], is_train=True, use_graph=True, pipeline_axis="pp",
+                  **comp)
+        if i % 2:
+            transformer.load_singa_params(m, w0)
+        else:
+            m.set_params(w0)
+        res[f"{case}/losses"] = [m(ids, tgt)[1].item()
+                                 for _ in range(PP_STEPS)]
+        res[f"{case}/rows"] = m.Wq.shape[1 if cfg.get("interleave") else 0]
+        for k, v in m.get_params().items():
+            res[f"{case}/p/{k}"] = v.data
+        if case == "dry_gpipe" and world == 2:
+            m.save_states(os.path.join(out, f"states{rank}.zip"))
+        if rank == 0 and "moe_experts" not in cfg:
+            s = models.create_model("gpt_pipe", device="cpu", **cfg)
+            s.set_optimizer(opt.SGD(lr=0.05))
+            s.compile([ids], is_train=True, use_graph=True)
+            s.set_params(w0)
+            res[f"{case}/serial"] = [s(ids, tgt)[1].item()
+                                     for _ in range(PP_STEPS)]
+    return {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in res.items()}
+
+
 JOBS = {"topo": job_topo, "env": job_env, "verbs": job_verbs,
         "train": job_train, "resume": job_resume, "dryrun": job_dryrun,
         "health": job_health, "kill": job_kill,
         "resume_small": job_resume_small, "tp_ops": job_tp_ops,
         "tp_model": job_tp_model, "tp_gpt": job_tp_gpt, "sp": job_sp,
-        "ep": job_ep}
+        "ep": job_ep, "pp_fn": job_pp_fn, "pp_gpt": job_pp_gpt}
+
+
+def _pin():
+    """This process on run_job's `cpus` cores, when it set them."""
+    if os.environ.get(_CPUS):
+        os.sched_setaffinity(0, {int(c) for c in
+                                 os.environ[_CPUS].split(",")})
+
+
+def forked_main(argv):
+    """Every rank of a job as a fork of this process, after one import of
+    torch and the port (no thread exists yet: a fork copies only the
+    calling thread). Rank r writes rank<r>.log; the ranks' exit codes go
+    to rcs.json. Returns 0 when every rank returned 0."""
+    job, world, store, inp, out = argv
+    world = int(world)
+    _pin()
+    import threading
+
+    import torch  # noqa: F401
+    from singa_tpu_torch import distributed, models, opt, parallel  # noqa
+    if threading.active_count() != 1 or \
+            len(os.listdir("/proc/self/task")) != 1:
+        raise RuntimeError("the launcher holds threads; it cannot fork")
+    ranks = {}
+    for r in range(world):
+        pid = os.fork()
+        if pid == 0:
+            fd = os.open(os.path.join(out, f"rank{r}.log"),
+                         os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+            os.dup2(fd, 1)
+            os.dup2(fd, 2)
+            rc = 1
+            try:
+                rc = main([job, str(r), str(world), store, inp, out])
+            except BaseException:
+                traceback.print_exc()
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(rc)
+        ranks[pid] = r
+    rcs = [None] * world
+    for _ in range(world):
+        pid, status = os.wait()
+        rcs[ranks[pid]] = os.waitstatus_to_exitcode(status)
+    with open(os.path.join(out, "rcs.json"), "w") as f:
+        json.dump(rcs, f)
+    return 0 if not any(rcs) else 1
 
 
 def main(argv):
     job, rank, world, store, inp, out = argv
     rank, world = int(rank), int(world)
+    _pin()
     import datetime
 
     import torch
@@ -1295,4 +1568,6 @@ class _Inputs(dict):
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--forked"]:
+        sys.exit(forked_main(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

@@ -71,10 +71,11 @@ Phases, each of which exits non-zero on failure:
    must equal its tokens with use_kernel=False and fp32 GPT.generate's.
    4c. The quantized and speculative entry points, bf16, each in its own
    launch window with exact counts, also by cache mode and ladder:
-   generate with int8 and int4 caches and with int8 weights, speculative
-   generate (spec_k 4) with a clone draft and with a small random draft,
-   generate_beam (4 beams) over an int4 cache, an engine with int8 pools
-   and a speculative engine with int4 pools.
+   generate (+QUANT_NEW) with int8 and int4 caches and with int8 weights,
+   speculative generate (spec_k 4) with a clone draft and with a small
+   random draft, generate_beam (4 beams) over an int4 cache, an engine
+   with int8 pools and a speculative engine with int4 pools
+   (SPEC_ENGINE_REQS requests).
    4d. fp32 on the card: speculative generate, generate_beam with one
    beam and the speculative engine against plain greedy, the int8 and
    int4 engines against dense generate with the same caches, token for
@@ -137,15 +138,17 @@ Phases, each of which exits non-zero on failure:
    algorithms, losses, parameters and running statistics within 1e-5
    (two eager runs on cuDNN's default algorithms printed beside: those
    are not reproducible run to run).
-   8c. The trainer's pipeline: 8 seeded bench-GPT batches written with
-   io.RecordWriter (the native backend required), Model.fit over an
-   io.RecordReader-backed dataset in graph mode with
-   prefetch_to_device=2, save_checkpoint(async_save=True) after epoch 1
-   with epoch 2 overlapping the write (exactly 64 + 64 launches), then
+   8c. The trainer's pipeline: FIT_BATCHES seeded batches of the bench
+   GPT cut to 4 layers (FIT_GPT) written with io.RecordWriter (the
+   native backend required), Model.fit over an io.RecordReader-backed
+   dataset in graph mode with prefetch_to_device=2,
+   save_checkpoint(async_save=True) after epoch 1 with epoch 2
+   overlapping the write (exactly 16 + 16 launches), then
    load_checkpoint into a fresh model and its epoch 2; the fp32 GPT's
-   resumed epoch 2 held to the uninterrupted run within 1e-5; the bench
-   GPT's states copied to the host, then written and read through
-   snapshot.Snapshot, native and npz (the plain version), MB/s each.
+   resumed epoch 2 held to the uninterrupted run within 1e-5; a
+   SNAP_SHARE-th of the model's state bytes copied to the host, then
+   written and read through snapshot.Snapshot, native and npz (the plain
+   version), MB/s each.
 9. MoE-GPT training: GPT-2-small's width and depth with 8 experts, top-2,
    capacity factor 1.25 (README.md's MoE-GPT; ~560 M parameters), b8 x
    1024, bf16 amp (the experts and router fp32, as in the JAX package),
@@ -160,7 +163,7 @@ Phases, each of which exits non-zero on failure:
    (losses relative, parameters absolute, 1e-4), then its graph step
    against its eager step over 6 steps (1e-5).
    9c. MoE-GPT serving, phase 9's configuration: generate b8, prompt 128,
-   +128, bf16 at the layers' capacity factor and at 8 (no drops), with
+   +MOE_NEW, bf16 at the layers' capacity factor and at 8 (no drops), with
    int8 weights and with an int4 cache; the engine, 8 requests of prompt
    256, +32, 8 slots, page 16; exact K1/K3/K4 counts; both under the
    profiler; fp32 teacher-forced logits, dense and paged, kernels against
@@ -288,13 +291,13 @@ Phases, each of which exits non-zero on failure:
    carrying the step build; GPT-2-small bf16 generate b8 (prompt 128,
    +32) twice: one serving.prefill and one serving.decode_scan build;
    13a's engine: serving.engine_prefill and serving.engine_step builds;
-   K1/K3/K4 exact. 15b fit_resilient on the bench GPT (12 seeded
-   batches, a save every 6 steps, keep 2, async) under a failing first
-   save and a failing step 9: completed, one retry, one restart from
-   step 6 replaying without stepping, step_6 and step_12 manifested and
-   valid, 15 model calls of 8 + 8 K1/K2a, the losses within 2e-2 of a
-   plain run; then a second controller with a static 0.3 s step
-   deadline (abort) and a 0.9 s stall at step 5: HangError, a
+   K1/K3/K4 exact. 15b fit_resilient on the bench GPT cut to 4 layers
+   (FR_GPT; 8 seeded batches, a save every 4 steps, keep 2, async) under
+   a failing first save and a failing step 6: completed, one retry, one
+   restart from step 4 replaying without stepping, step_4 and step_8
+   manifested and valid, 10 model calls of 4 + 4 K1/K2a, the losses
+   within 2e-2 of a plain run; then a second controller with a static
+   0.3 s step deadline (abort) and a 0.9 s stall at step 5: HangError, a
    hang_restart from step 4, the hang report cleared, completed. 15c
    8c's fp32 GPT preempted by a real SIGTERM at step 5 (manifest status
    "preempt"), resumed by a fresh model at step 5, its losses within
@@ -385,7 +388,26 @@ Phases, each of which exits non-zero on failure:
    gradients within 3e-2 of max|ref|) and at SP_FP32's widths over 5
    layers in fp32 (2e-4 and 2e-3); exact launch counts; the peak memory
    of 1f1b against gpipe.
-20. The `kernels` JSON line (the decode kernels with a `modes` entry per
+20. Multi-replica serving (router, fleet, diag). 20a GPT-2-small bf16 in
+   two ServingEngines (8 slots, page 16) behind two ReplicaControls and
+   one Router in this process: 16 seeded requests routed, exactly 12 K1
+   a prefill and 12 K4 a step of the engines' own counts; 16 more with
+   one replica drained while they run (nothing lost or evicted, every
+   handed-back request completed on the other); /routerz?json=1 and
+   /metrics of the diag server against Router.snapshot(); routed TTFT
+   and tokens/s beside one direct engine's (printed). 20b one replica
+   process (`spawn_replica`, dim 512, 2 layers, vocab 50257, fp32): it
+   holds the card's device file and nvidia-smi counts it, and a routed
+   request's tokens equal the same seeded model's in this process; a
+   head width the kernels do not take raises. 20c the kill-and-replace
+   A/B (`router.main(["--ab", ...])`, 2 replicas, 16 requests at 8/s,
+   up to 64 new tokens): every field of its record, and where the kill
+   arm's tokens part from the clean arm's, a tie (the clean arm's top-2
+   gap below TIE_GAP,
+   teacher-forced on the same model here). 20d the fleet straggler A/B
+   (`fleet.main(["--ab", ...])`, 3 workers training on the card): its
+   record's `ok`.
+21. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
@@ -393,8 +415,9 @@ Phases, each of which exits non-zero on failure:
    `mem_train`, `mem_engine`, `goodput_fit`, `introspect_first`,
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
    `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
-   `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train` and
-   `pp_loopback`), then the card line, then the result line.
+   `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train`,
+   `pp_loopback`, `router_engines` and `router_drain`), then the card
+   line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -1276,6 +1299,10 @@ CACHE_SCALE_RTOL = 1e-5
 TIE_GAP = 1e-4
 # beam search on the main path: beams per prompt and new tokens
 BEAMS, BEAM_NEW = 4, 32
+# 4c's depth: new tokens of each quantized and speculative `generate`
+# (cut from 128 to make room for phase 20), and the requests of its
+# speculative engine (cut from 16)
+QUANT_NEW, SPEC_ENGINE_REQS = 32, 8
 
 
 def _cache_diff(torch, A, serving, a, b):
@@ -1391,7 +1418,7 @@ def phase_spec_main_path(torch, model, drafts, engine, serving, A):
     its own launch window with exact counts."""
     print("== phase 4c: main path, quantized and speculative serving, bf16")
     prompts, reqs_in = seeded_requests(model.vocab_size)
-    (B, S0), new, K = prompts.shape, 128, SPEC_K
+    (B, S0), new, K = prompts.shape, QUANT_NEW, SPEC_K
     L = len(model.blocks)
     counts, modes = {}, {}
     runs = [("generate kv int8", dict(kv_dtype="int8"), None),
@@ -1458,7 +1485,7 @@ def phase_spec_main_path(torch, model, drafts, engine, serving, A):
     # the clone draft
     for path, picks, kw in (
             ("engine kv int8", reqs_in[:8], dict(kv_dtype="int8")),
-            ("spec engine kv int4, clone draft", reqs_in,
+            ("spec engine kv int4, clone draft", reqs_in[:SPEC_ENGINE_REQS],
              dict(kv_dtype="int4", draft_model=drafts["clone"], spec_k=K))):
         (reqs, wall, rep, steps), got, by_mode = window(
             torch, A, lambda: serve(engine, model, picks, max_slots=8,
@@ -2133,7 +2160,12 @@ EXACT_STEPS = 6         # steps of each fp32 exactness run
 GRAPH_STEPS = 5         # steps per timed turn, and in the counted window
 GPT_TRAIN_PROFILE = "train step b8 s1024 bf16 (bench width)"
 RESNET_PROFILE = f"ResNet-50 train step b{RESNET_B} bf16"
-FIT_BATCHES = 8         # batches in phase 8c's record file
+FIT_BATCHES = 4         # batches in phase 8c's record file (cut from 8)
+#: 8c's model: the bench GPT cut to 4 of its 8 layers, and the share of
+#: its states' bytes that goes through snapshot.Snapshot (1/4, cut from
+#: all of them); the cuts make room for phase 20
+FIT_GPT = dict(BENCH_GPT, num_layers=4)
+SNAP_SHARE = 4
 
 
 def _turns(torch, built, tx, ty, n=GRAPH_STEPS):
@@ -2419,7 +2451,7 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
     (native, then npz). Returns the counted window (epoch 2 of the bench
     GPT)."""
     print("== phase 8c: fit over record files, async checkpoints, resume")
-    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    L, V = FIT_GPT["num_layers"], FIT_GPT["vocab_size"]
     rec = os.path.join(root, "gpt.rio")
     t0 = time.perf_counter()
     backend = _write_records(sio, rec, FIT_BATCHES, TRAIN_B, TRAIN_S, V,
@@ -2429,7 +2461,7 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
     if backend != "native":
         fail(f"record IO ran the {backend} backend, not the native one")
     ds = RecordBatches(sio, rec, TRAIN_B, TRAIN_S)
-    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m = models.create_model("gpt", device="cuda", seed=SEED, **FIT_GPT)
     m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
     m.compile([next(iter(ds))[0].cuda()], is_train=True, use_graph=True,
               amp="bfloat16")
@@ -2463,7 +2495,7 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
                    {"flash_fwd": L * FIT_BATCHES,
                     "flash_bwd_fused": L * FIT_BATCHES})
     fresh = models.create_model("gpt", device="cuda", seed=SEED + 1,
-                                **BENCH_GPT)
+                                **FIT_GPT)
     fresh.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
     fresh.compile([next(iter(ds))[0].cuda()], is_train=True, use_graph=True,
                   amp="bfloat16")
@@ -2477,7 +2509,19 @@ def phase_pipeline(torch, models, opt, sio, overlap, snapshot, A, root):
           f"{abs(h2r[0] - h2[0]) / abs(h2[0]):.3e})")
     del fresh
     states = m._raw_states()
-    nbytes = sum(t.numel() * t.element_size() for t in states.values())
+    # the snapshot's rows: the states in name order up to a SNAP_SHARE-th
+    # of their bytes
+    total = sum(t.numel() * t.element_size() for t in states.values())
+    kept, nbytes = {}, 0
+    for k in sorted(states):
+        if nbytes and nbytes + states[k].numel() * states[k].element_size() \
+                > total / SNAP_SHARE:
+            break
+        kept[k] = states[k]
+        nbytes += states[k].numel() * states[k].element_size()
+    print(f"  snapshot rows: {len(kept)} of {len(states)} states, "
+          f"{nbytes / 2**20:.0f} of {total / 2**20:.0f} MiB")
+    states = kept
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host = {k: t.detach().cpu() for k, t in states.items()}
@@ -2743,9 +2787,14 @@ def _gpt2_state(cfg, seed):
     return st
 
 
+#: 9c's depth: new tokens of `generate` at both capacity factors (cut
+#: from 128 to make room for phase 20)
+MOE_NEW = 32
+
+
 def phase_moe_serve(torch, models, engine, serving, transformer, A):
     """MoE-GPT serving at phase 9's width, random weights from SEED:
-    generate (b8, prompt 128, +128, bf16) at the layers' capacity factor
+    generate (b8, prompt 128, +MOE_NEW, bf16) at the layers' capacity factor
     and at 8 (no drops), +32 with int8 weights and with an int4 cache; the
     engine (8 requests of prompt 256, +32, 8 slots, page 16); exact K1,
     K3 and K4 counts; fp32 teacher-forced logits, kernels against plain;
@@ -2762,11 +2811,11 @@ def phase_moe_serve(torch, models, engine, serving, transformer, A):
     model.generate(prompts[:, :8], 2, dtype="bfloat16")
     part.lap("9c: model and warm-up")
     counts = {}
-    # +128 at both capacity factors, +32 with int8 weights and an int4
-    # cache
+    # +MOE_NEW at both capacity factors, +32 with int8 weights and an
+    # int4 cache
     for what, new, kw in (
-            ("generate", 128, {}),
-            ("generate cf 8", 128, {"moe_capacity_factor": float(E)}),
+            ("generate", MOE_NEW, {}),
+            ("generate cf 8", MOE_NEW, {"moe_capacity_factor": float(E)}),
             ("generate int8 weights", 32, {"dtype": "int8"}),
             ("generate kv int4", 32, {"kv_dtype": "int4"})):
         kw = dict({"dtype": "bfloat16"}, **kw)
@@ -4661,8 +4710,12 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
 INTRO_REPLAYS = 10        # 15a: calls after the first three
 INTRO_TURN_STEPS = 15     # 15a: steps per arm of the callback turns
 INTRO_FLOP_TOL = 0.01     # 15a: counted against the shape count, relative
-FR_BATCHES = 12           # 15b: seeded batches of fit_resilient
-FR_SAVE = 6               # 15b: save_every_steps
+# 15b's depth, cut to make room for phase 20 (from 12 batches, a save
+# every 6 steps, the failing step 9 and all 8 layers)
+FR_BATCHES = 8            # 15b: seeded batches of fit_resilient
+FR_SAVE = 4               # 15b: save_every_steps
+FR_FAIL = 6               # 15b: the step that fails
+FR_GPT = dict(BENCH_GPT, num_layers=4)   # 15b: 4 of the bench GPT's layers
 FR_TOL = 2e-2             # 15b: bf16 amp losses against the plain run
 HANG_STEPS, HANG_SAVE, HANG_AT = 8, 4, 5    # 15b's hang controller
 PREEMPT_CFG = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
@@ -4980,25 +5033,28 @@ def phase_fit_resilient(torch, models, opt, resilience, watchdog, observe,
     """15b: fit_resilient on the bench GPT graph step (b8 x 1024, bf16 amp)
     over FR_BATCHES seeded batches, save_every_steps FR_SAVE, keep 2,
     async saves, under FaultPlan().fail("ckpt.save", nth=1).fail("step",
-    step=9): completed, 1 restart, final step 12, 12 history entries, one
-    retry, the restore at step 6 replaying without stepping, step_6 and
-    step_12 manifested (read and validated, fingerprints naming the step
-    build), 8 + 8 K1/K2a a model call (15 calls); the losses within FR_TOL
+    step=FR_FAIL): completed, 1 restart, final step FR_BATCHES, as many
+    history entries, one retry, the restore at step FR_SAVE replaying
+    without stepping, step_FR_SAVE and step_FR_BATCHES manifested (read
+    and validated, fingerprints naming the step build), L + L K1/K2a a
+    model call (FR_BATCHES + FR_FAIL - FR_SAVE calls) on the bench GPT
+    cut to FR_GPT's layers; the losses within FR_TOL
     of a plain run of the same seeded model and batches. Then a second
     controller over a fresh directory with a static step deadline
     (action abort) and a FaultPlan delay past abort_at at step HANG_AT:
     HangError restarts it from step HANG_SAVE, hang_restart emitted, the
     hang report cleared, completed. Returns the counted windows."""
     import shutil
-    print("== phase 15b: fit_resilient on the bench GPT graph step")
-    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    print("== phase 15b: fit_resilient on the bench GPT graph step "
+          f"({FR_GPT['num_layers']} layers)")
+    L, V = FR_GPT["num_layers"], FR_GPT["vocab_size"]
     batches = [tuple(t.cuda() for t in _train_batch(torch, V, TRAIN_B,
                                                     TRAIN_S, SEED + 40 + i))
                for i in range(FR_BATCHES)]
 
     def build():
         g = models.create_model("gpt", device="cuda", seed=SEED,
-                                **BENCH_GPT)
+                                **FR_GPT)
         g.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
         g.compile([batches[0][0]], is_train=True, use_graph=True,
                   amp="bfloat16")
@@ -5016,7 +5072,7 @@ def phase_fit_resilient(torch, models, opt, resilience, watchdog, observe,
     observe.get_registry().reset()
     since = len(observe.get_registry().recent)
     plan = resilience.install_fault_plan(resilience.FaultPlan().fail(
-        "ckpt.save", nth=1).fail("step", step=9))
+        "ckpt.save", nth=1).fail("step", step=FR_FAIL))
     torch.cuda.synchronize()
     A.reset_launches()
     t0 = time.perf_counter()
@@ -5070,8 +5126,9 @@ def phase_fit_resilient(torch, models, opt, resilience, watchdog, observe,
               f"problems {probs}, fingerprints {keys}")
         if man is None or probs or "step" not in keys:
             fail(f"15b: the manifest of step_{s}")
-    calls = FR_BATCHES + (9 - FR_SAVE)
-    check_launches("15b fit_resilient (12 steps + 3 after the restore)",
+    calls = FR_BATCHES + (FR_FAIL - FR_SAVE)
+    check_launches(f"15b fit_resilient ({FR_BATCHES} steps + "
+                   f"{FR_FAIL - FR_SAVE} after the restore)",
                    counts, {"flash_fwd": L * calls,
                             "flash_bwd_fused": L * calls})
     by_path = {"fit_resilient": counts}
@@ -6511,6 +6568,418 @@ def phase_pp_loopback(torch, A, transformer, pipeline):
     return total
 
 
+# ---- phase 20: multi-replica serving (router, fleet, diag) -----------------
+ROUTE_ENGINE = dict(max_slots=8, page_size=16, max_ctx=1024,
+                    steps_per_sync=4, dtype="bfloat16")   # 20a, phase 4's
+#: 20b's and 20c's replicas: the A/B's command-line defaults at dim 512
+#: (4 heads of 128, a width K1 takes), GPT-2's vocab, fp32, and up to 64
+#: new tokens (the default 24 lasts ~30 ms on the card, shorter than the
+#: kill trigger's shard poll, so the SIGKILL could miss every request)
+REPLICA = dict(vocab=50257, dim=512, layers=2, prompt_lo=4, prompt_hi=12,
+               new_hi=64, slots=4, page_size=8, publish_interval=0.1)
+AB_ROUTER = ["--replicas", "2", "--requests", "16", "--rps", "8",
+             "--dim", str(REPLICA["dim"]), "--layers",
+             str(REPLICA["layers"]), "--vocab", str(REPLICA["vocab"]),
+             "--new-hi", str(REPLICA["new_hi"]), "--timeout", "120",
+             "--device", "cuda"]
+AB_FLEET = ["--workers", "3", "--mesh-devices", "1", "--device", "cuda",
+            "--timeout", "180"]
+
+
+def _url(url):
+    """(status, body) of one GET."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _sample(text, name, **labels):
+    """One sample's value from Prometheus text (0 when absent)."""
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    key = f"{name}{{{want}}}" if want else name
+    for ln in text.splitlines():
+        if ln.split(" ")[0] == key:
+            return float(ln.split(" ")[1])
+    return 0.0
+
+
+def _compute_apps():
+    """nvidia-smi's compute processes on the card (their pids as the
+    host's namespace numbers them, which a container's pids need not
+    match)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+
+
+def _nvidia_fds(pid):
+    """The NVIDIA device files process `pid` holds open (/proc/<pid>/fd):
+    a process with a CUDA context on the card holds /dev/nvidia<N>."""
+    out = set()
+    d = f"/proc/{pid}/fd"
+    for fd in os.listdir(d):
+        try:
+            t = os.readlink(os.path.join(d, fd))
+        except OSError:
+            continue
+        if t.startswith("/dev/nvidia"):
+            out.add(t)
+    return sorted(out)
+
+
+def _engine_delta(before, after):
+    """(prefills, steps, evicted) the engines ran between two report()
+    lists: each admitted request prefilled once and completed."""
+    return (sum(a["finished"].get("completed", 0)
+                - b["finished"].get("completed", 0)
+                for b, a in zip(before, after)),
+            sum(a["steps"] - b["steps"] for b, a in zip(before, after)),
+            sum(a["finished"].get("evicted", 0)
+                - b["finished"].get("evicted", 0)
+                for b, a in zip(before, after)))
+
+
+def _routed_window(torch, A, r, engines, reqs_in, L, what, during=None):
+    """Submit `reqs_in` through the router with every launch counter reset
+    just before and read just after; `during(handles)` runs while they are
+    in flight. Fails unless every request completes with its token count
+    and K1/K4 match the engines' own prefills and steps exactly. Returns
+    (handles, wall s, launches, what `during` returned)."""
+    before = [e.report() for e in engines]
+    A.reset_launches()
+    t0 = time.perf_counter()
+    hs = [r.submit(pr, mn) for pr, mn in reqs_in]
+    extra = during(hs) if during is not None else None
+    for h in hs:
+        if not h.wait(600):
+            fail(f"{what}: routed request {h.id} did not finish")
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    got = dict(A.LAUNCHES)
+    prefills, steps, evicted = _engine_delta(
+        before, [e.report() for e in engines])
+    bad = [(h.id, h.outcome, h.detail, len(h.tokens), mn)
+           for h, (_, mn) in zip(hs, reqs_in)
+           if h.outcome != "completed" or len(h.tokens) != mn]
+    if bad or evicted:
+        fail(f"{what}: requests lost or evicted: {bad}, evicted {evicted}")
+    if prefills != len(reqs_in):
+        fail(f"{what}: {prefills} prefills for {len(reqs_in)} requests")
+    check_launches(what, got, {"flash_fwd": L * prefills,
+                               "paged_attention": L * steps})
+    return hs, wall, got, extra
+
+
+def phase_router_engines(torch, models, engine, router, diag, goodput, A):
+    """20a: GPT-2-small bf16 in two ServingEngines (8 slots, page 16)
+    behind two ReplicaControls and one Router, in this process. 16 seeded
+    requests routed, K1/K4 exactly 12 a prefill and 12 a step of the
+    engines' own counts; then 16 more with one replica drained while they
+    run: nothing lost or evicted, every handed-back request completed on
+    the other; /routerz?json=1 and /metrics of the diag server against
+    Router.snapshot(). Routed TTFT and tokens/s beside one direct
+    engine's on the same requests (printed). Returns the two windows'
+    launches."""
+    print("== phase 20a: a Router over two ServingEngines in this "
+          "process, GPT-2-small bf16")
+    model = models.create_model("gpt", device="cuda", seed=SEED,
+                                **GPT2_SMALL)
+    L = len(model.blocks)
+    _, reqs_in = seeded_requests(model.vocab_size)
+    # the direct engine (and the model's prefill builds for every
+    # bucket), off the counted windows
+    d_eng = engine.ServingEngine(model, **ROUTE_ENGINE).start()
+    try:
+        d_eng.prewarm([len(p) for p, _ in reqs_in])
+        t0 = time.perf_counter()
+        direct = [d_eng.submit(pr, mn) for pr, mn in reqs_in]
+        for d in direct:
+            if not d.wait(600) or d.outcome != "completed":
+                fail(f"direct engine request {d.id}: {d.outcome}")
+        d_wall = time.perf_counter() - t0
+    finally:
+        d_eng.stop()
+    engines = [engine.ServingEngine(model, **ROUTE_ENGINE).start()
+               for _ in range(2)]
+    ctls = [router.ReplicaControl(e) for e in engines]
+    r = router.Router(retry_seed=SEED).start()
+    srv = diag.start_diag_server(port=0)
+    try:
+        for i, c in enumerate(ctls):
+            r.add_replica(f"e{i}", c.url, host=f"e{i}")
+        for e in engines:    # cuBLAS and the pools' first use, off the window
+            e.prewarm([8])
+        hs, wall, got, _ = _routed_window(torch, A, r, engines, reqs_in, L,
+                                          "20a routed")
+        ntok = sum(len(h.tokens) for h in hs)
+        d_tok = sum(len(d.tokens) for d in direct)
+        card = card_line()
+        print(f"  routed over 2 engines: {len(hs)} requests, {ntok} tokens, "
+              f"{wall:.3f} s, {ntok / wall:.1f} tok/s, TTFT p50 "
+              f"{engine.pctile([h.ttft_s for h in hs], 0.5) * 1e3:.1f} ms "
+              f"p99 {engine.pctile([h.ttft_s for h in hs], 0.99) * 1e3:.1f}"
+              f" ms, by replica {sorted({h.replica for h in hs})} ({card})")
+        print(f"  one engine direct: {len(direct)} requests, {d_tok} tokens,"
+              f" {d_wall:.3f} s, {d_tok / d_wall:.1f} tok/s, TTFT p50 "
+              f"{engine.pctile([d.ttft_s for d in direct], 0.5) * 1e3:.1f} "
+              f"ms p99 "
+              f"{engine.pctile([d.ttft_s for d in direct], 0.99) * 1e3:.1f}"
+              f" ms ({card})")
+        same = sum(int(h.tokens == list(d.tokens))
+                   for h, d in zip(hs, direct))
+        print(f"  routed vs direct tokens (bf16, other batches: printed "
+              f"only): {same}/{len(hs)} sequences identical")
+
+        def drain(hs2):
+            # drain while e0's engine still queues requests it has not
+            # admitted, so that some are handed back (bounded wait)
+            deadline = time.monotonic() + 10.0
+            while engines[0].report()["queue_depth"] < 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.0005)
+            return r.drain_replica("e0", timeout_s=300.0)
+
+        hs2, wall2, got2, out = _routed_window(
+            torch, A, r, engines, reqs_in, L, "20a drain", during=drain)
+        handed = set(out.get("handed_back") or [])
+        by_id = {h.id: h for h in hs2}
+        wrong = [(i, by_id[i].replica) for i in handed
+                 if by_id[i].replica != "e1"]
+        state = r.get_replica("e0").state
+        if not out.get("ok") or state != "dead" or wrong:
+            fail(f"20a drain: {out}, e0 {state}, handed back not served "
+                 f"by e1: {wrong}")
+        snap = r.snapshot()
+        print(f"  drain of e0 mid-traffic: {len(hs2)} requests completed in "
+              f"{wall2:.3f} s, {len(handed)} handed back (all completed on "
+              f"e1), evicted 0, e0 {state}; failovers {snap['failovers']}, "
+              f"retries {snap['retries']} ({card_line()})")
+        st, body = _url(srv.url + "/routerz?json=1")
+        rj = json.loads(body)["snapshot"]
+        keys = ("queue_depth", "queue_limit", "pending", "terminal",
+                "reasons", "failovers", "retries")
+        if st != 200 or any(rj[k] != snap[k] for k in keys) \
+                or [(p["name"], p["state"], p["dispatched"],
+                     p["completed"]) for p in rj["replicas"]] \
+                != [(p["name"], p["state"], p["dispatched"], p["completed"])
+                    for p in snap["replicas"]]:
+            fail(f"/routerz?json=1 {st} disagrees with snapshot: {rj} vs "
+                 f"{snap}")
+        st, text = _url(srv.url + "/metrics")
+        _prometheus_lines(text)
+        live = sum(p["state"] == "live" for p in snap["replicas"])
+        mets = {
+            "completed": (_sample(text, "singa_route_requests_total",
+                                  outcome="completed"),
+                          snap["terminal"]["completed"]),
+            "failover drain": (_sample(text, "singa_route_failover_total",
+                                       reason="drain"),
+                               snap["failovers"]["drain"]),
+            "retries": (_sample(text, "singa_route_retries_total"),
+                        snap["retries"]),
+            "replicas live": (_sample(text, "singa_route_replicas_live"),
+                              live)}
+        print(f"  /metrics against snapshot: {mets}")
+        if st != 200 or any(a != b for a, b in mets.values()):
+            fail(f"/metrics disagrees with Router.snapshot(): {mets}")
+    finally:
+        r.stop()
+        router.reset()
+        for c in ctls:
+            c.stop()
+        for e in engines:
+            e.stop()
+        diag.stop_diag_server()
+        goodput.uninstall()
+    del model
+    torch.cuda.empty_cache()
+    return got, got2
+
+
+def phase_replica_process(torch, router, engine, root):
+    """20b: one replica process on the card (`spawn_replica`, REPLICA's
+    widths, fp32): its pid holds /dev/nvidia<N> open and nvidia-smi
+    counts one more compute process while it runs (nvidia-smi names the
+    host's pids, not this container's) and one fewer once it is killed;
+    a routed request's greedy tokens equal to those of the same seeded
+    model in an
+    engine of the same configuration in this process. A head width the
+    kernels do not take raises, on the card, before anything runs."""
+    from types import SimpleNamespace
+    print("== phase 20b: a replica process on the card "
+          "(dim 512, 2 layers, vocab 50257, fp32)")
+    try:
+        router._build_replica_model(211, 64, 2, 36, "cuda")
+        fail("a replica of head width 16 built on the card")
+    except ValueError as e:
+        print(f"  dim 64 (head width 16) on the card raises: {e}")
+    args = SimpleNamespace(**REPLICA, device="cuda")
+    T = REPLICA["prompt_hi"] + REPLICA["new_hi"]
+    torch.zeros(1, device="cuda")   # this process's own context first
+    before = _compute_apps()
+    t0 = time.perf_counter()
+    proc, ready = router.spawn_replica("c0", os.path.join(root, "spool"),
+                                       args, ready_timeout_s=300.0)
+    r, e = None, None
+    try:
+        print(f"  spawn to ready {time.perf_counter() - t0:.2f} s, startup "
+              f"{ready['startup']}, spawn to first token "
+              f"{ready.get('spawn_to_first_token_s')} s, device "
+              f"{ready.get('device')} ({card_line()})")
+        apps = _compute_apps()
+        nv = _nvidia_fds(ready["pid"])
+        print(f"  nvidia-smi compute apps {before} before the spawn, {apps} "
+              f"with the replica (pids as the host numbers them: this "
+              f"process is {os.getpid()}, the replica {ready['pid']}); the "
+              f"replica holds {nv} open")
+        if len(apps) != len(before) + 1 or not any(
+                d.startswith("/dev/nvidia") and d[11:].isdigit()
+                for d in nv):
+            fail(f"replica pid {ready['pid']} is not on the card: apps "
+                 f"{before} -> {apps}, its device files {nv}")
+        r = router.Router(retry_seed=SEED).start()
+        r.add_replica("c0", f"http://127.0.0.1:{ready['ctl_port']}",
+                      host="c0", proc=proc)
+        prompt = np.random.RandomState(SEED + 20).randint(
+            0, REPLICA["vocab"], 10).astype(np.int32)
+        h = r.submit(prompt, 20)
+        if not h.wait(300) or h.outcome != "completed":
+            fail(f"20b routed request: {h.outcome} ({h.detail})")
+        m = router._build_replica_model(REPLICA["vocab"], REPLICA["dim"],
+                                        REPLICA["layers"], T, "cuda")
+        e = engine.ServingEngine(
+            m, max_slots=REPLICA["slots"], page_size=REPLICA["page_size"],
+            max_ctx=T, queue_limit=128, steps_per_sync=2).start()
+        d = e.submit(prompt, 20)
+        if not d.wait(300) or d.outcome != "completed":
+            fail(f"20b parent engine: {d.outcome}")
+        print(f"  routed tokens {h.tokens}; this process's engine "
+              f"{list(d.tokens)}")
+        if h.tokens != list(d.tokens):
+            fail("the replica's greedy tokens differ from the same model's "
+                 "in this process")
+    finally:
+        if r is not None:
+            r.stop()       # kills and reaps the replica
+        else:
+            proc.kill()
+            proc.wait(timeout=30)
+        router.reset()
+        if e is not None:
+            e.stop()
+    deadline = time.monotonic() + 30.0
+    while len(after := _compute_apps()) != len(before) \
+            and time.monotonic() < deadline:
+        time.sleep(0.2)
+    print(f"  compute apps after the replica was killed: {after}")
+    if len(after) != len(before):
+        fail(f"the killed replica still holds the card: {after}")
+
+
+def phase_router_ab(torch, router, serving, root):
+    """20c: `router.main(["--ab", ...])` on the card, AB_ROUTER: every
+    field of its record (zero lost, failovers, the victim dead, the
+    standby serving, router rows on /fleetz, decode the fault arm's top
+    bucket, every startup phase, cold spawn-to-first-token above warm
+    TTFT, the attribution sums, the merged trace) but token identity,
+    which holds by TIE_GAP: where the kill arm parts from the clean arm,
+    the clean arm's top-2 logit gap there, teacher-forced on the same
+    seeded model in this process, must be a tie."""
+    print("== phase 20c: the kill-and-replace A/B on the card "
+          f"({' '.join(AB_ROUTER)})")
+    out = os.path.join(root, "SERVE_chip.json")
+    t0 = time.perf_counter()
+    rc = router.main(["--ab", *AB_ROUTER, "--out", out])
+    wall = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        rec = [json.loads(x) for x in f if x.strip()][-1]
+    n = 16
+    checks = {
+        "clean and kill arms completed": rec["clean_completed"]
+        == rec["kill_completed"] == n,
+        "zero lost": rec["lost_requests"] == 0,
+        "failovers >= 1": rec["failovers"] >= 1,
+        "victim dead": rec["victim_marked_dead"],
+        "standby served": rec["standby_served"],
+        "router rows on /fleetz": rec["fleetz_has_router_rows"],
+        "decode the fault arm's top bucket":
+            rec["fault_top_bucket"] == "decode",
+        "every startup phase":
+            set(rec["startup_phases"]) == set(router.STARTUP_PHASES),
+        "cold spawn-to-first-token above warm TTFT":
+            (rec["cold_warm_first_token_delta_s"] or 0.0) > 0.0,
+        "attribution sums": rec["attr_sum_ok"]
+        and rec["attr_checked_requests"] >= 2 * n,
+        "merged trace": bool((rec["trace"] or {}).get("ok")),
+        "p99 TTFT both arms": rec["ttft_p99_clean_s"] is not None
+        and rec["ttft_p99_kill_s"] is not None}
+    card = card_line()
+    print(f"  rc {rc}, {wall:.1f} s ({card}); lost {rec['lost_requests']},"
+          f" failovers {rec['failovers']}, retries {rec['retries']}, "
+          f"killed at {rec['killed_at_s']:.3f} s; TTFT p99 clean "
+          f"{rec['ttft_p99_clean_s'] * 1e3:.1f} ms, kill "
+          f"{rec['ttft_p99_kill_s'] * 1e3:.1f} ms; cold spawn to first "
+          f"token {rec['cold_spawn_first_token_s']:.3f} s (warm TTFT "
+          f"{rec['cold_warm_first_token_delta_s']:.3f} s less); fault arm "
+          f"top bucket {rec['fault_top_bucket']}; startup of r0 "
+          f"{rec['startup_phases']}")
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"20c: {bad}; record {rec}")
+    why = []
+    if not rec["tokens_match_clean_arm"]:
+        # the A/B's replicas: REPLICA's widths and lengths
+        T = REPLICA["prompt_hi"] + REPLICA["new_hi"]
+        m = router._build_replica_model(REPLICA["vocab"], REPLICA["dim"],
+                                        REPLICA["layers"], T, "cuda")
+        for mm in rec["token_mismatches"]:
+            why.append(_same_or_tie(
+                torch, m, serving, f"kill arm request {mm['id']}",
+                np.asarray(mm["prompt"], np.int32), mm["kill"] or [],
+                mm["clean"]))
+        del m
+        torch.cuda.empty_cache()
+    why = [w for w in why if w]
+    if rec["tokens_match_clean_arm"]:
+        print("  tokens equal to the clean arm's: True")
+    elif not why:
+        print(f"  tokens equal to the clean arm's: False, "
+              f"{len(rec['token_mismatches'])} requests parted, each at a "
+              f"tie")
+    if why:
+        fail(f"20c: the kill arm parted from the clean arm past a tie: "
+             f"{why}")
+    if rc != 0 and rec["tokens_match_clean_arm"]:
+        fail(f"20c: rc {rc} with every check passed")
+
+
+def phase_fleet_ab(fleet, root):
+    """20d: `fleet.main(["--ab", ...])` in model mode on the card
+    (AB_FLEET: 3 workers, each a process training the resilience MLP, one
+    with a 50 ms FaultPlan delay on its collectives): the record's `ok`
+    (detected within 5 steps, every host on /fleetz, one trace track a
+    worker, the gap visible on the slow track)."""
+    print(f"== phase 20d: the fleet straggler A/B on the card "
+          f"({' '.join(AB_FLEET)})")
+    out = os.path.join(root, "FLEET_chip.json")
+    t0 = time.perf_counter()
+    rc = fleet.main(["--ab", *AB_FLEET, "--out", out])
+    wall = time.perf_counter() - t0
+    with open(out, encoding="utf-8") as f:
+        rec = json.load(f)
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); mode {rec['mode']}, "
+          f"detected {rec['detected']} at step "
+          f"{rec['steps_at_detection']}, scores {rec['scores_at_detection']},"
+          f" tracks {rec['trace_tracks']}, slow gap {rec['slow_gap_ms']} ms,"
+          f" worker rcs {rec['worker_rcs']}")
+    if rc != 0 or not rec["ok"] or rec["mode"] != "model":
+        fail(f"20d: {rec}")
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -6945,6 +7414,19 @@ def main():
     clock.lap("phase 19b")
     del mesh, tp_mesh, sp_mesh
     distributed.shutdown()
+    from singa_tpu_torch import diag, fleet, router
+    by_path["router_engines"], by_path["router_drain"] = \
+        phase_router_engines(torch, models, engine, router, diag, goodput, A)
+    clock.lap("phase 20a")
+    with tempfile.TemporaryDirectory() as root:
+        phase_replica_process(torch, router, engine, root)
+    clock.lap("phase 20b")
+    with tempfile.TemporaryDirectory() as root:
+        phase_router_ab(torch, router, serving, root)
+    clock.lap("phase 20c")
+    with tempfile.TemporaryDirectory() as root:
+        phase_fleet_ab(fleet, root)
+    clock.lap("phase 20d")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

@@ -41,6 +41,10 @@ What is ported so far:
         tail attribution, the request trace); health (step stats on the
         device, warn / skip_step / halt, the flight recorder, the
         non-finite logit watch); resilience's fault injection (FaultPlan)
+    multi-replica serving: router.Router over ReplicaControl'd engines in
+        replica processes (spawn_replica, the kill-and-replace --ab),
+        fleet's ShardWriter / FleetAggregator (straggler scores, the merged
+        trace, the straggler --ab) and diag's live HTTP endpoints
     data parallelism: distributed (one process per rank over
         torch.distributed: NCCL on the card, gloo on the CPU),
         parallel.make_mesh / data_parallel_mesh / Communicator, and
@@ -62,3 +66,23 @@ from . import (autograd, data, device, distributed, io, layer,  # noqa: F401
 __all__ = ["autograd", "data", "device", "distributed", "io", "layer",
            "model", "models", "native", "opt", "overlap", "parallel",
            "snapshot", "sonnx", "tensor", "utils"]
+
+#: the operations modules, imported at first attribute access as the JAX
+#: package's are (`singa_tpu_torch.fleet`)
+_LAZY_MODULES = ("observe", "health", "serving", "introspect", "goodput",
+                 "diag", "resilience", "fleet", "memory", "watchdog",
+                 "engine")
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        import importlib
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(
+        f"module 'singa_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_MODULES))

@@ -1205,15 +1205,31 @@ def reset():
 
 
 def serving_report() -> str:
-    """The `== serving ==` status section: per engine the slot occupancy,
-    page-pool use, queue depth and outcome counts. The router's rows come
-    with multi-replica serving (ROADMAP.md Queue 1 item 6)."""
+    """The `== serving ==` status section: the installed router's rows
+    (`router.serving_lines`), then per engine the slot occupancy,
+    page-pool use, queue depth and outcome counts."""
     lines = ["== serving =="]
+
+    def _router_rows():
+        # a routing coordinator often holds no engine of its own (the
+        # engines live in replica processes): its rows stand alone
+        try:
+            from . import router
+            return router.serving_lines()
+        except Exception:
+            return []
+
     engines = get_engines()
     if not engines:
-        lines.append("no ServingEngine running "
-                     "(singa_tpu_torch.engine.ServingEngine(model).start())")
+        rows = _router_rows()
+        if rows:
+            lines.extend(rows)
+        else:
+            lines.append(
+                "no ServingEngine running "
+                "(singa_tpu_torch.engine.ServingEngine(model).start())")
         return "\n".join(lines)
+    lines.extend(_router_rows())
     for i, e in enumerate(engines):
         r = e.report()
         lines.append(

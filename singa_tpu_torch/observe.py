@@ -465,12 +465,13 @@ def remove_step_listener(cb):
 
 
 def start_diag_server(port=None, **kwargs):
-    """The live diagnostics HTTP server (/metrics, /healthz, /statusz)
-    comes with the port's `diag` module (ROADMAP.md Queue 1 item 7);
-    until then this raises."""
-    raise NotImplementedError(
-        "observe.start_diag_server comes with the port's diag module "
-        "(ROADMAP.md Queue 1 item 7)")
+    """Start the live diagnostics HTTP server (`diag`): /metrics,
+    /healthz, /statusz, /flightz, ... on an ephemeral port by default
+    (port=0), or `SINGA_TPU_DIAG_PORT` when `port` is None. Returns the
+    running DiagServer. Imported at the call: observe stays
+    import-light."""
+    from . import diag
+    return diag.start_diag_server(port=port, **kwargs)
 
 
 def set_step_callback(cb):

@@ -44,9 +44,14 @@ states restore on any size; a DistOpt's per-rank sparse residuals only
 on the size that saved them). A preemption signal is agreed across the
 ranks at each step boundary, so all of them stop after the same step.
 
+Each step of the loop first calls `fleet.check_straggler_halt(step=)`, as
+the JAX loop does: a sustained straggler under the halt policy raises
+`fleet.FleetStragglerError` (a HealthError: final "halt" checkpoint, the
+report's `exclude_hosts` names the host), and a peer's abort-stage hang
+verdict raises `watchdog.HangError` so this worker restores in lockstep.
+
 Not yet here: `warm_store` is None and resume does not re-join a warm
-store until `warmstart` (ROADMAP.md Queue 1 item 7); the fleet straggler
-hook of the JAX loop comes with `fleet` (item 6).
+store until `warmstart` (ROADMAP.md Queue 1 item 7).
 
 Fault points wired in the port (`FaultPlan`'s rules match by arrival
 count and/or context, e.g. step=K):
@@ -794,6 +799,11 @@ class TrainController:
                         break
                     self._cursor += 1
                     continue
+                # the fleet hook: a sustained straggler under the halt
+                # policy (FleetStragglerError) or a peer's hang verdict
+                # (HangError) raises here, on the training thread
+                from . import fleet
+                fleet.check_straggler_halt(step=self._step)
                 with observe.span("data.wait"), \
                         watchdog.guard("data_wait", step=self._step):
                     fault_point("data.next", step=self._step)

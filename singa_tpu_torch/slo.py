@@ -33,9 +33,8 @@ observe span ring, and the tracker's windows run on the same stamps.
 `fleet_serve_snapshot` reads the memory ledger's kv_cache region as the
 KV-cache bytes when a ledger is installed (the target's and the draft's
 pools), else the engines' `pool_bytes` (the targets'). The `--ab` command
-line
-(`main`, `_ab_main`, `_ab_leg`) publishes through `fleet`'s shard writer
-and aggregator and comes with multi-replica serving (Queue 1 item 6);
+line (`main`, `_ab_main`, `_ab_leg`) publishes through `fleet`'s shard
+writer and aggregator and comes with ROADMAP.md Queue 1 item 6b;
 `chip_smoke.py` phase 13a runs the same A/B on one engine.
 """
 

@@ -54,9 +54,10 @@ delays at the existing fault points ("serving.engine_step",
 and "ckpt.save"). The hang bundle's `executables` are the last eight
 builds of `introspect`'s manifest. The `collective` guard arms around
 every verb of `parallel.Communicator` (its `_comm_stamp`, with the fault
-point "comm.collective"). The fleet rollup line comes with the port's
-`fleet` (ROADMAP.md Queue 1 item 6), and so do the `fleet_publish`
-guard and the multi-process hang A/B (`main`).
+point "comm.collective"). The `fleet_publish` guard arms around every
+`fleet.ShardWriter.publish`, and a hang bundle written while a
+`fleet.FleetAggregator` is installed carries its rollup (`hang_fleet`).
+The multi-process hang A/B (`main`) comes with ROADMAP.md Queue 1 item 6b.
 """
 
 from __future__ import annotations
@@ -101,7 +102,8 @@ class HangError(health.HealthError):
     (Model.fit attaches partial progress); a hang says nothing about the
     numerics, only that a dependency wedged. `op`/`seconds` name the
     breached operation; `hosts` names peers when the hang is a PEER's
-    (filled by the fleet path, which comes with the port's `fleet`)."""
+    (`fleet.check_straggler_halt` fills it from the aggregator's
+    peer-hang verdict)."""
 
     def __init__(self, msg="operation exceeded its watchdog deadline",
                  op=None, seconds=None, bundle_path=None, hosts=()):
@@ -498,8 +500,9 @@ class Watchdog:
         sidecar (`<bundle>.stacks.txt`) written by the C-level dumper,
         which survives interpreter states the Python capture cannot. The
         header's `executables` are introspect's last eight builds (or
-        None); no fleet line is written until the port's `fleet`.
-        Returns the bundle path."""
+        None); with a `fleet.FleetAggregator` installed, a `hang_fleet`
+        line carries its rollup (workers, stragglers). Returns the
+        bundle path."""
         op = _check_op(op)
         d = self._bundle_dir()
         os.makedirs(d, exist_ok=True)
@@ -523,6 +526,17 @@ class Watchdog:
         mem = led.region_bytes() if led is not None else None
         tracker = goodput.get_tracker()
         gp = tracker.snapshot() if tracker is not None else None
+        fl = None
+        try:
+            from . import fleet
+            agg = fleet.get_aggregator()
+            if agg is not None:
+                roll = agg.rollup()
+                fl = {"n_workers": roll["n_workers"],
+                      "stragglers": roll["stragglers"],
+                      "workers": roll["workers"]}
+        except Exception:
+            pass  # the bundle must land even if the rollup fails
         tail = list(observe.get_registry().recent)[-64:]
         with open(path, "w", encoding="utf-8") as f:
             def line(rec):
@@ -538,6 +552,8 @@ class Watchdog:
                 line({"kind": "hang_goodput",
                       "buckets": gp.get("buckets"),
                       "goodput_ratio": gp.get("goodput_ratio")})
+            if fl is not None:
+                line({"kind": "hang_fleet", **fl})
             for ev in tail:
                 line({"kind": "hang_event", "event": ev})
         try:

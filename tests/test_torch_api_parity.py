@@ -10,10 +10,12 @@ the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
 by module, with the ROADMAP.md Queue 1 item that brings it (6: the
-multi-replica serving's command lines; 7: the remaining operations
-layers). A listed name that resolves fails the test: the list only
-shrinks, except when a module is ported in part (`introspect` without
-the warm store), which adds that module's unported names.
+multi-replica serving's A/B command lines, whose part 6a, `diag`, `fleet`
+and `router`, is ported and checked here, and part 6b, `slo.main` and
+`watchdog.main`, is next; 7: the remaining operations layers). A listed
+name that resolves fails the test: the list only shrinks, except when a
+module is ported in part (`introspect` without the warm store, `diag`
+without /profilez), which adds that module's unported names.
 """
 
 import ast
@@ -29,6 +31,7 @@ PORT_PKG = os.path.join(ROOT, "singa_tpu_torch")
 #: {module: {name or "Class.method": Queue 1 item that ports it}}
 PENDING = {
     "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
+    "diag": {"DiagServer.retain_trace_dir": 7},
     "introspect": {"export_executable": 7, "load_executable": 7},
     "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
     "overlap": {"async_available": 7, "overlap_report": 7},
@@ -50,6 +53,9 @@ CLASSES = {
     "memory": ("MemoryLedger", "LeakDetector"),
     "goodput": ("GoodputTracker",),
     "models.transformer": ("PipelinedGPT",),
+    "diag": ("DiagServer",),
+    "fleet": ("ShardWriter", "FleetAggregator"),
+    "router": ("Router", "ReplicaControl"),
 }
 
 

@@ -81,8 +81,15 @@ def test_public_names_and_constants_equal_jax():
     assert observe.SPAN_TRACE_PREFIX == jobs.SPAN_TRACE_PREFIX
     assert tserving.SPEC_VERDICTS == jserving.SPEC_VERDICTS
     assert tengine.KV_DTYPES == jengine.KV_DTYPES
-    with pytest.raises(NotImplementedError, match="item 7"):
-        observe.start_diag_server(port=0)
+    # the live server is the port's diag module's
+    from singa_tpu_torch import diag, goodput
+    try:
+        srv = observe.start_diag_server(port=0)
+        assert isinstance(srv, diag.DiagServer) and srv.port > 0
+        assert diag.get_diag_server() is srv
+    finally:
+        diag.stop_diag_server()
+        goodput.uninstall()
 
 
 def test_metric_names_pass_the_lint():

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab OTHER_CHECKOUT
     python3 chip_smoke.py --ab-train OTHER_CHECKOUT
     python3 chip_smoke.py --pp-drift
+    python3 chip_smoke.py --repeat-20c N
 
 The third form only times the train steps of the two checkouts in the
 same turns: phase 6's bench GPT (eager and as a graph), and phase 7's
@@ -28,6 +29,11 @@ issue time (the wrapper's call until it returns).
 The fourth form only follows phase 19a's models over PP_DRIFT_STEPS
 free-running steps under bf16 amp and in fp32, printing each step's
 loss difference from the serial model's (`pp_drift`).
+
+The fifth form only builds the kernels and runs phase 20c (the router's
+kill-and-replace A/B) N times, printing each run's wall, how often the
+kill trigger froze the victim and thawed it again, and its verdict; it
+exits non-zero if any run failed (`repeat_20c`).
 
 Phases, each of which exits non-zero on failure:
 
@@ -407,7 +413,26 @@ Phases, each of which exits non-zero on failure:
    teacher-forced on the same model here). 20d the fleet straggler A/B
    (`fleet.main(["--ab", ...])`, 3 workers training on the card): its
    record's `ok`.
-21. The `kernels` JSON line (the decode kernels with a `modes` entry per
+21. The SLO and hang A/Bs and the capacity and audit observatories, each
+   through its command line on the card (AB_MODEL: dim 512, 2 layers,
+   vocab 50257, fp32) with its record's `ok`. 21a `slo.main(["--ab",
+   ...])`: the clean leg at 100% attainment, the degraded leg breached
+   within sustain + 3 evaluations, health warn, the trace's flow linked;
+   K1 and K4 (only) launched over it. 21b `watchdog.main(["--ab", ...])`:
+   three worker processes training on the card, one wedged in its
+   collective, aborted, restored and completed with every peer restored
+   too, /fleetz marking and then clearing it, the loss curves within
+   1e-4. 21c `capacity.main(["--ab", ...])`: scale-up within 5 polls of
+   sustained burn, scale-down on the cooldown leg, at most one direction
+   change a leg, a ledger with every decision and a score; K1 and K4
+   (only) launched over it. 21d one fingerprint tick's time at REPLICA's
+   widths, its checksums equal to the CPU's for the same weights, a
+   corruption moving only its layer group and changing served tokens;
+   then `audit.main(["--ab", ...])` over three replica processes: zero
+   lost, zero false positives on the clean arm (strict token
+   comparison), the victim quarantined by the fingerprint and one more
+   leg within the probe budget, the cap not hit.
+22. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
@@ -416,8 +441,8 @@ Phases, each of which exits non-zero on failure:
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
    `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
    `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train`,
-   `pp_loopback`, `router_engines` and `router_drain`), then the card
-   line, then the result line.
+   `pp_loopback`, `router_engines`, `router_drain`, `slo_ab` and
+   `capacity_ab`), then the card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -1131,6 +1156,11 @@ def phase_teacher_forced(torch, model, serving):
               f"{float((bk - dk).abs().max()):.3e}")
 
 
+#: phase 4's printed engine-vs-generate comparison: the first requests
+#: (one batch-1 `generate` each; all 16 took ~35 s of host time)
+ENGINE_VS_GENERATE = 4
+
+
 def seeded_requests(vocab):
     """The main path's inputs from one numpy seed: the generate batch,
     and 16 engine requests as (prompt, max_new) with prompts of 8-512
@@ -1237,18 +1267,22 @@ def phase_main_path(torch, model, engine, serving, A):
     check_launches("the engine", eng, {"flash_fwd": L * len(reqs),
                                        "flash_decode": 0,
                                        "paged_attention": L * steps})
-    # engine tokens against GPT.generate on the same prompts (bf16:
-    # batch shape and bucket padding change rounding, so print only;
-    # phase 4b holds the engine to exact tokens in fp32)
-    same_seq = same_tok = 0
-    for r, (pr, _) in zip(reqs, reqs_in):
+    # engine tokens against GPT.generate on the same prompts, for the
+    # first ENGINE_VS_GENERATE requests (bf16: batch shape and bucket
+    # padding change rounding, so print only; phase 4b holds the engine
+    # to exact tokens in fp32)
+    same_seq = same_tok = n_tok = 0
+    picked = list(zip(reqs, reqs_in))[:ENGINE_VS_GENERATE]
+    for r, (pr, _) in picked:
         want = model.generate(pr[None, :], r.max_new,
                               dtype="bfloat16")[0, len(pr):]
         got = np.asarray(r.tokens)
         same_seq += int((got == want).all())
         same_tok += int((got == want).sum())
-    print(f"  engine vs generate (bf16): {same_seq}/{len(reqs)} sequences "
-          f"identical, {same_tok}/{ntok} tokens at equal positions")
+        n_tok += len(got)
+    print(f"  engine vs generate (bf16), the first {len(picked)} requests: "
+          f"{same_seq}/{len(picked)} sequences identical, {same_tok}/{n_tok}"
+          f" tokens at equal positions")
     return ({"generate": gen, "engine": eng},
             {"generate": gen_modes, "engine": eng_modes})
 
@@ -5432,8 +5466,15 @@ def phase_dp_train(torch, models, opt, introspect, utils, mesh, A, root):
     tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
                                              SEED + 3))
 
-    def build(strategy, cfg=BENCH_GPT, amp="bfloat16", seed=SEED, x=tx):
-        m = models.create_model("gpt", device="cuda", seed=seed, **cfg)
+    # the bench GPT's six models are copies of one drawn on the card (a
+    # draw of its ~438 M normals takes seconds on the host; 19a's
+    # `_pp_built` does the same)
+    fresh = models.create_model("gpt", device="cuda", seed=SEED,
+                                **BENCH_GPT)
+
+    def build(strategy, cfg=None, amp="bfloat16", seed=SEED, x=tx):
+        m = (copy.deepcopy(fresh) if cfg is None else
+             models.create_model("gpt", device="cuda", seed=seed, **cfg))
         m.set_optimizer(
             _dist_opt(opt, mesh, strategy) if strategy else
             opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
@@ -5488,7 +5529,7 @@ def phase_dp_train(torch, models, opt, introspect, utils, mesh, A, root):
     print("  replayed step median ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
           + f" (no DistOpt, two turns of {DP_STEPS}, before and after)")
-    del base
+    del base, fresh
     torch.cuda.empty_cache()
 
     cfg = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
@@ -6980,6 +7021,209 @@ def phase_fleet_ab(fleet, root):
         fail(f"20d: {rec}")
 
 
+# ---- phase 21: the SLO and hang A/Bs, the capacity and audit observatories --
+#: the serving A/Bs' model: REPLICA's widths (dim 512: 4 heads of 128, a
+#: width K1 takes; GPT-2's vocab; fp32), each A/B's own defaults otherwise
+AB_MODEL = ["--dim", str(REPLICA["dim"]), "--layers", str(REPLICA["layers"]),
+            "--vocab", str(REPLICA["vocab"]), "--device", "cuda"]
+AB_AUDIT = ["--timeout", "120", "--corrupt-after", "40", "--requests", "12"]
+
+
+def _ab_record(path):
+    """The A/B record: a JSON object, or the last line of a JSONL file."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return [json.loads(x) for x in text.splitlines() if x.strip()][-1]
+
+
+def _ab_launches(torch, A, what, run):
+    """Run one in-process A/B with every launch counter reset just before
+    and read just after; fails unless K1 and K4 launched and no other
+    kernel did. Returns (rc, wall s, launches)."""
+    A.reset_launches()
+    t0 = time.perf_counter()
+    rc = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(A.LAUNCHES)
+    ran = {k for k, v in got.items() if v}
+    print(f"  launches on {what}: {got}")
+    if ran != {"flash_fwd", "paged_attention"}:
+        fail(f"{what} launched {got}: K1 and K4 only, each at least once")
+    return rc, wall, got
+
+
+def phase_slo_ab(torch, slo, A, root):
+    """21a: `slo.main(["--ab", ...])` on the card at AB_MODEL's widths: the
+    record's `ok` (the clean leg at 100% attainment, the degraded leg
+    breached within sustain + 3 evaluations with the monitor at warn, the
+    merged trace's flow linked), K1/K4 counted over the whole A/B."""
+    print(f"== phase 21a: the SLO burn-rate A/B on the card "
+          f"({' '.join(AB_MODEL)})")
+    out = os.path.join(root, "SLO_torch.json")
+    rc, wall, got = _ab_launches(
+        torch, A, "21a slo A/B",
+        lambda: slo.main(["--ab", *AB_MODEL, "--out", out]))
+    rec = _ab_record(out)
+    clean, deg = rec["clean"], rec["degraded"]
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); clean attainment "
+          f"{clean['attainment']}, degraded {deg['attainment']} breached "
+          f"after {deg['breach_after_evals']} evaluations (bound "
+          f"{rec['max_evals']}), health {clean['health_status']} -> "
+          f"{deg['health_status']}, trace {deg['trace']}")
+    if rc != 0 or not rec["ok"] or rec["device"] != "cuda":
+        fail(f"21a: rc {rc}, record {rec}")
+    return got
+
+
+def phase_hang_ab(watchdog, root):
+    """21b: `watchdog.main(["--ab", ...])`: three worker processes training
+    on the card, one with a wedged collective: the record's `ok` (the hang
+    op `collective`, the wedged worker restarted and completed, every peer
+    restarted with it, /fleetz marked the wedged host and then cleared
+    it, the loss curves within the harness's 1e-4)."""
+    print("== phase 21b: the hang A/B on the card (3 workers)")
+    out = os.path.join(root, "HANG_torch.json")
+    t0 = time.perf_counter()
+    rc = watchdog.main(["--ab", "--device", "cuda", "--timeout", "240",
+                        "--out", out])
+    wall = time.perf_counter() - t0
+    rec = _ab_record(out)
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); hang op "
+          f"{rec.get('hang_op')}, detected at {rec.get('detected_wall_s')} s"
+          f", aborted after {rec.get('abort_after_s')} s, wedged restarts "
+          f"{rec.get('wedged_restarts')}, peer restarts "
+          f"{rec.get('peer_restarts')}, steps lost {rec.get('steps_lost')}, "
+          f"max loss delta {rec.get('max_abs_loss_delta')} over "
+          f"{rec.get('compared_steps')} steps, worker rcs "
+          f"{rec.get('worker_rcs')}")
+    if rc != 0 or not rec["ok"] or rec["device"] != "cuda":
+        fail(f"21b: rc {rc}, record {rec}")
+
+
+def phase_capacity_ab(torch, capacity, A, root):
+    """21c: `capacity.main(["--ab", ...])` on the card at AB_MODEL's widths:
+    the record's `ok` (scale-up within 5 polls of sustained burn,
+    scale-down on the cooldown leg, at most one direction change a leg, a
+    ledger holding every decision and at least one score), K1/K4 counted
+    over the whole A/B."""
+    print(f"== phase 21c: the capacity shadow-autoscaler A/B on the card "
+          f"({' '.join(AB_MODEL)})")
+    out = os.path.join(root, "CAPACITY_torch.json")
+    rc, wall, got = _ab_launches(
+        torch, A, "21c capacity A/B",
+        lambda: capacity.main(["--ab", *AB_MODEL, "--out", out]))
+    rec = _ab_record(out)
+    ledger = capacity.read_ledger(
+        os.path.join(root, "CAPACITY_torch_ledger.jsonl"))
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); warm TTFT p50 "
+          f"{rec.get('warm_ttft_p50_s')} s, SLO {rec.get('slo_ttft_s')} s, "
+          f"sustained burn at poll {rec.get('first_sustained_burn_poll')}, "
+          f"scale-up delay {rec.get('scale_up_delay_polls')} polls, "
+          f"scale-down at poll {rec.get('first_scale_down_poll')}, "
+          f"direction changes {rec.get('ramp_direction_changes')}/"
+          f"{rec.get('cool_direction_changes')}, ledger "
+          f"{rec.get('ledger_decisions')} decisions + "
+          f"{rec.get('ledger_scores')} scores ({len(ledger)} lines), "
+          f"accuracy {rec.get('accuracy')}")
+    if rc != 0 or not rec["ok"] or rec["device"] != "cuda" \
+            or len(ledger) != rec["ledger_decisions"] + rec["ledger_scores"]:
+        fail(f"21c: rc {rc}, record {rec}")
+    return got
+
+
+def _fingerprint_checks(torch, router, audit, engine, serving):
+    """21d's in-process part at REPLICA's widths: one fingerprint tick's
+    time on the card (5 ticks after a warm one, fenced); the card's
+    checksums equal to the same weights' on the CPU; a corruption
+    through `_corrupt` changes exactly its layer group and the engine's
+    served tokens; the fingerprint moves no compile counter."""
+    T = REPLICA["prompt_hi"] + REPLICA["new_hi"]
+    m = router._build_replica_model(REPLICA["vocab"], REPLICA["dim"],
+                                    REPLICA["layers"], T, "cuda")
+    eng = engine.ServingEngine(m, max_slots=REPLICA["slots"],
+                               page_size=REPLICA["page_size"], max_ctx=T,
+                               steps_per_sync=2).start()
+    try:
+        prompt = np.random.RandomState(SEED).randint(
+            0, REPLICA["vocab"], 8).astype(np.int32)
+
+        def served():
+            h = eng.submit(prompt, 16)
+            if not h.wait(120) or h.outcome != "completed":
+                fail(f"21d: fingerprint probe {h.outcome}")
+            return list(h.tokens)
+
+        before_tokens = served()
+        fp = audit.ParamFingerprinter(m, eng)
+        first = fp.compute()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fp.compute()
+        torch.cuda.synchronize()
+        tick_ms = (time.perf_counter() - t0) / 5 * 1e3
+        n = sum(p.numel() for p in m._raw_params().values())
+
+        class _OnCpu:
+            def _raw_params(self):
+                return {k: v.detach().cpu()
+                        for k, v in m._raw_params().items()}
+
+        cpu = audit.ParamFingerprinter(_OnCpu()).compute()
+        fp._corrupt("21d: card check")
+        after = fp.compute()
+        after_tokens = served()
+    finally:
+        eng.stop()
+    group = fp.corrupted["param"].split(".", 1)[0]
+    moved = [g for (g, a), (_, b) in zip(first, after) if a != b]
+    print(f"  fingerprint tick {tick_ms:.3f} ms over {n} parameters "
+          f"({len(first)} groups) on the card ({card_line()}); card == "
+          f"CPU: {first == cpu}; corrupting {fp.corrupted['param']} moved "
+          f"{moved}; served tokens changed: {before_tokens != after_tokens}")
+    if first != cpu or moved != [group] or before_tokens == after_tokens:
+        fail(f"21d: fingerprint on the card {first} vs CPU {cpu}, moved "
+             f"{moved} for {group}, tokens {before_tokens} -> "
+             f"{after_tokens}")
+    del m, eng
+    torch.cuda.empty_cache()
+    return tick_ms
+
+
+def phase_audit_ab(torch, router, audit, engine, serving, root):
+    """21d: the fingerprint on the card (`_fingerprint_checks`), then
+    `audit.main(["--ab", ...])` over replica processes on the card at
+    AB_MODEL's widths: the record's `ok` (zero lost, zero false positives
+    on the clean arm by strict token comparison, the victim quarantined
+    by the fingerprint and at least one more leg within the probe budget,
+    the cap not hit)."""
+    print(f"== phase 21d: the audit A/B on the card "
+          f"({' '.join(AB_MODEL + AB_AUDIT)})")
+    tick_ms = _fingerprint_checks(torch, router, audit, engine, serving)
+    out = os.path.join(root, "AUDIT_torch.json")
+    t0 = time.perf_counter()
+    rc = audit.main(["--ab", *AB_MODEL, *AB_AUDIT, "--out", out])
+    wall = time.perf_counter() - t0
+    rec = _ab_record(out)
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); lost "
+          f"{rec['lost_requests']}, clean-arm false positives "
+          f"{rec['false_positives_clean_arm']} ({rec['clean_canary_probes']}"
+          f" canaries, {rec['clean_replays']} replays), legs "
+          f"{rec['legs_detected']}, victim {rec['victim']} "
+          f"{rec['victim_state']} (capped {rec['quarantine_capped']}), "
+          f"probes at detection {rec['probes_at_detect']}, corrupt-arm "
+          f"canaries {rec['corrupt_canary_probes']}, replays "
+          f"{rec['corrupt_replays']}, mismatches {rec['corrupt_mismatches']}")
+    if rc != 0 or not rec["ok"] or rec["device"] != "cuda" \
+            or rec["false_positives_clean_arm"] != 0:
+        fail(f"21d: rc {rc}, record {rec}")
+    return tick_ms
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -7205,6 +7449,49 @@ def run_ab(other, turn="--ab-turn"):
     print(f"total {time.perf_counter() - t0:.1f} s")
 
 
+def repeat_20c(torch, n):
+    """--repeat-20c N: phase 1's build, then phase 20c N times, each in a
+    temporary directory. The kill trigger's freezes are its calls of
+    `router._freeze_holding`, its thaws those that found no request
+    held. Returns 1 if any run failed, else 0."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from singa_tpu_torch import router, serving
+    from singa_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_env(torch, _build)
+    freeze = router._freeze_holding
+    seen = {"freezes": 0, "thaws": 0}
+
+    def counted(*a, **k):
+        held = freeze(*a, **k)
+        seen["freezes"] += 1
+        seen["thaws"] += not held
+        return held
+
+    router._freeze_holding = counted
+    failed = 0
+    try:
+        for k in range(n):
+            seen.update(freezes=0, thaws=0)
+            t0 = time.perf_counter()
+            try:
+                with tempfile.TemporaryDirectory() as root:
+                    phase_router_ab(torch, router, serving, root)
+                verdict = "ok"
+            except RuntimeError as e:
+                failed += 1
+                verdict = f"FAILED {e}"
+            print(f"[20c run {k + 1} of {n}: "
+                  f"{time.perf_counter() - t0:.1f} s; freezes "
+                  f"{seen['freezes']}, thaws {seen['thaws']}; {verdict}]",
+                  flush=True)
+    finally:
+        router._freeze_holding = freeze
+    print(f"20c: {failed} of {n} runs failed ({card_line()})")
+    return 1 if failed else 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7225,6 +7512,8 @@ def main():
     if sys.argv[1:] == ["--pp-drift"]:
         pp_drift(torch)
         return 0
+    if sys.argv[1:2] == ["--repeat-20c"] and len(sys.argv) == 3:
+        return repeat_20c(torch, int(sys.argv[2]))
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -7427,6 +7716,19 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         phase_fleet_ab(fleet, root)
     clock.lap("phase 20d")
+    from singa_tpu_torch import audit, capacity
+    with tempfile.TemporaryDirectory() as root:
+        by_path["slo_ab"] = phase_slo_ab(torch, slo, A, root)
+    clock.lap("phase 21a")
+    with tempfile.TemporaryDirectory() as root:
+        phase_hang_ab(watchdog, root)
+    clock.lap("phase 21b")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["capacity_ab"] = phase_capacity_ab(torch, capacity, A, root)
+    clock.lap("phase 21c")
+    with tempfile.TemporaryDirectory() as root:
+        phase_audit_ab(torch, router, audit, engine, serving, root)
+    clock.lap("phase 21d")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

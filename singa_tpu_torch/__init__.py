@@ -44,7 +44,10 @@ What is ported so far:
     multi-replica serving: router.Router over ReplicaControl'd engines in
         replica processes (spawn_replica, the kill-and-replace --ab),
         fleet's ShardWriter / FleetAggregator (straggler scores, the merged
-        trace, the straggler --ab) and diag's live HTTP endpoints
+        trace, the straggler --ab) and diag's live HTTP endpoints;
+        capacity (per-replica headroom, the demand forecast, the shadow
+        autoscaler's ledger) and audit (parameter fingerprints, canary
+        probes, shadow replays, quarantine by drain)
     data parallelism: distributed (one process per rank over
         torch.distributed: NCCL on the card, gloo on the CPU),
         parallel.make_mesh / data_parallel_mesh / Communicator, and

@@ -26,11 +26,16 @@ package's route table and status codes:
   /stackz    all-thread Python stack dump (watchdog.thread_stacks);
              ?json=1 structured
 
-The endpoints of the modules that ROADMAP.md Queue 1 item 7 brings answer
-as the JAX package's do with nothing installed: /capacityz, /auditz and
-/regressz 503 with a body naming the module and the item; /profilez 501
-until `xprof` (and the device trace it reads) is ported. /statusz prints
-those modules' sections in the JAX form "(capacity unavailable: ...)".
+  /capacityz the capacity observatory (capacity); ?json=1 structured;
+             503 until a ShadowScaler is installed
+  /auditz    the correctness observatory (audit); ?json=1 structured;
+             503 until a fingerprinter or an observatory is installed
+
+The endpoints of the modules that ROADMAP.md Queue 1 item 7 still brings
+answer as the JAX package's do with nothing installed: /regressz 503 with
+a body naming the module and the item; /profilez 501 until `xprof` (and
+the device trace it reads) is ported. /statusz prints those modules'
+sections in the JAX form "(regress unavailable: ...)".
 
 Start it with `observe.start_diag_server(port=0)` (port 0 = ephemeral;
 default port comes from `SINGA_TPU_DIAG_PORT`). Starting the server
@@ -53,8 +58,7 @@ _BUNDLE_RE = re.compile(r"^flight_[A-Za-z0-9_.-]+\.jsonl$")
 
 #: the modules whose endpoints and /statusz sections wait for ROADMAP.md
 #: Queue 1 item 7, with the label of their /statusz section
-_ITEM7 = (("capacity", "capacity"), ("audit", "audit"),
-          ("regress", "regress"), ("warmstart", "warm-start"))
+_ITEM7 = (("regress", "regress"), ("warmstart", "warm-start"))
 
 
 def _item7(module: str) -> str:
@@ -212,6 +216,16 @@ class _Handler(BaseHTTPRequestHandler):
             parts.append(slo.slo_report())
         except Exception as e:
             parts.append(f"(slo unavailable: {e})")
+        try:
+            from . import capacity
+            parts.append(capacity.capacity_report())
+        except Exception as e:
+            parts.append(f"(capacity unavailable: {e})")
+        try:
+            from . import audit
+            parts.append(audit.audit_report())
+        except Exception as e:
+            parts.append(f"(audit unavailable: {e})")
         for module, label in _ITEM7:
             parts.append(f"({label} unavailable: {_item7(module)})")
         mon = self._monitor()
@@ -283,16 +297,36 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(f"503: {_item7(module)}\n", status=503)
 
     def _capacityz(self, q):
-        """The capacity observatory (JAX package: singa_tpu.capacity)."""
-        self._pending(q, "capacity")
+        """The capacity observatory (capacity): the per-replica headroom
+        table with each replica's binding wall, the demand forecast, the
+        shadow scaler's recent decisions with reason codes, and the
+        counterfactual accuracy scorecard. `?json=1` returns the scaler
+        snapshot plus the full decision ring. 503 until a ShadowScaler is
+        installed."""
+        from . import capacity
+        status = 200 if capacity.get_scaler() is not None else 503
+        if (q.get("json") or ["0"])[0] not in ("0", "", "false"):
+            self._send_json(capacity.capacity_json(), status=status)
+        else:
+            self._send(capacity.capacity_report() + "\n", status=status)
 
     def _regressz(self, q):
         """The regression observatory (JAX package: singa_tpu.regress)."""
         self._pending(q, "regress")
 
     def _auditz(self, q):
-        """The correctness observatory (JAX package: singa_tpu.audit)."""
-        self._pending(q, "audit")
+        """The serving correctness observatory (audit): this process's
+        per-layer-group param fingerprint, the per-replica canary/replay
+        verdict table, and the quarantine ledger. `?json=1` returns the
+        structured form. 503 until a fingerprinter or an observatory is
+        installed."""
+        from . import audit
+        status = 200 if (audit.get_fingerprinter() is not None
+                         or audit.get_observatory() is not None) else 503
+        if (q.get("json") or ["0"])[0] not in ("0", "", "false"):
+            self._send_json(audit.audit_json(), status=status)
+        else:
+            self._send(audit.audit_report() + "\n", status=status)
 
     def _tailz(self, q):
         """Tail-latency attribution: every terminal request's wall

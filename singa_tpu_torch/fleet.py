@@ -17,10 +17,11 @@ recorder; this module is the layer across them, keyed by
     that aligns every worker's span stamps onto one wall clock. The
     format is the JAX package's (`SHARD_VERSION` 1, the same line kinds
     in the same order): a shard written by either package is read by
-    the other's `read_shard` and `FleetAggregator`. The
-    `fleet_capacity`, `fleet_audit` and `fleet_regress` lines carry null
-    until those modules are ported (ROADMAP.md Queue 1 item 7), which is
-    what the JAX package writes when none of them is installed.
+    the other's `read_shard` and `FleetAggregator`. The `fleet_capacity`
+    line carries `capacity.fleet_capacity_snapshot()` and `fleet_audit`
+    `audit.fleet_audit_snapshot()`; `fleet_regress` carries null until
+    `regress` is ported (ROADMAP.md Queue 1 item 7), which is what the
+    JAX package writes when no detector is installed.
 
   - **FleetAggregator** (the coordinator): scans the spool, merges shards
     into fleet rollups (counters summed, histograms bucket-wise, gauges
@@ -30,10 +31,10 @@ recorder; this module is the layer across them, keyed by
     from `parallel.Communicator`'s `_comm_stamp`), sustains verdicts into
     the active `health.HealthMonitor` (`note_external`), escalates a
     peer's abort-stage hang verdict (`take_peer_hang`), majority-votes the
-    `fleet_audit` fingerprints (a port worker writes none until item 7;
-    a JAX worker's are voted on) and exports the merged Chrome/Perfetto
-    trace, one track per
-    host, with the router's own track when one is installed.
+    `fleet_audit` fingerprints (a dissenter goes to the audit
+    observatory, or to the health monitor without one) and exports the
+    merged Chrome/Perfetto trace, one track per host, with the router's
+    own track when one is installed.
 
   - `check_straggler_halt()` is `resilience.TrainController`'s per-step
     hook; the diag server serves `/fleetz` and `/fleetz/trace`.
@@ -265,12 +266,20 @@ class ShardWriter:
         except Exception:
             serve = None
         lines.append({"kind": "fleet_serve", "serve": serve})
-        # the headroom row, the param fingerprint and the regression
-        # rollup: null until capacity, audit and regress are ported
-        # (ROADMAP.md Queue 1 item 7), as the JAX package writes them
-        # with none installed
-        lines.append({"kind": "fleet_capacity", "capacity": None})
-        lines.append({"kind": "fleet_audit", "audit": None})
+        # this replica's own headroom row (capacity): derived from the
+        # SAME serve signals the line above publishes, so the
+        # coordinator's headroom column reconciles against the shard by
+        # construction, plus the local shadow scaler's last decision
+        from . import audit, capacity
+        lines.append({"kind": "fleet_capacity",
+                      "capacity": capacity.fleet_capacity_snapshot()})
+        # this replica's param fingerprint (audit): the aggregator
+        # majority-votes these across replicas serving the same model
+        lines.append({"kind": "fleet_audit",
+                      "audit": audit.fleet_audit_snapshot()})
+        # the regression rollup: null until regress is ported (ROADMAP.md
+        # Queue 1 item 7), as the JAX package writes it with none
+        # installed
         lines.append({"kind": "fleet_regress", "regress": None})
         for rec in observe.span_records():
             lines.append({"kind": "fleet_span", "name": rec["name"],
@@ -751,13 +760,8 @@ class FleetAggregator:
         fingerprint) episode."""
         if not fired:
             return
-        try:
-            from . import audit as audit_mod
-            obs = audit_mod.get_observatory()
-        except ImportError:
-            # no observatory until audit is ported (item 7): the
-            # health-note fallback carries the verdict
-            audit_mod = obs = None
+        from . import audit as audit_mod
+        obs = audit_mod.get_observatory()
         local = distributed.host_label()
         mon = health.active_monitor()
         for hostname, fp, info in fired:
@@ -1339,8 +1343,11 @@ def fleet_report() -> str:
         lines.extend(_router_mod.fleetz_lines())
     except Exception:
         pass
-    # the audit and regress observatories' sections join here with
-    # ROADMAP.md Queue 1 item 7
+    # the correctness observatory's canary/replay verdict columns, when
+    # one is installed in this process (the regress observatory's join
+    # here with ROADMAP.md Queue 1 item 7)
+    from . import audit as _audit_mod
+    lines.extend(_audit_mod.fleetz_lines())
     steps_total = 0
     for s in (roll["metrics"].get("singa_steps_total") or
               {}).get("series", {}).values():

@@ -43,9 +43,10 @@ N replicas under `serving.poisson_workload`, SIGKILL one mid-traffic, a
 pre-warmed standby joins, and the record (SERVE_torch.json) holds zero
 lost requests, token-identical failover outputs, the p99 TTFT of both
 arms, the tail attribution of a fault arm and each replica's cold-start
-phases. The cold-vs-warm A/B (`--warm-ab`) and the replica's param
-fingerprint (`--corrupt-after`) come with `warmstart` and `audit`
-(ROADMAP.md Queue 1 item 7).
+phases. Every replica installs `audit`'s param fingerprint (its
+`--corrupt-after N` flips one layer at the Nth tick: the audit A/B's
+injected corruption). The cold-vs-warm A/B (`--warm-ab`) comes with
+`warmstart` (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import signal
 import subprocess
 import sys
 import tempfile
@@ -326,8 +328,8 @@ class Router:
         # LATENCY_ATTR decomposition) — the /routerz?json=1 surface
         self._timelines: "deque[dict]" = deque(maxlen=256)
         # terminal-request listeners: (RouterRequest, timeline dict)
-        # per terminal (audit's shadow replayer, item 7, samples real
-        # completed requests here; mirror of engine's listener list)
+        # per terminal (audit's shadow replayer samples real completed
+        # requests here; mirror of engine's listener list)
         self._request_listeners: "list" = []
         # balance on the installed aggregator when there is one (the
         # --ab coordinator installs it so /fleetz works too); otherwise
@@ -495,7 +497,7 @@ class Router:
         """Route one greedy request. Returns the handle immediately; a
         full router queue (or a stopped router) REJECTS it on the spot
         — reason "shed" / "drain" — instead of queueing unboundedly.
-        `synthetic` marks a probe (audit's canaries, item 7): it rides the
+        `synthetic` marks an audit canary/replay probe: it rides the
         identical dispatch path (that is the point — a canary that
         skips the front door proves nothing) but never stamps the
         admit/shed RPS windows, so `/routerz` admitted-RPS and the
@@ -1380,16 +1382,12 @@ REPLICA_SEED = 0
 
 
 def _refuse_item7(args):
-    """The replica options that need audit or warmstart (ROADMAP.md Queue
-    1 item 7) raise, naming the item."""
+    """The replica option that needs warmstart (ROADMAP.md Queue 1 item
+    7) raises, naming the item."""
     if getattr(args, "warm_dir", None):
         raise NotImplementedError(
             "--warm-dir needs singa_tpu_torch.warmstart (ROADMAP.md "
             "Queue 1 item 7)")
-    if getattr(args, "corrupt_after", 0):
-        raise NotImplementedError(
-            "--corrupt-after needs singa_tpu_torch.audit's param "
-            "fingerprint (ROADMAP.md Queue 1 item 7)")
 
 
 def _build_replica_model(vocab: int, dim: int, layers: int,
@@ -1472,15 +1470,30 @@ def _replica_main(args) -> int:
     tracker = slo.SLOTracker(slo.SLOConfig(), capacity=8192).install()
     assert tracker is not None
     slo.install_tail()
+    plan = None
     if getattr(args, "fault_delay", 0.0):
         # the --ab fault arm: a fixed per-engine-step stall makes
         # decode the provably dominant tail bucket on /tailz
-        resilience.install_fault_plan(resilience.FaultPlan().delay(
+        plan = resilience.FaultPlan().delay(
             "serving.engine_step", float(args.fault_delay),
-            times=10 ** 9))
-    # (the JAX replica installs audit's param fingerprint here; it comes
-    # with ROADMAP.md Queue 1 item 7, and `--audit-interval` is accepted
-    # meanwhile)
+            times=10 ** 9)
+    if getattr(args, "corrupt_after", 0):
+        # the audit --ab corrupt arm: the Nth fingerprint tick's
+        # fault_point("audit.corrupt_params") flips one layer of THIS
+        # replica's parameters (audit.ParamFingerprinter._corrupt), the
+        # silent-data-corruption stand-in the observatory must catch
+        # from the outside
+        plan = (plan or resilience.FaultPlan()).fail(
+            "audit.corrupt_params", nth=int(args.corrupt_after))
+    if plan is not None:
+        resilience.install_fault_plan(plan)
+    # the correctness observatory's replica half: the startup
+    # fingerprint plus the low-rate recompute timer whose snapshot
+    # rides the fleet_audit shard line (started before the shard
+    # writer so the first publish already carries a fingerprint)
+    from . import audit
+    audit.install_fingerprint(
+        m, eng, interval_s=float(getattr(args, "audit_interval", 0.25)))
     fleet.start_shard_writer(args.fleet_dir,
                              interval_s=args.publish_interval)
     dsrv = diag.start_diag_server(port=0)
@@ -1520,6 +1533,7 @@ def _replica_main(args) -> int:
         pass
     ctl.stop()
     eng.stop()
+    audit.reset()
     fleet.uninstall()
     diag.stop_diag_server()
     resilience.clear_fault_plan()
@@ -1562,6 +1576,8 @@ def spawn_replica(name: str, fleet_dir: str, args, *,
         cmd += ["--fault-delay", str(args.fault_delay)]
     if getattr(args, "audit_interval", None) is not None:
         cmd += ["--audit-interval", str(args.audit_interval)]
+    if getattr(args, "corrupt_after", 0):
+        cmd += ["--corrupt-after", str(args.corrupt_after)]
     proc = subprocess.Popen(cmd, cwd=root, env=env,
                             stdout=subprocess.PIPE, stderr=sys.stderr,
                             text=True)
@@ -1669,6 +1685,7 @@ def _ab_arm(args, workdir: str, *, kill: bool,
         handles = []
         t0 = time.perf_counter()
         killed_ts = None
+        kill_traces: "set[str]" = set()
         for i in range(args.requests):
             dt = t0 + wl["arrivals"][i] - time.perf_counter()
             if dt > 0:
@@ -1707,14 +1724,13 @@ def _ab_arm(args, workdir: str, *, kill: bool,
                         published = True
                         break
                     time.sleep(0.005)
-                # the poll above holds the GIL while it parses shards: a
-                # sender whose answer arrived meanwhile has not yet taken
-                # its request out of `inflight`. Let it run, so that the
-                # check below reads a request still being decoded (on the
-                # card a short request ends within one poll)
-                time.sleep(0.002)
-                if not (vrep.inflight and published) \
-                        and i < kill_at + 8 \
+                # on the card a short request can end between any check
+                # and the SIGKILL: kill only a frozen victim that still
+                # holds a request it accepted
+                kill_traces = (_freeze_holding(r, vrep, victim, agg,
+                                               handles)
+                               if published else set())
+                if not kill_traces and i < kill_at + 8 \
                         and i < args.requests - 1:
                     continue
                 vrep.proc.kill()
@@ -1751,15 +1767,14 @@ def _ab_arm(args, workdir: str, *, kill: bool,
             # survives in its last published shard)
             time.sleep(3.0 * args.publish_interval)
             agg.poll()
-            pick = None
-            for h in handles:
-                if h.outcome != OUTCOME_COMPLETED:
-                    continue
-                if victim in {i.get("replica")
-                              for e, _, i in h.events
-                              if e == "failover"}:
-                    pick = h
-                    break
+            # (first one the victim held at the kill, if any)
+            picks = [h for h in handles
+                     if h.outcome == OUTCOME_COMPLETED
+                     and victim in {i.get("replica")
+                                    for e, _, i in h.events
+                                    if e == "failover"}]
+            picks.sort(key=lambda h: h.trace not in kill_traces)
+            pick = picks[0] if picks else None
             arm["trace_checks"] = (
                 _check_merged_trace(agg.trace_events(), pick.trace,
                                     os.getpid())
@@ -1799,6 +1814,29 @@ def _ab_arm(args, workdir: str, *, kill: bool,
         fleet.uninstall()
         diag.stop_diag_server()
         slo.tail_reset()  # each arm's /tailz view stands alone
+
+
+def _freeze_holding(router, rep, host: str, agg, handles,
+                    settle_s: float = 0.05) -> "set[str]":
+    """The kill trigger's last check. SIGSTOP the replica's process (it
+    can send no answer and write no shard), let the senders take in any
+    answer already on the wire, and return the trace ids of the
+    requests it still holds unanswered that its final shard shows it
+    had accepted. When there are none, SIGCONT it and return an empty
+    set."""
+    os.kill(rep.proc.pid, signal.SIGSTOP)
+    time.sleep(settle_s)
+    agg.poll()
+    on_disk = {tl.get("trace") for w in agg._workers.values()
+               if w.host == host and isinstance(w.serve, dict)
+               for tl in w.serve.get("active") or []}
+    with router._lock:
+        held = {h.trace for h in handles
+                if h.id in rep.inflight and h.trace is not None
+                and h.trace in on_disk}
+    if not held:
+        os.kill(rep.proc.pid, signal.SIGCONT)
+    return held
 
 
 def _check_merged_trace(trace: dict, trace_id, router_pid) -> dict:
@@ -2056,12 +2094,12 @@ def main(argv=None) -> int:
                         "(the --ab fault arm's tail-attribution probe)")
     p.add_argument("--audit-interval", type=float, default=0.25,
                    help="replica mode: param-fingerprint recompute "
-                        "period; accepted, the fingerprint comes with "
-                        "audit (ROADMAP.md Queue 1 item 7)")
+                        "period (singa-audit-fp timer)")
     p.add_argument("--corrupt-after", type=int, default=0,
-                   help="replica mode: the audit A/B's corruption at the "
-                        "Nth fingerprint tick; N > 0 raises until audit "
-                        "(ROADMAP.md Queue 1 item 7)")
+                   help="replica mode: flip one parameter layer at the "
+                        "Nth fingerprint tick (FaultPlan fail at "
+                        "'audit.corrupt_params'), the audit --ab corrupt "
+                        "arm's injected corruption")
     p.add_argument("--warm-dir", default=None,
                    help="warm-store root: needs warmstart (ROADMAP.md "
                         "Queue 1 item 7), raises until then")

@@ -32,10 +32,16 @@ observe span ring, and the tracker's windows run on the same stamps.
 
 `fleet_serve_snapshot` reads the memory ledger's kv_cache region as the
 KV-cache bytes when a ledger is installed (the target's and the draft's
-pools), else the engines' `pool_bytes` (the targets'). The `--ab` command
-line (`main`, `_ab_main`, `_ab_leg`) publishes through `fleet`'s shard
-writer and aggregator and comes with ROADMAP.md Queue 1 item 6b;
-`chip_smoke.py` phase 13a runs the same A/B on one engine.
+pools), else the engines' `pool_bytes` (the targets').
+
+CLI: `python -m singa_tpu_torch.slo --ab [--device cpu] --out
+SLO_torch.json` runs the acceptance A/B on `--device` (the card by
+default, `--dim 256` or `512` there): a clean Poisson serving leg (100%
+attainment) against one with a FaultPlan delay on `serving.engine_step`,
+asserting the burn-rate verdict fires within `sustain + 3` evaluation
+windows, the health monitor turns "warn", and the merged trace from
+`fleet`'s shard writer and aggregator flow-links a chosen request to the
+decode-step slices it rode.
 """
 
 from __future__ import annotations
@@ -1375,6 +1381,131 @@ def slo_json() -> dict:
     }
 
 
+# ---- CLI: the SLO degradation A/B ------------------------------------------
+# `--ab` runs two in-process serving legs over one seeded Poisson
+# workload: a clean leg (attainment must hold at 100%) and a degraded
+# leg with a FaultPlan delay injected at `serving.engine_step` (every
+# decode sync stalls, so queued requests' TTFT degrades), asserting the
+# burn-rate verdict fires within K evaluation windows, /healthz's
+# monitor reflects it, and the merged fleet trace flow-links a chosen
+# request to the decode-step slices it rode.
+
+def _ab_build_model(args):
+    """The A/B's serving model: the router replica's (4 heads, weights
+    from a fixed seed) on `args.device`; on the card the head width
+    dim / 4 must be 64 or 128 (the flash kernel's), else this raises."""
+    from . import router
+    T = args.prompt_hi + args.new_hi
+    return router._build_replica_model(args.vocab, args.dim, args.layers,
+                                       T, args.device), T
+
+
+def _ab_leg(args, m, T, inject: bool, fleet_dir: str) -> dict:
+    import numpy as np
+
+    from . import engine as engine_mod
+    from . import fleet, health, resilience
+    cfg = SLOConfig(
+        ttft_p99_s=args.slo_ttft, availability=args.slo_availability,
+        window_s=args.slow_window, fast_window_s=args.fast_window,
+        slow_window_s=args.slow_window,
+        burn_threshold=args.burn_threshold, sustain=args.sustain,
+        # evaluation is driven MANUALLY on the harness cadence below,
+        # so "evaluation windows" is a countable quantity; min_requests
+        # keeps a small-sample blip from reading as a burn
+        min_requests=5, eval_interval_s=1e9)
+    mon = health.HealthMonitor(policy="warn")
+    health.set_active_monitor(mon)
+    writer = fleet.start_shard_writer(fleet_dir, interval_s=0)
+    agg = fleet.install_aggregator(fleet_dir, stale_after_s=60.0)
+    if inject:
+        plan = resilience.FaultPlan()
+        plan.delay("serving.engine_step", args.delay, times=10 ** 9)
+        resilience.install_fault_plan(plan)
+    rng = np.random.RandomState(args.seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rps, args.requests))
+    prompts = [rng.randint(0, args.vocab, (rng.randint(
+        args.prompt_lo, args.prompt_hi + 1),)).astype(np.int32)
+        for _ in range(args.requests)]
+    new_lens = rng.randint(args.new_lo, args.new_hi + 1, args.requests)
+    eng = engine_mod.ServingEngine(
+        m, max_slots=args.slots, page_size=8, max_ctx=T,
+        steps_per_sync=2, queue_limit=4 * args.requests).start()
+    rec = {"inject": inject, "delay_s": args.delay if inject else 0.0}
+    try:
+        # warm the buckets outside the measured workload — the tracker
+        # installs AFTER, so compile-time TTFTs never burn the budget
+        for b in sorted({eng._bucket(len(p)) for p in prompts}):
+            w = eng.submit(np.ones(min(b, T - 2), np.int32), 2)
+            if not w.wait(300):
+                raise RuntimeError(f"warmup bucket {b} stalled")
+        tracker = SLOTracker(cfg).install()
+        # one long-running request keeps decode syncs (and the injected
+        # delay) flowing while the short ones queue behind them
+        anchor = eng.submit(prompts[0], int(args.new_hi))
+        t0 = time.perf_counter()
+        handles = [anchor]
+        for i in range(1, args.requests):
+            dt = t0 + float(arrivals[i]) - time.perf_counter()
+            if dt > 0:
+                time.sleep(dt)
+            handles.append(eng.submit(prompts[i], int(new_lens[i])))
+        # drive the evaluation windows on a fixed cadence; the verdict
+        # clock starts at the first window that OBSERVES the burn
+        # (both windows over threshold with enough samples) — the
+        # acceptance bound says the multi-window gate convicts within
+        # `sustain + 3` burning windows, it does not measure how long
+        # the workload takes to produce samples
+        breach_eval = None
+        burning_evals = 0
+        idle_evals = 0
+        t_first_violation = None
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            time.sleep(args.eval_interval)
+            v = tracker.evaluate()
+            if t_first_violation is None and tracker.violations():
+                t_first_violation = time.monotonic()
+            if any(o["burning"] or o["breach"]
+                   for o in v["objectives"].values()):
+                burning_evals += 1
+            if v["breaching"] and breach_eval is None:
+                breach_eval = burning_evals
+                rec["violation_to_breach_s"] = round(
+                    time.monotonic() - t_first_violation, 3) \
+                    if t_first_violation else None
+            if all(h.done() for h in handles):
+                idle_evals += 1
+                if breach_eval is not None or not inject \
+                        or idle_evals > 40:
+                    break
+        stuck = [h.id for h in handles if not h.wait(600)]
+        if stuck:
+            raise RuntimeError(f"requests {stuck} stalled")
+        v = tracker.evaluate()
+        att = {obj: o["attainment"]
+               for obj, o in v["objectives"].items()}
+        rec["attainment"] = {
+            k: round(100.0 * a, 2) if a is not None else None
+            for k, a in att.items()}
+        rec["breaching"] = v["breaching"]
+        rec["breach_after_evals"] = breach_eval
+        rec["health_status"] = mon.verdict()["status"]
+        rec["violations"] = len(tracker.violations())
+        # the merged trace, from the fleet surface (clock handshake)
+        writer.publish()
+        agg.poll()
+        trace = agg.trace_events()
+        rec["trace"] = _check_flow_trace(trace, eng)
+    finally:
+        eng.stop()
+        reset()
+        fleet.uninstall()
+        resilience.clear_fault_plan()
+        health.set_active_monitor(None)
+    return rec
+
+
 def _check_flow_trace(trace: dict, eng) -> dict:
     """Schema + flow-link validation of a merged trace: X slices carry
     ts/dur/tid, and a chosen request's flow events (s -> t* -> f) land
@@ -1411,6 +1542,95 @@ def _check_flow_trace(trace: dict, eng) -> dict:
             "flow_request_id": flow_id, "flow_ok": bool(flow_ok)}
 
 
+def _ab_main(args) -> int:
+    import tempfile
+
+    m, T = _ab_build_model(args)
+    work = tempfile.mkdtemp(prefix="singa_slo_ab_")
+    rec = {"requests": args.requests, "rps": args.rps,
+           "delay_s": args.delay, "slo_ttft_s": args.slo_ttft,
+           "burn_threshold": args.burn_threshold,
+           "sustain": args.sustain, "max_evals": args.max_evals,
+           "device": args.device, "ok": False}
+    try:
+        rec["clean"] = _ab_leg(args, m, T, inject=False,
+                               fleet_dir=os.path.join(work, "clean"))
+        rec["degraded"] = _ab_leg(
+            args, m, T, inject=True,
+            fleet_dir=os.path.join(work, "degraded"))
+        clean, deg = rec["clean"], rec["degraded"]
+        clean_att = clean["attainment"].get("ttft_p99")
+        deg_att = deg["attainment"].get("ttft_p99")
+        rec["ok"] = bool(
+            clean_att == 100.0
+            and not clean["breaching"]
+            and clean["health_status"] in ("idle", "ok")
+            and deg_att is not None and deg_att < 100.0
+            and "ttft_p99" in deg["breaching"]
+            and deg["breach_after_evals"] is not None
+            and deg["breach_after_evals"] <= args.max_evals
+            and deg["health_status"] == "warn"
+            and clean["trace"]["schema_ok"]
+            and deg["trace"]["schema_ok"]
+            and deg["trace"]["flow_ok"])
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    out = os.path.abspath(args.out)
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    print(json.dumps(rec, indent=1))
+    return 0 if rec["ok"] else 1
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(
+        prog="python -m singa_tpu_torch.slo",
+        description="serving-SLO harness (clean vs degraded burn A/B)")
+    p.add_argument("--ab", action="store_true",
+                   help="run the SLO degradation A/B")
+    p.add_argument("--out", default="SLO_torch.json")
+    p.add_argument("--requests", type=int, default=16)
+    p.add_argument("--rps", type=float, default=6.0)
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--dim", type=int, default=64,
+                   help="model width (4 heads); on the card 256 or 512, "
+                        "the flash kernel's head widths 64 and 128")
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--vocab", type=int, default=211)
+    p.add_argument("--slots", type=int, default=4)
+    p.add_argument("--prompt-lo", type=int, default=4)
+    p.add_argument("--prompt-hi", type=int, default=12)
+    p.add_argument("--new-lo", type=int, default=4)
+    p.add_argument("--new-hi", type=int, default=24)
+    p.add_argument("--delay", type=float, default=0.4,
+                   help="FaultPlan delay per decode sync (degraded leg)")
+    p.add_argument("--slo-ttft", type=float, default=0.25,
+                   help="p99 TTFT target: above the clean TTFT, below "
+                        "the injected delay")
+    p.add_argument("--slo-availability", type=float, default=0.9)
+    p.add_argument("--fast-window", type=float, default=2.0)
+    p.add_argument("--slow-window", type=float, default=20.0)
+    p.add_argument("--burn-threshold", type=float, default=2.0)
+    p.add_argument("--sustain", type=int, default=2)
+    p.add_argument("--eval-interval", type=float, default=0.1)
+    p.add_argument("--max-evals", type=int, default=None,
+                   help="acceptance bound on evaluations-to-breach "
+                        "(default: sustain + 3, i.e. within 5 windows "
+                        "at the default sustain)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: where the engine runs")
+    args = p.parse_args(argv)
+    if args.max_evals is None:
+        args.max_evals = args.sustain + 3
+    if args.ab:
+        return _ab_main(args)
+    p.error("pass --ab")
+    return 2
+
+
 __all__ = [
     "REQUEST_PHASES", "SLO_OBJECTIVES", "LATENCY_ATTR",
     "SLOConfig", "SLOTracker", "request_latency_sample",
@@ -1424,3 +1644,12 @@ __all__ = [
     "fleet_serve_snapshot", "serve_attainment_pct",
     "slo_report", "slo_json",
 ]
+
+if __name__ == "__main__":
+    import sys
+
+    # run under the CANONICAL module (not the runpy __main__ alias): the
+    # CLI installs module singletons (tracker, fleet aggregator) that
+    # diag/fleet handlers reach via `import singa_tpu_torch.slo`
+    from singa_tpu_torch.slo import main as _main
+    sys.exit(_main())

@@ -57,7 +57,14 @@ every verb of `parallel.Communicator` (its `_comm_stamp`, with the fault
 point "comm.collective"). The `fleet_publish` guard arms around every
 `fleet.ShardWriter.publish`, and a hang bundle written while a
 `fleet.FleetAggregator` is installed carries its rollup (`hang_fleet`).
-The multi-process hang A/B (`main`) comes with ROADMAP.md Queue 1 item 6b.
+CLI: `python -m singa_tpu_torch.watchdog --ab [--device cpu]` is the
+multi-process hang A/B: three `--worker` processes on `--device` (the card
+by default) train a small MLP under a TrainController with the
+`collective` guard armed over a per-step `Communicator().all_reduce`; one
+worker's collective is wedged by a FaultPlan delay and must abort and
+restore, the others learn of the hang through the fleet spool and restore
+in lockstep, and the coordinator checks detection and the coordinated
+recovery from its own /fleetz and /stackz (HANG_torch.json).
 """
 
 from __future__ import annotations
@@ -866,6 +873,289 @@ def watchdog_report() -> str:
     return "\n".join(lines)
 
 
+# ---- CLI: the hang A/B -----------------------------------------------------
+# `--worker` trains a small deterministic MLP under a TrainController
+# with a watchdog armed over an eager per-step collective; one worker
+# gets a FaultPlan-wedged collective and must abort-and-restore, while
+# the others learn of the hang through the fleet spool and restore in
+# lockstep. `--ab` orchestrates the fleet + a baseline leg and asserts
+# detection + coordinated recovery from the coordinator's HTTP surface.
+
+def _worker_main(args) -> int:
+    if args.host:
+        os.environ["SINGA_FLEET_HOST"] = args.host
+    import torch
+
+    from . import distributed, fleet, resilience
+    from .parallel.communicator import Communicator
+    fleet._require_device(args.device)
+
+    if args.wedge > 0:
+        plan = resilience.FaultPlan()
+        plan.delay("comm.collective", args.wedge, nth=args.wedge_nth)
+        resilience.install_fault_plan(plan)
+    wd = install_watchdog(
+        deadlines={"collective": args.deadline},
+        action="abort", dump_at=1.5, abort_at=2.0,
+        poll_interval_s=0.01, out_dir=args.ckpt_dir)
+    writer = fleet.start_shard_writer(args.fleet_dir, interval_s=0.05)
+    fleet.install_aggregator(args.fleet_dir, policy="warn",
+                             stale_after_s=120.0, poll_interval_s=0.05)
+    # resilience's deterministic MLP, a graph-mode step on the device;
+    # at one device its optimizer is a PLAIN SGD (a DistOpt step stamps
+    # one collective per parameter, which would spend the wedge's
+    # nth-arrival budget before the data source's own collective fires)
+    m, tx, ty = resilience._worker_build(1, args.batch, args.seed,
+                                         args.device)
+    comm = Communicator()  # world 1: the eager per-step host collective
+    tick = torch.ones((), device=args.device)
+    if args.start_barrier > 1:
+        # a worker takes seconds to import torch and reach its device,
+        # about as long as a whole run of steps: without the barrier the
+        # first worker up can finish before the wedged one hangs, and
+        # the recovery could not be coordinated
+        fleet._start_barrier(writer, args.start_barrier, args.timeout)
+    steps, sleep_s = args.steps, args.step_sleep
+
+    class _CollectiveSrc:
+        """One eager collective per batch — the wedgeable dependency."""
+
+        def __iter__(self):
+            for _ in range(steps):
+                if sleep_s:
+                    time.sleep(sleep_s)
+                comm.all_reduce(tick)
+                yield (tx, ty)
+
+    ctrl = resilience.TrainController(
+        m, args.ckpt_dir, save_every_steps=args.save_every,
+        max_restarts=3, handle_signals=False, verbose=1)
+    t0 = time.monotonic()
+    report = ctrl.fit(_CollectiveSrc(), epochs=1)
+    report["wall_s"] = round(time.monotonic() - t0, 3)
+    report["host"] = distributed.host_label()
+    # the sticky forensic record, NOT hang_report(): a successful
+    # recovery retires the fleet-facing verdict before this point
+    report["watchdog"] = wd.last_breach
+    fleet.stop_shard_writer()
+    fleet.uninstall_aggregator()
+    uninstall_watchdog()
+    from . import overlap
+    overlap.wait_for_checkpoints()
+    if args.report_out:
+        with open(args.report_out, "w", encoding="utf-8") as f:
+            json.dump(report, f, default=str)
+    print(json.dumps(report, default=str))
+    return 0 if report["status"] == "completed" else 1
+
+
+def _spawn_hang_worker(py, root, args, idx, wedge):
+    import subprocess
+    env = dict(os.environ, SINGA_FLEET_HOST=f"host{idx}")
+    env.pop("SINGA_TPU_DIAG_PORT", None)
+    work = args.work
+    cmd = [py, "-m", "singa_tpu_torch.watchdog", "--worker",
+           "--fleet-dir", args.fleet_dir,
+           "--ckpt-dir", os.path.join(work, f"ck_{idx}"),
+           "--steps", str(args.steps),
+           "--save-every", str(args.save_every),
+           "--step-sleep", str(args.step_sleep),
+           "--deadline", str(args.deadline),
+           "--wedge", str(wedge), "--wedge-nth", str(args.wedge_nth),
+           "--seed", str(args.seed), "--batch", str(args.batch),
+           "--device", args.device,
+           "--start-barrier", str(args.workers),
+           "--timeout", str(args.timeout),
+           "--report-out", os.path.join(work, f"report_{idx}.json")]
+    return subprocess.Popen(cmd, cwd=root, env=env,
+                            stdout=sys.stderr, stderr=sys.stderr)
+
+
+def _ab_main(args) -> int:
+    import shutil
+    import subprocess
+    import tempfile
+    from urllib.request import urlopen
+
+    from .fleet import _require_device
+    _require_device(args.device)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    work = tempfile.mkdtemp(prefix="singa_hang_ab_")
+    args.work = work
+    args.fleet_dir = os.path.join(work, "spool")
+    os.makedirs(args.fleet_dir, exist_ok=True)
+    py = sys.executable
+    wedged_idx = args.workers - 1
+    rec = {"workers": args.workers, "steps": args.steps,
+           "wedge_s": args.wedge, "deadline_s": args.deadline,
+           "wedged_host": f"host{wedged_idx}", "device": args.device,
+           "ok": False}
+    from . import diag, fleet
+    agg = fleet.install_aggregator(args.fleet_dir, policy="warn",
+                                   stale_after_s=120.0,
+                                   poll_interval_s=0.05)
+    srv = diag.start_diag_server(port=0)
+    t_start = time.monotonic()
+    procs = [_spawn_hang_worker(py, root, args, i,
+                                args.wedge if i == wedged_idx else 0.0)
+             for i in range(args.workers)]
+    seen_hang = None
+    fleetz_mid = ""
+    deadline_t = time.monotonic() + args.timeout
+    try:
+        while time.monotonic() < deadline_t:
+            agg.poll()
+            for w in agg.workers():
+                h = getattr(w, "hang", None)
+                if not (isinstance(h, dict) and h.get("op")):
+                    continue
+                if seen_hang is None:
+                    seen_hang = {"host": w.host, **h}
+                    rec["detected_wall_s"] = round(
+                        time.monotonic() - t_start, 3)
+                if not fleetz_mid and h.get("stage") == "abort":
+                    # sample /fleetz NOW, while the worker is wedged
+                    # at abort stage: a successful recovery retires
+                    # the verdict, so the end-of-run page no longer
+                    # shows it — correctly
+                    with urlopen(srv.url + "/fleetz", timeout=30) as r:
+                        fleetz_mid = r.read().decode("utf-8")
+            if all(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.05)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        rec["worker_rcs"] = [p.returncode for p in procs]
+        # acceptance surface: the coordinator's own HTTP endpoints
+        with urlopen(srv.url + "/fleetz", timeout=30) as r:
+            fleetz = r.read().decode("utf-8")
+        with urlopen(srv.url + "/stackz", timeout=30) as r:
+            stackz = r.read().decode("utf-8")
+        rec["fleetz_lists_all_hosts"] = all(
+            f"host{i}" in fleetz for i in range(args.workers))
+        rec["fleetz_marks_wedged"] = "WEDGED" in fleetz_mid
+        # ... and the recovered worker is NOT wedged at the end
+        rec["fleetz_wedged_cleared"] = "WEDGED" not in fleetz
+        rec["stackz_ok"] = "MainThread" in stackz
+        rec["hang_seen"] = seen_hang
+        reports = {}
+        for i in range(args.workers):
+            try:
+                with open(os.path.join(work, f"report_{i}.json"),
+                          encoding="utf-8") as f:
+                    reports[i] = json.load(f)
+            except (OSError, ValueError):
+                reports[i] = {}
+        wrep = reports.get(wedged_idx, {})
+        wwd = wrep.get("watchdog") or {}
+        rec["wedged_status"] = wrep.get("status")
+        rec["wedged_restarts"] = wrep.get("restarts")
+        rec["wedged_resumed_step"] = wrep.get("resumed_step")
+        rec["hang_op"] = wwd.get("op")
+        # detection latency ~= the armed deadline: the warn stage fires
+        # the first poll past it; the worker's sticky record carries the
+        # overdue seconds at the final (abort) stage
+        rec["abort_after_s"] = wwd.get("seconds")
+        peer_restarts = [reports[i].get("restarts") or 0
+                         for i in range(args.workers)
+                         if i != wedged_idx]
+        rec["peer_restarts"] = peer_restarts
+        rec["coordinated"] = all(r >= 1 for r in peer_restarts)
+        # steps lost to the hang = the step the wedge landed on minus
+        # the checkpoint step the restore rewound to
+        hist = {int(k): float(v)
+                for k, v in (wrep.get("history") or [])}
+        rec["steps_lost"] = (
+            max(0, (args.wedge_nth - 1)
+                - int(wrep.get("resumed_step") or 0)))
+        # the post-resume loss curve must match an uninterrupted peer's
+        # (same seed, same data): the resume delta IS the curve check
+        base = {}
+        for i in range(args.workers):
+            if i != wedged_idx and reports[i].get("history"):
+                base = {int(k): float(v)
+                        for k, v in reports[i]["history"]}
+                break
+        deltas = [abs(base[k] - hist[k]) for k in hist if k in base]
+        rec["compared_steps"] = len(deltas)
+        rec["max_abs_loss_delta"] = round(max(deltas), 8) \
+            if deltas else None
+        rec["ok"] = bool(
+            all(rc == 0 for rc in rec["worker_rcs"])
+            and rec["wedged_status"] == "completed"
+            and (rec["wedged_restarts"] or 0) >= 1
+            and rec["coordinated"]
+            and rec["hang_op"] == "collective"
+            and rec["fleetz_lists_all_hosts"]
+            and rec["fleetz_marks_wedged"]
+            and rec["fleetz_wedged_cleared"]
+            and rec["stackz_ok"]
+            and deltas and max(deltas) < args.tolerance)
+    finally:
+        diag.stop_diag_server()
+        fleet.uninstall()
+        shutil.rmtree(work, ignore_errors=True)
+    out = os.path.abspath(args.out)
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(rec, f, indent=1, default=str)
+        f.write("\n")
+    print(json.dumps(rec, indent=1, default=str))
+    return 0 if rec["ok"] else 1
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(
+        prog="python -m singa_tpu_torch.watchdog",
+        description="hang-detection harness (worker + hang A/B)")
+    p.add_argument("--worker", action="store_true",
+                   help="run one watchdog-guarded training leg")
+    p.add_argument("--ab", action="store_true",
+                   help="run the multi-process hang A/B")
+    p.add_argument("--fleet-dir", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--workers", type=int, default=3)
+    # 24 steps at ~0.1s each keep the unwedged peers RUNNING while the
+    # wedge (at the 6th collective), the abort (2x the 0.3s deadline)
+    # and the shard publish land — a shorter run would let a peer
+    # finish before the verdict reaches it, and "coordinated" means
+    # every worker restores, not just the wedged one
+    p.add_argument("--steps", type=int, default=24)
+    p.add_argument("--save-every", type=int, default=3)
+    p.add_argument("--step-sleep", type=float, default=0.1)
+    p.add_argument("--deadline", type=float, default=0.3,
+                   help="static collective deadline (seconds)")
+    p.add_argument("--wedge", type=float, default=1.5,
+                   help="FaultPlan delay injected into ONE collective")
+    p.add_argument("--wedge-nth", type=int, default=6)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--host", default=None)
+    p.add_argument("--report-out", default=None)
+    p.add_argument("--tolerance", type=float, default=1e-4)
+    p.add_argument("--timeout", type=float, default=600.0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: where every worker trains")
+    p.add_argument("--start-barrier", type=int, default=0,
+                   help="worker mode: wait until this many workers' shards "
+                        "are in the spool before stepping")
+    p.add_argument("--out", default="HANG_torch.json")
+    args = p.parse_args(argv)
+    if args.worker:
+        if not args.fleet_dir or not args.ckpt_dir:
+            p.error("--worker requires --fleet-dir and --ckpt-dir")
+        return _worker_main(args)
+    if args.ab:
+        return _ab_main(args)
+    p.error("pass --worker or --ab")
+    return 2
+
+
 __all__ = [
     "DEADLINE_OPS", "ESCALATION", "HangError", "OpDeadline", "Watchdog",
     "calibrated_deadline",
@@ -873,3 +1163,10 @@ __all__ = [
     "hang_report", "thread_stacks", "format_stacks", "load_hang_bundle",
     "watchdog_report",
 ]
+
+if __name__ == "__main__":
+    # run under the CANONICAL module (not the runpy __main__ alias): the
+    # CLI installs module singletons the diag/fleet layers reach via
+    # `import singa_tpu_torch.watchdog`
+    from singa_tpu_torch.watchdog import main as _main
+    sys.exit(_main())

@@ -9,10 +9,10 @@ in CLASSES every public method (the class's own and those of its bases in
 the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
-by module, with the ROADMAP.md Queue 1 item that brings it (6: the
-multi-replica serving's A/B command lines, whose part 6a, `diag`, `fleet`
-and `router`, is ported and checked here, and part 6b, `slo.main` and
-`watchdog.main`, is next; 7: the remaining operations layers). A listed
+by module, with the ROADMAP.md Queue 1 item that brings it (7: the
+remaining operations layers; item 6, multi-replica serving with its A/B
+command lines, and item 7a, `capacity` and `audit`, are ported and
+checked here). A listed
 name that resolves fails the test: the list only shrinks, except when a
 module is ported in part (`introspect` without the warm store, `diag`
 without /profilez), which adds that module's unported names.
@@ -35,8 +35,6 @@ PENDING = {
     "introspect": {"export_executable": 7, "load_executable": 7},
     "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
     "overlap": {"async_available": 7, "overlap_report": 7},
-    "slo": {"main": 6},
-    "watchdog": {"main": 6},
 }
 
 #: (module, class) whose public methods must resolve
@@ -56,6 +54,9 @@ CLASSES = {
     "diag": ("DiagServer",),
     "fleet": ("ShardWriter", "FleetAggregator"),
     "router": ("Router", "ReplicaControl"),
+    "capacity": ("CapacityModel", "DemandForecaster", "ShadowScaler"),
+    "audit": ("ParamFingerprinter", "CanaryProber", "ShadowReplayer",
+              "AuditObservatory"),
 }
 
 

@@ -11,10 +11,11 @@ singa_tpu.diag.
 - /healthz answers 200, then 503 once the monitor halted, in both.
 - A /flightz bundle of a port model's monitor loads in JAX's
   `health.load_flight_bundle`.
-- /statusz keeps JAX's sections in JAX's order; the modules of ROADMAP.md
-  Queue 1 item 7 print JAX's "(capacity unavailable: ...)" form there,
-  their endpoints (/capacityz, /auditz, /regressz) answer 503 naming the
-  module and the item, and /profilez answers 501.
+- /statusz keeps JAX's sections in JAX's order; the modules ROADMAP.md
+  Queue 1 item 7 still brings print JAX's "(regress unavailable: ...)"
+  form there, /regressz answers 503 naming the module and the item,
+  /capacityz and /auditz answer 503 with nothing installed, as JAX's
+  do, and /profilez answers 501.
 """
 
 import json
@@ -290,14 +291,19 @@ def test_statusz_sections_and_item7_endpoints():
             st, texts[name] = _get(srv, "/statusz")
             assert st == 200
             if name == "port":
-                for module in ("capacity", "audit", "regress"):
-                    st, body = _get(srv, f"/{module}z")
-                    assert st == 503
-                    assert f"singa_tpu_torch.{module}" in body \
-                        and "item 7" in body
-                    st, body = _get(srv, f"/{module}z?json=1")
-                    assert st == 503
-                    assert json.loads(body)["installed"] is False
+                st, body = _get(srv, "/regressz")
+                assert st == 503
+                assert "singa_tpu_torch.regress" in body and "item 7" in body
+                st, body = _get(srv, "/regressz?json=1")
+                assert st == 503
+                assert json.loads(body)["installed"] is False
+                # capacity and audit answer as JAX's do with nothing
+                # installed (tests/test_torch_capacity.py and
+                # test_torch_audit.py install them)
+                st, body = _get(srv, "/capacityz")
+                assert st == 503 and "no ShadowScaler installed" in body
+                st, body = _get(srv, "/auditz")
+                assert st == 503 and "(not installed)" in body
                 st, body = _get(srv, "/profilez?steps=1")
                 assert st == 501 and "item 7" in body
                 _st, idx = _get(srv, "/")
@@ -309,5 +315,6 @@ def test_statusz_sections_and_item7_endpoints():
     assert port_secs == jax_secs, (port_secs, jax_secs)
     assert jax_secs[-5:] == ["capacity", "audit", "regress", "warm start",
                              "health"]
-    for label in ("capacity", "audit", "regress", "warm-start"):
+    for label in ("regress", "warm-start"):
         assert f"({label} unavailable: " in texts["port"]
+    assert "== capacity ==" in texts["port"] and "== audit ==" in texts["port"]

@@ -45,6 +45,8 @@ from singa_tpu_torch import resilience as tres
 from singa_tpu_torch import watchdog as twatchdog
 from tests.test_fleet import _fake_serve, _step_spans, _write_fake_shard
 
+import torch_ab
+
 torch.set_num_threads(2)
 
 PKGS = {"jax": (jfleet, jhealth, jobserve), "port": (tfleet, thealth,
@@ -647,22 +649,19 @@ def test_hang_bundle_carries_the_fleet_rollup(tmp_path):
 
 # ---- the subprocess A/B -----------------------------------------------------
 
-def test_straggler_ab_synthetic_on_cpu(tmp_path, monkeypatch):
+def test_straggler_ab_synthetic_on_cpu(tmp_path, tmp_path_factory,
+                                      monkeypatch):
     """`fleet --ab --synthetic --device cpu` with 3 workers: the slow host
     detected within 5 steps, every host on /fleetz, 3 trace tracks and the
     injected 50 ms visible on the slow track. The coordinator thread and
-    its worker processes (which inherit its affinity) share two cores."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    its worker processes (which inherit its affinity) share two cores,
+    one subprocess A/B at a time (`torch_ab.two_cores`)."""
     out = str(tmp_path / "FLEET_test.json")
-    keep = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(keep)[-2:])
-    try:
+    with torch_ab.two_cores(tmp_path_factory, monkeypatch):
         rc = tfleet.main(["--ab", "--synthetic", "--device", "cpu",
                           "--workers", "3", "--steps", "6",
                           "--step-sleep", "0.02", "--delay", "0.05",
                           "--timeout", "120", "--out", out])
-    finally:
-        os.sched_setaffinity(0, keep)
     with open(out, encoding="utf-8") as f:
         rec = json.load(f)
     assert rc == 0 and rec["ok"] is True, rec

@@ -22,6 +22,8 @@ singa_tpu.router.
 - One `router --ab --device cpu` run (CLI defaults, 2 replicas, 8
   requests), its processes kept on two cores, must hold its record's
   `ok`.
+- The A/B's kill trigger freezes the victim and leaves it frozen (to be
+  killed) only while it holds a request its final shard shows accepted.
 """
 
 import json
@@ -49,6 +51,8 @@ from singa_tpu_torch import observe as tobserve
 from singa_tpu_torch import router as trouter
 from singa_tpu_torch import slo as tslo
 from singa_tpu_torch.models import transformer as tt
+
+import torch_ab
 
 torch.set_num_threads(2)
 
@@ -443,23 +447,19 @@ def test_routed_tokens_equal_across_packages_and_direct():
 
 # ---- the command line -------------------------------------------------------
 
-def test_kill_and_replace_ab_on_cpu(tmp_path, monkeypatch):
+def test_kill_and_replace_ab_on_cpu(tmp_path, tmp_path_factory, monkeypatch):
     """`router --ab --device cpu` at the CLI's defaults with 2 replicas and
     8 requests: the record's `ok` (zero lost, tokens equal to the clean
     arm's, the victim dead, the standby serving, router rows on /fleetz,
     decode the fault arm's top bucket, every startup phase). The
     coordinator thread and its replica processes (which inherit its
-    affinity) share two cores."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    affinity) share two cores, one subprocess A/B at a time
+    (`torch_ab.two_cores`)."""
     out = str(tmp_path / "SERVE_test.json")
-    keep = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, sorted(keep)[-2:])
-    try:
+    with torch_ab.two_cores(tmp_path_factory, monkeypatch):
         rc = trouter.main(["--ab", "--device", "cpu", "--replicas", "2",
                            "--requests", "8", "--timeout", "120",
                            "--out", out])
-    finally:
-        os.sched_setaffinity(0, keep)
     with open(out, encoding="utf-8") as f:
         lines = [json.loads(x) for x in f if x.strip()]
     rec = lines[-1]
@@ -477,10 +477,64 @@ def test_kill_and_replace_ab_on_cpu(tmp_path, monkeypatch):
                 if t.is_alive() and t.name.startswith("singa-route")]
 
 
+def _stopped(pid, want, timeout_s=10.0):
+    """Whether /proc/<pid>/stat shows the process stopped ("T"), read
+    until it matches `want` or `timeout_s` passes (a signal lands when
+    the process next runs, later on a busy host)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+            got = f.read().rsplit(")", 1)[1].split()[0] == "T"
+        if got == want or time.monotonic() > deadline:
+            return got
+        time.sleep(0.01)
+
+
+@pytest.mark.parametrize("case", ["holds", "answered", "not_on_disk"])
+def test_kill_trigger_freezes_only_a_holder(case):
+    """`_freeze_holding` SIGSTOPs the victim. It returns the trace ids of
+    the requests the router still has in flight to it that the victim's
+    shard shows active, and leaves it stopped for the kill; with none
+    (the answer came back, or the victim never recorded the request) it
+    SIGCONTs it and returns an empty set. Another host's shard does not
+    count."""
+    import subprocess
+    import sys
+    import types
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import time; time.sleep(60)"])
+    try:
+        rep = types.SimpleNamespace(
+            proc=proc, inflight=set() if case == "answered" else {1, 2})
+        active = [] if case == "not_on_disk" else [{"trace": "t-1"}]
+        agg = types.SimpleNamespace(poll=lambda: None, _workers={
+            "a": types.SimpleNamespace(host="r1",
+                                       serve={"active": active}),
+            "b": types.SimpleNamespace(host="r0", serve={
+                "active": [{"trace": "t-2"}]})})
+        router = types.SimpleNamespace(_lock=threading.Lock())
+        handles = [types.SimpleNamespace(id=1, trace="t-1"),
+                   types.SimpleNamespace(id=2, trace="t-2"),
+                   types.SimpleNamespace(id=3, trace=None)]
+        held = trouter._freeze_holding(router, rep, "r1", agg, handles,
+                                       settle_s=0.01)
+        if case == "holds":
+            assert held == {"t-1"}
+            assert _stopped(proc.pid, True)
+        else:
+            assert held == set()
+            assert not _stopped(proc.pid, False)
+    finally:
+        proc.kill()
+        proc.wait(timeout=10)
+
+
 def test_replicas_need_the_card_unless_cpu(tmp_path):
     """Without a card a replica on the default device raises, in
     spawn_replica and in the replica's own entry point; nothing falls
-    back to the CPU. The item-7 options raise, naming the item."""
+    back to the CPU. The warm-start options (item 7) raise, naming the
+    item; `--corrupt-after` is audit's and runs (tests/
+    test_torch_audit.py)."""
     import types
     args = types.SimpleNamespace(
         vocab=211, dim=64, layers=2, prompt_lo=4, prompt_hi=12, new_hi=24,
@@ -495,7 +549,7 @@ def test_replicas_need_the_card_unless_cpu(tmp_path):
         trouter._build_replica_model(211, 512, 2, 36)
     with pytest.raises(NotImplementedError, match="item 7"):
         trouter.main(["--replica", "--fleet-dir", str(tmp_path),
-                      "--device", "cpu", "--corrupt-after", "3"])
+                      "--device", "cpu", "--warm-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 7"):
         trouter.main(["--warm-ab", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7"):

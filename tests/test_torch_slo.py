@@ -19,8 +19,11 @@ singa_tpu.engine.
 - `engine_trace_events` passes the ported `_check_flow_trace`, and the
   dense, speculative and beam paths feed the tracker one record per
   sequence of a call.
+- One `slo --ab --device cpu` run at the CLI's defaults (the JAX test
+  sizes) holds its record's `ok`; a `cuda` run without a card raises.
 """
 
+import json
 import math
 import os
 import threading
@@ -47,6 +50,8 @@ from singa_tpu_torch import resilience as tres
 from singa_tpu_torch import serving as tserving
 from singa_tpu_torch import slo as tslo
 from singa_tpu_torch.models import transformer as tt
+
+import torch_ab
 
 torch.set_num_threads(2)
 SMALL = dict(vocab_size=97, max_seq=64, dim=64, num_heads=4, num_layers=2)
@@ -695,3 +700,38 @@ def test_decode_paths_feed_the_tracker(pair):
     assert counts["port"][:3] == (2, 4, 6)
     assert tobserve.get_registry().get("singa_health_nan_logits_total") \
         is None
+
+
+# ---- the command line --------------------------------------------------------
+
+def test_slo_ab_on_cpu(tmp_path, tmp_path_factory):
+    """`slo --ab --device cpu` at the CLI's defaults: the clean leg at 100%
+    TTFT attainment and not breaching, the degraded leg breached within
+    sustain + 3 evaluations with the monitor at warn, both traces
+    schema-valid and the degraded one's flow linked; everything it
+    installed is gone after it. It runs in this process (the engine's
+    thread beside the test's), on this process's cores, one A/B at a time
+    (`torch_ab.one_at_a_time`)."""
+    out = str(tmp_path / "SLO_test.json")
+    with torch_ab.one_at_a_time(tmp_path_factory):
+        rc = tslo.main(["--ab", "--device", "cpu", "--out", out])
+    with open(out, encoding="utf-8") as f:
+        rec = json.load(f)
+    assert rc == 0 and rec["ok"] is True, rec
+    assert rec["device"] == "cpu"
+    assert rec["clean"]["attainment"]["ttft_p99"] == 100.0
+    assert "ttft_p99" in rec["degraded"]["breaching"]
+    assert rec["degraded"]["breach_after_evals"] <= rec["max_evals"] == 5
+    assert rec["degraded"]["health_status"] == "warn"
+    assert rec["degraded"]["trace"]["flow_ok"]
+    assert tslo.get_tracker() is None and thealth.active_monitor() is None
+    assert tres._fault_plan is None
+    assert not [t.name for t in threading.enumerate() if t.is_alive()
+                and t.name.startswith(("singa-fleet", "torch-serve"))]
+
+
+def test_slo_ab_needs_the_card_unless_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tslo.main(["--ab", "--out", str(tmp_path / "s.json")])

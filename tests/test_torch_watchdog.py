@@ -17,8 +17,12 @@ singa_tpu_torch.watchdog against singa_tpu.watchdog.
   evicted and the error in each detail; `generate`'s decode guard.
 - Hang bundles load across the packages with equal line kinds and header
   keys.
+- One `watchdog --ab --device cpu` run at the CLI's defaults (3 worker
+  processes, one wedged), kept on two cores, holds its record's `ok`; a
+  `cuda` run without a card raises.
 """
 
+import json
 import os
 import threading
 import time
@@ -43,6 +47,8 @@ from singa_tpu_torch import opt, resilience, watchdog
 from singa_tpu_torch import tensor as ttensor
 from singa_tpu_torch.models import transformer as tt
 from singa_tpu_torch.ops import _build
+
+import torch_ab
 
 torch.set_num_threads(2)
 TDEV = tdevice.create_cpu_device()
@@ -471,3 +477,36 @@ def test_hang_bundles_load_across_packages(tmp_path):
     assert t["memory"]["regions"].keys() == set(memory.MEM_REGIONS)
     assert t["goodput"]["buckets"].keys() == set(goodput.GOODPUT_BUCKETS)
     assert t["fleet"] is None
+
+
+# ---- the command line --------------------------------------------------------
+
+def test_hang_ab_on_cpu(tmp_path, tmp_path_factory, monkeypatch):
+    """`watchdog --ab --device cpu` at the CLI's defaults: the hang op is
+    `collective`, the wedged worker aborted, restored and completed, every
+    peer restored with it, /fleetz marked the wedged host and then
+    cleared it, and the loss curves agree within 1e-4. The coordinator
+    and its worker processes (which inherit its affinity) share two
+    cores, one subprocess A/B at a time (`torch_ab.two_cores`)."""
+    out = str(tmp_path / "HANG_test.json")
+    with torch_ab.two_cores(tmp_path_factory, monkeypatch):
+        rc = watchdog.main(["--ab", "--device", "cpu", "--timeout", "120",
+                            "--out", out])
+    with open(out, encoding="utf-8") as f:
+        rec = json.load(f)
+    assert rc == 0 and rec["ok"] is True, rec
+    assert rec["device"] == "cpu" and rec["worker_rcs"] == [0, 0, 0]
+    assert rec["hang_op"] == "collective" and rec["wedged_restarts"] >= 1
+    assert rec["coordinated"] and rec["max_abs_loss_delta"] < 1e-4
+    assert rec["fleetz_marks_wedged"] and rec["fleetz_wedged_cleared"]
+    assert watchdog.get_watchdog() is None
+
+
+def test_hang_ab_needs_the_card_unless_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        watchdog.main(["--ab", "--out", str(tmp_path / "h.json")])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        watchdog.main(["--worker", "--fleet-dir", str(tmp_path),
+                       "--ckpt-dir", str(tmp_path)])

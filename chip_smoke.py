@@ -432,7 +432,27 @@ Phases, each of which exits non-zero on failure:
    lost, zero false positives on the clean arm (strict token
    comparison), the victim quarantined by the fingerprint and one more
    leg within the probe budget, the cap not hit.
-22. The `kernels` JSON line (the decode kernels with a `modes` entry per
+22. The port's trace and regression observatory on the card. 22a two
+   replayed bench GPT graph steps (bf16 amp) traced by
+   `Device.StartTrace`/`StopTrace` (which opens with its device warm-up
+   and writes the trace without it; the warm-up's counts are printed):
+   `xprof.op_table`'s K1 and K2a rows count exactly the launches
+   `ops.attention.LAUNCHES` counted over the window (8 + 8 a replay), its
+   device rows total within XPROF_BUSY_TOL of the profiler's device busy
+   time for the same window (as `_breakdown` counts it, less the
+   warm-up), `span_table` holds `model.step`, and
+   `step_cost_analysis()["flops"]` equals 15a's counted step flops,
+   `lower_step` changing no parameter and not the generator. 22b
+   `introspect.explain(xplane=)` on that trace; /profilez on a live diag
+   server while another thread runs PROFILEZ_STEPS steps inside its
+   capture: 200, those steps captured, its K1 and K2a rows equal to the
+   launches counted over them, the training thread's `model.step`
+   ranges in its trace; then 409 while a second capture holds the
+   profiler. 22c `regress.main(["--ab", ...])` at AB_MODEL's widths (the
+   training leg at the module's card defaults): the record's `ok` (the
+   contention and compile legs convicted within 5 windows, zero false
+   positives in the clean arms); K1 and K4 (only) launched over it.
+23. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
@@ -441,8 +461,9 @@ Phases, each of which exits non-zero on failure:
    `introspect_replays`, `introspect_generate`, `introspect_engine`,
    `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
    `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train`,
-   `pp_loopback`, `router_engines`, `router_drain`, `slo_ab` and
-   `capacity_ab`), then the card line, then the result line.
+   `pp_loopback`, `router_engines`, `router_drain`, `slo_ab`,
+   `capacity_ab`, `xprof_train` and `regress_ab`), then the card line,
+   then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -1756,12 +1777,28 @@ K4_KERNELS = ("paged_kernel<", "paged_kernel_merge")
 #: SPAN_TRACE_PREFIX, kept here so the script imports no module of the
 #: port before its checks
 SPAN_PREFIX = "singa.span/"
+#: the range around `Device.StartTrace`'s device warm-up (device.py's
+#: TRACE_WARMUP): its envelope on the device is not a kernel either
+TRACE_WARMUP = "singa.trace_warmup"
 TRAIN_CATS = (("flash fwd", ("flash_fwd_kernel",)),
               ("flash bwd", ("flash_bwd_", "scale_cast_kernel")))
 
 
 #: (device busy ms or None, wall ms) of every _breakdown, by its `what`
 PROFILES = {}
+
+
+def _device_rows(prof):
+    """(device ms, count, name) of a finished profile's device-side events
+    (kernels, copies): a CPU op's own device time counts the kernels it
+    launched a second time. An observe span's range (and StartTrace's
+    warm-up range) also shows on the device as one event spanning first
+    to last kernel, idle gaps included: not a kernel."""
+    from torch.autograd import DeviceType
+    return [(e.device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not e.key.startswith(SPAN_PREFIX) and e.key != TRACE_WARMUP]
 
 
 def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
@@ -1783,14 +1820,7 @@ def _breakdown(torch, what, fn, cats=SERVE_CATS, require=(), spans=()):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
-    # device-side events only (kernels, copies): a CPU op's own device
-    # time counts the kernels it launched a second time. An observe span's
-    # range also shows on the device as one event spanning first to last
-    # kernel, idle gaps included: not a kernel
-    rows = [(e.device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-            and not e.key.startswith(SPAN_PREFIX)]
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
@@ -1849,8 +1879,8 @@ def phase_profile(torch, model, engine, train_step, drafts):
     print("== phase 5: device time by kernel (torch.profiler)")
     rng = np.random.RandomState(SEED + 2)
     prompts = rng.randint(0, model.vocab_size, (8, 128)).astype(np.int32)
-    _breakdown(torch, "generate b8 prompt 128 +32",
-               lambda: model.generate(prompts, 32, dtype="bfloat16"),
+    _breakdown(torch, "generate b8 prompt 128 +16",
+               lambda: model.generate(prompts, 16, dtype="bfloat16"),
                require=K3_KERNELS)
     reqs_in = [(rng.randint(0, model.vocab_size, (256,)).astype(np.int32),
                 32) for _ in range(8)]
@@ -1858,9 +1888,9 @@ def phase_profile(torch, model, engine, train_step, drafts):
                lambda: serve(engine, model, reqs_in, timeout_s=300,
                              max_slots=8, dtype="bfloat16"),
                require=K4_KERNELS)
-    _breakdown(torch, f"spec engine 8 requests prompt 256 +8, kv int4, "
+    _breakdown(torch, f"spec engine 8 requests prompt 256 +4, kv int4, "
                f"clone draft, spec_k {SPEC_K}",
-               lambda: serve(engine, model, [(p, 8) for p, _ in reqs_in],
+               lambda: serve(engine, model, [(p, 4) for p, _ in reqs_in],
                              timeout_s=300, max_slots=8, dtype="bfloat16",
                              kv_dtype="int4", draft_model=drafts["clone"],
                              spec_k=SPEC_K),
@@ -4592,16 +4622,19 @@ class _FitBatches:
     """GP_BATCHES seeded batches, each built on the host and moved to the
     card at its fetch. Before batch GP_POISON's step `w[0, 0]` is set to
     `value` (None: its own value, so a clean epoch's fetches do the same
-    work as a poisoned one's) and restored at the next fetch."""
+    work as a poisoned one's) and restored at the next fetch. `made`
+    holds each fetch's own work as it ran (seconds)."""
 
     def __init__(self, torch, seed, w, value=None):
         self.torch, self.seed, self.w, self.value = torch, seed, w, value
+        self.made = []
 
     def __iter__(self):
         torch = self.torch
         V = BENCH_GPT["vocab_size"]
         old = None
         for i in range(GP_BATCHES):
+            t0 = time.perf_counter()
             with torch.no_grad():
                 if i == GP_POISON:
                     old = self.w[0, 0].clone()
@@ -4609,7 +4642,9 @@ class _FitBatches:
                 elif i == GP_POISON + 1:
                     self.w[0, 0] = old
             x, y = _train_batch(torch, V, TRAIN_B, TRAIN_S, self.seed + i)
-            yield x.cuda(), y.cuda()
+            x, y = x.cuda(), y.cuda()
+            self.made.append(time.perf_counter() - t0)
+            yield x, y
 
 
 def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
@@ -4621,10 +4656,13 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
     block weight), then one save_checkpoint (waited for) and one eval
     call. compile holds at least the first call's build; the faulted
     epoch's data_wait is at least the delays requested, equals its fit
-    fetches' data.wait spans (booked once), and lies in [slept, slept +
-    the clean epoch's], where slept is the delayed fetches' spans: the
-    delays as they ran with the fetch around each (a sleep overshoots
-    its request, and the woken thread's fetch runs slower); health_skip
+    fetches' data.wait spans (booked once), and lies in [work, work +
+    the clean epoch's], where work is what its fetches measurably did:
+    the fault points as they ran (a sleep overshoots its request) and
+    each batch's own fetch work (`_FitBatches.made`). Host noise in that
+    work lands on both sides of the bound, where comparing the undelayed
+    fetches' wall time with the clean epoch's, 9 fetches with 13, held
+    by 2-5 ms on the card's host and once failed; health_skip
     is exactly the poisoned step's span, checkpoint and eval are above 0,
     and the buckets (other included) add up to the run's wall time
     within 1% with overlap_s 0. Exact K1/K2a counts over both epochs."""
@@ -4678,8 +4716,8 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
         plan.fire = timed_fire
         resilience.install_fault_plan(plan)
         try:
-            m.fit(_FitBatches(torch, SEED + 40, w, float("inf")),
-                  epochs=1)
+            faulted = _FitBatches(torch, SEED + 40, w, float("inf"))
+            m.fit(faulted, epochs=1)
         finally:
             resilience.clear_fault_plan()
         s2 = tracker.snapshot()
@@ -4708,6 +4746,7 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
     fw = [x for p, x in spans if p == "data.wait"][w1:]
     slow = [i for i, f in enumerate(fired) if f >= GP_DELAY_S]
     slept = sum(fw[i] for i in slow)
+    work = sum(fired) + sum(faulted.made)
     total = sum(bk.values())
     waits = [x * 1e3 for p, x in spans if p == "data.wait"]
     print("  " + tracker.report().replace("\n", "\n  "))
@@ -4722,15 +4761,26 @@ def phase_goodput_fit(torch, models, opt, health, goodput, overlap,
           f"{bk['compile']:.3f} s; data_wait clean epoch {clean_dw:.6f} s, "
           f"faulted epoch {dw:.6f} s (its spans {sum(fw):.6f} s; the "
           f"{len(slow)} delayed fetches {slept:.6f} s, {delays:.3f} s "
-          f"requested); poisoned step {poisoned:.6f} s, health_skip "
+          f"requested; its fault points and batches' work {work:.6f} s); "
+          f"poisoned step {poisoned:.6f} s, health_skip "
           f"{bk['health_skip']:.6f} s")
-    if bk["compile"] < builds[0] or dw < delays or len(slow) != GP_DELAYS \
-            or abs(dw - sum(fw)) > 1e-9 * dw \
-            or not slept <= dw < slept + clean_dw \
-            or bk["health_skip"] != poisoned or bk["checkpoint"] <= 0 \
-            or bk["eval"] <= 0 or snap["overlap_s"] != 0 \
-            or abs(total - wall) > 0.01 * wall:
-        fail("14d: the goodput buckets do not account for the run")
+    broken = [what for what, bad in (
+        ("compile below the first build", bk["compile"] < builds[0]),
+        ("data_wait below the delays", dw < delays),
+        (f"{len(slow)} delayed fetches", len(slow) != GP_DELAYS),
+        ("data_wait is not its spans", abs(dw - sum(fw)) > 1e-9 * dw),
+        ("data_wait outside [work, work + clean epoch's)",
+         not work <= dw < work + clean_dw),
+        ("health_skip is not the poisoned step",
+         bk["health_skip"] != poisoned),
+        ("no checkpoint", bk["checkpoint"] <= 0),
+        ("no eval", bk["eval"] <= 0),
+        ("overlap", snap["overlap_s"] != 0),
+        ("buckets off the wall time", abs(total - wall) > 0.01 * wall))
+        if bad]
+    if broken:
+        fail(f"14d: the goodput buckets do not account for the run: "
+             f"{'; '.join(broken)}")
     check_launches("14d fit, two epochs", counts,
                    {"flash_fwd": 2 * L * GP_BATCHES,
                     "flash_bwd_fused": 2 * L * GP_BATCHES})
@@ -4755,6 +4805,10 @@ HANG_STEPS, HANG_SAVE, HANG_AT = 8, 4, 5    # 15b's hang controller
 PREEMPT_CFG = dict(vocab_size=8192, max_seq=256, dim=512, num_heads=8,
                    num_layers=2)            # 15c: 8c's fp32 GPT
 PREEMPT_BATCHES, PREEMPT_SAVE, PREEMPT_AT = 8, 3, 5
+
+
+#: the bench GPT step build's counted flops, by the phase that counted them
+STEP_FLOPS = {}
 
 
 def _gpt_step_flops(m, B, S):
@@ -4863,7 +4917,7 @@ def phase_introspect(torch, models, opt, device, introspect, observe,
                 or not os.path.getsize(dot):
             fail(f"15a: the step build {rec['phases']}, records {builds}")
         # the count against the shapes
-        flops = rec["cost"]["flops"]
+        flops = STEP_FLOPS["15a"] = rec["cost"]["flops"]
         want, mm = _gpt_step_flops(m, TRAIN_B, TRAIN_S)
         held = m._step_state_bytes()
         nbytes = rec["cost"]["bytes accessed"]
@@ -7224,6 +7278,190 @@ def phase_audit_ab(torch, router, audit, engine, serving, root):
     return tick_ms
 
 
+# ---- phase 22: the port's trace and regression observatory --------------
+#: xprof's device rows against the profiler's device busy time, one window
+XPROF_BUSY_TOL = 0.05
+XPROF_REPLAYS = 2
+#: /profilez's window in 22b: the training thread runs exactly these
+#: steps once the capture is active
+PROFILEZ_STEPS = 3
+
+
+def _flash_rows(rows, key):
+    return sum(r["count"] for r in rows if key in r["op"]
+               and r["category"] == "attention")
+
+
+def phase_xprof(torch, models, opt, device, introspect, observe, xprof,
+                diag, A, root):
+    """22a and 22b (see the module docstring). Returns the counted
+    window's launches."""
+    import urllib.error
+    import urllib.request
+    from singa_tpu_torch import device as device_mod
+    print("== phase 22a: xprof over a traced bench GPT graph step")
+    L, V = BENCH_GPT["num_layers"], BENCH_GPT["vocab_size"]
+    tx, ty = (t.cuda() for t in _train_batch(torch, V, TRAIN_B, TRAIN_S,
+                                             SEED + 3))
+    introspect.reset()
+    observe.enable(True)
+    observe.get_registry().reset()
+    m = models.create_model("gpt", device="cuda", seed=SEED, **BENCH_GPT)
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9, weight_decay=1e-5))
+    m.compile([tx], is_train=True, use_graph=True, amp="bfloat16")
+    dev = device.of(m._device)
+    for _ in range(3):                       # warm-up, capture, a replay
+        m(tx, ty)
+    torch.cuda.synchronize()
+    w = next(iter(m._raw_params().values()))
+    w0, gen0 = w.detach().clone(), dev.generator.get_state().clone()
+    low = m.lower_step()
+    cost = m.step_cost_analysis()
+    if low is None or not torch.equal(w, w0) \
+            or not torch.equal(dev.generator.get_state(), gen0):
+        fail("22a: lower_step returned None or changed the state")
+    print(f"  step_cost_analysis: {cost['flops'] / 1e12:.4f} TFLOP, "
+          f"{cost['bytes accessed'] / 1e9:.3f} GB accessed (15a counted "
+          f"{STEP_FLOPS['15a'] / 1e12:.4f} TFLOP)")
+    if cost["flops"] != STEP_FLOPS["15a"]:
+        fail(f"22a: step_cost_analysis flops {cost['flops']} against "
+             f"15a's {STEP_FLOPS['15a']}")
+    trace = os.path.join(root, "xprof")
+    t0 = time.perf_counter()
+    dev.StartTrace(trace)
+    prof = device_mod._trace[1]
+    A.reset_launches()
+    for _ in range(XPROF_REPLAYS):
+        m(tx, ty)
+    dev.StopTrace()
+    wall = time.perf_counter() - t0
+    got = dict(A.LAUNCHES)
+    warm = dev.last_trace_warmup
+    rows = xprof.op_table(trace)
+    dev_ms = sum(r["total_ms"] for r in rows if r["category"] != "span")
+    # the profiler's own rows hold StartTrace's warm-up, the trace not
+    busy = sum(r[0] for r in _device_rows(prof)) - warm["device_ms"]
+    k1, k2a = _flash_rows(rows, "flash_fwd"), \
+        _flash_rows(rows, "flash_bwd_fused")
+    spans = {r["op"]: r for r in xprof.span_table(trace)}
+    cats = ", ".join(f"{c['category']} {c['total_ms']:.2f} ms "
+                     f"({c['pct']:.1f}%)"
+                     for c in xprof.category_table(rows))
+    print(f"  {XPROF_REPLAYS} replays traced in {wall:.2f} s "
+          f"({card_line()}): StartTrace's warm-up {warm['recorded']} of "
+          f"{warm['launched']} kernels recorded, the {device_mod.WARMUP_TAIL} after "
+          f"its sleep {warm['tail_recorded']}; xprof device rows "
+          f"{dev_ms:.3f} ms against the profiler's busy {busy:.3f} ms; K1 "
+          f"rows {k1}, K2a rows {k2a}, LAUNCHES {got}; by category: {cats}")
+    print(xprof.format_table(rows, top=8))
+    print(xprof.format_hlo_categories(
+        xprof.hlo_category_table(trace, steps=XPROF_REPLAYS)))
+    want = {"flash_fwd": XPROF_REPLAYS * L,
+            "flash_bwd_fused": XPROF_REPLAYS * L}
+    check_launches("22a traced replays", got, want)
+    if (k1, k2a) != (got["flash_fwd"], got["flash_bwd_fused"]):
+        fail(f"22a: xprof K1/K2a rows {k1}/{k2a} against LAUNCHES {got}")
+    if not busy or abs(dev_ms - busy) > XPROF_BUSY_TOL * busy:
+        fail(f"22a: device rows {dev_ms} ms against busy {busy} ms")
+    if spans.get("model.step", {}).get("count") != XPROF_REPLAYS:
+        fail(f"22a: span_table {sorted(spans)}")
+
+    print("== phase 22b: explain(xplane=) and /profilez on a live server")
+    rep = introspect.explain(model=m, device=dev, xplane=trace, top=5)
+    print("  explain top ops: " + "; ".join(
+        f"{r['op'][:40]} {r['total_ms']} ms" for r in rep["top_ops"]))
+    if len(rep["top_ops"]) != 5:
+        fail(f"22b: explain(xplane=) {rep.get('top_ops')}")
+    srv = diag.start_diag_server(port=0, device=dev)
+    stop = threading.Event()
+
+    def train():
+        # exactly PROFILEZ_STEPS steps inside /profilez's capture: from
+        # when StartTrace has returned (it sets the active trace after its
+        # warm-up) and the handler has read the step counter
+        while device_mod._trace is None:
+            if stop.is_set():
+                return
+            time.sleep(0.005)
+        time.sleep(0.2)
+        for _ in range(PROFILEZ_STEPS):
+            m(tx, ty)
+            torch.cuda.synchronize()
+
+    def get(path):
+        try:
+            r = urllib.request.urlopen(srv.url + path, timeout=120)
+            return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode())
+
+    t = threading.Thread(target=train, name="xprof-train")
+    A.reset_launches()
+    t.start()
+    try:
+        st, js = get(f"/profilez?steps={PROFILEZ_STEPS}&seconds=60")
+        t.join(timeout=120)
+        pz = dict(A.LAUNCHES)
+        held = os.path.join(root, "held")
+        dev.StartTrace(held)
+        try:
+            st2, js2 = get("/profilez?steps=1")
+        finally:
+            dev.StopTrace()
+    finally:
+        stop.set()
+        t.join(timeout=120)
+        diag.stop_diag_server()
+    full = xprof.op_table(js["trace_dir"]) if st == 200 else []
+    pz_spans = {r["op"] for r in xprof.span_table(js["trace_dir"])} \
+        if st == 200 else set()
+    pz_k1, pz_k2a = _flash_rows(full, "flash_fwd"), \
+        _flash_rows(full, "flash_bwd_fused")
+    print(f"  /profilez: {st}, {js.get('steps_captured')} steps captured in "
+          f"{js.get('wall_s')} s, top ops "
+          f"{[r['op'][:30] for r in js.get('top_ops', [])[:4]]}; K1 rows "
+          f"{pz_k1}, K2a rows {pz_k2a}, LAUNCHES {pz}; the training "
+          f"thread's spans {sorted(pz_spans)[:3]}; a second capture: {st2} "
+          f"{js2.get('error', '')[:60]}")
+    check_launches("22b /profilez steps", pz,
+                   {"flash_fwd": PROFILEZ_STEPS * L,
+                    "flash_bwd_fused": PROFILEZ_STEPS * L})
+    if st != 200 or js["steps_captured"] != PROFILEZ_STEPS \
+            or not js["top_ops"] \
+            or (pz_k1, pz_k2a) != (pz["flash_fwd"], pz["flash_bwd_fused"]) \
+            or "model.step" not in pz_spans or st2 != 409:
+        fail(f"22b: /profilez {st} {js}, second {st2} {js2}, K1/K2a rows "
+             f"{pz_k1}/{pz_k2a} against LAUNCHES {pz}")
+    del m
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_regress_ab(torch, regress, A, root):
+    """22c: `regress.main(["--ab", ...])` on the card at AB_MODEL's widths
+    (see the module docstring)."""
+    print(f"== phase 22c: the regression observatory A/B on the card "
+          f"({' '.join(AB_MODEL)})")
+    out = os.path.join(root, "REGRESS_torch.json")
+    rc, wall, got = _ab_launches(
+        torch, A, "22c regress A/B",
+        lambda: regress.main(["--ab", *AB_MODEL, "--out",
+                              out]))
+    rec = _ab_record(out)
+    sv, tr = rec.get("serving", {}), rec.get("training", {})
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); serving leg: "
+          f"{sv.get('cause')} after {sv.get('detect_windows')} windows, "
+          f"x{sv.get('ratio')}, {sv.get('clean_windows')} clean windows, "
+          f"false positives {sv.get('false_positives')}, K1 "
+          f"{got['flash_fwd']}, K4 {got['paged_attention']}; training leg: "
+          f"{tr.get('cause')} after {tr.get('detect_windows')} windows, "
+          f"x{tr.get('ratio')}, false positives {tr.get('false_positives')};"
+          f" bundle round trip {rec.get('bundle_roundtrip')}")
+    if rc != 0 or not rec["ok"] or rec["device"] != "cuda":
+        fail(f"22c: rc {rc}, record {rec}")
+    return got
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -7729,6 +7967,15 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         phase_audit_ab(torch, router, audit, engine, serving, root)
     clock.lap("phase 21d")
+    from singa_tpu_torch import regress, xprof
+    with tempfile.TemporaryDirectory() as root:
+        by_path["xprof_train"] = phase_xprof(
+            torch, models, opt, device, introspect, observe, xprof, diag, A,
+            root)
+    clock.lap("phase 22a-b")
+    with tempfile.TemporaryDirectory() as root:
+        by_path["regress_ab"] = phase_regress_ab(torch, regress, A, root)
+    clock.lap("phase 22c")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

@@ -4,9 +4,9 @@ A `Device` wraps a `torch.device` where the JAX package's wraps a
 `jax.Device`: it is where tensors land, and the device's random stream,
 an explicit `torch.Generator` that the initializers and `Dropout` draw
 from (`SetRandSeed` seeds it). It keeps the reference's profiling
-switches (`SetVerbosity`, `SetSkipIteration`, `PrintTimeProfiling`);
-`StartTrace`/`StopTrace` come with the port's `xprof` (ROADMAP.md
-Queue 1 item 7).
+switches (`SetVerbosity`, `SetSkipIteration`, `PrintTimeProfiling`) and
+the trace capture `StartTrace`/`StopTrace` over torch.profiler, which
+`xprof` reads.
 
 The port runs on CUDA. The CPU is used only when a caller asks for it by
 name (the CPU parity tests do), never as a silent fallback: the default
@@ -23,9 +23,90 @@ off for its fp32 checks). The library sets neither flag.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import socket
+import threading
+import time
 
 import numpy as np
 import torch
+
+# the profiler is process-global: the active capture (log dir, profiler)
+# lives at module level, so Start/Stop pair up across Device objects
+_trace = None
+_trace_lock = threading.Lock()
+
+#: the `record_function` range around StartTrace's device warm-up, and
+#: its kernels: WARMUP_HEAD small adds, a sleep kernel of WARMUP_CYCLES
+#: clock cycles (~20 ms at the H100's 1.98 GHz), WARMUP_TAIL adds
+TRACE_WARMUP = "singa.trace_warmup"
+WARMUP_HEAD, WARMUP_TAIL, WARMUP_CYCLES = 128, 32, 40_000_000
+#: Chrome-trace categories of device events (xprof's device plane)
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _warmup(x):
+    """StartTrace's device warm-up on `x`'s card, inside the capture,
+    under the TRACE_WARMUP range; returns when the card has run it."""
+    with torch.cuda.device(x.device), \
+            torch.profiler.record_function(TRACE_WARMUP):
+        for _ in range(WARMUP_HEAD):
+            x.add_(1.0)
+        torch.cuda._sleep(WARMUP_CYCLES)
+        for _ in range(WARMUP_TAIL):
+            x.add_(1.0)
+        torch.cuda.synchronize(x.device)
+
+
+def _strip_warmup(doc: dict) -> dict:
+    """Take StartTrace's warm-up out of a Chrome trace `doc` in place: the
+    TRACE_WARMUP range, the host events inside it on its thread, and the
+    device events they launched (by "External id", or by "correlation"
+    for a runtime call), with their flow arrows. Returns {"launched",
+    "recorded", "tail_recorded", "device_ms"}: the warm-up's kernels,
+    those the trace holds, those of them launched after the sleep, and
+    the device time of the events taken out."""
+    ev = doc.get("traceEvents", [])
+    w = next((e for e in ev if e.get("cat") == "user_annotation"
+              and e.get("name") == TRACE_WARMUP), None)
+    if w is None:
+        raise RuntimeError(f"the trace holds no {TRACE_WARMUP} range")
+    t0, t1 = w["ts"], w["ts"] + w["dur"]
+    host = [e for e in ev if e.get("ph") == "X"
+            and (e.get("pid"), e.get("tid")) == (w.get("pid"), w.get("tid"))
+            and e.get("cat") not in _DEVICE_CATS + ("gpu_user_annotation",)
+            and t0 <= e["ts"] and e["ts"] + e.get("dur", 0) <= t1]
+    ext = {(e.get("args") or {}).get("External id") for e in host} - {None}
+    corr = {(e.get("args") or {}).get("correlation") for e in host} - {None}
+    adds = sorted((e for e in host if e.get("cat") == "cpu_op"
+                   and e.get("name") == "aten::add_"), key=lambda e: e["ts"])
+    tail_ext = {(e.get("args") or {}).get("External id")
+                for e in adds[-WARMUP_TAIL:]} - {None}
+    tail_corr = {(e.get("args") or {}).get("correlation") for e in host
+                 if (e.get("args") or {}).get("External id") in tail_ext}
+    tail_corr -= {None}
+    drop = {id(e) for e in host} | {id(w)}
+    kept, recorded, tail, device_ms = [], 0, 0, 0.0
+    for e in ev:
+        a = e.get("args") or {}
+        cat = e.get("cat")
+        if cat in _DEVICE_CATS and (a.get("External id") in ext
+                                    or a.get("correlation") in corr):
+            device_ms += e.get("dur", 0) / 1e3
+            if cat == "kernel":
+                recorded += 1
+                tail += (a.get("External id") in tail_ext
+                         or a.get("correlation") in tail_corr)
+        elif not (id(e) in drop
+                  or (cat == "gpu_user_annotation"
+                      and e.get("name") == TRACE_WARMUP)
+                  or (cat == "ac2g" and e.get("id") in corr)):
+            kept.append(e)
+    doc["traceEvents"] = kept
+    return {"launched": WARMUP_HEAD + 1 + WARMUP_TAIL, "recorded": recorded,
+            "tail_recorded": tail, "device_ms": device_ms}
+
 
 
 class Device:
@@ -45,6 +126,9 @@ class Device:
         #: the last step build's counted cost ({"flops", "bytes
         #: accessed", ...}; `introspect` refreshes it at every step build)
         self.cost_analysis: "dict | None" = None
+        #: the last card capture's warm-up, as `StopTrace` found it in
+        #: the trace (`_strip_warmup`'s counts)
+        self.last_trace_warmup: "dict | None" = None
 
     # ---- RNG ------------------------------------------------------------
     @property
@@ -151,6 +235,96 @@ class Device:
             for k, v in sorted(self.cost_analysis.items()):
                 if isinstance(v, (int, float)):
                     print(f"  {k}: {v:.3g}")
+
+    # ---- trace capture ---------------------------------------------------
+    def StartTrace(self, log_dir: str):
+        """Begin capturing a torch.profiler trace into `log_dir`: the CPU
+        operators and `record_function` ranges (`observe.span`'s) and, on
+        a card, the CUDA kernels, memcpys and memsets, of every thread of
+        the process (`profile_all_threads`: the profiler records only
+        the starting thread's operators otherwise, and an engine's
+        decode thread or a diag handler's capture runs elsewhere), with
+        each operator's flops. One trace a process: a second raises.
+
+        On a card the capture opens with a device warm-up (`_warmup`,
+        ~20 ms) and returns after it: in a long-lived process the first
+        1-3 ms of device activity of a capture did not come back from
+        the profiler (fresh processes lost none), so that loss falls on
+        the warm-up. `StopTrace` takes the warm-up out of the trace and
+        raises if the loss reached past it."""
+        global _trace
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+        with _trace_lock:
+            if _trace is not None:
+                raise RuntimeError(
+                    f"a trace into {_trace[0]} is already active; "
+                    "StopTrace() it first (the profiler is process-global)")
+            acts = [ProfilerActivity.CPU]
+            card = self.torch_device.type == "cuda"
+            if card:
+                acts.append(ProfilerActivity.CUDA)
+                x = torch.zeros(4096, device=self.torch_device)
+            prof = profile(activities=acts, with_flops=True,
+                           experimental_config=_ExperimentalConfig(
+                               profile_all_threads=True))
+            prof.start()
+            if card:
+                try:
+                    _warmup(x)
+                except BaseException:
+                    prof.stop()
+                    raise
+            _trace = (log_dir, prof)
+
+    def StopTrace(self) -> "str | None":
+        """Stop the capture and write it under the log dir as one
+        `<host>_<pid>.<ns>.pt.trace.json` Chrome trace, each CPU
+        operator's counted flops added to its arguments (`"flops"`, by
+        its "External id"); returns the log dir. Idempotent: with no
+        trace active it returns None. On a card it first waits for the
+        device's queued work, and writes the trace without StartTrace's
+        warm-up; `last_trace_warmup` then holds what the warm-up launched
+        and what came back of it. A failed stop or write raises, and
+        leaves no trace active; so does a capture that lost any of the
+        kernels the warm-up launched after its sleep."""
+        global _trace
+        with _trace_lock:
+            cur, _trace = _trace, None
+        if cur is None:
+            return None
+        from .xprof import TRACE_SUFFIX
+        log_dir, prof = cur
+        card = self.torch_device.type == "cuda"
+        if card:
+            torch.cuda.synchronize(self.torch_device)
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}"
+                                     f".{time.time_ns()}{TRACE_SUFFIX}")
+        prof.export_chrome_trace(path)
+        flops = {e.id: e.flops for e in prof.events() if e.flops}
+        if flops or card:
+            with open(path, encoding="utf-8") as f:
+                doc = json.load(f)
+            if card:
+                self.last_trace_warmup = _strip_warmup(doc)
+            for e in doc.get("traceEvents", ()):
+                if e.get("cat") == "cpu_op":
+                    n = flops.get((e.get("args") or {}).get("External id"))
+                    if n:
+                        e["args"]["flops"] = n
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(doc, f)
+        if card:
+            w = self.last_trace_warmup
+            if w["tail_recorded"] < WARMUP_TAIL:
+                raise RuntimeError(
+                    f"the trace in {path} lost device events past its "
+                    f"warm-up: {w['tail_recorded']} of the {WARMUP_TAIL} "
+                    f"kernels launched after its sleep came back "
+                    f"({w['recorded']} of {w['launched']} in all)")
+        return log_dir
 
     # ---- info ------------------------------------------------------------
     @property

@@ -25,17 +25,21 @@ package's route table and status codes:
   /slo       serving-SLO state (slo); ?json=1 structured
   /stackz    all-thread Python stack dump (watchdog.thread_stacks);
              ?json=1 structured
+  /profilez  on-demand trace (Device.StartTrace): ?steps=N waits for N
+             more train steps (or ?seconds=S, at most 600), stops the
+             trace, answers the top 20 ops (xprof.op_table) as JSON; 409
+             while another capture holds the profiler
 
   /capacityz the capacity observatory (capacity); ?json=1 structured;
              503 until a ShadowScaler is installed
   /auditz    the correctness observatory (audit); ?json=1 structured;
              503 until a fingerprinter or an observatory is installed
+  /regressz  the regression observatory (regress); ?json=1 structured;
+             503 until a RegressionDetector is installed
 
-The endpoints of the modules that ROADMAP.md Queue 1 item 7 still brings
-answer as the JAX package's do with nothing installed: /regressz 503 with
-a body naming the module and the item; /profilez 501 until `xprof` (and
-the device trace it reads) is ported. /statusz prints those modules'
-sections in the JAX form "(regress unavailable: ...)".
+The warm-start section of /statusz waits for `warmstart` (ROADMAP.md
+Queue 1 item 7c) and prints, in the JAX form, "(warm-start unavailable:
+...)".
 
 Start it with `observe.start_diag_server(port=0)` (port 0 = ephemeral;
 default port comes from `SINGA_TPU_DIAG_PORT`). Starting the server
@@ -56,14 +60,10 @@ from . import goodput, observe
 
 _BUNDLE_RE = re.compile(r"^flight_[A-Za-z0-9_.-]+\.jsonl$")
 
-#: the modules whose endpoints and /statusz sections wait for ROADMAP.md
-#: Queue 1 item 7, with the label of their /statusz section
-_ITEM7 = (("regress", "regress"), ("warmstart", "warm-start"))
-
-
-def _item7(module: str) -> str:
-    return (f"singa_tpu_torch.{module} is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)")
+# /profilez capture dirs retained per server: the response points the
+# operator at trace_dir, so the newest few must survive the request,
+# but a scraper polling the endpoint must not grow tmp without bound
+_MAX_TRACE_DIRS = 4
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -155,8 +155,8 @@ class _Handler(BaseHTTPRequestHandler):
             "the structured form\n"
             "  /stackz       all-thread Python stack dump; "
             "?json=1 for the structured form\n"
-            "  /profilez     on-demand device trace (501 until "
-            "ROADMAP.md Queue 1 item 7)\n")
+            "  /profilez     ?steps=N[&seconds=S] on-demand trace "
+            "capture\n")
 
     def _metrics(self, q):
         gp = goodput.get_tracker()
@@ -226,8 +226,13 @@ class _Handler(BaseHTTPRequestHandler):
             parts.append(audit.audit_report())
         except Exception as e:
             parts.append(f"(audit unavailable: {e})")
-        for module, label in _ITEM7:
-            parts.append(f"({label} unavailable: {_item7(module)})")
+        try:
+            from . import regress
+            parts.append(regress.regress_report())
+        except Exception as e:
+            parts.append(f"(regress unavailable: {e})")
+        parts.append("(warm-start unavailable: singa_tpu_torch.warmstart "
+                     "is not ported yet (ROADMAP.md Queue 1 item 7c))")
         mon = self._monitor()
         if mon is None:
             parts.append("== health ==\nno HealthMonitor attached")
@@ -287,15 +292,6 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._send(router.router_report() + "\n", status=status)
 
-    def _pending(self, q, module):
-        """An endpoint of a module that item 7 brings: 503, as the JAX
-        package answers with nothing installed."""
-        if (q.get("json") or ["0"])[0] not in ("0", "", "false"):
-            self._send_json({"installed": False, "detail": _item7(module)},
-                            status=503)
-        else:
-            self._send(f"503: {_item7(module)}\n", status=503)
-
     def _capacityz(self, q):
         """The capacity observatory (capacity): the per-replica headroom
         table with each replica's binding wall, the demand forecast, the
@@ -311,8 +307,18 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(capacity.capacity_report() + "\n", status=status)
 
     def _regressz(self, q):
-        """The regression observatory (JAX package: singa_tpu.regress)."""
-        self._pending(q, "regress")
+        """The performance regression observatory (regress): the
+        per-signal baseline/CUSUM table, the conviction tail with
+        attributed causes and evidence-bundle names, and the fleet
+        regression block when an aggregator is running. `?json=1`
+        returns the detector snapshot plus the full verdict ring. 503
+        until a RegressionDetector is installed."""
+        from . import regress
+        status = 200 if regress.get_detector() is not None else 503
+        if (q.get("json") or ["0"])[0] not in ("0", "", "false"):
+            self._send_json(regress.regress_json(), status=status)
+        else:
+            self._send(regress.regress_report() + "\n", status=status)
 
     def _auditz(self, q):
         """The serving correctness observatory (audit): this process's
@@ -403,12 +409,60 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(watchdog.format_stacks(stacks) + "\n")
 
     def _profilez(self, q):
-        """On-demand device trace: it reads `xprof`'s op table over
-        `Device.StartTrace`/`StopTrace`, which come with ROADMAP.md Queue 1
-        item 7; until then 501."""
-        self._send("501: /profilez needs singa_tpu_torch.xprof and "
-                   "Device.StartTrace (ROADMAP.md Queue 1 item 7)\n",
-                   status=501)
+        """On-demand trace: `Device.StartTrace` on the server's device
+        (the default device, the card, when none was given), held until
+        `steps` more training steps pass (`singa_steps_total`) or
+        `seconds` (capped at 600: the profiler is process-global) or the
+        server stops; then the top 20 rows of `xprof.op_table`. 409 while
+        another capture holds the profiler. The trace dir is kept (the
+        newest _MAX_TRACE_DIRS of this server's)."""
+        import tempfile
+
+        try:
+            steps = int((q.get("steps") or ["1"])[0])
+            max_s = min(float((q.get("seconds") or ["30"])[0]), 600.0)
+        except ValueError:
+            self._send("400: steps/seconds must be numeric\n", status=400)
+            return
+        from . import xprof
+        from .device import get_default_device
+        dev = self.diag.device or get_default_device()
+        out = tempfile.mkdtemp(prefix="singa_profilez_")
+        try:
+            dev.StartTrace(out)
+        except RuntimeError as e:  # another capture owns the profiler
+            import shutil
+            shutil.rmtree(out, ignore_errors=True)  # nothing was written
+            self._send_json({"error": str(e)}, status=409)
+            return
+        c = observe.get_registry().get("singa_steps_total")
+        start = c.value() if c is not None else 0.0
+        t0 = time.monotonic()
+        captured = 0
+        try:
+            # also ends on server stop: this daemon handler thread is not
+            # joined by shutdown, and it holds the process-global profiler
+            while time.monotonic() - t0 < max_s \
+                    and not self.diag.stopping:
+                c = observe.get_registry().get("singa_steps_total")
+                captured = int((c.value() if c is not None else 0.0) - start)
+                if captured >= steps:
+                    break
+                time.sleep(0.01)
+        finally:
+            dev.StopTrace()
+        rows = [{"op": r["op"], "category": r["category"],
+                 "total_ms": round(r["total_ms"], 3),
+                 "pct": round(r["pct"], 1)}
+                for r in xprof.op_table(out)[:20]]
+        self.diag.retain_trace_dir(out)
+        self._send_json({"trace_dir": out, "steps_requested": steps,
+                         "steps_captured": captured,
+                         # the seconds cap (or a server stop) expired
+                         # before N steps passed
+                         "truncated": captured < steps,
+                         "wall_s": round(time.monotonic() - t0, 3),
+                         "top_ops": rows})
 
 
 class _Server(ThreadingHTTPServer):
@@ -419,7 +473,7 @@ class _Server(ThreadingHTTPServer):
 class DiagServer:
     """The running server: `.port`, `.url`, `.stop()`. Context over the
     process-global telemetry; `model`/`device`/`monitor` enrich
-    /statusz, /healthz and /flightz when provided."""
+    /statusz, /healthz, /flightz and /profilez when provided."""
 
     def __init__(self, port=0, host="127.0.0.1", model=None, device=None,
                  monitor=None, flight_dir="."):
@@ -427,6 +481,9 @@ class DiagServer:
         self.device = device
         self.monitor = monitor
         self.flight_dir = flight_dir
+        self.stopping = False  # ends in-flight /profilez captures
+        self._trace_dirs: "list[str]" = []  # finished captures, oldest first
+        self._trace_lock = threading.Lock()
         self.started_mono = time.monotonic()
         self._httpd = _Server((host, int(port)), _Handler)
         self._httpd.diag = self  # type: ignore[attr-defined]
@@ -441,7 +498,19 @@ class DiagServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
 
+    def retain_trace_dir(self, path: str):
+        """Record a finished /profilez capture dir, deleting the oldest
+        beyond _MAX_TRACE_DIRS so repeated captures stay bounded."""
+        import shutil
+        with self._trace_lock:
+            self._trace_dirs.append(path)
+            stale = self._trace_dirs[:-_MAX_TRACE_DIRS]
+            del self._trace_dirs[:-_MAX_TRACE_DIRS]
+        for d in stale:
+            shutil.rmtree(d, ignore_errors=True)
+
     def stop(self):
+        self.stopping = True  # daemon handler threads are not joined
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=5.0)

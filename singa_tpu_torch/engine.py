@@ -47,6 +47,12 @@ of a sync are counted on the device beside the tokens, come back in the
 same host copy, and are booked by `health.record_nan_logits(n,
 "engine")`.
 
+Threads: on the CPU each decode thread runs the intra-op threads of the
+thread that started its engine divided among the running CPU engines
+(`_fit_threads`; torch's OpenMP team size is a per-thread setting), so N
+in-process engines do not each run the machine's full count. On the card
+nothing is set.
+
 Run-time accounting: each prefill and each sync (its decode and host
 read) runs under the watchdog's `decode` deadline (`watchdog.guard`); a
 `HangError` raised at a guard's exit, or delivered into the host read
@@ -372,6 +378,9 @@ class ServingEngine:
         # outside the lock): a graceful drain waits for these too
         self._admitting = 0
         self._thread = None
+        # the caller's intra-op thread count at start(), on the CPU only:
+        # the pool the running CPU engines split (`_fit_threads`)
+        self._thread_pool = 0
         self._pools = None
         self._params = None
         self._dpools = None
@@ -445,6 +454,8 @@ class ServingEngine:
                 self._dpools = self._alloc_pools(self.dcore,
                                                  self.draft_model)
             self._stop.clear()
+            if self.device.type == "cpu":
+                self._thread_pool = torch.get_num_threads()
             with ServingEngine._seq_lock:
                 ServingEngine._seq += 1
                 n = ServingEngine._seq
@@ -924,6 +935,22 @@ class ServingEngine:
                     float(self.num_pages - len(self._free_pages)))
                 m["occupancy"].set(float(np.sum(self._active)))
 
+    def _fit_threads(self):
+        """On the CPU, this decode thread's intra-op threads: the pool
+        (the count of the thread that started the engine) split over the
+        running CPU engines. torch's OpenMP team size is a per-thread
+        setting, so each engine thread sets its own; N engine threads at
+        the machine's full count oversubscribe its cores, and a sync then
+        takes several times as long (ROADMAP, Queue 3, fault 16). Nothing
+        on the card."""
+        if not self._thread_pool:
+            return
+        with _registry_lock:
+            n = sum(1 for e in _engines if e.device.type == "cpu")
+        want = max(1, self._thread_pool // max(n, 1))
+        if want != torch.get_num_threads():
+            torch.set_num_threads(want)
+
     def _loop(self):
         try:
             self._loop_body()
@@ -949,10 +976,16 @@ class ServingEngine:
             observe.get_registry().emit(
                 {"kind": "serve", "event": "loop_error", "detail": detail})
             raise
+        finally:
+            if self._thread_pool:
+                # torch.set_num_threads also sets the count that threads
+                # started later take: give them the pool back
+                torch.set_num_threads(self._thread_pool)
 
     def _loop_body(self):
         dev = self.device
         while not self._stop.is_set():
+            self._fit_threads()
             now = time.monotonic()
             with self._lock:
                 overdue = [r for r in self._slots

@@ -19,9 +19,8 @@ recorder; this module is the layer across them, keyed by
     in the same order): a shard written by either package is read by
     the other's `read_shard` and `FleetAggregator`. The `fleet_capacity`
     line carries `capacity.fleet_capacity_snapshot()` and `fleet_audit`
-    `audit.fleet_audit_snapshot()`; `fleet_regress` carries null until
-    `regress` is ported (ROADMAP.md Queue 1 item 7), which is what the
-    JAX package writes when no detector is installed.
+    `audit.fleet_audit_snapshot()` and `fleet_regress`
+    `regress.fleet_regress_snapshot()` (null with no detector).
 
   - **FleetAggregator** (the coordinator): scans the spool, merges shards
     into fleet rollups (counters summed, histograms bucket-wise, gauges
@@ -277,10 +276,13 @@ class ShardWriter:
         # majority-votes these across replicas serving the same model
         lines.append({"kind": "fleet_audit",
                       "audit": audit.fleet_audit_snapshot()})
-        # the regression rollup: null until regress is ported (ROADMAP.md
-        # Queue 1 item 7), as the JAX package writes it with none
-        # installed
-        lines.append({"kind": "fleet_regress", "regress": None})
+        # this replica's regression-detector rollup (regress): the
+        # aggregator's localization vote over these lines splits
+        # one-host-regressed (hardware suspect) from fleet-wide
+        # (software); null with no detector installed
+        from . import regress
+        lines.append({"kind": "fleet_regress",
+                      "regress": regress.fleet_regress_snapshot()})
         for rec in observe.span_records():
             lines.append({"kind": "fleet_span", "name": rec["name"],
                           "t0": rec["t0"], "dur": rec["dur"],
@@ -1344,10 +1346,12 @@ def fleet_report() -> str:
     except Exception:
         pass
     # the correctness observatory's canary/replay verdict columns, when
-    # one is installed in this process (the regress observatory's join
-    # here with ROADMAP.md Queue 1 item 7)
+    # one is installed in this process, then the regression
+    # observatory's per-host column and localization vote
     from . import audit as _audit_mod
+    from . import regress as _regress_mod
     lines.extend(_audit_mod.fleetz_lines())
+    lines.extend(_regress_mod.fleetz_lines())
     steps_total = 0
     for s in (roll["metrics"].get("singa_steps_total") or
               {}).get("series", {}).values():

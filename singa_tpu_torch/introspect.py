@@ -80,8 +80,9 @@ unless the peak is overridden.
 
 Not yet here: the warm store (`export_executable`, `load_executable`,
 the `introspect.warm_load` span and `warm` results, which stay None)
-comes with the port's `warmstart` (ROADMAP.md Queue 1 item 7), and
-`explain(xplane=...)` with its `xprof` (item 7).
+comes with the port's `warmstart` (ROADMAP.md Queue 1 item 7c).
+`explain(xplane=dir)` (and `--xplane DIR`) appends the top ops of a
+`Device.StartTrace` capture by measured device time (`xprof.top_ops`).
 
 CLI: `python -m singa_tpu_torch.introspect --config tiny --device cpu`.
 """
@@ -905,13 +906,9 @@ def explain(model=None, device=None, xplane=None, top=10) -> dict:
     records, the recompile history, the executable manifest and (given a
     model and device) params, GFLOP/step, the memory breakdown, the mean
     step time, achieved TFLOP/s and MFU, the memory ledger's live regions
-    and the fit estimate. `xplane` raises: the top device ops come with
-    the port's `xprof` (ROADMAP.md Queue 1 item 7)."""
+    and the fit estimate; with `xplane` (a `Device.StartTrace` log dir),
+    the top-K ops by measured device time (`xprof.top_ops`)."""
     from . import memory
-    if xplane:
-        raise NotImplementedError(
-            "explain(xplane=...) comes with the port's xprof (ROADMAP.md "
-            "Queue 1 item 7)")
     with _lock:
         rep = {"builds": {k: [dict(r) for r in v]
                           for k, v in _builds.items()}}
@@ -941,6 +938,13 @@ def explain(model=None, device=None, xplane=None, top=10) -> dict:
             if peak:
                 rep["peak_tflops"] = peak
                 rep["mfu_pct"] = ach / peak * 100.0
+    if xplane:
+        from . import xprof
+        rep["top_ops"] = [
+            {"op": r["op"], "category": r["category"],
+             "total_ms": round(r["total_ms"], 3),
+             "pct": round(r["pct"], 1)}
+            for r in xprof.top_ops(xplane, top)]
     led = memory.get_ledger()
     if led is not None and led.timeline:
         rep["mem_regions"] = dict(led.timeline[-1]["regions"])
@@ -1010,6 +1014,12 @@ def format_explain(rep: dict) -> str:
             lines.append(f"  {e['key']}@{e['fingerprint']}"
                          + (f"  hlo: {e['hlo_path']}" if e.get("hlo_path")
                             else ""))
+    tops = rep.get("top_ops")
+    if tops:
+        lines.append(f"top {len(tops)} ops by device time (xplane):")
+        for r in tops:
+            lines.append(f"  {r['op'][:60]:<60} {r['total_ms']:>8.3f} ms "
+                         f"{r['pct']:>5.1f}%")
     return "\n".join(lines)
 
 
@@ -1072,8 +1082,8 @@ def main(argv=None) -> int:
                     help="skip the 3/4-batch step that demonstrates "
                          "recompile blame")
     ap.add_argument("--xplane", default=None, metavar="DIR",
-                    help="top ops by device time: comes with the port's "
-                         "xprof (ROADMAP.md Queue 1 item 7)")
+                    help="a Device.StartTrace log dir: append the top-K "
+                         "ops by measured device time (xprof.top_ops)")
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--hlo-dir", default=None, metavar="DIR",
                     help="write each build's op listing + manifest")
@@ -1085,10 +1095,6 @@ def main(argv=None) -> int:
     from . import device as device_mod
     from . import opt as opt_mod
     from . import tensor
-    if args.xplane:
-        raise NotImplementedError(
-            "--xplane comes with the port's xprof (ROADMAP.md Queue 1 "
-            "item 7)")
     dev = device_mod.of(device_mod.resolve(args.device))
     if dev.torch_device.type == "cuda":
         dev = device_mod.best_device()
@@ -1108,7 +1114,7 @@ def main(argv=None) -> int:
         nb = (3 * b) // 4
         m(tensor.from_numpy(tx.numpy()[:nb], dev),
           tensor.from_numpy(ty.numpy()[:nb], dev))
-    rep = explain(model=m, device=dev, top=args.top)
+    rep = explain(model=m, device=dev, xplane=args.xplane, top=args.top)
     if args.json:
         print(json.dumps(rep, default=str))
     else:

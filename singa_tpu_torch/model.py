@@ -128,6 +128,9 @@ the JAX package's signature (state, opt, rng, arg; the step tag, the
 static-argument repr and the true batch size), so a new batch bucket
 blames as it does there; the capture at the second call is the build's
 compile phase. `Device.cost_analysis` is the last step build's cost.
+`lower_step(tag)` returns that build as a `StepLowering` (a CUDA graph has
+no lowering: its op listing and counted cost) and `step_cost_analysis()`
+the cost, under XLA's key names; both are None / {} before a step.
 """
 
 from __future__ import annotations
@@ -203,6 +206,29 @@ def _detached(out):
 
 def _fresh(out):
     return _map_out(out, lambda t: t.detach().clone())
+
+
+class StepLowering:
+    """`Model.lower_step`'s result. The JAX package returns the step's
+    jax `Lowered` (its HLO text, its cost analysis); a CUDA graph has no
+    lowering, and this holds what the port keeps of one step build
+    instead: `as_text()` the build's op listing (one line per aten op and
+    hand-written kernel of the warm-up's count, written while
+    `introspect.capture_hlo` is on; None otherwise) and `cost_analysis()`
+    its counted cost."""
+
+    def __init__(self, rec):
+        self._rec = rec
+
+    def as_text(self) -> "str | None":
+        path = self._rec.get("hlo_path")
+        if not path:
+            return None
+        with open(path, encoding="utf-8") as f:
+            return f.read()
+
+    def cost_analysis(self) -> dict:
+        return dict(self._rec.get("cost") or {})
 
 
 class _Buffered:
@@ -850,6 +876,31 @@ class Model(layer.Layer, metaclass=ModelMeta):
             # time produced nothing, so goodput moves it out of `step`
             goodput.mark_step_skipped()
         return out
+
+    def lower_step(self, tag=0):
+        """What the port keeps of the graph-mode step build of `tag`, for
+        inspection: a `StepLowering` over its build record (the counted
+        cost, the op listing). A CUDA graph has no lowering, so nothing
+        is traced or run here and no state changes (the generator, the
+        parameters and the optimizer's slots stay as they are). None
+        where the JAX package's returns None: before a graph-mode step,
+        or with no build of `tag`."""
+        if not self._train_steps or self._last_input_arrs is None:
+            return None
+        for key, entry in reversed(list(self._train_steps.items())):
+            if key[3] == tag and entry.rec is not None:
+                return StepLowering(entry.rec)
+        return None
+
+    def step_cost_analysis(self):
+        """The counted cost of the graph-mode step build (introspect's
+        count at its warm-up: "flops", "bytes accessed", "aten ops",
+        "kernel launches"), under XLA's key names; {} where the JAX
+        package's is: before a graph-mode step. The flops are the port's
+        count (matmuls, convolutions and the hand-written kernels by
+        formula), not XLA's, which adds the elementwise work."""
+        lowered = self.lower_step()
+        return lowered.cost_analysis() if lowered is not None else {}
 
     # ---- training health (health) -------------------------------------------
     def _health_groups(self):

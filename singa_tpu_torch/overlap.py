@@ -35,6 +35,8 @@ ring wait, "ckpt.wait" (ctx: path) before each pending write is awaited.
 The ring wait runs under the watchdog's `data_wait` deadline and the
 barrier under `ckpt_wait`; the ring's batches are the memory ledger's
 `prefetch_ring` region from construction to `close()`.
+`overlap_report()` is /statusz's `== overlap ==` section, in the JAX
+package's form.
 """
 
 from __future__ import annotations
@@ -370,6 +372,41 @@ def start_async_save(path: str, write, blocking_s=None) -> None:
     entry.thread.start()
 
 
-__all__ = ["DevicePrefetcher", "clear_write_failed", "pending_checkpoints",
-           "prefetch_to_device", "start_async_save", "wait_for_checkpoints",
-           "write_failed"]
+def async_available() -> bool:
+    """True: the port's async save is its own thread writer
+    (`start_async_save`), which needs nothing an installation could lack
+    (the JAX package's answers whether its orbax can build an async
+    checkpointer). A pure probe: it starts nothing."""
+    return True
+
+
+# ---- /statusz section ------------------------------------------------------
+
+def overlap_report() -> str:
+    """Text block for /statusz: prefetch ring + async-ckpt state."""
+    reg = observe.get_registry()
+    lines = ["== overlap =="]
+    depth = reg.get("singa_prefetch_ring_depth")
+    moved = reg.get("singa_prefetch_batches_total")
+    blocked = reg.get("singa_prefetch_blocked_seconds")
+    if moved is None and depth is None:
+        lines.append("prefetch: not in use")
+    else:
+        lines.append(
+            f"prefetch: ring_depth={int(depth.value()) if depth else 0} "
+            f"batches_moved={int(moved.value()) if moved else 0} "
+            f"consumer_blocked_s="
+            f"{blocked.sum() if blocked else 0.0:.3f}")
+    started = reg.get("singa_checkpoint_async_total")
+    blk = reg.get("singa_checkpoint_async_blocking_seconds")
+    lines.append(
+        f"async-ckpt: pending={pending_checkpoints()} "
+        f"started={int(started.value()) if started else 0} "
+        f"blocking_s_sum={blk.sum() if blk else 0.0:.3f} "
+        f"(available={async_available()})")
+    return "\n".join(lines)
+
+
+__all__ = ["DevicePrefetcher", "async_available", "clear_write_failed",
+           "overlap_report", "pending_checkpoints", "prefetch_to_device",
+           "start_async_save", "wait_for_checkpoints", "write_failed"]

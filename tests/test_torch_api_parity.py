@@ -10,12 +10,13 @@ the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
 by module, with the ROADMAP.md Queue 1 item that brings it (7: the
-remaining operations layers; item 6, multi-replica serving with its A/B
-command lines, and item 7a, `capacity` and `audit`, are ported and
-checked here). A listed
-name that resolves fails the test: the list only shrinks, except when a
-module is ported in part (`introspect` without the warm store, `diag`
-without /profilez), which adds that module's unported names.
+remaining operations layers, of which 7c, `warmstart`, is left; item 6,
+multi-replica serving with its A/B command lines, items 7a, `capacity`
+and `audit`, and 7b, `xprof` with the device trace, `regress` and
+`overlap`'s report, are ported and checked here). A listed name that
+resolves fails the test: the list only shrinks, except when a module is
+ported in part (`introspect` without the warm store), which adds that
+module's unported names.
 """
 
 import ast
@@ -30,11 +31,7 @@ PORT_PKG = os.path.join(ROOT, "singa_tpu_torch")
 
 #: {module: {name or "Class.method": Queue 1 item that ports it}}
 PENDING = {
-    "device": {"Device.StartTrace": 7, "Device.StopTrace": 7},
-    "diag": {"DiagServer.retain_trace_dir": 7},
     "introspect": {"export_executable": 7, "load_executable": 7},
-    "model": {"Model.lower_step": 7, "Model.step_cost_analysis": 7},
-    "overlap": {"async_available": 7, "overlap_report": 7},
 }
 
 #: (module, class) whose public methods must resolve
@@ -57,6 +54,7 @@ CLASSES = {
     "capacity": ("CapacityModel", "DemandForecaster", "ShadowScaler"),
     "audit": ("ParamFingerprinter", "CanaryProber", "ShadowReplayer",
               "AuditObservatory"),
+    "regress": ("RegressionDetector", "BaselineStore"),
 }
 
 
@@ -126,7 +124,7 @@ def test_the_sweep_covers_the_ported_modules():
             "introspect", "distributed", "parallel.mesh",
             "parallel.communicator", "parallel.__init__", "parallel.tp",
             "parallel.pipeline", "sonnx.backend", "__init__",
-            "models.__init__"} <= set(MODULES)
+            "models.__init__", "xprof", "regress"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)
                for names in PENDING.values() for item in names.values())

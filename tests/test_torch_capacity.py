@@ -22,8 +22,12 @@ singa_tpu.capacity.
   ?json=1), and /statusz has its section.
 - One `capacity --ab --device cpu` run at the CLI's defaults holds its
   record's `ok`; a `cuda` run without a card raises.
+- The A/B's CPU engine threads split the intra-op threads (ROADMAP.md,
+  Queue 3, fault 16): each runs at most the starting thread's count over
+  the number of engines.
 """
 
+import argparse
 import json
 import os
 import threading
@@ -417,6 +421,44 @@ def test_capacity_ab_on_cpu(tmp_path, tmp_path_factory):
         "capacity_cooldown_headroom_frac", "capacity_shadow_precision"}
     assert not [t.name for t in threading.enumerate() if t.is_alive()
                 and t.name.startswith(("singa-capacity", "singa-route"))]
+
+
+def test_ab_engine_threads_split_the_cores(monkeypatch):
+    """Fault 16: the capacity A/B's two CPU engines, built by its own
+    `_ab_build` at the CLI's defaults, each decode on at most the
+    starting thread's intra-op count over the number of engines. Each
+    engine thread at the full count oversubscribed the cores, and a sync
+    took several times its one-thread time."""
+    seen = {}
+    decode = tengine.ServingEngine._decode
+
+    def spy(self, *args):
+        seen[threading.get_ident()] = torch.get_num_threads()
+        return decode(self, *args)
+
+    monkeypatch.setattr(tengine.ServingEngine, "_decode", spy)
+    args = argparse.Namespace(
+        replicas=2, slots=2, vocab=211, dim=64, layers=2, page_size=8,
+        prompt_hi=12, new_hi=12, seed=1234, ramp_requests=80,
+        cool_requests=12, timeout=60.0, device="cpu")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        engines, ctls, r = tcapacity._ab_build(args)
+        try:
+            rng = np.random.RandomState(0)
+            hs = [e.submit(rng.randint(0, 211, 6).astype(np.int32), 9)
+                  for e in engines for _ in range(2)]
+            for h in hs:
+                assert h.wait(60) and h.outcome == "completed"
+        finally:
+            r.stop()
+            for ctl in ctls:
+                ctl.stop()
+    finally:
+        torch.set_num_threads(prev)
+    assert len(seen) == 2, seen
+    assert all(n <= 4 // 2 for n in seen.values()), seen
 
 
 def test_ab_needs_the_card_unless_cpu(tmp_path):

@@ -437,7 +437,7 @@ def test_bundles_carry_the_step_build_and_load_in_jax(tmp_path):
 
 # ---- explain ----------------------------------------------------------------
 
-def test_explain_keys_match_jax():
+def test_explain_keys_match_jax(tmp_path):
     j, t = _pair(8)
     reps = {}
     for name, side, mod in (("jax", j, jintro), ("port", t, introspect)):
@@ -460,8 +460,9 @@ def test_explain_keys_match_jax():
     text = introspect.format_explain(reps["port"])
     assert "GFLOP/step" in text and "compile phases" in text
     assert "recompile history (0)" in text
-    with pytest.raises(NotImplementedError, match="xprof"):
-        introspect.explain(xplane="somewhere")
+    # a trace dir with no capture: no top ops, as in JAX
+    assert introspect.explain(xplane=str(tmp_path))["top_ops"] \
+        == jintro.explain(xplane=str(tmp_path))["top_ops"] == []
 
 
 # ---- serving builds ---------------------------------------------------------
@@ -591,8 +592,14 @@ def test_cli_json(tmp_path):
     assert rep["gflops_per_step"] > 0 and rep["params"] > 0
     assert [b["reason"] for b in rep["recompiles"]] == ["batch_bucket"]
     assert any(e["hlo_path"] for e in rep["executables"])
+    trace = str(tmp_path / "trace")
+    TDEV.StartTrace(trace)
+    torch.ones(64, 64) @ torch.ones(64, 64)
+    TDEV.StopTrace()
     r = subprocess.run(
         [sys.executable, "-m", "singa_tpu_torch.introspect", "--device",
-         "cpu", "--xplane", str(tmp_path)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "xprof" in r.stderr
+         "cpu", "--json", "--steps", "1", "--xplane", trace], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    assert "aten::mm" in [t["op"] for t in rep["top_ops"]]

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ab-train OTHER_CHECKOUT
     python3 chip_smoke.py --pp-drift
     python3 chip_smoke.py --repeat-20c N
+    python3 chip_smoke.py --store-kernels STORE
 
 The third form only times the train steps of the two checkouts in the
 same turns: phase 6's bench GPT (eager and as a graph), and phase 7's
@@ -34,6 +35,10 @@ The fifth form only builds the kernels and runs phase 20c (the router's
 kill-and-replace A/B) N times, printing each run's wall, how often the
 kill trigger froze the victim and thawed it again, and its verdict; it
 exits non-zero if any run failed (`repeat_20c`).
+
+The sixth form is phase 23b's child: it enables the warm store at STORE,
+loads K1 and K4 from it and runs them against their plain versions,
+printing one JSON line (`store_kernels`).
 
 Phases, each of which exits non-zero on failure:
 
@@ -171,7 +176,7 @@ Phases, each of which exits non-zero on failure:
    9c. MoE-GPT serving, phase 9's configuration: generate b8, prompt 128,
    +MOE_NEW, bf16 at the layers' capacity factor and at 8 (no drops), with
    int8 weights and with an int4 cache; the engine, 8 requests of prompt
-   256, +32, 8 slots, page 16; exact K1/K3/K4 counts; both under the
+   256, +MOE_NEW, 8 slots, page 16; exact K1/K3/K4 counts; both under the
    profiler; fp32 teacher-forced logits, dense and paged, kernels against
    plain (LOGIT_TOL); then a random GPT-2-convention state dict through
    load_gpt2_weights into GPT-2-small on the card and on the CPU, logits
@@ -452,7 +457,27 @@ Phases, each of which exits non-zero on failure:
    training leg at the module's card defaults): the record's `ok` (the
    contention and compile legs convicted within 5 windows, zero false
    positives in the clean arms); K1 and K4 (only) launched over it.
-23. The `kernels` JSON line (the decode kernels with a `modes` entry per
+23. The warm store (`warmstart`) on the card. 23a `router.main(["--warm-ab",
+   ...])` (AB_WARM: dim 512, 2 layers, vocab 211): a replica against an
+   empty store, then one against the same store, each a fresh Python
+   process: at the module's defaults, six of the seven checks (the cold
+   arm exported and hit nothing, the warm arm's lookups all hits, its
+   compile at most 0.10 of the cold arm's, the same probe tokens) must
+   hold and none may be `not_applicable`; the seventh, spawn-to-first-
+   token at least 3.0 times faster, is printed with its verdict and does
+   not fail the phase (ROADMAP.md Queue 3 item 19: a fresh interpreter's
+   imports alone take about as long as the builds the store saves); K1
+   and K4 launched in both arms (the replicas' own counts), both startup
+   splits printed, then a fresh interpreter's `import torch` alone
+   timed. 23b: `build_all()` into a fresh store in this process (six
+   misses, six nvcc builds), again (six hits); then kernel.flash_fwd's
+   blob truncated and kernel.paged_attention's meta given another
+   torch_version: corrupt and stale, each rebuilt by nvcc, the rest hits;
+   then a new process (`--store-kernels`, so that no library comes from
+   this process's loader) loads K1 and K4 from the store, all hits, maps
+   exactly the rebuilt files (by inode), and launches them against their
+   plain versions at phase 2's tolerances.
+24. The `kernels` JSON line (the decode kernels with a `modes` entry per
    cache mode and ladder; `launches_by_path` adds `moe_train`,
    `moe_generate`, `moe_engine`, `onnx_export`, `observe_engine`,
    `observe_train`, `slo_clean`, `slo_degraded`, `slo_generate`,
@@ -462,8 +487,8 @@ Phases, each of which exits non-zero on failure:
    `fit_resilient`, `hang_restart`, `preempt_resume`, `dp_train`,
    `tp_train`, `sp_train`, `ring_loopback`, `ep_train`, `pp_train`,
    `pp_loopback`, `router_engines`, `router_drain`, `slo_ab`,
-   `capacity_ab`, `xprof_train` and `regress_ab`), then the card line,
-   then the result line.
+   `capacity_ab`, `xprof_train`, `regress_ab` and `warm_ab`), then the
+   card line, then the result line.
 
 Needs one CUDA card; with none it prints no result and exits 1.
 """
@@ -2851,16 +2876,17 @@ def _gpt2_state(cfg, seed):
     return st
 
 
-#: 9c's depth: new tokens of `generate` at both capacity factors (cut
-#: from 128 to make room for phase 20)
-MOE_NEW = 32
+#: 9c's depth: new tokens of each `generate` (both capacity factors,
+#: int8 weights, an int4 cache) and of the engine's requests (cut from
+#: 128 to make room for phase 20, then from 32 for phase 23)
+MOE_NEW = 16
 
 
 def phase_moe_serve(torch, models, engine, serving, transformer, A):
     """MoE-GPT serving at phase 9's width, random weights from SEED:
     generate (b8, prompt 128, +MOE_NEW, bf16) at the layers' capacity factor
-    and at 8 (no drops), +32 with int8 weights and with an int4 cache; the
-    engine (8 requests of prompt 256, +32, 8 slots, page 16); exact K1,
+    and at 8 (no drops), with int8 weights and with an int4 cache; the
+    engine (8 requests of prompt 256, +MOE_NEW, 8 slots, page 16); exact K1,
     K3 and K4 counts; fp32 teacher-forced logits, kernels against plain;
     then a random GPT-2-convention state through load_gpt2_weights into
     GPT-2-small on the card and on the CPU."""
@@ -2875,13 +2901,13 @@ def phase_moe_serve(torch, models, engine, serving, transformer, A):
     model.generate(prompts[:, :8], 2, dtype="bfloat16")
     part.lap("9c: model and warm-up")
     counts = {}
-    # +MOE_NEW at both capacity factors, +32 with int8 weights and an
+    # +MOE_NEW at both capacity factors, with int8 weights and with an
     # int4 cache
     for what, new, kw in (
             ("generate", MOE_NEW, {}),
             ("generate cf 8", MOE_NEW, {"moe_capacity_factor": float(E)}),
-            ("generate int8 weights", 32, {"dtype": "int8"}),
-            ("generate kv int4", 32, {"kv_dtype": "int4"})):
+            ("generate int8 weights", MOE_NEW, {"dtype": "int8"}),
+            ("generate kv int4", MOE_NEW, {"kv_dtype": "int4"})):
         kw = dict({"dtype": "bfloat16"}, **kw)
         t0 = time.perf_counter()
         out, got, _ = window(torch, A, lambda: model.generate(prompts, new,
@@ -2896,7 +2922,7 @@ def phase_moe_serve(torch, models, engine, serving, transformer, A):
         counts[what] = got
     part.lap("9c: generate")
     gen = {k: sum(c[k] for c in counts.values()) for k in A.LAUNCHES}
-    reqs_in = [(rng.randint(0, V, (256,)).astype(np.int32), 32)
+    reqs_in = [(rng.randint(0, V, (256,)).astype(np.int32), MOE_NEW)
                for _ in range(8)]
     (reqs, wall, _, steps), eng, _ = window(
         torch, A, lambda: serve(engine, model, reqs_in, max_slots=8,
@@ -7462,6 +7488,231 @@ def phase_regress_ab(torch, regress, A, root):
     return got
 
 
+# ---- phase 23: the warm store --------------------------------------------
+#: 23a's replicas: the warm A/B at the flash kernel's head width 128 (dim
+#: 512, 4 heads), the module's defaults otherwise (2 layers, vocab 211,
+#: --warm-compile-frac 0.10, --warm-speedup 3.0)
+AB_WARM = ["--dim", str(REPLICA["dim"]), "--device", "cuda",
+           "--timeout", "300"]
+
+
+def _split(startup):
+    return ", ".join(f"{p} {startup.get(p, 0.0):.3f}"
+                     for p in ("spawn", "import", "build", "trace", "lower",
+                               "compile", "warm", "ready") if p in startup)
+
+
+def phase_warm_ab(A, router, root):
+    """23a: `router.main(["--warm-ab", ...])` on the card (AB_WARM): a
+    replica against an empty warm store, then a fresh one against the same
+    store, each a fresh Python process. At the module's default
+    thresholds every check but the speedup must hold and none may be
+    `not_applicable` (the cold arm runs nvcc); the speedup check is
+    printed with its verdict (ROADMAP.md Queue 3 item 19). K1 and K4
+    launched in both arms (the replicas' own counts, from zero at their
+    start), both arms' startup splits printed, then a fresh interpreter's
+    `import torch` alone timed. Returns the two arms' launches, summed,
+    by kernel."""
+    print(f"== phase 23a: the cold-vs-warm spawn A/B on the card "
+          f"({' '.join(AB_WARM)})")
+    out = os.path.join(root, "WARM_torch.json")
+    t0 = time.perf_counter()
+    rc = router.main(["--warm-ab", *AB_WARM, "--out", out])
+    wall = time.perf_counter() - t0
+    rec = _ab_record(out)
+    for arm in ("cold", "warm"):
+        r = rec[arm]
+        look = (r.get("warm") or {}).get("lookups")
+        print(f"  {arm}: spawn to first token "
+              f"{r['spawn_to_first_token_s']:.3f} s; startup {{"
+              f"{_split(r['startup'])}}} s; lookups {look}, exports "
+              f"{(r.get('warm') or {}).get('exports')}; launches "
+              f"{r.get('launches')}")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], check=True,
+                   timeout=300)
+    torch_s = time.perf_counter() - t0
+    speedup_ok = rec["checks"]["warm_spawn_speedup_ok"]
+    print(f"  rc {rc}, {wall:.1f} s ({card_line()}); compile frac "
+          f"{rec['compile_frac']} (limit "
+          f"{rec['thresholds']['warm_compile_frac']}), spawn speedup "
+          f"{rec['spawn_speedup']} (limit "
+          f"{rec['thresholds']['warm_speedup']}, "
+          f"{'met' if speedup_ok else 'MISSED: ROADMAP.md Queue 3 item 19'}"
+          f"); checks {rec['checks']}; a fresh interpreter's "
+          f"`import torch` alone {torch_s:.3f} s")
+    print("  WARM_torch.json " + json.dumps(rec, sort_keys=True))
+    got = {k: sum(int((rec[arm].get("launches") or {}).get(k, 0))
+                  for arm in ("cold", "warm")) for k in A.LAUNCHES}
+    ran = all((rec[arm].get("launches") or {}).get(k, 0) > 0
+              for arm in ("cold", "warm")
+              for k in ("flash_fwd", "paged_attention"))
+    others = {k: v for k, v in rec["checks"].items()
+              if k != "warm_spawn_speedup_ok"}
+    if rc != (0 if speedup_ok else 1) or rec["ok"] is not speedup_ok \
+            or not isinstance(speedup_ok, bool) or rec["not_applicable"] \
+            or rec["device"] != "cuda" or not ran \
+            or not all(v is True for v in others.values()) \
+            or rec["thresholds"] != {"warm_compile_frac": 0.1,
+                                     "warm_speedup": 3.0}:
+        fail(f"23a: rc {rc}, record {rec}")
+    return got
+
+
+def _swap_blob(path, n):
+    """Put the first `n` bytes of the file at `path` in its place as a new
+    file: the loaded library keeps its own mapping."""
+    with open(path, "rb") as f:
+        data = f.read()
+    with open(path + ".cut", "wb") as f:
+        f.write(data[:n])
+    os.replace(path + ".cut", path)
+
+
+def phase_warm_store(torch, A, build, warmstart, introspect, root):
+    """23b: `build_all()` into a fresh store in this process (six misses,
+    six nvcc builds exported), then again (six hits, no nvcc); then
+    kernel.flash_fwd's blob truncated and kernel.paged_attention's meta
+    given another torch_version, and `build_all()` once more: corrupt and
+    stale, each rebuilt by nvcc, the four others hits. Then a new process
+    (`store_kernels`) loads K1 and K4 from the store (two hits), must map
+    exactly the rebuilt files, and runs them against their plain versions
+    at phase 2's tolerances. The libraries of `.kernel_build/` are put
+    back after."""
+    print("== phase 23b: the warm store's kernel libraries")
+    kept = dict(build._libs)
+    store = warmstart.enable(os.path.join(root, "store"))
+    try:
+        results = []
+        for turn in ("fresh", "again"):
+            build._libs.clear()
+            n0 = len(warmstart.lookup_history())
+            t0 = time.perf_counter()
+            build.build_all()
+            wall = time.perf_counter() - t0
+            got = {r["key"]: r["result"]
+                   for r in warmstart.lookup_history()[n0:]}
+            results.append(got)
+            print(f"  build_all {turn}: {wall:.3f} s, "
+                  f"{sorted(set(got.values()))}; nvcc "
+                  f"{ {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()} }")
+        keys = {f"kernel.{n}" for n in build.SOURCES}
+        if results[0] != dict.fromkeys(keys, "miss") \
+                or results[1] != dict.fromkeys(keys, "hit") \
+                or {e["key"] for e in store.entries()} != keys:
+            fail(f"23b: lookups {results}, entries {store.entries()}")
+        fp = {n: introspect.last_build(f"kernel.{n}")["fingerprint"]
+              for n in ("flash_fwd", "paged_attention")}
+        bin_path, _ = store.entry_paths("kernel.flash_fwd", fp["flash_fwd"])
+        _swap_blob(bin_path, os.path.getsize(bin_path) // 2)
+        _, meta_path = store.entry_paths("kernel.paged_attention",
+                                         fp["paged_attention"])
+        with open(meta_path, encoding="utf-8") as f:
+            meta = json.load(f)
+        meta["torch_version"] = "0.0.1"
+        with open(meta_path + ".x", "w", encoding="utf-8") as f:
+            json.dump(meta, f)
+        os.replace(meta_path + ".x", meta_path)
+        build._libs.clear()
+        before = dict(build.BUILD_SECONDS)
+        n0 = len(warmstart.lookup_history())
+        t0 = time.perf_counter()
+        build.build_all()
+        wall = time.perf_counter() - t0
+        got = {r["key"]: r["result"] for r in warmstart.lookup_history()[n0:]}
+        rebuilt = sorted(n for n, v in build.BUILD_SECONDS.items()
+                         if before.get(n) != v)
+        warm = {n: introspect.last_build(f"kernel.{n}")["warm"]
+                for n in ("flash_fwd", "paged_attention")}
+        print(f"  after the damage: {wall:.3f} s, {got}; rebuilt by nvcc "
+              f"{rebuilt}; build records {warm}")
+        want = dict.fromkeys(keys, "hit")
+        want.update({"kernel.flash_fwd": "corrupt",
+                     "kernel.paged_attention": "stale"})
+        if got != want or rebuilt != ["flash_fwd", "paged_attention"] \
+                or warm != {"flash_fwd": "corrupt",
+                            "paged_attention": "stale"} \
+                or store.check("kernel.flash_fwd", fp["flash_fwd"])[1] \
+                != "hit":
+            fail(f"23b: after the damage {got}, rebuilt {rebuilt}, {warm}")
+        # K1 and K4 from the rebuilt libraries, in a new process: this
+        # one's loader would hand back the libraries it mapped before
+        expect = {}
+        for n in ("flash_fwd", "paged_attention"):
+            p, _ = store.entry_paths(f"kernel.{n}", fp[n])
+            expect[os.path.realpath(p)] = os.stat(p).st_ino
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--store-kernels", store.root],
+                           capture_output=True, text=True, timeout=300)
+        got = json.loads(r.stdout.strip().splitlines()[-1])[
+            "store_kernels"] if r.returncode == 0 else {}
+        print(f"  a new process on the store: lookups {got.get('lookups')}"
+              f", K1 max_abs_err {got.get('k1_err')}, K4 "
+              f"{got.get('k4_err')} (tol {TOL['bfloat16']}); launches "
+              f"{got.get('launches')}; mapped the rebuilt files "
+              f"{got.get('mapped') == expect}")
+        if r.returncode != 0 or got["lookups"] != {
+                "kernel.flash_fwd": "hit", "kernel.paged_attention": "hit"} \
+                or got["mapped"] != expect \
+                or not (got["k1_err"] <= TOL["bfloat16"]
+                        and got["k4_err"] <= TOL["bfloat16"]) \
+                or got["launches"] != {"flash_fwd": 1, "paged_attention": 1}:
+            fail(f"23b: the new process: rc {r.returncode}, {got}, "
+                 f"expected the files {expect}; stderr "
+                 f"{r.stderr[-2000:]}")
+    finally:
+        warmstart.reset()
+        build._libs.clear()
+        build._libs.update(kept)
+
+
+def store_kernels(torch, store_root):
+    """--store-kernels STORE: phase 23b's child. Enables the warm store at
+    STORE, runs K1 and K4 (the wrappers' first calls load their libraries
+    from the store) against their plain versions on 23b's inputs, and
+    prints one JSON line: the errors, the launches, the store's lookups
+    and the store's files this process mapped (real path: inode, from
+    /proc/self/maps)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from singa_tpu_torch import warmstart
+    from singa_tpu_torch.ops import attention as A
+    warmstart.enable(store_root)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    before = A.launch_counts()
+    q, k, v = (torch.randn((8, 12, 128, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    e1 = float((A.flash_attention(q, k, v, True).float()
+                - A.attention_reference(q.float(), k.float(), v.float(),
+                                        True)).abs().max())
+    N, Hp, Q, PD, T, ps, n_pages = 8, 6, 2, 128, 1024, 16, 512
+    lens = torch.tensor([1, 17, 512, 1024, 100, 333, 777, 64],
+                        dtype=torch.int32, device=dev)
+    pt = torch.randperm(n_pages, generator=g, device=dev)[
+        :N * (T // ps)].reshape(N, T // ps).to(torch.int32).contiguous()
+    qd = torch.randn((N, Hp, Q, PD), generator=g, device=dev).to(
+        torch.bfloat16)
+    kp, vp = (torch.randn((n_pages, Hp, ps, PD), generator=g,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    e4 = float((A.paged_attention(qd, kp, vp, pt, lens, ps, 0.125)
+                .float() - A.paged_attention_reference(
+                    qd.float(), kp.float(), vp.float(), pt, lens, ps,
+                    0.125)).abs().max())
+    launched, _ = A.launches_since(before)
+    prefix = os.path.realpath(store_root) + os.sep
+    mapped = {}
+    with open("/proc/self/maps", encoding="utf-8") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 6 and parts[5].startswith(prefix):
+                mapped[parts[5]] = int(parts[4])
+    print(json.dumps({"store_kernels": {
+        "k1_err": e1, "k4_err": e4, "launches": launched,
+        "lookups": {r["key"]: r["result"]
+                    for r in warmstart.lookup_history()},
+        "mapped": mapped}}))
+
+
 def decode_modes(A, rows, name, by_mode):
     """The `modes` entries of a decode kernel's JSON row: per (cache mode,
     single/ladder), the phase-2 case at the main path's dtype (bf16) and
@@ -7752,6 +8003,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--repeat-20c"] and len(sys.argv) == 3:
         return repeat_20c(torch, int(sys.argv[2]))
+    if sys.argv[1:2] == ["--store-kernels"] and len(sys.argv) == 3:
+        store_kernels(torch, sys.argv[2])
+        return 0
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -7976,6 +8230,13 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         by_path["regress_ab"] = phase_regress_ab(torch, regress, A, root)
     clock.lap("phase 22c")
+    from singa_tpu_torch import warmstart
+    with tempfile.TemporaryDirectory() as root:
+        by_path["warm_ab"] = phase_warm_ab(A, router, root)
+    clock.lap("phase 23a")
+    with tempfile.TemporaryDirectory() as root:
+        phase_warm_store(torch, A, _build, warmstart, introspect, root)
+    clock.lap("phase 23b")
 
     # the JSON line reports each kernel at its main path's shape and
     # dtype (the decode kernels: fp single at their main path's middle

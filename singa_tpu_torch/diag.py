@@ -37,9 +37,8 @@ package's route table and status codes:
   /regressz  the regression observatory (regress); ?json=1 structured;
              503 until a RegressionDetector is installed
 
-The warm-start section of /statusz waits for `warmstart` (ROADMAP.md
-Queue 1 item 7c) and prints, in the JAX form, "(warm-start unavailable:
-...)".
+The warm-start section of /statusz is `warmstart.warm_report()`: the
+store, its occupancy, the lookups by result and the exports.
 
 Start it with `observe.start_diag_server(port=0)` (port 0 = ephemeral;
 default port comes from `SINGA_TPU_DIAG_PORT`). Starting the server
@@ -231,8 +230,11 @@ class _Handler(BaseHTTPRequestHandler):
             parts.append(regress.regress_report())
         except Exception as e:
             parts.append(f"(regress unavailable: {e})")
-        parts.append("(warm-start unavailable: singa_tpu_torch.warmstart "
-                     "is not ported yet (ROADMAP.md Queue 1 item 7c))")
+        try:
+            from . import warmstart
+            parts.append(warmstart.warm_report())
+        except Exception as e:
+            parts.append(f"(warm-start unavailable: {e})")
         mon = self._monitor()
         if mon is None:
             parts.append("== health ==\nno HealthMonitor attached")

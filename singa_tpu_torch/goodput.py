@@ -29,9 +29,9 @@ until the next step span so the health layer can reclassify a discarded
 update into `health_skip` (`mark_step_skipped`, called by the graph-mode
 step after the monitor's verdict "skip"); a concurrent scrape cannot
 steal the hold, and in-flight mapped spans are reserved at snapshot time
-so a mid-build scrape books nothing twice. `model.jit_fallback` and
-`introspect.warm_load` keep their JAX mappings and have no site in the
-port.
+so a mid-build scrape books nothing twice. `introspect.warm_load` (a
+warm-store lookup, `warmstart`) books `compile` too; `model.jit_fallback`
+keeps its JAX mapping and has no site in the port.
 
 Two measurement boundaries, stated rather than hidden: (1) the card runs
 asynchronously, so the step span is honest when something fences it:
@@ -87,8 +87,8 @@ SPAN_BUCKETS = {
     "serving.beam_decode": BUCKET_STEP,
     "model.build": BUCKET_COMPILE,
     "introspect.build": BUCKET_COMPILE,
-    # a warm restart's read of stored builds is still compile-bucket
-    # time (the warm-start layer, not yet ported, has no site here)
+    # a warm restart's read of stored builds and kernel libraries is
+    # still compile-bucket time (there is just little of it)
     "introspect.warm_load": BUCKET_COMPILE,
     "model.jit_fallback": BUCKET_COMPILE,
     "data.wait": BUCKET_DATA_WAIT,

@@ -19,7 +19,10 @@ so `singa_compile_phase_seconds{phase,key}` reads as in the JAX package:
 3. An nvcc build of a kernel library (`ops/_build.py`), under the key
    `kernel.<source>`: its wall time is the compile phase, and its
    fingerprint is the build hash that names the `.so`. A library loaded
-   from `.kernel_build/` without a build registers nothing.
+   from `.kernel_build/` without a build registers nothing; one loaded
+   from the warm store registers its lookup's time as the compile phase.
+   A build nested in another's first call (a kernel built inside a
+   step's warm-up) is netted out of that call's trace phase.
 
 Each build registers a signature for recompile blame (`signature`,
 `blame` against the nearest prior signature of its key, the fixed
@@ -78,9 +81,18 @@ override, then `config.PEAK_TFLOPS` / `SINGA_TPU_PEAK_TFLOPS`, then
 card the table does not know has no MFU), dropping a sample above 100%
 unless the peak is overridden.
 
-Not yet here: the warm store (`export_executable`, `load_executable`,
-the `introspect.warm_load` span and `warm` results, which stay None)
-comes with the port's `warmstart` (ROADMAP.md Queue 1 item 7c).
+The warm store (`warmstart`): with it enabled (`SINGA_TPU_COMPILE_CACHE`
+or `warmstart.enable`), every step, eval and serving build first looks
+its (key, signature fingerprint) up inside the span
+`introspect.warm_load` (`load_executable`). A hit runs the first call
+plainly, without the counting mode, and registers the stored cost,
+memory and op listing; a miss, stale or corrupt entry counts as before
+and then writes its record (`export_executable`). A CUDA-graph step still
+warms up and captures: only the counting pass goes. Where the JAX
+package stores a callable, the port stores the build record, so
+`load_executable`'s first element is that record. The lookup's result
+(hit|miss|stale|corrupt, None with the store disabled) lands on the build
+record (`warm`), the EventLog record and `explain`.
 `explain(xplane=dir)` (and `--xplane DIR`) appends the top ops of a
 `Device.StartTrace` capture by measured device time (`xprof.top_ops`).
 
@@ -644,22 +656,37 @@ class kernel_cost:
         return False
 
 
-def trace(fn):
+_nested = threading.local()   # seconds of kernel builds on this thread
+
+
+def _nested_seconds() -> float:
+    return getattr(_nested, "seconds", 0.0)
+
+
+def _timed(fn):
+    """(fn(), its wall seconds less the kernel builds nested in it)."""
+    n0 = _nested_seconds()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0 - (_nested_seconds() - n0)
+
+
+def trace(fn, listing=False):
     """Run `fn()` under a counting mode, the trace phase of a build:
-    (out, counter, wall seconds); `counter.cost()` is the build's cost,
-    `counter.lines` its op listing (kept while `capture_hlo` is on)."""
+    (out, counter, wall seconds less nested kernel builds);
+    `counter.cost()` is the build's cost, `counter.lines` its op listing
+    (kept while `capture_hlo` is on, or with `listing`)."""
     global _counting
-    c = _Counter(_hlo_dir is not None)
+    c = _Counter(listing or _hlo_dir is not None)
     with _lock:
         _counting += 1
-    t0 = time.perf_counter()
     try:
         with c:
-            out = fn()
+            out, seconds = _timed(fn)
     finally:
         with _lock:
             _counting -= 1
-    return out, c, time.perf_counter() - t0
+    return out, c, seconds
 
 
 # ---- the op listing (the HLO text's counterpart) ---------------------------
@@ -731,13 +758,15 @@ def blame_history():
 # ---- builds ----------------------------------------------------------------
 
 def record_build(key, sig, phases, cost=None, memory=None, lines=None,
-                 device=None, fingerprint=None, capture_pending=False):
+                 device=None, fingerprint=None, capture_pending=False,
+                 warm=None):
     """Register one build (the port's `build_compiled` bookkeeping):
     phase histograms (all three, or trace and lower only while a CUDA
     graph's capture is pending: `complete_build` adds compile), the
     cost and memory gauges, the op listing, blame against the nearest
     prior signature of `key`, the EventLog record and the manifest
-    entry. Returns the build record."""
+    entry; `warm` is the warm store's lookup result. Returns the build
+    record."""
     fingerprint = fingerprint or _sig_fingerprint(key, sig)
     phases = {p: float(phases.get(p, 0.0)) for p in COMPILE_PHASES}
     for p in COMPILE_PHASES:
@@ -759,7 +788,7 @@ def record_build(key, sig, phases, cost=None, memory=None, lines=None,
     rec = {"key": key, "fingerprint": fingerprint, "phases": phases,
            "cost": cost, "memory": mem,
            "hlo_path": _write_ops(lines, key, fingerprint),
-           "warm": None, "ts": round(time.time(), 6)}
+           "warm": warm, "ts": round(time.time(), 6)}
     _register_build(key, sig, rec, device=device)
     return rec
 
@@ -788,9 +817,117 @@ def complete_build(rec, compile_s, temps=None, graph_path=None):
     return rec
 
 
+# ---- the warm store's build records ----------------------------------------
+
+RECORD_FORMAT = "singa_tpu_torch.build_record"
+
+
+def _sig_json(sig) -> dict:
+    return {"tag": sig.get("tag"), "static": sig.get("static"),
+            "donated": list(sig.get("donated") or ()),
+            "leaves": [[n, list(s), d] for n, s, d in sig["leaves"]],
+            "batch_hint": sig.get("batch_hint")}
+
+
+def export_executable(fn, args, key, fingerprint, *, sig=None,
+                      record=None) -> "bytes | None":
+    """Write the build record of `fn` for `args` into the warm store
+    under (key, fingerprint): `record` (a build's, as `record_build`
+    returned it) when given, else the count of one run of `fn(*args)`
+    under the counting mode. The blob is JSON: the signature (`sig`, by
+    default `signature(args)`), the cost, the memory and the op listing.
+    Returns it, or None when the store is disabled or the write fails:
+    the caller goes on without it."""
+    from . import warmstart
+    store = warmstart.get_store()
+    if store is None:
+        return None
+    if sig is None:
+        sig = signature(args)
+    if record is None:
+        out, c, _s = trace(lambda: fn(*args), listing=True)
+        record = {"cost": c.cost(), "lines": c.lines,
+                  "memory": {"arguments": _nbytes(_flatten(args, [])),
+                             "outputs": _nbytes(_flatten(out, []))}}
+    blob = json.dumps({
+        "format": RECORD_FORMAT, "key": key, "fingerprint": fingerprint,
+        "signature": _sig_json(sig), "cost": dict(record["cost"]),
+        "memory": dict(record["memory"]), "lines": record.get("lines")},
+        sort_keys=True, default=str).encode("utf-8")
+    if store.save(key, fingerprint, blob) is None:
+        return None
+    return blob
+
+
+def _decode(blob, key, fingerprint) -> "dict | None":
+    """The stored record, or None when the blob is not one or was not
+    written for this (key, signature)."""
+    try:
+        rec = json.loads(blob.decode("utf-8"))
+        ok = (isinstance(rec, dict) and rec.get("format") == RECORD_FORMAT
+              and rec.get("key") == key
+              and _sig_fingerprint(key, rec["signature"]) == fingerprint
+              and isinstance(rec.get("cost"), dict)
+              and isinstance(rec.get("memory"), dict))
+    except (ValueError, KeyError, TypeError, AttributeError):
+        return None
+    return rec if ok else None
+
+
+def load_executable(key, fingerprint, *, count: bool = True):
+    """Load the warm-store entry for (key, fingerprint): (record, result,
+    seconds). The record is the stored build record ({signature, cost,
+    memory, lines}; None unless `result` is "hit"), where the JAX
+    package's is a callable; result is a member of
+    warmstart.CACHE_RESULTS, or (None, None, 0.0) with the store
+    disabled. An unreadable meta, a sha-256 mismatch, or a blob that does
+    not decode or holds another signature classify as corrupt; a meta
+    whose fingerprint or torch version differs as stale; both delete the
+    entry, so the fresh build writes a clean replacement. With
+    count=False the caller records the classification itself."""
+    from . import warmstart
+    store = warmstart.get_store()
+    if store is None:
+        return None, None, 0.0
+    t0 = time.perf_counter()
+    blob, result = store.load(key, fingerprint)
+    rec = None
+    if blob is not None:
+        rec = _decode(blob, key, fingerprint)
+        if rec is None:
+            result = warmstart.RESULT_CORRUPT
+            store.discard(key, fingerprint)
+    seconds = time.perf_counter() - t0
+    if count:
+        warmstart.note_lookup(key, fingerprint, result, seconds)
+    return rec, result, seconds
+
+
+def first_call(fn, key, sig):
+    """A build's trace phase with the warm store: look (key, signature
+    fingerprint) up, then run `fn()` once, plainly on a hit (the stored
+    record holds the count), else under the counting mode (with its
+    listing while the store is enabled). Returns (out, cost, memory or
+    None, lines, seconds, warm): `memory` is the stored one on a hit,
+    `warm` the lookup's result (None with the store disabled)."""
+    from . import warmstart
+    warmstart.maybe_enable_from_env()
+    stored = warm = None
+    if warmstart.is_enabled():
+        with observe.span("introspect.warm_load", key=key):
+            stored, warm, _s = load_executable(key,
+                                               _sig_fingerprint(key, sig))
+    if stored is not None:
+        out, seconds = _timed(fn)
+        return (out, stored["cost"], stored["memory"], stored.get("lines"),
+                seconds, warm)
+    out, c, seconds = trace(fn, listing=warm is not None)
+    return out, c.cost(), None, c.lines, seconds, warm
+
+
 def build_compiled(fn, args, key, sig=None, device=None):
-    """Build `fn` for `args`: the trace phase runs `fn(*args)` once under
-    the counting mode (eager PyTorch builds by running), then the build
+    """Build `fn` for `args`: the trace phase runs `fn(*args)` once (under
+    the counting mode, or plainly on a warm-store hit), then the build
     registers (`record_build`). Returns (fn, build record); the call's
     outputs are discarded (`AotExecutor` keeps them)."""
     _out, rec = _build_call(fn, args, key, sig, device)
@@ -803,24 +940,36 @@ def _build_call(fn, args, key, sig=None, device=None):
     # span -> the goodput `compile` bucket; the watchdog taints a guard it
     # opens in
     with observe.span("introspect.build", key=key):
-        out, c, seconds = trace(lambda: fn(*args))
-    rec = record_build(
-        key, sig, {"trace": seconds}, c.cost(),
-        {"arguments": _nbytes(_flatten(args, [])),
-         "outputs": _nbytes(_flatten(out, []))}, c.lines, device=device)
+        out, cost, mem, lines, seconds, warm = first_call(
+            lambda: fn(*args), key, sig)
+    if mem is None:
+        mem = {"arguments": _nbytes(_flatten(args, [])),
+               "outputs": _nbytes(_flatten(out, []))}
+    rec = record_build(key, sig, {"trace": seconds}, cost, mem, lines,
+                       device=device, warm=warm)
+    export_built(key, sig, rec, lines)
     return out, rec
 
 
-def register_kernel_build(source, seconds, lib_path):
-    """An nvcc build of `csrc/<source>.cu`: key `kernel.<source>`, its
-    wall seconds the compile phase, its fingerprint the build hash that
-    names the library."""
-    name = os.path.basename(lib_path)
-    fingerprint = name.rsplit("-", 1)[-1].split(".", 1)[0]
-    sig = {"tag": None, "static": name, "donated": (), "leaves": [],
-           "batch_hint": None}
-    return record_build(f"kernel.{source}", sig,
-                        {"compile": seconds}, fingerprint=fingerprint)
+def export_built(key, sig, rec, lines):
+    """After a build whose lookup was not a hit (the store enabled):
+    write its record, `lines` its op listing."""
+    if rec.get("warm") not in (None, "hit"):
+        export_executable(None, None, key, rec["fingerprint"], sig=sig,
+                          record={"cost": rec["cost"],
+                                  "memory": rec["memory"], "lines": lines})
+
+
+def register_kernel_build(source, seconds, fingerprint, warm=None):
+    """An nvcc build of `csrc/<source>.cu` (or, with the warm store, a
+    hit's load): key `kernel.<source>`, its wall seconds the compile
+    phase (netted out of any build whose first call it ran in), its
+    fingerprint the source hash that names the library."""
+    _nested.seconds = _nested_seconds() + float(seconds)
+    sig = {"tag": None, "static": f"lib{source}-{fingerprint}.so",
+           "donated": (), "leaves": [], "batch_hint": None}
+    return record_build(f"kernel.{source}", sig, {"compile": seconds},
+                        fingerprint=fingerprint, warm=warm)
 
 
 def _register_build(key, sig, rec, device=None):
@@ -852,7 +1001,9 @@ def _register_build(key, sig, rec, device=None):
             "fingerprint": rec["fingerprint"],
             "phases": {k: round(v, 6) for k, v in rec["phases"].items()},
             "flops": rec["cost"].get("flops"),
-            # the warm store's lookup result: None until warmstart
+            # the warm store's lookup result (hit|miss|stale|corrupt),
+            # None with the store disabled: the EventLog doubles as the
+            # warm-start audit trail
             "warm": rec.get("warm"),
         })
     if key == "step":
@@ -967,8 +1118,11 @@ def format_explain(rep: dict) -> str:
                      f"{_mb(rep.get('bytes_accessed_per_step'))} accessed")
     ph = rep.get("compile_phases_s")
     if ph:
+        warm = ((rep.get("builds") or {}).get("step") or [{}])[-1].get(
+            "warm")
         lines.append("  compile phases: " + "  ".join(
-            f"{p} {ph.get(p, 0.0):.3f}s" for p in COMPILE_PHASES))
+            f"{p} {ph.get(p, 0.0):.3f}s" for p in COMPILE_PHASES)
+            + (f"  (warm store: {warm})" if warm else ""))
     hbm = rep.get("hbm")
     if hbm:
         lines.append("  memory: " + " | ".join(
@@ -989,7 +1143,9 @@ def format_explain(rep: dict) -> str:
         fl = float(r["cost"].get("flops", 0.0) or 0.0)
         lines.append(f"{key} build [{r['fingerprint']}]: "
                      f"{fl / 1e9:.4f} GFLOP, compile "
-                     f"{r['phases'].get('compile', 0.0):.3f}s")
+                     f"{r['phases'].get('compile', 0.0):.3f}s"
+                     + (f", warm store: {r['warm']}" if r.get("warm")
+                        else ""))
     mr = rep.get("mem_regions")
     if mr:
         live = " | ".join(f"{k} {_mb(v)}" for k, v in sorted(mr.items())
@@ -1129,6 +1285,7 @@ __all__ = [
     "signature", "blame", "build_compiled", "record_build",
     "complete_build", "graph_dump_path", "register_kernel_build",
     "kernel_cost", "on_device", "trace",
+    "export_executable", "load_executable", "first_call", "export_built",
     "AotExecutor", "note_step_flops",
     "capture_hlo", "executable_manifest", "latest_fingerprint",
     "last_build", "blame_history",

@@ -1095,30 +1095,35 @@ class Model(layer.Layer, metaclass=ModelMeta):
 
     def _warm_up(self, entry, fn, vals, dev, capture_next):
         """A signature's first call, its build's trace phase: fn(vals)
-        under introspect's counting mode, then the build registers with
-        its memory (arguments: the inputs and held states; outputs; on
-        CUDA temps, the call's peak rise less the outputs and the states
-        it created). With `capture_next` the capture at the second call
-        completes the record's compile phase."""
+        under introspect's counting mode (`introspect.first_call`: plainly
+        on a warm-store hit, whose stored record holds the count), then
+        the build registers with its memory (arguments: the inputs and
+        held states; outputs; on CUDA temps, the call's peak rise less the
+        outputs and the states it created; a hit's are the stored ones)
+        and, after a cold build with the store enabled, writes its record.
+        With `capture_next` the capture at the second call completes the
+        record's compile phase."""
         cuda = dev.type == "cuda"
         held0 = self._held_bytes(entry.key)
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
             start = torch.cuda.memory_allocated(dev)
-        out, counter, seconds = introspect.trace(
-            lambda: _detached(fn(vals)))
-        held = self._held_bytes(entry.key)
-        outputs = sum(t.numel() * t.element_size() for t in _leaves(out))
-        mem = {"arguments": held + sum(
-            _raw(v).numel() * _raw(v).element_size()
-            for v in vals if _is_tensor(v)), "outputs": outputs}
-        if cuda:
-            mem["temps"] = max(0, torch.cuda.max_memory_allocated(dev)
-                               - start - outputs - (held - held0))
+        out, cost, mem, lines, seconds, warm = introspect.first_call(
+            lambda: _detached(fn(vals)), entry.key, entry.sig)
+        if mem is None:
+            held = self._held_bytes(entry.key)
+            outputs = sum(t.numel() * t.element_size() for t in _leaves(out))
+            mem = {"arguments": held + sum(
+                _raw(v).numel() * _raw(v).element_size()
+                for v in vals if _is_tensor(v)), "outputs": outputs}
+            if cuda:
+                mem["temps"] = max(0, torch.cuda.max_memory_allocated(dev)
+                                   - start - outputs - (held - held0))
         entry.rec = introspect.record_build(
-            entry.key, entry.sig, {"trace": seconds}, counter.cost(), mem,
-            counter.lines, device=device_module.of(dev),
-            capture_pending=capture_next)
+            entry.key, entry.sig, {"trace": seconds}, cost, mem, lines,
+            device=device_module.of(dev), capture_pending=capture_next,
+            warm=warm)
+        introspect.export_built(entry.key, entry.sig, entry.rec, lines)
         return out
 
     def _capture(self, entry, fn, vals, dev):

@@ -50,8 +50,11 @@ the JAX loop does: a sustained straggler under the halt policy raises
 report's `exclude_hosts` names the host), and a peer's abort-stage hang
 verdict raises `watchdog.HangError` so this worker restores in lockstep.
 
-Not yet here: `warm_store` is None and resume does not re-join a warm
-store until `warmstart` (ROADMAP.md Queue 1 item 7).
+The manifest's `warm_store` is the warm store's root while one is
+enabled (`warmstart`), and resume re-joins it (event
+`warm_store_rejoined`) unless a store is enabled already or the
+directory is gone: a restart then loads its kernel libraries and build
+records instead of rebuilding them.
 
 Fault points wired in the port (`FaultPlan`'s rules match by arrival
 count and/or context, e.g. step=K):
@@ -250,6 +253,12 @@ def param_signature(model) -> dict:
             for k, t in model._raw_params().items()}
 
 
+def _warm_root() -> "str | None":
+    from . import warmstart
+    store = warmstart.get_store()
+    return store.root if store is not None else None
+
+
 def build_manifest(model, step: int, status: str = "ok",
                    extra: "dict | None" = None) -> dict:
     """Assemble the manifest dict for a checkpoint of `model` at `step`."""
@@ -270,8 +279,8 @@ def build_manifest(model, step: int, status: str = "ok",
         "hlo_fingerprints": [
             {"key": e.get("key"), "fingerprint": e.get("fingerprint")}
             for e in introspect.executable_manifest()[-8:]],
-        # the warm store comes with warmstart (item 7)
-        "warm_store": None,
+        # the warm-store root this run built against: resume() re-joins it
+        "warm_store": _warm_root(),
     }
     if extra:
         man.update(extra)
@@ -705,6 +714,20 @@ class TrainController:
             self._last_saved_step = self._step
             self._last_ckpt_path = path
             m["resumed_step"].set(float(self._step))
+            # re-join the warm store the dead run built against (its
+            # restart then loads kernel libraries and build records). An
+            # enable() made before resume wins; a store that vanished
+            # with the dead machine is skipped: resume never dies on it
+            ws = man.get("warm_store")
+            if ws:
+                from . import warmstart
+                if not warmstart.is_enabled() and os.path.isdir(ws):
+                    try:
+                        warmstart.enable(ws)
+                    except OSError:
+                        pass
+                    else:
+                        self._emit("warm_store_rejoined", root=ws)
             saved = (man.get("mesh") or {}).get("n_devices")
             live = distributed.topology()["n_devices"]
             self._emit("resume", path=path, resumed_step=self._step,

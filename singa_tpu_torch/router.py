@@ -45,8 +45,14 @@ lost requests, token-identical failover outputs, the p99 TTFT of both
 arms, the tail attribution of a fault arm and each replica's cold-start
 phases. Every replica installs `audit`'s param fingerprint (its
 `--corrupt-after N` flips one layer at the Nth tick: the audit A/B's
-injected corruption). The cold-vs-warm A/B (`--warm-ab`) comes with
-`warmstart` (ROADMAP.md Queue 1 item 7).
+injected corruption). `--warm-dir DIR` enables the warm store
+(`warmstart`) in each replica before any build, and the ready line
+carries its snapshot. `--warm-ab` is the cold-vs-warm spawn A/B: a
+replica against an empty store, then a fresh one against the same store,
+each a fresh Python process; the record (WARM_torch.json) holds both
+arms' startup splits, their lookups and seven checks (ROADMAP.md, known
+differences: on the CPU, where nothing is compiled, two of them do not
+apply).
 """
 
 from __future__ import annotations
@@ -1381,15 +1387,6 @@ class ReplicaControl:
 REPLICA_SEED = 0
 
 
-def _refuse_item7(args):
-    """The replica option that needs warmstart (ROADMAP.md Queue 1 item
-    7) raises, naming the item."""
-    if getattr(args, "warm_dir", None):
-        raise NotImplementedError(
-            "--warm-dir needs singa_tpu_torch.warmstart (ROADMAP.md "
-            "Queue 1 item 7)")
-
-
 def _build_replica_model(vocab: int, dim: int, layers: int,
                          max_seq: int, device: str = "cuda"):
     """Deterministic serving model: every replica builds THIS (same
@@ -1430,9 +1427,9 @@ def _replica_main(args) -> int:
     card the kernels' builds or loads land there), so build/warm report
     the rest of their wall time."""
     t_entry = time.time()
-    _refuse_item7(args)
     t0 = time.time()
-    from . import diag, engine, fleet, introspect, resilience, slo
+    from . import (diag, engine, fleet, introspect, resilience, slo,
+                   warmstart)
     startup = {"import": time.time() - t0}
     fleet._require_device(args.device)
     spawned_at = getattr(args, "spawned_at", None)
@@ -1440,6 +1437,14 @@ def _replica_main(args) -> int:
         startup["spawn"] = max(0.0, t_entry - float(spawned_at))
     observe.enable(True)
     observe.enable_span_records()
+    # the warm store BEFORE any build: with --warm-dir every kernel
+    # library and build record this replica makes lands in (or loads
+    # from) the shared store, so a restart (watchdog, resilience,
+    # scale-up) loads instead of rebuilding
+    if getattr(args, "warm_dir", None):
+        warmstart.enable(args.warm_dir)
+    else:
+        warmstart.maybe_enable_from_env()
     T = args.prompt_hi + args.new_hi
     c0 = introspect.compile_phase_totals()
     t0 = time.time()
@@ -1525,6 +1530,18 @@ def _replica_main(args) -> int:
     if spawned_at is not None and first_token_wall is not None:
         ready["spawn_to_first_token_s"] = round(
             first_token_wall - float(spawned_at), 6)
+    # the hand-written kernels' launches so far (prewarm's), which the
+    # card's warm A/B reads to show both arms ran them
+    from .ops import attention
+    ready["launches"] = {k: v for k, v in attention.LAUNCHES.items() if v}
+    if warmstart.is_enabled():
+        # the parent's warm A/B reads these to prove the child really
+        # loaded from the store (hits) or built fresh (misses)
+        ws = warmstart.snapshot()
+        ready["warm"] = {
+            "root": ws["root"], "lookups": ws["lookups"],
+            "hit_rate": ws["hit_rate"], "exports": ws["exports"],
+            "entries": ws["entries"]}
     print(json.dumps(ready), flush=True)
     try:
         while not ctl.shutdown_evt.wait(0.2):
@@ -1556,7 +1573,6 @@ def spawn_replica(name: str, fleet_dir: str, args, *,
     from .fleet import _require_device
     device = getattr(args, "device", "cuda")
     _require_device(device)
-    _refuse_item7(args)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, SINGA_FLEET_HOST=name)
     env.pop("SINGA_TPU_DIAG_PORT", None)
@@ -1578,6 +1594,10 @@ def spawn_replica(name: str, fleet_dir: str, args, *,
         cmd += ["--audit-interval", str(args.audit_interval)]
     if getattr(args, "corrupt_after", 0):
         cmd += ["--corrupt-after", str(args.corrupt_after)]
+    if getattr(args, "warm_dir", None):
+        # ship the warm store: the child loads its kernel libraries and
+        # build records instead of building them
+        cmd += ["--warm-dir", str(args.warm_dir)]
     proc = subprocess.Popen(cmd, cwd=root, env=env,
                             stdout=subprocess.PIPE, stderr=sys.stderr,
                             text=True)
@@ -2032,21 +2052,159 @@ def _ab_main(args) -> int:
 # ---- the cold-vs-warm spawn A/B ---------------------------------------------
 
 def _warm_probe(ctl_port: int, args, rid: int = 1) -> "list[int]":
-    """The warm A/B's seeded probe: it compares a replica that loaded its
-    builds from the warm store with one that built them, which needs
-    `warmstart` (ROADMAP.md Queue 1 item 7)."""
-    raise NotImplementedError(
-        "the warm A/B probe needs singa_tpu_torch.warmstart (ROADMAP.md "
-        "Queue 1 item 7)")
+    """One seeded probe against a replica's control surface; returns its
+    greedy tokens. Run against both A/B arms, the token lists must be
+    identical: what a replica loads from the warm store must not change
+    what it computes."""
+    rng = np.random.RandomState(int(args.seed))
+    prompt = rng.randint(1, int(args.vocab),
+                         size=max(1, int(args.prompt_lo))).tolist()
+    deadline = time.monotonic() + float(args.timeout)
+    while True:
+        out = _http_json(f"http://127.0.0.1:{ctl_port}/submit",
+                         {"rid": int(rid), "prompt": prompt,
+                          "max_new": max(1, min(8, int(args.new_hi))),
+                          "wait_s": 10.0}, timeout=30.0)
+        if out.get("outcome") == "completed":
+            return [int(t) for t in out["tokens"]]
+        if out.get("outcome") != "pending":
+            raise RuntimeError(f"warm A/B probe failed: {out}")
+        if time.monotonic() > deadline:
+            raise RuntimeError("warm A/B probe timed out")
+
+
+#: below this many seconds of cold compile the arm built nothing worth
+#: comparing (on the CPU the kernels' plain versions run and nvcc is never
+#: called), so the compile-fraction and speedup checks do not apply
+WARM_AB_MIN_COLD_COMPILE_S = 0.5
 
 
 def _warm_ab_main(args) -> int:
-    """The zero-compile-restart A/B (`--warm-ab`): a cold replica against
-    an empty warm store, then a warm one against the same store. Needs
-    `warmstart` (ROADMAP.md Queue 1 item 7)."""
-    raise NotImplementedError(
-        "--warm-ab needs singa_tpu_torch.warmstart (ROADMAP.md Queue 1 "
-        "item 7)")
+    """The zero-rebuild-restart A/B: spawn a COLD replica against an
+    empty warm store (every kernel library is built by nvcc and every
+    build counted, then exported), shut it down, then spawn a WARM
+    replica, a fresh Python process, against the SAME store. From the
+    outside the warm arm must show:
+
+      * its lookups were store HITS across the process boundary (and the
+        cold arm's misses that exported),
+      * its compile seconds at most --warm-compile-frac of the cold
+        arm's,
+      * its spawn-to-first-token at least --warm-speedup times faster,
+      * a fixed seeded probe decoding the same tokens on both arms.
+
+    Where the cold arm's compile phase is under
+    WARM_AB_MIN_COLD_COMPILE_S (the CPU: nothing is compiled), the
+    compile-fraction and speedup checks read null and `not_applicable`
+    names them with the reason; `ok` is then the other five. Writes the
+    JSONL artifact (metric rows, then the record with "ok") to
+    args.out."""
+    import shutil
+    from types import SimpleNamespace
+
+    workdir = tempfile.mkdtemp(prefix="singa-warmab-")
+    fleet_dir = os.path.join(workdir, "spool")
+    os.makedirs(fleet_dir, exist_ok=True)
+    cargs = SimpleNamespace(**vars(args))
+    cargs.warm_dir = os.path.join(workdir, "warmstore")
+    cargs.fault_delay = 0.0
+    cargs.corrupt_after = 0
+    arms = {}
+    try:
+        for arm, name in (("cold", "w0"), ("warm", "w1")):
+            print(f"[warm-ab] spawning {arm} replica {name} "
+                  f"(store: {cargs.warm_dir})", file=sys.stderr)
+            proc, ready = spawn_replica(name, fleet_dir, cargs,
+                                        ready_timeout_s=args.timeout)
+            try:
+                toks = _warm_probe(ready["ctl_port"], args)
+            finally:
+                try:
+                    _http_json(
+                        f"http://127.0.0.1:{ready['ctl_port']}"
+                        "/shutdown", {}, timeout=10.0)
+                    proc.wait(timeout=30.0)
+                except Exception:
+                    proc.kill()
+                    proc.wait(timeout=10.0)
+            arms[arm] = {"ready": ready, "tokens": toks}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    cold, warm = arms["cold"]["ready"], arms["warm"]["ready"]
+    c_compile = float(cold.get("startup", {}).get("compile", 0.0))
+    w_compile = float(warm.get("startup", {}).get("compile", 0.0))
+    c_sft = cold.get("spawn_to_first_token_s")
+    w_sft = warm.get("spawn_to_first_token_s")
+    c_look = (cold.get("warm") or {}).get("lookups") or {}
+    w_look = (warm.get("warm") or {}).get("lookups") or {}
+    hit_rate = (warm.get("warm") or {}).get("hit_rate")
+    frac = w_compile / max(c_compile, 1e-9)
+    speedup = (float(c_sft) / float(w_sft)
+               if c_sft and w_sft and float(w_sft) > 0 else 0.0)
+    applies = c_compile >= WARM_AB_MIN_COLD_COMPILE_S
+    checks = {
+        "cold_exported": (cold.get("warm") or {}).get("exports", 0) > 0,
+        "cold_no_hits": int(c_look.get("hit", 0)) == 0,
+        "warm_hits_across_process": int(w_look.get("hit", 0)) > 0,
+        "warm_no_fallbacks": sum(
+            int(w_look.get(k, 0))
+            for k in ("miss", "stale", "corrupt")) == 0,
+        "warm_compile_frac_ok":
+            frac <= float(args.warm_compile_frac) if applies else None,
+        "warm_spawn_speedup_ok":
+            speedup >= float(args.warm_speedup) if applies else None,
+        "tokens_match":
+            arms["cold"]["tokens"] == arms["warm"]["tokens"],
+    }
+    not_applicable = {} if applies else {
+        k: (f"the cold arm compiled {c_compile:.3f} s, under "
+            f"{WARM_AB_MIN_COLD_COMPILE_S} s: on {args.device} nothing is "
+            "built (the kernels' plain versions run, nvcc is not called), "
+            "so there is no compile to save")
+        for k in ("warm_compile_frac_ok", "warm_spawn_speedup_ok")}
+    rec = {
+        "bench": "router_warm_ab", "schema": 1,
+        "seed": int(args.seed), "device": str(args.device),
+        "model": {"vocab": int(args.vocab), "dim": int(args.dim),
+                  "layers": int(args.layers)},
+        "thresholds": {
+            "warm_compile_frac": float(args.warm_compile_frac),
+            "warm_speedup": float(args.warm_speedup)},
+        "cold": {"startup": cold.get("startup"),
+                 "spawn_to_first_token_s": c_sft,
+                 "warm": cold.get("warm"), "launches": cold.get("launches")},
+        "warm": {"startup": warm.get("startup"),
+                 "spawn_to_first_token_s": w_sft,
+                 "warm": warm.get("warm"), "launches": warm.get("launches")},
+        "compile_frac": round(frac, 6),
+        "spawn_speedup": round(speedup, 6),
+        "tokens": {"cold": arms["cold"]["tokens"],
+                   "warm": arms["warm"]["tokens"]},
+        "checks": checks,
+        "not_applicable": not_applicable,
+        "ok": all(v for k, v in checks.items() if k not in not_applicable),
+    }
+    lines = [
+        {"metric": "warmab_cold_compile_s", "value": c_compile,
+         "unit": "s"},
+        {"metric": "warmab_warm_compile_s", "value": w_compile,
+         "unit": "s"},
+        {"metric": "spawn_to_first_token_cold_s",
+         "value": float(c_sft or 0.0), "unit": "s"},
+        {"metric": "spawn_to_first_token_s",
+         "value": float(w_sft or 0.0), "unit": "s"},
+        {"metric": "compile_cache_hit_rate",
+         "value": float(hit_rate or 0.0), "unit": "ratio"},
+        {"metric": "warmab_spawn_speedup", "value": float(speedup),
+         "unit": "ratio"},
+        rec,
+    ]
+    with open(args.out, "w", encoding="utf-8") as f:
+        for obj in lines:
+            f.write(json.dumps(obj, sort_keys=True) + "\n")
+    print(json.dumps(rec, indent=2, sort_keys=True))
+    return 0 if rec["ok"] else 1
 
 
 # ---- CLI --------------------------------------------------------------------
@@ -2056,14 +2214,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m singa_tpu_torch.router",
         description="serving control plane: --replica runs one serving "
-                    "replica; --ab runs the kill-and-replace harness "
-                    "(--warm-ab, the cold-vs-warm spawn A/B, comes with "
-                    "ROADMAP.md Queue 1 item 7)")
+                    "replica; --ab runs the kill-and-replace harness; "
+                    "--warm-ab runs the cold-vs-warm spawn A/B")
     p.add_argument("--replica", action="store_true")
     p.add_argument("--ab", action="store_true")
     p.add_argument("--warm-ab", action="store_true",
-                   help="the cold-vs-warm spawn A/B: needs warmstart "
-                        "(ROADMAP.md Queue 1 item 7), raises until then")
+                   help="spawn a cold replica against an empty warm "
+                        "store, then a warm one against the same store "
+                        "(see _warm_ab_main)")
     p.add_argument("--name", default="r0")
     p.add_argument("--fleet-dir", default=None)
     p.add_argument("--replicas", type=int, default=3)
@@ -2101,8 +2259,9 @@ def main(argv=None) -> int:
                         "'audit.corrupt_params'), the audit --ab corrupt "
                         "arm's injected corruption")
     p.add_argument("--warm-dir", default=None,
-                   help="warm-store root: needs warmstart (ROADMAP.md "
-                        "Queue 1 item 7), raises until then")
+                   help="warm-store root: replicas keep their kernel "
+                        "libraries and build records there and load them "
+                        "on a restart (warmstart)")
     p.add_argument("--warm-compile-frac", type=float, default=0.10,
                    help="--warm-ab: warm arm's compile seconds must be "
                         "<= this fraction of the cold arm's")

@@ -9,14 +9,11 @@ in CLASSES every public method (the class's own and those of its bases in
 the same file) must resolve on the port's class.
 
 A name that waits for a later slice of the port is listed in PENDING,
-by module, with the ROADMAP.md Queue 1 item that brings it (7: the
-remaining operations layers, of which 7c, `warmstart`, is left; item 6,
-multi-replica serving with its A/B command lines, items 7a, `capacity`
-and `audit`, and 7b, `xprof` with the device trace, `regress` and
-`overlap`'s report, are ported and checked here). A listed name that
-resolves fails the test: the list only shrinks, except when a module is
-ported in part (`introspect` without the warm store), which adds that
-module's unported names.
+by module, with the ROADMAP.md Queue 1 item that brings it. Queue 1 is
+done (item 7c, `warmstart` with `introspect.export_executable` and
+`load_executable`, was the last), so PENDING is empty. A listed name
+that resolves fails the test: the list only shrinks, except when a
+module is ported in part, which adds that module's unported names.
 """
 
 import ast
@@ -30,9 +27,7 @@ JAX_PKG = os.path.join(ROOT, "singa_tpu")
 PORT_PKG = os.path.join(ROOT, "singa_tpu_torch")
 
 #: {module: {name or "Class.method": Queue 1 item that ports it}}
-PENDING = {
-    "introspect": {"export_executable": 7, "load_executable": 7},
-}
+PENDING = {}
 
 #: (module, class) whose public methods must resolve
 CLASSES = {
@@ -43,6 +38,7 @@ CLASSES = {
     "health": ("HealthMonitor", "StepStatsCollector", "FlightRecorder"),
     "resilience": ("FaultPlan", "TrainController"),
     "introspect": ("AotExecutor",),
+    "warmstart": ("WarmStore",),
     "slo": ("SLOConfig", "SLOTracker", "TailCollector"),
     "watchdog": ("Watchdog", "OpDeadline"),
     "memory": ("MemoryLedger", "LeakDetector"),
@@ -124,7 +120,8 @@ def test_the_sweep_covers_the_ported_modules():
             "introspect", "distributed", "parallel.mesh",
             "parallel.communicator", "parallel.__init__", "parallel.tp",
             "parallel.pipeline", "sonnx.backend", "__init__",
-            "models.__init__", "xprof", "regress"} <= set(MODULES)
+            "models.__init__", "xprof", "regress",
+            "warmstart"} <= set(MODULES)
     assert set(PENDING) <= set(MODULES)
     assert all(item in (2, 3, 4, 5, 6, 7)
                for names in PENDING.values() for item in names.values())

@@ -318,6 +318,6 @@ def test_statusz_sections_and_item7_endpoints():
     assert port_secs == jax_secs, (port_secs, jax_secs)
     assert jax_secs[-5:] == ["capacity", "audit", "regress", "warm start",
                              "health"]
-    assert "(warm-start unavailable: " in texts["port"]
+    assert "== warm start ==\nwarm store not enabled" in texts["port"]
     assert "== regress ==" in texts["port"]
     assert "== capacity ==" in texts["port"] and "== audit ==" in texts["port"]

@@ -369,13 +369,17 @@ def test_kernel_build_span_books_compile(monkeypatch):
     `introspect.build`, which goodput books as `compile`."""
     t = goodput.install()
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(_build, "_start", lambda name: ("p", None, None,
-                                                         None))
 
-    def slow_finish(name, *a):
-        time.sleep(0.1)
-        return object()
-    monkeypatch.setattr(_build, "_finish", slow_finish)
+    class Job(_build._Job):
+        """nvcc's process stubbed by a 0.1 s sleep."""
+
+        def __init__(self, name, warm=None):
+            self.name, self.proc = name, None
+
+        def finish(self):
+            time.sleep(0.1)
+            return object()
+    monkeypatch.setattr(_build, "_Job", Job)
     _build.lib("wgmma_probe")
     assert t.snapshot()["buckets"]["compile"] >= 0.1
 

@@ -558,22 +558,28 @@ def test_nvcc_build_registers_a_kernel_build(monkeypatch):
     build `kernel.<source>`: its seconds the compile phase, the library
     name's hash the fingerprint; a library found on disk registers
     nothing."""
-    monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(_build, "_start", lambda name: (
-        f"/x/lib{name}-0123456789abcdef.so", "tmp",
-        types.SimpleNamespace(), 0.0))
+    class Job(_build._Job):
+        """nvcc's process stubbed: `built` says whether it ran."""
+        built = True
 
-    def finish(name, *a):
-        _build.BUILD_SECONDS[name] = 0.25
-        return object()
-    monkeypatch.setattr(_build, "_finish", finish)
+        def __init__(self, name, warm=None):
+            self.name, self.fp, self.warm = name, "0123456789abcdef", warm
+            self.proc = types.SimpleNamespace() if self.built else None
+
+        def finish(self):
+            if self.proc is not None:
+                _build.BUILD_SECONDS[self.name] = 0.25
+            return object()
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_Job", Job)
     _build.lib("wgmma_probe")
     rec = introspect.last_build("kernel.wgmma_probe")
     assert rec["fingerprint"] == "0123456789abcdef"
     assert rec["phases"] == {"trace": 0.0, "lower": 0.0, "compile": 0.25}
+    assert rec["warm"] is None
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(_build, "_start", lambda name: ("p", None, None,
-                                                         None))
+    monkeypatch.setattr(Job, "built", False)
     _build.lib("flash_fwd")
     assert introspect.last_build("kernel.flash_fwd") is None
     assert [r["kind"] for r in observe.get_registry().recent

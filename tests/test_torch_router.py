@@ -532,9 +532,10 @@ def test_kill_trigger_freezes_only_a_holder(case):
 def test_replicas_need_the_card_unless_cpu(tmp_path):
     """Without a card a replica on the default device raises, in
     spawn_replica and in the replica's own entry point; nothing falls
-    back to the CPU. The warm-start options (item 7) raise, naming the
-    item; `--corrupt-after` is audit's and runs (tests/
-    test_torch_audit.py)."""
+    back to the CPU. The warm-start options run: on the default device
+    they raise as every replica does, and a CPU replica spawned with
+    `warm_dir` enables the store there and reports it on its ready line;
+    `--corrupt-after` is audit's and runs (tests/test_torch_audit.py)."""
     import types
     args = types.SimpleNamespace(
         vocab=211, dim=64, layers=2, prompt_lo=4, prompt_hi=12, new_hi=24,
@@ -547,12 +548,23 @@ def test_replicas_need_the_card_unless_cpu(tmp_path):
         trouter.main(["--replica", "--fleet-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match='device="cpu"'):
         trouter._build_replica_model(211, 512, 2, 36)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         trouter.main(["--replica", "--fleet-dir", str(tmp_path),
-                      "--device", "cpu", "--warm-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trouter.main(["--warm-ab", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trouter.spawn_replica("r0", str(tmp_path), types.SimpleNamespace(
-            **dict(vars(args), device="cpu", warm_dir=str(tmp_path))))
+                      "--warm-dir", str(tmp_path / "warm")])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        trouter.main(["--warm-ab", "--out", str(tmp_path / "w.json")])
+    warm = str(tmp_path / "warm")
+    proc, ready = trouter.spawn_replica(
+        "r0", str(tmp_path), types.SimpleNamespace(
+            **dict(vars(args), device="cpu", warm_dir=warm)),
+        ready_timeout_s=120)
+    try:
+        assert ready["warm"]["root"] == warm
+        assert ready["warm"]["lookups"]["miss"] > 0
+        assert ready["warm"]["exports"] == ready["warm"]["entries"] > 0
+    finally:
+        trouter._http_json(f"http://127.0.0.1:{ready['ctl_port']}"
+                           "/shutdown", {}, timeout=10.0)
+        assert proc.wait(timeout=60) == 0
+    assert not os.path.exists(tmp_path / "w.json")
     assert trouter.get_router() is None

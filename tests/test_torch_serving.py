@@ -223,7 +223,10 @@ def test_port_imports_neither_jax_nor_singa_tpu():
         "singa_tpu_torch.memory, singa_tpu_torch.goodput, "
         "singa_tpu_torch.distributed, singa_tpu_torch.parallel.mesh, "
         "singa_tpu_torch.parallel.communicator, singa_tpu_torch.diag, "
-        "singa_tpu_torch.fleet, singa_tpu_torch.router\n"
+        "singa_tpu_torch.fleet, singa_tpu_torch.router, "
+        "singa_tpu_torch.capacity, singa_tpu_torch.audit, "
+        "singa_tpu_torch.xprof, singa_tpu_torch.regress, "
+        "singa_tpu_torch.warmstart\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'singa_tpu' or "
         "m.startswith('singa_tpu.') or m == 'PIL']\n"

@@ -374,13 +374,17 @@ def test_kernel_build_span_taints_the_guard(tmp_path, monkeypatch):
     breach, no HangError, no calibration sample."""
     wd = _install(watchdog, tmp_path, deadlines={"step": 0.05})
     monkeypatch.setattr(_build, "_libs", {})
-    monkeypatch.setattr(_build, "_start",
-                        lambda name: ("p", None, None, None))
 
-    def slow_finish(name, *a):
-        time.sleep(0.3)
-        return object()
-    monkeypatch.setattr(_build, "_finish", slow_finish)
+    class Job(_build._Job):
+        """nvcc's process stubbed by a 0.3 s sleep."""
+
+        def __init__(self, name, warm=None):
+            self.name, self.proc = name, None
+
+        def finish(self):
+            time.sleep(0.3)
+            return object()
+    monkeypatch.setattr(_build, "_Job", Job)
     with watchdog.guard("step"):
         _build.lib("wgmma_probe")
     assert wd.op_state("step").breaches == 0
